@@ -127,12 +127,13 @@ def kernels_lib() -> ctypes.CDLL:
     lib.bbbp_packed_project.argtypes = [
         _P, _I, _I,            # packed [n, words] uint32
         _P, _P, _I, _I,        # w [d, k] f32, c0 [k] f32, d, k
+        _I,                    # column slice width
         _P, _P,                # out [n, k] f32, stream
     ]
     lib.bbbp_dense_forest_predict.restype = _I
     lib.bbbp_dense_forest_predict.argtypes = [
         _P, _I, _I,            # x [n, F] f32
-        _P, _P, _P, _I, _I,    # feat, thr, leaf, T, depth
+        _P, _I, _I,            # tree records [T, R] int32, T, depth
         _F, _F, _I,            # base_score, tree_scale, apply_sigmoid
         _P, _P,                # out [n] f32, stream
     ]

@@ -9,7 +9,9 @@ values, so lower precision would flip decisions), and dead branches carry
 ``raw_predict`` launches the CUDA kernel ``csrc/dense_forest.cu`` on a CUDA
 tensor and runs the plain gather traversal ``dense_predict_reference`` on a
 CPU tensor. The TPU's gather-free "route" form is not carried over: it
-exists only because gathers are slow on the TPU.
+exists only because gathers are slow on the TPU. The kernel reads the trees
+as records (``pack_tree_records``), which the ensemble builds once from
+``feat``/``thr``/``leaf``; those three stay its public fields and the pickle's.
 """
 
 from __future__ import annotations
@@ -25,6 +27,22 @@ from bbbp_tpu_torch._build import LaunchCounter, check_launch, kernels_lib
 MAX_DEPTH = 12
 
 
+def pack_tree_records(feat: torch.Tensor, thr: torch.Tensor,
+                      leaf: torch.Tensor, depth: int) -> torch.Tensor:
+    """[T, R] int32 records, the kernel's layout, R = round_up(3·2^D, 4):
+    internal node i is the pair (thr bits, feat) at words 2i, 2i+1, the pair
+    slot 2^D − 1 is padding, and leaf p is word 2·2^D + p. A record is a
+    multiple of 16 bytes, so whole trees copy in 16-byte pieces."""
+    n_trees, n_leaves = feat.shape[0], 1 << depth
+    width = -(-3 * n_leaves // 4) * 4
+    rec = torch.zeros((n_trees, width), dtype=torch.int32, device=feat.device)
+    nodes = rec[:, :2 * n_leaves].view(n_trees, n_leaves, 2)
+    nodes[:, :n_leaves - 1, 0] = thr.view(torch.int32)
+    nodes[:, :n_leaves - 1, 1] = feat
+    rec[:, 2 * n_leaves:3 * n_leaves] = leaf.view(torch.int32)
+    return rec
+
+
 @dataclass
 class DenseTreeEnsemble:
     """Implicit-layout forest, validated when it is built: ``feat`` must lie
@@ -38,6 +56,7 @@ class DenseTreeEnsemble:
     base_score: float
     tree_scale: float
     min_features: int = field(init=False)
+    records: torch.Tensor = field(init=False, repr=False)   # pack_tree_records
 
     def __post_init__(self) -> None:
         if not 0 <= self.depth <= MAX_DEPTH:
@@ -57,6 +76,8 @@ class DenseTreeEnsemble:
         self.min_features = int(self.feat.max()) + 1 if self.feat.numel() else 0
         self.base_score = float(self.base_score)
         self.tree_scale = float(self.tree_scale)
+        self.records = pack_tree_records(self.feat, self.thr, self.leaf,
+                                         self.depth)
 
     @property
     def device(self) -> torch.device:
@@ -124,9 +145,9 @@ def raw_predict(ens: DenseTreeEnsemble, x: torch.Tensor,
         return out
     with torch.cuda.device(x.device):
         rc = kernels_lib().bbbp_dense_forest_predict(
-            x.data_ptr(), n, n_feat, ens.feat.data_ptr(), ens.thr.data_ptr(),
-            ens.leaf.data_ptr(), ens.feat.shape[0], ens.depth, ens.base_score,
-            ens.tree_scale, int(apply_sigmoid), out.data_ptr(),
+            x.data_ptr(), n, n_feat, ens.records.data_ptr(),
+            ens.records.shape[0], ens.depth, ens.base_score, ens.tree_scale,
+            int(apply_sigmoid), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "dense_forest_predict")
     raw_predict.launches.add()

@@ -8,15 +8,23 @@ before its last line):
 
 1. environment: the card, torch and CUDA versions, TF32 off; builds both
    native libraries from the checkout's sources and prints the seconds;
-2. kernel 1 (``packed_project``) against its plain version on the card;
+2. kernel 1 (``packed_project``) against its plain version on the card
+   (k = 30, 50 and 64, one column pair a lane and two; k = 31, unaligned
+   pairs; d = 2000; all-ones and all-zero rows), then timed on the
+   fingerprints of
+   ``synthetic_smiles(16384, seed=1)`` and on 5%-random words;
 3. kernel 2 (``dense_forest_predict``, via ``raw_predict``) against its
-   plain version on the card;
+   plain version on the card (depth 0, 1, 6, 8 and 12, F = 30 and 2048,
+   T = 300 and 301), then timed on the z of those fingerprints;
 4. the slice: ``screen()`` on ``cuda`` with the full-width fixture model over
    65,536 + a ragged tail of ``synthetic_smiles`` and 3 invalid SMILES; both
    kernels' launch counters must move, and the first 2,048 rows must match
    ``screen(device="cpu")``.
 
-Then one JSON line per kernel set, the card's ``nvidia-smi`` line, and as
+Then one JSON line for the kernels (each with its time, its plain
+version's, its bound from ``bbbp_tpu_torch/timing.py`` and, for the
+projection, ``torch.addmm`` on bits already unpacked as a yardstick of the
+product alone), the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. There is no CPU fallback:
 without a CUDA device the script exits non-zero and prints no result.
 """
@@ -26,7 +34,6 @@ from __future__ import annotations
 import csv
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -37,38 +44,6 @@ SLICE_N = 65536 + 1000            # 4 full chunks of 16,384 and a ragged tail
 CHUNK = 16384
 PREFIX = 2048
 INVALID = ("NOT_A_SMILES((", "C1CC", "[Xx]")
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-
-def device_ms(fn, calls: int = 10, replays: int = 20) -> float:
-    """Device milliseconds per call of ``fn``: ``calls`` calls captured in a
-    CUDA graph and replayed, so host launch overhead is not in the number."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
 
 
 def read_csv(path: str):
@@ -89,12 +64,16 @@ def main() -> int:
     from bbbp_tpu_torch import _build
     from bbbp_tpu_torch.data.zinc import synthetic_smiles
     from bbbp_tpu_torch.native.bindings import fingerprints_packed
-    from bbbp_tpu_torch.ops.bitops import (pack_bits, packed_project,
-                                           packed_project_reference)
+    from bbbp_tpu_torch.ops.bitops import (column_plan, pack_bits,
+                                           packed_project,
+                                           packed_project_reference,
+                                           unpack_bits_reference)
     from bbbp_tpu_torch.ops.forest import (DenseTreeEnsemble,
                                            dense_predict_reference, raw_predict)
     from bbbp_tpu_torch.pipelines.screen import ScreeningModel, screen
     from bbbp_tpu_torch.testing import full_width_screening_state, near_tie_rows
+    from bbbp_tpu_torch.timing import (device_ms, forest_bound, nvidia_smi,
+                                       project_bound)
 
     cuda = torch.device("cuda")
     card = nvidia_smi()
@@ -118,60 +97,90 @@ def main() -> int:
     # -- phase 2: kernel 1 against its plain version ----------------------
     w, c0 = model.proj_w, model.proj_c0
     k1_err = 0.0
-    for n in (1, 255, 16384, 16385):
+    cases = [(n, 2048, 30) for n in (1, 255, 16384, 16385)]
+    cases += [(16385, 2048, 64), (16385, 2048, 50), (16385, 2048, 31),
+              (255, 2000, 30), (16385, 2000, 30)]
+    for n, d, k in cases:
+        if (d, k) == (2048, 30):
+            wk, ck = w, c0
+        else:
+            wk = torch.from_numpy((rng.standard_normal((d, k)) / np.sqrt(d)
+                                   ).astype(np.float32)).to(cuda)
+            ck = torch.from_numpy(rng.standard_normal(k).astype(np.float32)
+                                  ).to(cuda)
         dense = rng.random((n, 2048)) < 0.05
         dense[-1] = True                        # an all-ones row
         if n > 1:
             dense[0] = False                    # an all-zero row
         packed = torch.from_numpy(pack_bits(dense).view(np.int32)).to(cuda)
-        got = packed_project(packed, w, c0)
-        want = packed_project_reference(packed, w, c0)
+        got = packed_project(packed, wk, ck)
+        want = packed_project_reference(packed, wk, ck)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         k1_err = max(k1_err, err)
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
-            raise AssertionError(f"packed_project N={n}: max |err| {err:.3g}")
-    k1_ms = device_ms(lambda: packed_project(packed[:CHUNK], w, c0))
-    k1_plain_ms = device_ms(lambda: packed_project_reference(packed[:CHUNK], w, c0))
-    print(f"[2 packed_project] N in (1, 255, 16384, 16385), W=64, k=30: max "
-          f"|err| {k1_err:.3g} (atol 1e-4, rtol 1e-5) | N=16384: kernel "
-          f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms", flush=True)
+            raise AssertionError(f"packed_project N={n} d={d} k={k} "
+                                 f"({column_plan(k)}): max |err| {err:.3g}")
+        if (n, d, k) == (CHUNK + 1, 2048, 30):
+            random_words = packed[:CHUNK]       # 5%-random, first row zero
+    fp_words, _ = fingerprints_packed(synthetic_smiles(CHUNK, seed=1))
+    fp_words = torch.from_numpy(fp_words.view(np.int32)).to(cuda)
+    fp_bits = unpack_bits_reference(fp_words, w.shape[0])
+    set_bits = int(fp_bits.sum().item())
+    k1_ms = device_ms(lambda: packed_project(fp_words, w, c0))
+    k1_random_ms = device_ms(lambda: packed_project(random_words, w, c0))
+    k1_plain_ms = device_ms(lambda: packed_project_reference(fp_words, w, c0))
+    k1_lib_ms = device_ms(lambda: torch.addmm(c0, fp_bits, w))
+    k1_bound = project_bound(CHUNK, fp_words.shape[1], w.shape[0], w.shape[1],
+                             set_bits)
+    print(f"[2 packed_project] (N, d, k) in {cases}: max |err| {k1_err:.3g} "
+          f"(atol 1e-4, rtol 1e-5) | N=16384, W=64, k=30, plan "
+          f"{tuple(column_plan(w.shape[1]))}: fingerprints "
+          f"({set_bits / CHUNK:.2f} set bits a row) kernel {k1_ms:.4f} ms, "
+          f"plain {k1_plain_ms:.4f} ms, addmm on unpacked bits "
+          f"{k1_lib_ms:.4f} ms, bound {k1_bound['bound_ms']:.5f} ms "
+          f"({k1_bound['bound_by']}); 5%-random words kernel "
+          f"{k1_random_ms:.4f} ms", flush=True)
 
     # -- phase 3: kernel 2 against its plain version -----------------------
     k2_err = 0.0
-    n, n_trees = 16384, 300
-    for depth in (1, 6, 8):
-        for n_feat in (30, 2048):
-            x = torch.from_numpy(
-                rng.standard_normal((n, n_feat)).astype(np.float32)).to(cuda)
-            n_int = (1 << depth) - 1
-            thr = rng.standard_normal((n_trees, n_int)).astype(np.float32)
-            thr[rng.random(thr.shape) < 0.05] = np.inf
-            ens = DenseTreeEnsemble.from_state({
-                "feat": rng.integers(0, n_feat, (n_trees, n_int)), "thr": thr,
-                "leaf": rng.normal(0, 0.1, (n_trees, n_int + 1)),
-                "depth": depth, "base_score": 0.3, "tree_scale": 0.1}).to(cuda)
-            want = dense_predict_reference(ens.feat, ens.thr, ens.leaf, x, depth,
-                                           ens.base_score, ens.tree_scale)
-            got = raw_predict(ens, x)
-            got_p = raw_predict(ens, x, apply_sigmoid=True)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            err_p = (got_p - torch.sigmoid(want)).abs().max().item()
-            k2_err = max(k2_err, err, err_p)
-            if err > 2e-5 or err_p > 2e-5:
-                raise AssertionError(f"dense_forest D={depth} F={n_feat}: max "
-                                     f"|err| {err:.3g}, sigmoid {err_p:.3g}")
-    z = packed_project(packed[:CHUNK], w, c0)
+    n = 16384
+    cases = [(depth, n_feat, 300) for depth in (0, 1, 6, 8, 12)
+             for n_feat in (30, 2048)] + [(6, 30, 301)]
+    for depth, n_feat, n_trees in cases:
+        x = torch.from_numpy(
+            rng.standard_normal((n, n_feat)).astype(np.float32)).to(cuda)
+        n_int = (1 << depth) - 1
+        thr = rng.standard_normal((n_trees, n_int)).astype(np.float32)
+        thr[rng.random(thr.shape) < 0.05] = np.inf
+        ens = DenseTreeEnsemble.from_state({
+            "feat": rng.integers(0, n_feat, (n_trees, n_int)), "thr": thr,
+            "leaf": rng.normal(0, 0.1, (n_trees, n_int + 1)),
+            "depth": depth, "base_score": 0.3, "tree_scale": 0.1}).to(cuda)
+        want = dense_predict_reference(ens.feat, ens.thr, ens.leaf, x, depth,
+                                       ens.base_score, ens.tree_scale)
+        got = raw_predict(ens, x)
+        got_p = raw_predict(ens, x, apply_sigmoid=True)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_p = (got_p - torch.sigmoid(want)).abs().max().item()
+        k2_err = max(k2_err, err, err_p)
+        if err > 2e-5 or err_p > 2e-5:
+            raise AssertionError(f"dense_forest D={depth} F={n_feat} "
+                                 f"T={n_trees}: max |err| {err:.3g}, "
+                                 f"sigmoid {err_p:.3g}")
+    z = packed_project(fp_words, w, c0)
     ens = model.ensemble
     k2_ms = device_ms(lambda: raw_predict(ens, z, apply_sigmoid=True))
     k2_plain_ms = device_ms(lambda: torch.sigmoid(dense_predict_reference(
         ens.feat, ens.thr, ens.leaf, z, ens.depth, ens.base_score,
         ens.tree_scale)))
-    print(f"[3 dense_forest_predict] N=16384, T=300, D in (1, 6, 8), F in "
-          f"(30, 2048), +inf thresholds: max |err| {k2_err:.3g} (atol 2e-5) | "
-          f"F=30, D=6: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms",
-          flush=True)
+    k2_bound = forest_bound(CHUNK, z.shape[1], ens.feat.shape[0], ens.depth)
+    print(f"[3 dense_forest_predict] N=16384, (D, F, T) in {cases}, +inf "
+          f"thresholds: max |err| {k2_err:.3g} (atol 2e-5) | z of the "
+          f"fingerprints, F=30, T=300, D=6: kernel {k2_ms:.4f} ms, plain "
+          f"{k2_plain_ms:.4f} ms, bound {k2_bound['bound_ms']:.5f} ms "
+          f"({k2_bound['bound_by']})", flush=True)
 
     # -- phase 4: the slice --------------------------------------------------
     smiles = synthetic_smiles(SLICE_N, seed=1)
@@ -237,12 +246,20 @@ def main() -> int:
          "source": "bbbp_tpu_torch/csrc/packed_project.cu",
          "replaces": "bbbp_tpu/ops/bitops.py:57",
          "launches": launches["packed_project"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound["bound_ms"], "bound_by": k1_bound["bound_by"],
+         "bound_share": k1_bound["bound_ms"] / k1_ms,
+         "library_ms": k1_lib_ms,
+         "library_call": "torch.addmm(c0, bits, w) on bits already unpacked: "
+                         "the product alone, not the same function",
+         "ms_5pct_random_words": k1_random_ms},
         {"name": "dense_forest_predict", "route": "cuda",
          "source": "bbbp_tpu_torch/csrc/dense_forest.cu",
          "replaces": "bbbp_tpu/ops/forest_tpu.py:85",
          "launches": launches["dense_forest_predict"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"],
+         "bound_share": k2_bound["bound_ms"] / k2_ms, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {nvidia_smi()}")

@@ -90,6 +90,35 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch():
     assert torch.equal(got, tbit.packed_project_reference(packed, w, c0))
 
 
+@pytest.mark.parametrize("d,k", [(2048, 30), (2048, 64), (2000, 30),
+                                 (167, 30), (4096, 30), (2048, 200),
+                                 (2048, 1001)])
+def test_column_plan_covers_every_column_once(d, k):
+    """The column slices the kernel's blocks take (blockIdx.y): every column
+    in exactly one slice of at most MAX_SLICE, none empty, widths even where
+    k is (8-byte column pairs), and the block's set-bit lists within its
+    shared memory whatever d is. The slices do not depend on d: W′ is read
+    from global memory, not held in shared memory."""
+    plan = tbit.column_plan(k)
+    slices = [range(i * plan.width, min(k, (i + 1) * plan.width))
+              for i in range(plan.n_slices)]
+    assert len(slices) == plan.n_slices and all(len(s) for s in slices)
+    assert sorted(c for s in slices for c in s) == list(range(k))
+    assert max(len(s) for s in slices) == plan.width <= tbit.MAX_SLICE
+    assert plan.n_slices == -(-k // tbit.MAX_SLICE)
+    if k % 2 == 0:
+        assert plan.width % 2 == 0
+    assert tbit.LIST_BYTES <= tbit.SMEM_PER_BLOCK
+    assert d <= tbit.MAX_BITS
+    if k <= tbit.MAX_SLICE:
+        assert plan == tbit.ColumnPlan(k, 1)
+
+
+def test_column_plan_rejects_no_columns():
+    with pytest.raises(ValueError):
+        tbit.column_plan(0)
+
+
 @pytest.mark.parametrize("case", ["float_words", "too_few_words", "bad_c0",
                                   "strided", "f64_weights"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
@@ -113,16 +142,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_cuda(cuda_device):
     """The CUDA kernel against its plain version on the card at the slice's
-    shapes; atol 1e-4, rtol 1e-5 (summation order differs)."""
+    shapes, k = 30 and 64 (two column pairs a lane), d = 2000 (a partial
+    last word), k = 31 (unaligned column pairs) and k = 200 (two column
+    slices); all-ones rows (the set-bit list walked in pieces);
+    atol 1e-4, rtol 1e-5 (summation order differs)."""
     rng = np.random.default_rng(6)
-    w, c0 = (torch.from_numpy(a).to(cuda_device)
-             for a in tbit.project_weights(*_folded(rng, 2048, 30)))
-    for n in (1, 255, 16385):
-        dense = rng.random((n, 2048)) < 0.05
-        dense[-1] = True
-        packed = torch.from_numpy(tbit.pack_bits(dense).view(np.int32)).to(cuda_device)
-        before = tbit.packed_project.launches.count
-        got = tbit.packed_project(packed, w, c0)
-        assert tbit.packed_project.launches.count == before + 1
-        want = tbit.packed_project_reference(packed, w, c0)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    for d, k, n_words in ((2048, 30, 64), (2048, 64, 64), (2000, 30, 63),
+                          (2048, 31, 64), (2048, 200, 64)):
+        w, c0 = (torch.from_numpy(a).to(cuda_device)
+                 for a in tbit.project_weights(*_folded(rng, d, k)))
+        for n in (1, 255, 16385):
+            dense = rng.random((n, n_words * 32)) < 0.05
+            dense[-1] = True
+            packed = torch.from_numpy(tbit.pack_bits(dense).view(np.int32)
+                                      ).to(cuda_device)
+            before = tbit.packed_project.launches.count
+            got = tbit.packed_project(packed, w, c0)
+            assert tbit.packed_project.launches.count == before + 1
+            want = tbit.packed_project_reference(packed, w, c0)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

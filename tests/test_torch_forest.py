@@ -112,6 +112,27 @@ def test_rejects_what_the_kernel_does_not_take(case):
         tf.raw_predict(tf.DenseTreeEnsemble.from_state(s), x)
 
 
+@pytest.mark.parametrize("depth", [0, 1, 6, 12])
+def test_tree_records_unpack_to_feat_thr_leaf(depth):
+    """The kernel's packed (thr, feat) node pairs and the leaves beside them
+    hold feat/thr/leaf bit for bit, +inf thresholds included; a record is a
+    multiple of 16 bytes."""
+    s = _random_state(np.random.default_rng(depth), 7, depth, 30, inf_share=0.3)
+    ens = tf.DenseTreeEnsemble.from_state(s)
+    rec, n_leaves = ens.records, 1 << depth
+    assert rec.dtype == torch.int32 and rec.is_contiguous()
+    assert rec.shape == (7, -(-3 * n_leaves // 4) * 4) and rec.shape[1] % 4 == 0
+    pairs = rec[:, :2 * (n_leaves - 1)].reshape(7, n_leaves - 1, 2).numpy()
+    np.testing.assert_array_equal(pairs[:, :, 0].view(np.float32).view(np.uint32),
+                                  s["thr"].view(np.uint32))
+    np.testing.assert_array_equal(pairs[:, :, 1], s["feat"])
+    np.testing.assert_array_equal(
+        rec[:, 2 * n_leaves:3 * n_leaves].numpy().view(np.uint32),
+        s["leaf"].view(np.uint32))
+    if depth:
+        assert np.isinf(pairs[:, :, 0].view(np.float32)).any()
+
+
 def test_wrapper_on_cpu_runs_plain_version_without_launch():
     rng = np.random.default_rng(10)
     ens = tf.DenseTreeEnsemble.from_state(_random_state(rng, 30, 6, 30))
@@ -125,11 +146,14 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch():
 def test_kernel_matches_plain_version_on_cuda(cuda_device):
     """The CUDA kernel against its plain version on the card, through both
     of its x layouts (rows staged in shared memory for F <= 64, read from
-    global memory above); margins within atol 2e-5 (sum order differs)."""
+    global memory above), at depth 0 and 12 and with T not a multiple of the
+    tree tile; margins within atol 2e-5 (sum order differs)."""
     rng = np.random.default_rng(11)
-    for depth, n_feat in ((6, 30), (8, 2048), (1, 65)):
+    for depth, n_feat, n_trees in ((6, 30, 300), (8, 2048, 300), (1, 65, 300),
+                                   (0, 30, 300), (12, 30, 40), (12, 2048, 9),
+                                   (6, 30, 301)):
         ens = tf.DenseTreeEnsemble.from_state(
-            _random_state(rng, 300, depth, n_feat)).to(cuda_device)
+            _random_state(rng, n_trees, depth, n_feat)).to(cuda_device)
         x = torch.from_numpy(rng.standard_normal((16385, n_feat)).astype(np.float32)
                              ).to(cuda_device)
         before = tf.raw_predict.launches.count
