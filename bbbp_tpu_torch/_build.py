@@ -127,7 +127,6 @@ def kernels_lib() -> ctypes.CDLL:
     lib.bbbp_packed_project.argtypes = [
         _P, _I, _I,            # packed [n, words] uint32
         _P, _P, _I, _I,        # w [d, k] f32, c0 [k] f32, d, k
-        _I,                    # column slice width
         _P, _P,                # out [n, k] f32, stream
     ]
     lib.bbbp_dense_forest_predict.restype = _I

@@ -29,10 +29,11 @@
 // - The lanes then walk the list, 8 entries a step, lane l adding the
 //   columns 2l and 2l + 1 of each W' row with one 8-byte load. W' (240 KB)
 //   is read through L1 and L2; holding it in shared memory in two column
-//   slices was slower (bench_variants/packed_project_resident.cu). Where k
-//   or a slice width is odd, the pair is two 4-byte loads.
-// - k > 32 gives a lane more pairs (up to 4, k <= 128); wider W' is cut into
-//   column slices (ops/bitops.py::column_plan), one per blockIdx.y.
+//   slices, which costs a load of each slice per block and a pass over the
+//   words per slice, was slower on the card (PERF.md). Where k or a slice
+//   width is odd, the pair is two 4-byte loads.
+// - k > 32 gives a lane more pairs (up to 4, k <= 128); the launcher cuts a
+//   wider W' into column slices of balanced width, one per blockIdx.y.
 // - Each column sums its bits in ascending order from 0 and adds c0 last,
 //   so the rounding is that of the earlier word-walk form of this kernel.
 //   Everything is f32, as the JAX package's reference
@@ -51,6 +52,7 @@ constexpr int kGroups = kThreads / kGS;
 constexpr int kR = 4;                    // words a lane holds: a pass is 64
 constexpr int kPassWords = kGS * kR;
 constexpr int kCap = 128;                // list entries walked at a time
+constexpr int kMaxSlice = 128;           // columns a slice: 4 pairs a lane
 constexpr int kListStride = kCap + 8;    // uint16; 272 B keeps 16-B alignment
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -166,17 +168,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int pieces = __reduce_max_sync(kFull, (total + kCap - 1) / kCap);
       for (int lo = 0; lo < pieces * kCap; lo += kCap) {
         int e = incl - cnt - lo;  // this lane's first entry in the piece
-        if (pieces == 1) {  // the common case: the whole pass fits
-#pragma unroll
-          for (int q = 0; q < kR; ++q) {
-            uint32_t word = cur[q];
-            const int b0 = (p0 + lane * kR + q) * 32;
-            while (word) {
-              lst[e++] = static_cast<uint16_t>(b0 + __ffs(word) - 1);
-              word &= word - 1;
-            }
-          }
-        } else if (e < kCap && e + cnt > 0) {
+        if (e < kCap && e + cnt > 0) {
 #pragma unroll
           for (int q = 0; q < kR; ++q) {
             uint32_t word = cur[q];
@@ -243,15 +235,18 @@ cudaError_t launch_c(const uint32_t* packed, int n, int words, const float* w,
 
 // packed [n, words] uint32, w [d, k] f32, c0 [k] f32 -> out [n, k] f32, all
 // contiguous on the current device; launched on `stream`, not synchronised.
-// kc (1..128) is the width of a column slice (ops/bitops.py::column_plan);
-// d <= 65536.
+// d <= 65536 (the list holds uint16 bit indices).
 extern "C" int bbbp_packed_project(const void* packed, int n, int words,
                                    const void* w, const void* c0, int d, int k,
-                                   int kc, void* out, void* stream) {
+                                   void* out, void* stream) {
   if (n <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
-  if (kc < 1 || kc > 128 || d < 0 || d > 65536) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d < 0 || d > 65536) return static_cast<int>(cudaErrorInvalidValue);
+  // the fewest column slices of at most kMaxSlice columns, of balanced width,
+  // even where k is even so that every slice starts on an even column:
+  // k = 30 is one slice, k = 200 two of 100, k = 258 three of 86
+  const int n_slices = (k + kMaxSlice - 1) / kMaxSlice;
+  int kc = (k + n_slices - 1) / n_slices;
+  if (k % 2 == 0 && kc % 2 == 1) ++kc;
   const uint32_t* pp = static_cast<const uint32_t*>(packed);
   const float* wp = static_cast<const float*>(w);
   const float* cp = static_cast<const float*>(c0);

@@ -6,13 +6,12 @@ receives 256 B of packed words per molecule instead of 8 KB of floats.
 
 ``packed_project`` launches the CUDA kernel ``csrc/packed_project.cu`` on a
 CUDA tensor and runs its plain version, ``packed_project_reference``
-(unpack + f32 matmul), on a CPU tensor. ``column_plan`` cuts W′'s columns
-into the slices the kernel's warps sum.
+(unpack + f32 matmul), on a CPU tensor.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -20,32 +19,7 @@ import torch
 from bbbp_tpu_torch._build import LaunchCounter, check_launch, kernels_lib
 
 PACKED_DTYPES = (torch.int32, torch.uint32)
-
-# mirrors csrc/packed_project.cu
-MAX_SLICE = 128                   # columns a molecule's 16 lanes sum at once
-LIST_BYTES = 64 * (128 + 8) * 2   # a block's set-bit lists in shared memory
-SMEM_PER_BLOCK = 232_448          # bytes of shared memory a block may use
-MAX_BITS = 65_536                 # bit indices are uint16
-
-
-class ColumnPlan(NamedTuple):
-    """W′'s k columns cut into ``n_slices`` slices of ``width`` (the last
-    may be narrower), one per ``blockIdx.y``; each slice reads every word."""
-    width: int
-    n_slices: int
-
-
-def column_plan(k: int) -> ColumnPlan:
-    """The fewest slices of at most ``MAX_SLICE`` columns, of balanced
-    width, even where k is even so that the kernel reads column pairs with
-    8-byte loads: k = 30 is one slice (lanes 0-14 of each molecule's 16),
-    k = 200 two of 100, k = 258 three of 86."""
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    width = -(-k // -(-k // MAX_SLICE))
-    if k % 2 == 0 and width % 2:
-        width += 1
-    return ColumnPlan(width, -(-k // width))
+MAX_BITS = 65_536                 # the kernel's bit indices are uint16
 
 
 def pack_bits(dense: np.ndarray) -> np.ndarray:
@@ -94,6 +68,8 @@ def _check_args(packed: torch.Tensor, w: torch.Tensor, c0: torch.Tensor) -> None
         raise ValueError(f"c0 must have shape ({k},), got {tuple(c0.shape)}")
     if packed.shape[1] * 32 < d:
         raise ValueError(f"{packed.shape[1]} words hold fewer than d={d} bits")
+    if d > MAX_BITS:
+        raise ValueError(f"d={d} bits: the kernel takes at most {MAX_BITS}")
     if not (packed.device == w.device == c0.device):
         raise ValueError("packed, w and c0 must be on one device")
     if not (packed.is_contiguous() and w.is_contiguous() and c0.is_contiguous()):
@@ -111,19 +87,15 @@ def packed_project(packed: torch.Tensor, w: torch.Tensor,
         return packed_project_reference(packed, w, c0)
     if packed.device.type != "cuda":
         raise ValueError(f"no packed_project kernel for {packed.device}")
-    d, k = w.shape
-    if d > MAX_BITS:
-        raise ValueError(f"d={d} bits: the kernel takes at most {MAX_BITS}")
     n, words = packed.shape
+    d, k = w.shape
     out = torch.empty((n, k), dtype=torch.float32, device=packed.device)
     if n == 0 or k == 0:
         return out
-    plan = column_plan(k)
     with torch.cuda.device(packed.device):
         rc = kernels_lib().bbbp_packed_project(
             packed.data_ptr(), n, words, w.data_ptr(), c0.data_ptr(), d, k,
-            plan.width, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "packed_project")
     packed_project.launches.add()
     return out

@@ -1,6 +1,5 @@
 """Device timing and roofline bounds of the port's kernels, for
-``chip_smoke.py`` and ``torch_kernel_bench.py``. Nothing here runs on the
-main path.
+``chip_smoke.py``. Nothing here runs on the main path.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of the bytes it must move (each input read once, each output written

@@ -10,21 +10,23 @@ before its last line):
    native libraries from the checkout's sources and prints the seconds;
 2. kernel 1 (``packed_project``) against its plain version on the card
    (k = 30, 50 and 64, one column pair a lane and two; k = 31, unaligned
-   pairs; d = 2000; all-ones and all-zero rows), then timed on the
-   fingerprints of
-   ``synthetic_smiles(16384, seed=1)`` and on 5%-random words;
+   pairs; k = 200 and 1001, two and eight column slices; d = 2000;
+   all-ones and all-zero rows), then timed on 5%-random words and on the
+   fingerprints of ``synthetic_smiles(16384, seed=1)``;
 3. kernel 2 (``dense_forest_predict``, via ``raw_predict``) against its
    plain version on the card (depth 0, 1, 6, 8 and 12, F = 30 and 2048,
-   T = 300 and 301), then timed on the z of those fingerprints;
+   T = 300 and 301), then timed on the z of the random words and of the
+   fingerprints;
 4. the slice: ``screen()`` on ``cuda`` with the full-width fixture model over
    65,536 + a ragged tail of ``synthetic_smiles`` and 3 invalid SMILES; both
    kernels' launch counters must move, and the first 2,048 rows must match
    ``screen(device="cpu")``.
 
-Then one JSON line for the kernels (each with its time, its plain
-version's, its bound from ``bbbp_tpu_torch/timing.py`` and, for the
-projection, ``torch.addmm`` on bits already unpacked as a yardstick of the
-product alone), the card's ``nvidia-smi`` line, and as
+Then one JSON line for the kernels (each with its time and its plain
+version's on the random words, its bound from ``bbbp_tpu_torch/timing.py``
+and, for the projection, ``torch.addmm`` on bits already unpacked as a
+yardstick of the product alone; the ``*_fingerprints`` keys hold the same on
+the fingerprints), the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. There is no CPU fallback:
 without a CUDA device the script exits non-zero and prints no result.
 """
@@ -64,8 +66,7 @@ def main() -> int:
     from bbbp_tpu_torch import _build
     from bbbp_tpu_torch.data.zinc import synthetic_smiles
     from bbbp_tpu_torch.native.bindings import fingerprints_packed
-    from bbbp_tpu_torch.ops.bitops import (column_plan, pack_bits,
-                                           packed_project,
+    from bbbp_tpu_torch.ops.bitops import (pack_bits, packed_project,
                                            packed_project_reference,
                                            unpack_bits_reference)
     from bbbp_tpu_torch.ops.forest import (DenseTreeEnsemble,
@@ -99,7 +100,8 @@ def main() -> int:
     k1_err = 0.0
     cases = [(n, 2048, 30) for n in (1, 255, 16384, 16385)]
     cases += [(16385, 2048, 64), (16385, 2048, 50), (16385, 2048, 31),
-              (255, 2000, 30), (16385, 2000, 30)]
+              (16385, 2048, 200), (255, 2048, 1001), (255, 2000, 30),
+              (16385, 2000, 30)]
     for n, d, k in cases:
         if (d, k) == (2048, 30):
             wk, ck = w, c0
@@ -119,28 +121,36 @@ def main() -> int:
         err = (got - want).abs().max().item()
         k1_err = max(k1_err, err)
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
-            raise AssertionError(f"packed_project N={n} d={d} k={k} "
-                                 f"({column_plan(k)}): max |err| {err:.3g}")
+            raise AssertionError(f"packed_project N={n} d={d} k={k}: "
+                                 f"max |err| {err:.3g}")
         if (n, d, k) == (CHUNK + 1, 2048, 30):
             random_words = packed[:CHUNK]       # 5%-random, first row zero
     fp_words, _ = fingerprints_packed(synthetic_smiles(CHUNK, seed=1))
     fp_words = torch.from_numpy(fp_words.view(np.int32)).to(cuda)
-    fp_bits = unpack_bits_reference(fp_words, w.shape[0])
-    set_bits = int(fp_bits.sum().item())
-    k1_ms = device_ms(lambda: packed_project(fp_words, w, c0))
-    k1_random_ms = device_ms(lambda: packed_project(random_words, w, c0))
-    k1_plain_ms = device_ms(lambda: packed_project_reference(fp_words, w, c0))
-    k1_lib_ms = device_ms(lambda: torch.addmm(c0, fp_bits, w))
-    k1_bound = project_bound(CHUNK, fp_words.shape[1], w.shape[0], w.shape[1],
-                             set_bits)
+    set_bits = {name: int(unpack_bits_reference(words, w.shape[0]).sum().item())
+                for name, words in (("random", random_words),
+                                    ("fingerprints", fp_words))}
+    k1_ms = device_ms(lambda: packed_project(random_words, w, c0))
+    k1_plain_ms = device_ms(lambda: packed_project_reference(random_words, w,
+                                                             c0))
+    random_bits = unpack_bits_reference(random_words, w.shape[0])
+    k1_lib_ms = device_ms(lambda: torch.addmm(c0, random_bits, w))
+    k1_fp_ms = device_ms(lambda: packed_project(fp_words, w, c0))
+    k1_fp_plain_ms = device_ms(lambda: packed_project_reference(fp_words, w,
+                                                                c0))
+    k1_bound, k1_fp_bound = (
+        project_bound(CHUNK, random_words.shape[1], w.shape[0], w.shape[1],
+                      set_bits[name]) for name in ("random", "fingerprints"))
     print(f"[2 packed_project] (N, d, k) in {cases}: max |err| {k1_err:.3g} "
-          f"(atol 1e-4, rtol 1e-5) | N=16384, W=64, k=30, plan "
-          f"{tuple(column_plan(w.shape[1]))}: fingerprints "
-          f"({set_bits / CHUNK:.2f} set bits a row) kernel {k1_ms:.4f} ms, "
-          f"plain {k1_plain_ms:.4f} ms, addmm on unpacked bits "
-          f"{k1_lib_ms:.4f} ms, bound {k1_bound['bound_ms']:.5f} ms "
-          f"({k1_bound['bound_by']}); 5%-random words kernel "
-          f"{k1_random_ms:.4f} ms", flush=True)
+          f"(atol 1e-4, rtol 1e-5) | N=16384, W=64, k=30: 5%-random words "
+          f"({set_bits['random'] / CHUNK:.2f} set bits a row) kernel "
+          f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, addmm on unpacked "
+          f"bits {k1_lib_ms:.4f} ms, bound {k1_bound['bound_ms']:.5f} ms "
+          f"({k1_bound['bound_by']}); fingerprints "
+          f"({set_bits['fingerprints'] / CHUNK:.2f} set bits a row) kernel "
+          f"{k1_fp_ms:.4f} ms, plain {k1_fp_plain_ms:.4f} ms, bound "
+          f"{k1_fp_bound['bound_ms']:.5f} ms ({k1_fp_bound['bound_by']})",
+          flush=True)
 
     # -- phase 3: kernel 2 against its plain version -----------------------
     k2_err = 0.0
@@ -169,18 +179,24 @@ def main() -> int:
             raise AssertionError(f"dense_forest D={depth} F={n_feat} "
                                  f"T={n_trees}: max |err| {err:.3g}, "
                                  f"sigmoid {err_p:.3g}")
-    z = packed_project(fp_words, w, c0)
     ens = model.ensemble
-    k2_ms = device_ms(lambda: raw_predict(ens, z, apply_sigmoid=True))
-    k2_plain_ms = device_ms(lambda: torch.sigmoid(dense_predict_reference(
-        ens.feat, ens.thr, ens.leaf, z, ens.depth, ens.base_score,
-        ens.tree_scale)))
-    k2_bound = forest_bound(CHUNK, z.shape[1], ens.feat.shape[0], ens.depth)
+
+    def forest_ms(z):
+        return (device_ms(lambda: raw_predict(ens, z, apply_sigmoid=True)),
+                device_ms(lambda: torch.sigmoid(dense_predict_reference(
+                    ens.feat, ens.thr, ens.leaf, z, ens.depth, ens.base_score,
+                    ens.tree_scale))))
+
+    k2_ms, k2_plain_ms = forest_ms(packed_project(random_words, w, c0))
+    k2_fp_ms, k2_fp_plain_ms = forest_ms(packed_project(fp_words, w, c0))
+    k2_bound = forest_bound(CHUNK, w.shape[1], ens.feat.shape[0], ens.depth)
     print(f"[3 dense_forest_predict] N=16384, (D, F, T) in {cases}, +inf "
-          f"thresholds: max |err| {k2_err:.3g} (atol 2e-5) | z of the "
-          f"fingerprints, F=30, T=300, D=6: kernel {k2_ms:.4f} ms, plain "
-          f"{k2_plain_ms:.4f} ms, bound {k2_bound['bound_ms']:.5f} ms "
-          f"({k2_bound['bound_by']})", flush=True)
+          f"thresholds: max |err| {k2_err:.3g} (atol 2e-5) | F=30, T=300, "
+          f"D=6: z of the random words kernel {k2_ms:.4f} ms, plain "
+          f"{k2_plain_ms:.4f} ms; z of the fingerprints kernel "
+          f"{k2_fp_ms:.4f} ms, plain {k2_fp_plain_ms:.4f} ms; bound "
+          f"{k2_bound['bound_ms']:.5f} ms ({k2_bound['bound_by']})",
+          flush=True)
 
     # -- phase 4: the slice --------------------------------------------------
     smiles = synthetic_smiles(SLICE_N, seed=1)
@@ -252,14 +268,18 @@ def main() -> int:
          "library_ms": k1_lib_ms,
          "library_call": "torch.addmm(c0, bits, w) on bits already unpacked: "
                          "the product alone, not the same function",
-         "ms_5pct_random_words": k1_random_ms},
+         "ms_fingerprints": k1_fp_ms, "plain_ms_fingerprints": k1_fp_plain_ms,
+         "bound_ms_fingerprints": k1_fp_bound["bound_ms"],
+         "bound_share_fingerprints": k1_fp_bound["bound_ms"] / k1_fp_ms},
         {"name": "dense_forest_predict", "route": "cuda",
          "source": "bbbp_tpu_torch/csrc/dense_forest.cu",
          "replaces": "bbbp_tpu/ops/forest_tpu.py:85",
          "launches": launches["dense_forest_predict"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"],
-         "bound_share": k2_bound["bound_ms"] / k2_ms, "library_ms": None},
+         "bound_share": k2_bound["bound_ms"] / k2_ms, "library_ms": None,
+         "ms_fingerprints": k2_fp_ms, "plain_ms_fingerprints": k2_fp_plain_ms,
+         "bound_share_fingerprints": k2_bound["bound_ms"] / k2_fp_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {nvidia_smi()}")

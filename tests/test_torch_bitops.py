@@ -67,12 +67,17 @@ def test_project_weights_equal(jbit):
     assert np.array_equal(w, jw) and np.array_equal(c0, jc0)
 
 
-def test_packed_project_reference_matches_jax(jnp, jbit):
-    """d=2048, k=30, N=300 against _packed_project_jnp (f32 on both sides);
-    rtol 1e-5, atol 1e-4 because the two matmuls sum in different orders."""
+@pytest.mark.parametrize("d,k", [(2048, 30), (2048, 64), (2048, 31),
+                                 (2048, 200), (2000, 1001)])
+def test_packed_project_reference_matches_jax(d, k, jnp, jbit):
+    """N=300 against _packed_project_jnp (f32 on both sides) at the slice's
+    d=2048, k=30 and where the kernel changes form: two column pairs a lane
+    (64), unaligned pairs (31), two column slices (200), eight slices of
+    unaligned pairs with a partial last word (2000, 1001); rtol 1e-5,
+    atol 1e-4 because the two matmuls sum in different orders."""
     rng = np.random.default_rng(4)
-    w, c0 = tbit.project_weights(*_folded(rng, 2048, 30))
-    packed = tbit.pack_bits(rng.random((300, 2048)) < 0.05)
+    w, c0 = tbit.project_weights(*_folded(rng, d, k))
+    packed = tbit.pack_bits(rng.random((300, -(-d // 32) * 32)) < 0.05)
     want = np.asarray(jbit._packed_project_jnp(jnp.asarray(packed),
                                                jnp.asarray(w), jnp.asarray(c0)))
     got = tbit.packed_project_reference(torch.from_numpy(packed.view(np.int32)),
@@ -90,37 +95,8 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch():
     assert torch.equal(got, tbit.packed_project_reference(packed, w, c0))
 
 
-@pytest.mark.parametrize("d,k", [(2048, 30), (2048, 64), (2000, 30),
-                                 (167, 30), (4096, 30), (2048, 200),
-                                 (2048, 1001)])
-def test_column_plan_covers_every_column_once(d, k):
-    """The column slices the kernel's blocks take (blockIdx.y): every column
-    in exactly one slice of at most MAX_SLICE, none empty, widths even where
-    k is (8-byte column pairs), and the block's set-bit lists within its
-    shared memory whatever d is. The slices do not depend on d: W′ is read
-    from global memory, not held in shared memory."""
-    plan = tbit.column_plan(k)
-    slices = [range(i * plan.width, min(k, (i + 1) * plan.width))
-              for i in range(plan.n_slices)]
-    assert len(slices) == plan.n_slices and all(len(s) for s in slices)
-    assert sorted(c for s in slices for c in s) == list(range(k))
-    assert max(len(s) for s in slices) == plan.width <= tbit.MAX_SLICE
-    assert plan.n_slices == -(-k // tbit.MAX_SLICE)
-    if k % 2 == 0:
-        assert plan.width % 2 == 0
-    assert tbit.LIST_BYTES <= tbit.SMEM_PER_BLOCK
-    assert d <= tbit.MAX_BITS
-    if k <= tbit.MAX_SLICE:
-        assert plan == tbit.ColumnPlan(k, 1)
-
-
-def test_column_plan_rejects_no_columns():
-    with pytest.raises(ValueError):
-        tbit.column_plan(0)
-
-
 @pytest.mark.parametrize("case", ["float_words", "too_few_words", "bad_c0",
-                                  "strided", "f64_weights"])
+                                  "strided", "f64_weights", "too_many_bits"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     w = torch.zeros((2048, 30))
     c0 = torch.zeros(30)
@@ -135,6 +111,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         packed = torch.zeros((8, 128), dtype=torch.int32)[:, ::2]
     elif case == "f64_weights":
         w = w.double()
+    elif case == "too_many_bits":   # past the kernel's uint16 bit indices
+        w = torch.zeros((tbit.MAX_BITS + 32, 30))
+        packed = torch.zeros((8, tbit.MAX_BITS // 32 + 1), dtype=torch.int32)
     with pytest.raises((TypeError, ValueError)):
         tbit.packed_project(packed, w, c0)
 
@@ -143,12 +122,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 def test_kernel_matches_plain_version_on_cuda(cuda_device):
     """The CUDA kernel against its plain version on the card at the slice's
     shapes, k = 30 and 64 (two column pairs a lane), d = 2000 (a partial
-    last word), k = 31 (unaligned column pairs) and k = 200 (two column
-    slices); all-ones rows (the set-bit list walked in pieces);
-    atol 1e-4, rtol 1e-5 (summation order differs)."""
+    last word), k = 31 (unaligned column pairs), k = 200 (two column
+    slices) and k = 1001 (eight slices, unaligned pairs); all-ones rows (the
+    set-bit list walked in pieces); atol 1e-4, rtol 1e-5 (summation order
+    differs)."""
     rng = np.random.default_rng(6)
     for d, k, n_words in ((2048, 30, 64), (2048, 64, 64), (2000, 30, 63),
-                          (2048, 31, 64), (2048, 200, 64)):
+                          (2048, 31, 64), (2048, 200, 64), (2048, 1001, 64)):
         w, c0 = (torch.from_numpy(a).to(cuda_device)
                  for a in tbit.project_weights(*_folded(rng, d, k)))
         for n in (1, 255, 16385):
