@@ -1,6 +1,7 @@
-"""PyTorch / CUDA port of the virtual-screening path of ``bbbp_tpu``.
+"""PyTorch / CUDA port of ``bbbp_tpu``'s virtual-screening path and of the
+training of its screening model.
 
-The port runs on one NVIDIA Hopper card (``sm_90a``). Its two device kernels
+The port runs on one NVIDIA Hopper card (``sm_90a``). Its device kernels
 are CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
 (``_build.py``); every kernel wrapper runs its plain PyTorch version on CPU
 tensors, which is what the CPU tests compare against the JAX package.

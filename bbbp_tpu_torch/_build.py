@@ -1,7 +1,8 @@
 """Build and load the port's two native libraries at first use.
 
-- ``kernels``: every ``csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a`` into
-  one shared library with a plain C interface, loaded with ``ctypes``.
+- ``kernels``: every ``csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a`` (one
+  ``nvcc`` a source, all started together) and linked into one shared
+  library with a plain C interface, loaded with ``ctypes``.
   Pointers and the CUDA stream go in as ``c_void_p``; each entry point
   returns ``cudaGetLastError()``, which ``check_launch`` turns into an
   exception.
@@ -27,7 +28,7 @@ import platform
 import shutil
 import subprocess
 import threading
-from typing import List
+from typing import Callable, List
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -35,8 +36,9 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 CHEM_SRC = os.path.join(os.path.dirname(_PKG), "bbbp_tpu", "native",
                         "bbbpchem.cpp")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]         # one command, all sources
 # the same line as bbbp_tpu/native/build.py
 GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
              "-pthread"]
@@ -63,8 +65,17 @@ class LaunchCounter:
             self.count = 0
 
 
-def _build(name: str, sources: List[str], cmd: List[str]) -> str:
-    """Compile ``cmd + [-o out]`` unless ``out`` for this key exists."""
+def _run(cmd: List[str], name: str) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise BuildError(f"building {name} failed ({' '.join(cmd)}):\n"
+                         f"{proc.stdout}{proc.stderr}")
+
+
+def _build(name: str, sources: List[str], cmd: List[str],
+           make: Callable[[str], None]) -> str:
+    """``make(tmp)`` builds the library into ``tmp`` unless ``out`` for this
+    key (the sources and ``cmd``) exists."""
     h = hashlib.sha256(" ".join(cmd).encode())
     h.update(platform.machine().encode())
     for src in sources:
@@ -79,11 +90,7 @@ def _build(name: str, sources: List[str], cmd: List[str]) -> str:
         if os.path.exists(out):             # built by another process meanwhile
             return out
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run(cmd + ["-o", tmp], capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise BuildError(f"building {name} failed ({' '.join(cmd)}):\n"
-                             f"{proc.stdout}{proc.stderr}")
+        make(tmp)
         os.replace(tmp, out)
     return out
 
@@ -101,18 +108,43 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> str:
-    """Path of the CUDA kernel library, built from ``csrc/*.cu``."""
+    """Path of the CUDA kernel library, built from ``csrc/*.cu``: one
+    ``nvcc -c`` a source, run at once, then one link."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     if not sources:
         raise BuildError(f"no CUDA sources under {CSRC_DIR}")
-    return _build("kernels", sources, [_nvcc()] + NVCC_FLAGS + sources)
+    nvcc = _nvcc()
+
+    def make(tmp: str) -> None:
+        objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+        try:
+            procs = [subprocess.Popen([nvcc] + COMPILE_FLAGS + ["-c", src, "-o", obj],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(sources, objs)]
+            outputs = [proc.communicate()[0] for proc in procs]
+            failed = [f"{src}:\n{text}"
+                      for src, proc, text in zip(sources, procs, outputs)
+                      if proc.returncode != 0]
+            if failed:
+                raise BuildError("building kernels failed:\n" + "\n".join(failed))
+            _run([nvcc] + NVCC_FLAGS + objs + ["-o", tmp], "kernels")
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+
+    return _build("kernels", sources, [nvcc] + COMPILE_FLAGS + ["-c"] + sources,
+                  make)
 
 
 def build_chem() -> str:
     """Path of the port's own build of the C++ featurizer."""
     if not os.path.exists(CHEM_SRC):
         raise BuildError(f"C++ featurizer source missing: {CHEM_SRC}")
-    return _build("bbbpchem", [CHEM_SRC], ["g++"] + GXX_FLAGS + [CHEM_SRC])
+    cmd = ["g++"] + GXX_FLAGS + [CHEM_SRC]
+    return _build("bbbpchem", [CHEM_SRC], cmd,
+                  lambda tmp: _run(cmd + ["-o", tmp], "bbbpchem"))
 
 
 _P = ctypes.c_void_p
@@ -135,6 +167,26 @@ def kernels_lib() -> ctypes.CDLL:
         _P, _I, _I,            # tree records [T, R] int32, T, depth
         _F, _F, _I,            # base_score, tree_scale, apply_sigmoid
         _P, _P,                # out [n] f32, stream
+    ]
+    lib.bbbp_forest_level_histogram.restype = _I
+    lib.bbbp_forest_level_histogram.argtypes = [
+        _P, _I, _I,            # xb [n, F] uint8
+        _P, _P, _P, _I,        # pos [n] int32, g, h [n] f32, n_nodes
+        _P, _P,                # scratch: acc [nodes·F·128] int64, max bits [2]
+        _P, _P,                # out [nodes, F, 64, 2] f32, stream
+    ]
+    lib.bbbp_forest_best_splits.restype = _I
+    lib.bbbp_forest_best_splits.argtypes = [
+        _P, _I, _I,            # hist [nodes, F, 64, 2] f32
+        _P, _F, _F, _I,        # col_mask [F] bool, lambda, min_child, oblivious
+        _P, _P, _P, _P,        # feat, bin [nodes] int32, has_split bool, stream
+    ]
+    lib.bbbp_forest_leaf_values.restype = _I
+    lib.bbbp_forest_leaf_values.argtypes = [
+        _P, _I, _P, _P,        # pos [n] int32, g, h [n] f32
+        _I, _F, _F,            # n_leaves, lambda, scale
+        _P, _P,                # scratch: acc [2·n_leaves] int64, max bits [2]
+        _P, _P, _P,            # leaf [n_leaves] f32, preds [n] f32 (in place), stream
     ]
     return lib
 

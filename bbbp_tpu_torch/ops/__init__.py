@@ -1,2 +1,3 @@
-"""Ports of the ``bbbp_tpu.ops`` modules on the screening path; the kernels
-live in ``bitops`` and ``forest``."""
+"""Ports of the ``bbbp_tpu.ops`` modules on the screening and training
+paths; the kernels' wrappers live in ``bitops``, ``forest`` and
+``forest_train``."""

@@ -8,9 +8,14 @@ memory and copy it to the device on their own CUDA stream, where both
 kernels run, and the drain waits on each chunk's event, puts chunks back in
 input order and writes the CSV.
 
-Run: ``python -m bbbp_tpu_torch.pipelines.screen in.smi --model m.pkl``.
-The model pickle is the JAX package's format; either package reads what the
-other writes. Training the model is not ported yet.
+``ScreeningModel.train`` fits the model on the device: fingerprints on the
+host, then the scaler, PCA and the boosted forest (``ops/forest_train.py``)
+on the card, as ``bbbp_tpu/pipelines/screen.py::ScreeningModel.train``.
+
+Run: ``python -m bbbp_tpu_torch.pipelines.screen in.smi --model m.pkl``;
+without ``--model`` it trains the default model on B3DB classification
+(``BBBP_B3DB_DIR``) first. The model pickle is the JAX package's format;
+either package reads what the other writes.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ from bbbp_tpu_torch.data.zinc import chunked, iter_smi_dir, iter_smi_file
 from bbbp_tpu_torch.native.bindings import fingerprints, fingerprints_packed
 from bbbp_tpu_torch.ops.bitops import packed_project, project_weights
 from bbbp_tpu_torch.ops.forest import DenseTreeEnsemble, raw_predict
+from bbbp_tpu_torch.ops.forest_train import GBDTClassifier, resolve_device
+from bbbp_tpu_torch.ops.pca import PCA
+from bbbp_tpu_torch.ops.scaler import StandardScaler
 
 PACKED_KINDS = ("morgan", "rdkit")
 DENSE_KINDS = ("maccs",)
@@ -69,6 +77,34 @@ class ScreeningModel:
 
     def to(self, device: Union[str, torch.device]) -> "ScreeningModel":
         return dataclasses.replace(self, device=device)
+
+    @staticmethod
+    def train(smiles: List[str], labels: np.ndarray, fp_kind: str = "morgan",
+              n_bits: int = 2048, pca_dim: int = 30, n_estimators: int = 300,
+              seed: int = 42, workers: Optional[int] = None,
+              device: Union[str, torch.device] = "cuda") -> "ScreeningModel":
+        """Fingerprints (host) → StandardScaler → PCA → GBDT classifier
+        (300 trees of depth 6, lr 0.1, subsample 0.8, 64 quantile bins), the
+        fits on ``device``. Molecules that fail to parse are left out."""
+        device = resolve_device(device)
+        x, bad = fingerprints(smiles, fp_kind, n_bits, threads=workers or 0)
+        ok = np.ones(len(smiles), dtype=bool)
+        ok[bad] = False
+        xt = torch.from_numpy(x[ok]).to(device)
+        scaler = StandardScaler().fit(xt)
+        xs = scaler.transform(xt)
+        pca = PCA(pca_dim).fit(xs)
+        z = pca.transform(xs)
+        clf = GBDTClassifier(n_estimators=n_estimators, learning_rate=0.1,
+                             max_depth=6, subsample=0.8, seed=seed,
+                             device=device).fit(z, np.asarray(labels)[ok])
+
+        def host(t):
+            return t.cpu().numpy()
+
+        return ScreeningModel(host(scaler.mean_), host(scaler.scale_),
+                              host(pca.mean_), host(pca.components_),
+                              clf.ensemble_, fp_kind, n_bits, device=device)
 
     @staticmethod
     def from_state(s: dict) -> "ScreeningModel":
@@ -342,18 +378,36 @@ def screen(model: ScreeningModel, smiles_iter: Iterable[Tuple[str, str]],
     return ScreenStats(n_total, n_bad, time.time() - t_start, feat_time, dev_time)
 
 
+def train_default_model(workers: Optional[int] = None, seed: int = 42,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> ScreeningModel:
+    """The default screening classifier trained on B3DB classification
+    (BBB+ = 1; the TSV under ``BBBP_B3DB_DIR``)."""
+    from bbbp_tpu_torch.data.b3db import load_b3db_classification
+
+    data = load_b3db_classification()
+    return ScreeningModel.train(data.smiles, data.labels, workers=workers,
+                                seed=seed, device=device)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="Virtual screening on a CUDA device")
     ap.add_argument("input", help=".smi file or directory of tranches")
-    ap.add_argument("--model", required=True,
-                    help="ScreeningModel pickle, written by either package")
+    ap.add_argument("--model", default=None,
+                    help="ScreeningModel pickle, written by either package; "
+                         "without it the default model is trained on B3DB "
+                         "classification ($BBBP_B3DB_DIR) on --device")
     ap.add_argument("--out", default="virtual_screening_results.csv")
     ap.add_argument("--chunk-size", type=int, default=8192)
     ap.add_argument("--workers", type=int, default=None,
                     help="featurizer threads (default: all cores)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    model = ScreeningModel.load(args.model)
+    if args.model:
+        model = ScreeningModel.load(args.model)
+    else:
+        print(f"training the default B3DB screening model on {args.device}...")
+        model = train_default_model(workers=args.workers, device=args.device)
     it = (iter_smi_dir(args.input) if os.path.isdir(args.input)
           else iter_smi_file(args.input))
     stats = screen(model, it, out_csv=args.out, chunk_size=args.chunk_size,

@@ -1,15 +1,27 @@
-"""Test fixture: a screening model at the repo's default width, made from a
-seed without training. It is not a feature: the tests and ``chip_smoke.py``
-use it to drive the screening path at its real shapes.
+"""Test fixtures and checks. They are not features: the tests and
+``chip_smoke.py`` use them to drive the screening and training paths at
+their real shapes and to compare two forests.
+
+- ``full_width_screening_state``: a screening model at the repo's default
+  width, made from a seed without training;
+- ``labelled_training_set``: molecules and labels at B3DB classification's
+  size, made from a seed;
+- ``near_tie_rows`` and ``compare_gbdt_fits``: comparisons of two
+  implementations that sum in different orders.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 N_TREES, DEPTH, PCA_DIM, N_BITS = 300, 6, 30, 2048
 INF_SHARE = 0.05
+B3DB_CLASSIFICATION_SIZE = 7809
+POSITIVE_SHARE = 2 / 3
 
 
 def full_width_screening_state(seed: int = 0, n_molecules: int = 4096) -> dict:
@@ -79,3 +91,156 @@ def near_tie_rows(ensemble: dict, z: np.ndarray, tol: float = 1e-5) -> np.ndarra
         near |= (np.abs(xv - t) <= tol).any(axis=1)
         pos = 2 * pos + (xv > t)
     return near
+
+
+def labelled_training_set(n: int = B3DB_CLASSIFICATION_SIZE, seed: int = 0
+                          ) -> Tuple[List[str], np.ndarray]:
+    """``n`` ``synthetic_smiles`` and int32 labels: each label is 1 where the
+    molecule's Morgan bits (2048, r=2) score above a threshold under a
+    seeded random ±1 weight vector, the threshold set so that two thirds
+    are positive (B3DB classification has 7,809 molecules, 63% BBB+). The
+    scores are integers; a seeded jitter in [0, 0.5) breaks their ties."""
+    from bbbp_tpu_torch.data.zinc import synthetic_smiles
+    from bbbp_tpu_torch.native.bindings import fingerprints
+
+    smiles = synthetic_smiles(n, seed=seed)
+    x, _ = fingerprints(smiles, "morgan", N_BITS)
+    rng = np.random.default_rng(seed)
+    w = rng.choice([-1.0, 1.0], size=N_BITS)
+    score = x.astype(np.float64) @ w + 0.5 * rng.random(n)
+    cut = np.quantile(score, 1 - POSITIVE_SHARE)
+    return smiles, (score > cut).astype(np.int32)
+
+
+@dataclass
+class ForestComparison:
+    """Node by node, in fit order, a boosting fit against the plain
+    arithmetic replayed on the CPU.
+
+    ``equal``: the reference's (feat, thr). ``equivalent``: another split
+    that sends the node's training rows the same way (candidates of equal
+    gain that another rounding orders differently). ``near_ties``: splits
+    that send rows another way where the two candidates' gains lie within
+    ``tol`` of the node's gain scale; ``first_near_tie`` is the (tree, node)
+    of the first. ``mismatch``: (tree, node) of a split that differs and is
+    no near tie; the comparison stops there. ``max_leaf_diff`` is taken over
+    ``trees_compared``."""
+
+    equal: int = 0
+    equivalent: int = 0
+    near_ties: int = 0
+    trees_compared: int = 0
+    first_near_tie: Optional[Tuple[int, int]] = None
+    mismatch: Optional[Tuple[int, int]] = None
+    max_leaf_diff: float = 0.0
+
+    @property
+    def ok(self) -> bool:
+        return self.mismatch is None
+
+
+def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
+                      got: dict, *, task: str, lam: float, min_child: float,
+                      learning_rate: float, base_score: float,
+                      tol: float) -> ForestComparison:
+    """Compare a boosting fit ``got`` (the pickle's ensemble dict, numpy) on
+    its training matrix ``z`` [n, F] with a reference, for deterministic
+    fits only (``subsample=1``, ``colsample=1``, no sample weights). Each
+    level's histogram and gains are replayed with the plain versions on the
+    CPU. A node's gain scale is the larger of its best gain and its parent
+    term G²/(H + λ), so ``tol`` bounds the gap relative to the terms whose
+    difference the gain is.
+
+    With ``ref`` (another fit's dict) the replay follows ``ref``'s margins
+    and ends at its first near tie, after which the two fits grow on other
+    margins. With ``ref=None`` the replay follows ``got``'s own splits and
+    margins and holds each split against the plain version's best split
+    on that state, so every node of every tree is checked; its leaves are
+    held against the plain leaf values."""
+    from bbbp_tpu_torch.ops.forest_train import (BinMapper, _cumsum_bins,
+                                                 best_splits_reference,
+                                                 level_histogram_reference,
+                                                 split_gains)
+
+    mapper = BinMapper().fit(z)
+    xb = torch.from_numpy(mapper.transform(z))
+    edges = mapper.edge_values()
+    zt = torch.from_numpy(np.ascontiguousarray(z, np.float32))
+    yt = torch.from_numpy(np.asarray(y, np.float32))
+    n, n_feat = z.shape
+    depth = got["depth"]
+    follow = got if ref is None else ref
+    out = ForestComparison()
+    preds = torch.full((n,), float(base_score), dtype=torch.float32)
+    every = torch.ones(n_feat, dtype=torch.bool)
+    lr32 = float(np.float32(learning_rate))
+    for t in range(got["feat"].shape[0]):
+        if task == "reg":
+            g, h = preds - yt, torch.ones_like(yt)
+        else:
+            p = torch.sigmoid(preds)
+            g, h = p - yt, torch.clamp(p * (1 - p), min=1e-6)
+        pos = torch.zeros(n, dtype=torch.int32)
+        for level in range(depth):
+            nodes, off = 1 << level, (1 << level) - 1
+            hist = level_histogram_reference(xb, pos, g, h, nodes)
+            gain, valid = split_gains(hist, every, lam, min_child)
+            hl = _cumsum_bins(hist[..., 1])
+            th = hl[..., -1]
+            parent = _cumsum_bins(hist[..., 0])[..., -1] ** 2 / (th + lam)
+            if ref is None:
+                bf, bb, bs = best_splits_reference(hist, every, lam, min_child,
+                                                   False)
+                best_thr = torch.from_numpy(edges)[bf.long(), bb.long()]
+            for k in range(nodes):
+                i = off + k
+                if ref is None:
+                    rf, rt = int(bf[k]), float(best_thr[k])
+                else:
+                    rf, rt = int(ref["feat"][t, i]), float(ref["thr"][t, i])
+                gf, gt = int(got["feat"][t, i]), float(got["thr"][t, i])
+                if (rf, rt) == (gf, gt):
+                    out.equal += 1
+                    continue
+                rows = pos == k
+                if torch.equal(zt[rows, rf] > rt, zt[rows, gf] > gt):
+                    out.equivalent += 1
+                    continue
+
+                def cand(f, thr):
+                    """Gain of a split in the plain arithmetic; a dead node
+                    (+inf) counts 0, as a split with no gain."""
+                    if not np.isfinite(thr):
+                        return 0.0, True
+                    b = int((edges[f] < thr).sum())
+                    near_edge = bool((hl[k, f, b] - min_child).abs() <= tol * min_child
+                                     or (th[k, f] - hl[k, f, b] - min_child).abs()
+                                     <= tol * min_child)
+                    return float(gain[k, f, b]), bool(valid[k, f, b]) or near_edge
+
+                (rg, _), (cg, c_ok) = cand(rf, rt), cand(gf, gt)
+                scale = max(abs(rg), float(parent[k].abs().max()))
+                if not (c_ok and abs(rg - cg) <= tol * scale):
+                    out.mismatch = (t, i)
+                    return out
+                out.near_ties += 1
+                out.first_near_tie = out.first_near_tie or (t, i)
+                if ref is not None:
+                    return out
+            f_l = torch.tensor(follow["feat"][t, off:off + nodes]).long()
+            thr_l = torch.tensor(follow["thr"][t, off:off + nodes])
+            xv = zt.gather(1, f_l[pos.long()][:, None])[:, 0]
+            pos = 2 * pos + (xv > thr_l[pos.long()]).int()
+        if ref is None:
+            idx = pos.long()
+            gs = torch.zeros(1 << depth).index_add_(0, idx, g)
+            hs = torch.zeros(1 << depth).index_add_(0, idx, h)
+            want = (-gs / (hs + lam)).numpy()
+        else:
+            want = ref["leaf"][t]
+        out.max_leaf_diff = max(out.max_leaf_diff,
+                                float(np.abs(want - got["leaf"][t]).max()))
+        out.trees_compared += 1
+        leaf = torch.tensor(follow["leaf"][t])
+        preds = preds.double().add_(leaf[pos.long()].double(), alpha=lr32).float()
+    return out

@@ -73,3 +73,79 @@ def project_bound(n: int, words: int, d: int, k: int,
     below d and column (what these inputs need), and one per c0 term."""
     return _bound(n * words * 4 + d * k * 4 + k * 4 + n * k * 4,
                   set_bits * k + n * k)
+
+
+def event_ms(fn: Callable[[], object], calls: int = 50) -> float:
+    """Device milliseconds per call of ``fn`` between two CUDA events, for
+    a call that synchronises with the host and so cannot be captured in a
+    graph (``torch.bincount`` reads its input's maximum); host gaps between
+    the calls are in the number."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def level_histogram_bound(n: int, n_feat: int, n_nodes: int) -> Dict[str, object]:
+    """xb (one byte a value), pos, g and h read once, the f32 (g, h)
+    histogram written once; two adds per row and feature."""
+    return _bound(n * n_feat + 12 * n + n_nodes * n_feat * 64 * 8,
+                  2 * n * n_feat)
+
+
+def best_splits_bound(n_nodes: int, n_feat: int) -> Dict[str, object]:
+    """The histogram and the column mask read once, (feat, bin, has_split)
+    written once; per (node, feature, bin) 15 f32 operations: two running
+    sums, the gain's two subtractions, two lambda adds, two squares, two
+    divisions, one add and one subtraction, two min_child compares and the
+    argmax compare."""
+    return _bound(n_nodes * n_feat * 64 * 8 + n_feat + 9 * n_nodes,
+                  15 * n_nodes * n_feat * 64)
+
+
+def leaf_values_bound(n: int, n_leaves: int) -> Dict[str, object]:
+    """pos, g and h read once, the margins read and written once, the leaves
+    written once; two adds and one fused multiply-add (two operations) per
+    row, an add and a division per leaf."""
+    return _bound(12 * n + 8 * n + 4 * n_leaves, 4 * n + 2 * n_leaves)
+
+
+def profile_summary(prof, classify: Callable[[str], str]) -> Dict[str, object]:
+    """Device time of a ``torch.profiler`` run: ms and count by
+    ``classify(event name)``, and the busy ms (the union of the device
+    intervals)."""
+    import torch
+
+    by_name: Dict[str, Dict[str, float]] = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        entry = by_name.setdefault(classify(ev.name), {"ms": 0.0, "count": 0})
+        entry["ms"] += ev.time_range.elapsed_us() / 1e3
+        entry["count"] += 1
+        spans.append((ev.time_range.start, ev.time_range.end))
+    spans.sort()
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return {"device": by_name, "device_busy_ms": busy_us / 1e3}
+
+
+def profiler_table(prof, path: str) -> None:
+    """The profiler's table, sorted by device time, into ``path``."""
+    sort_key = ("self_device_time_total"
+                if hasattr(prof.key_averages()[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by=sort_key, row_limit=25))

@@ -20,15 +20,34 @@ before its last line):
 4. the slice: ``screen()`` on ``cuda`` with the full-width fixture model over
    65,536 + a ragged tail of ``synthetic_smiles`` and 3 invalid SMILES; both
    kernels' launch counters must move, and the first 2,048 rows must match
-   ``screen(device="cpu")``.
+   ``screen(device="cpu")``;
+5. the trainer's kernels (``ops/forest_train.py``: K3 ``level_histogram``,
+   K4 ``best_splits``, K5 ``leaf_values``) against their plain versions on
+   the card, for n = 1, 7,809 and 65,536 rows, F = 30, 167 and 300 features
+   and levels 0, 5 and 9, with zero-weight rows, constant features (exact
+   ties), column masks, oblivious mode and min_child masking: K3 within one
+   f32 rounding of the exact (float64) sum and bit-identical over two runs,
+   K4 equal to the plain version, K5 within 1e-6 relative; then each timed
+   at the training path's shapes (n = 7,809 and 65,536, F = 30, every level
+   of depth 6) beside its plain version, its bound and, for K3,
+   ``torch.bincount``;
+6. training: ``ScreeningModel.train`` on ``cuda`` at full width over the
+   7,809-molecule labelled set (``testing.labelled_training_set``), with
+   every trainer kernel's launch count (300 trees × 6 levels); a second fit
+   with the same seed must grow the same trees; ``GBDTClassifier
+   (subsample=1)`` on the same z on ``cuda`` and ``cpu`` must grow the same
+   trees up to equivalent splits and a counted near tie; training accuracy
+   above the majority share; and ``screen()`` with the trained model on
+   ``cuda`` against ``cpu`` on a prefix.
 
 Then one JSON line for the kernels (each with its time and its plain
-version's on the random words, its bound from ``bbbp_tpu_torch/timing.py``
-and, for the projection, ``torch.addmm`` on bits already unpacked as a
-yardstick of the product alone; the ``*_fingerprints`` keys hold the same on
-the fingerprints), the card's ``nvidia-smi`` line, and as
-the last line ``{"ok": true, "device": {...}}``. There is no CPU fallback:
-without a CUDA device the script exits non-zero and prints no result.
+version's, its bound from ``bbbp_tpu_torch/timing.py`` and a library
+yardstick where one PyTorch call computes the same function; the
+projection's ``torch.addmm`` on bits already unpacked is the product alone,
+and the ``*_fingerprints`` keys hold its times on the fingerprints), the
+card's ``nvidia-smi`` line, and as the last line
+``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
+device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -46,6 +65,9 @@ SLICE_N = 65536 + 1000            # 4 full chunks of 16,384 and a ragged tail
 CHUNK = 16384
 PREFIX = 2048
 INVALID = ("NOT_A_SMILES((", "C1CC", "[Xx]")
+TRAIN_ROWS = (7809, 65536)        # B3DB classification's size, and a larger one
+TRAIN_DEPTH = 6
+TRAIN_F = 30
 
 
 def read_csv(path: str):
@@ -54,6 +76,93 @@ def read_csv(path: str):
     if rows[0] != ["ID", "SMILES", "Prediction", "Probability"]:
         raise AssertionError(f"bad CSV header {rows[0]}")
     return rows[1:]
+
+
+def screen_against_cpu(model, ensemble_state, mols, gpu_csv, cpu_csv,
+                       max_near_share=0.01):
+    """Runs ``screen(device="cpu")`` over the first PREFIX molecules and
+    holds the cuda run's rows against it: rows may differ only where a path
+    meets a threshold within 1e-5 (the two sum z in different orders), and
+    such rows are at most ``max_near_share`` (None: no cap). Returns (rows
+    that differ, near-tie rows, largest |dProbability| elsewhere)."""
+    import torch
+
+    from bbbp_tpu_torch.native.bindings import fingerprints_packed
+    from bbbp_tpu_torch.ops.bitops import packed_project_reference
+    from bbbp_tpu_torch.pipelines.screen import screen
+    from bbbp_tpu_torch.testing import near_tie_rows
+
+    screen(model, iter(mols[:PREFIX]), out_csv=cpu_csv, chunk_size=PREFIX,
+           device="cpu")
+    gpu_rows, cpu_rows = read_csv(gpu_csv), read_csv(cpu_csv)
+    packed_np, _ = fingerprints_packed([s for s, _ in mols[:PREFIX]])
+    z_cpu = packed_project_reference(torch.from_numpy(packed_np.view(np.int32)),
+                                     model.proj_w.cpu(), model.proj_c0.cpu())
+    near = near_tie_rows(ensemble_state, z_cpu.numpy())
+    mism, worst = [], 0.0
+    for i, (g, c) in enumerate(zip(gpu_rows[:PREFIX], cpu_rows)):
+        if g[2] == "invalid" or c[2] == "invalid":
+            if g[2:] != c[2:]:
+                mism.append(i)
+            continue
+        diff = abs(float(g[3]) - float(c[3]))
+        if g[2] != c[2] or diff > 1e-4 + 1e-9:
+            mism.append(i)
+        else:
+            worst = max(worst, diff)
+    if any(not near[i] for i in mism) or (
+            max_near_share is not None and near.mean() > max_near_share):
+        raise AssertionError(f"cuda vs cpu prefix: rows {mism} differ; near-tie "
+                             f"rows {int(near.sum())}")
+    return mism, int(near.sum()), worst
+
+
+def fmt(values):
+    return "[" + ", ".join(f"{v:.4f}" for v in values) + "]"
+
+
+def level_case(n, n_feat, level, seed, device):
+    """Binned rows (two constant features, so whole features tie exactly),
+    node positions, and gradients/hessians with 20% zero-weight rows."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    xb = r.integers(0, 64, (n, n_feat), dtype=np.uint8)
+    xb[:, :2] = 9
+    pos = r.integers(0, 1 << level, n).astype(np.int32)
+    g = r.normal(size=n).astype(np.float32)
+    h = r.uniform(0.05, 0.3, n).astype(np.float32)
+    zero = r.random(n) < 0.2
+    g[zero] = 0.0
+    h[zero] = 0.0
+    return [torch.from_numpy(a).to(device) for a in (xb, pos, g, h)]
+
+
+def split_mismatches(tr, hist, mask, min_child, oblivious, got, want):
+    """Nodes where the kernel's split differs from the plain version's; each
+    must be a near tie (the two candidates' scores within 1e-6 of the
+    node's largest |score|), or this raises. Returns their count."""
+    import torch
+
+    differ = ~((got[0] == want[0]) & (got[1] == want[1]) & (got[2] == want[2]))
+    if not bool(differ.any()):
+        return 0
+    gain, valid = tr.split_gains(hist, mask, 1.0, min_child)
+    if oblivious:
+        score = torch.where(valid & (gain > 0), gain, torch.zeros_like(gain)).sum(0)
+        score = torch.where(valid.any(0), score, -torch.inf).reshape(1, -1)
+    else:
+        score = torch.where(valid, gain, -torch.inf).reshape(hist.shape[0], -1)
+    for node in torch.nonzero(differ).flatten().tolist():
+        row = score[0 if oblivious else node]
+        a = row[int(got[0][node]) * 64 + int(got[1][node])]
+        b = row[int(want[0][node]) * 64 + int(want[1][node])]
+        scale = float(row[torch.isfinite(row)].abs().max())
+        if not (got[2][node] and want[2][node]) or abs(float(a - b)) > 1e-6 * scale:
+            raise AssertionError(f"best_splits node {node}: kernel "
+                                 f"{[int(t[node]) for t in got]}, plain "
+                                 f"{[int(t[node]) for t in want]}")
+    return int(differ.sum())
 
 
 def main() -> int:
@@ -65,15 +174,21 @@ def main() -> int:
         return 1
     from bbbp_tpu_torch import _build
     from bbbp_tpu_torch.data.zinc import synthetic_smiles
-    from bbbp_tpu_torch.native.bindings import fingerprints_packed
+    from bbbp_tpu_torch.native.bindings import fingerprints, fingerprints_packed
+    from bbbp_tpu_torch.ops import forest_train as tr
     from bbbp_tpu_torch.ops.bitops import (pack_bits, packed_project,
                                            packed_project_reference,
                                            unpack_bits_reference)
     from bbbp_tpu_torch.ops.forest import (DenseTreeEnsemble,
                                            dense_predict_reference, raw_predict)
+    from bbbp_tpu_torch.ops.forest_train import GBDTClassifier
     from bbbp_tpu_torch.pipelines.screen import ScreeningModel, screen
-    from bbbp_tpu_torch.testing import full_width_screening_state, near_tie_rows
-    from bbbp_tpu_torch.timing import (device_ms, forest_bound, nvidia_smi,
+    from bbbp_tpu_torch.testing import (N_TREES, compare_gbdt_fits,
+                                        full_width_screening_state,
+                                        labelled_training_set)
+    from bbbp_tpu_torch.timing import (best_splits_bound, device_ms, event_ms,
+                                       forest_bound, leaf_values_bound,
+                                       level_histogram_bound, nvidia_smi,
                                        project_bound)
 
     cuda = torch.device("cuda")
@@ -213,9 +328,9 @@ def main() -> int:
                        dispatch_workers=2, device="cuda")
         launches = {"packed_project": packed_project.launches.count,
                     "dense_forest_predict": raw_predict.launches.count}
-        screen(model, iter(mols[:PREFIX]), out_csv=cpu_csv, chunk_size=PREFIX,
-               device="cpu")
-        gpu_rows, cpu_rows = read_csv(gpu_csv), read_csv(cpu_csv)
+        gpu_rows = read_csv(gpu_csv)
+        mism, n_near, worst = screen_against_cpu(model, state["ensemble"], mols,
+                                                 gpu_csv, cpu_csv)
     if len(gpu_rows) != len(mols) or stats.n_molecules != len(mols):
         raise AssertionError(f"{len(gpu_rows)} rows for {len(mols)} molecules")
     invalid = [i for i, r in enumerate(gpu_rows) if r[2] == "invalid"]
@@ -228,34 +343,232 @@ def main() -> int:
         raise AssertionError("probabilities outside [0, 1]")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not launched by screen(): {launches}")
-    # the prefix against the CPU run: rows may differ only where a path meets
-    # a threshold within 1e-5 (the two sum z in different orders)
-    prefix = [s for s, _ in mols[:PREFIX]]
-    packed_np, _ = fingerprints_packed(prefix)
-    z_cpu = packed_project_reference(torch.from_numpy(packed_np.view(np.int32)),
-                                     model.proj_w.cpu(), model.proj_c0.cpu())
-    near = near_tie_rows(state["ensemble"], z_cpu.numpy())
-    mism, worst = [], 0.0
-    for i, (g, c) in enumerate(zip(gpu_rows[:PREFIX], cpu_rows)):
-        if g[2] == "invalid" or c[2] == "invalid":
-            if g[2:] != c[2:]:
-                mism.append(i)
-            continue
-        diff = abs(float(g[3]) - float(c[3]))
-        if g[2] != c[2] or diff > 1e-4 + 1e-9:
-            mism.append(i)
-        else:
-            worst = max(worst, diff)
-    if any(not near[i] for i in mism) or near.mean() > 0.01:
-        raise AssertionError(f"cuda vs cpu prefix: rows {mism} differ; near-tie "
-                             f"rows {int(near.sum())}")
     print(f"[4 slice] screen(cuda) {stats.n_molecules} molecules "
           f"({stats.n_invalid} invalid), chunk {CHUNK}, 2 dispatchers: "
           f"{stats.mol_per_s:.1f} mol/s (wall {stats.wall_s:.3f} s, featurize "
           f"{stats.featurize_s:.3f} s) on {card} | launches {launches} | "
           f"first {PREFIX} vs screen(cpu): {len(mism)} rows differ, all "
-          f"near ties ({int(near.sum())} near-tie rows), max |dProbability| "
+          f"near ties ({n_near} near-tie rows), max |dProbability| "
           f"{worst:.3g} (limit 1e-4)", flush=True)
+
+    # -- phase 5: the trainer's kernels against their plain versions --------
+    t5 = time.time()
+    k3_err = k3_err_plain = k5_err = 0.0
+    k4_calls = k4_near = 0
+    for n in (1, 7809, 65536):
+        for n_feat in (30, 167, 300):
+            for level in (0, 5, 9):
+                nodes = 1 << level
+                xb, pos, g, h = level_case(n, n_feat, level, n + n_feat + level,
+                                           cuda)
+                hist = tr.level_histogram(xb, pos, g, h, nodes)
+                again = tr.level_histogram(xb, pos, g, h, nodes)
+                exact = tr.level_histogram_reference(xb, pos, g.double(),
+                                                     h.double(), nodes)
+                plain = tr.level_histogram_reference(xb, pos, g, h, nodes)
+                torch.cuda.synchronize()
+                if not torch.equal(hist, again):
+                    raise AssertionError(f"level_histogram n={n} F={n_feat} "
+                                         f"level {level}: two runs differ")
+                vmax = max(float(g.abs().max()), float(h.abs().max()))
+                err = (hist.double() - exact).abs()
+                if bool((err > 2.4e-7 * exact.abs() + 1e-9 * n * vmax).any()):
+                    raise AssertionError(f"level_histogram n={n} F={n_feat} "
+                                         f"level {level}: max |err| "
+                                         f"{float(err.max()):.3g}")
+                k3_err = max(k3_err, float(err.max()))
+                k3_err_plain = max(k3_err_plain, float((hist - plain).abs().max()))
+                for share, obl, min_child in ((1.0, False, 1.0), (0.5, False, 1.0),
+                                              (1.0, False, 4.0), (1.0, True, 1.0),
+                                              (0.5, True, 4.0)):
+                    mask = torch.from_numpy(rng.random(n_feat) < share)
+                    mask[-1] = True
+                    mask = mask.to(cuda)
+                    got = tr.best_splits(hist, mask, 1.0, min_child, obl)
+                    want = tr.best_splits_reference(hist, mask, 1.0, min_child, obl)
+                    k4_near += split_mismatches(tr, hist, mask, min_child, obl,
+                                                got, want)
+                    k4_calls += 1
+        for n_leaves in (64, 1024):
+            _, pos, g, h = level_case(n, 1, 0, n + n_leaves, cuda)
+            pos = torch.randint(0, n_leaves, (n,), dtype=torch.int32, device=cuda)
+            start = torch.randn(n, device=cuda)
+            p_k, p_again, p_64 = start.clone(), start.clone(), start.double()
+            leaf_k = tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1, p_k)
+            leaf_again = tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1, p_again)
+            leaf_64 = tr.leaf_values_reference(pos, g.double(), h.double(),
+                                               n_leaves, 1.0, 0.1, p_64)
+            torch.cuda.synchronize()
+            if not (torch.equal(leaf_k, leaf_again) and torch.equal(p_k, p_again)):
+                raise AssertionError(f"leaf_values n={n}: two runs differ")
+            leaf_err = (leaf_k.double() - leaf_64).abs()
+            pred_err = (p_k.double() - p_64).abs()
+            if bool((leaf_err > 5e-7 * leaf_64.abs() + 1e-9).any()) or bool(
+                    (pred_err > 1e-6 * (p_64.abs() + leaf_64[pos.long()].abs())
+                     + 1e-9).any()):
+                raise AssertionError(f"leaf_values n={n} L={n_leaves}: max |err| "
+                                     f"leaf {float(leaf_err.max()):.3g}, margins "
+                                     f"{float(pred_err.max()):.3g}")
+            k5_err = max(k5_err, float(leaf_err.max()), float(pred_err.max()))
+
+    timed = {}
+    every = torch.ones(TRAIN_F, dtype=torch.bool, device=cuda)
+    for n in TRAIN_ROWS:
+        for level in range(TRAIN_DEPTH):
+            nodes = 1 << level
+            xb, pos, g, h = level_case(n, TRAIN_F, level, level, cuda)
+            hist = tr.level_histogram(xb, pos, g, h, nodes)
+            keys = (pos.long()[:, None] * (TRAIN_F * 64)
+                    + torch.arange(TRAIN_F, device=cuda)[None, :] * 64
+                    + xb.long()).reshape(-1)
+            wg = g[:, None].expand(n, TRAIN_F).reshape(-1)
+            wh = h[:, None].expand(n, TRAIN_F).reshape(-1)
+            length = nodes * TRAIN_F * 64
+            timed[n, level] = {
+                "k3": device_ms(lambda: tr.level_histogram(xb, pos, g, h, nodes)),
+                "k3_plain": device_ms(lambda: tr.level_histogram_reference(
+                    xb, pos, g, h, nodes)),
+                "k3_library": event_ms(lambda: (
+                    torch.bincount(keys, weights=wg, minlength=length),
+                    torch.bincount(keys, weights=wh, minlength=length))),
+                "k3_bound": level_histogram_bound(n, TRAIN_F, nodes),
+                "k4": device_ms(lambda: tr.best_splits(hist, every, 1.0, 1.0, False)),
+                "k4_plain": device_ms(lambda: tr.best_splits_reference(
+                    hist, every, 1.0, 1.0, False)),
+                "k4_bound": best_splits_bound(nodes, TRAIN_F),
+            }
+        leaf_pos = torch.randint(0, 1 << TRAIN_DEPTH, (n,), dtype=torch.int32,
+                                 device=cuda)
+        margins = torch.zeros(n, device=cuda)
+        timed[n, "k5"] = {
+            "k5": device_ms(lambda: tr.leaf_values(leaf_pos, g, h, 1 << TRAIN_DEPTH,
+                                                   1.0, 0.1, margins)),
+            "k5_plain": device_ms(lambda: tr.leaf_values_reference(
+                leaf_pos, g, h, 1 << TRAIN_DEPTH, 1.0, 0.1, margins)),
+            "k5_bound": leaf_values_bound(n, 1 << TRAIN_DEPTH)}
+
+    def levels(n, key, field=None):
+        return [timed[n, lv][key][field] if field else timed[n, lv][key]
+                for lv in range(TRAIN_DEPTH)]
+
+    for n in TRAIN_ROWS:
+        print(f"[5 trainer kernels] n={n}, F={TRAIN_F}, levels 0-5 (ms): "
+              f"level_histogram {fmt(levels(n, 'k3'))}, plain "
+              f"{fmt(levels(n, 'k3_plain'))}, bincount x2 "
+              f"{fmt(levels(n, 'k3_library'))}, bound "
+              f"{fmt(levels(n, 'k3_bound', 'bound_ms'))}; best_splits "
+              f"{fmt(levels(n, 'k4'))}, plain {fmt(levels(n, 'k4_plain'))}, "
+              f"bound {fmt(levels(n, 'k4_bound', 'bound_ms'))}; leaf_values "
+              f"(64 leaves) {timed[n, 'k5']['k5']:.4f}, plain "
+              f"{timed[n, 'k5']['k5_plain']:.4f}, bound "
+              f"{timed[n, 'k5']['k5_bound']['bound_ms']:.6f}", flush=True)
+    print(f"[5 trainer kernels] 27 (n, F, level) cases: level_histogram max "
+          f"|err| {k3_err:.3g} against the exact sum (limit 2.4e-7 |sum| + "
+          f"1e-9 n max|v|), {k3_err_plain:.3g} against the plain f32 sum, "
+          f"two runs bit-identical; best_splits {k4_calls} calls equal to the "
+          f"plain version but {k4_near} counted near-tie nodes; leaf_values "
+          f"max |err| {k5_err:.3g} (limit 5e-7 |leaf|, 1e-6 of the margin "
+          f"terms), two runs bit-identical; {time.time() - t5:.1f} s on {card}",
+          flush=True)
+
+    # -- phase 6: training the screening model --------------------------------
+    smiles, labels = labelled_training_set()
+    for counter in (tr.level_histogram, tr.best_splits, tr.leaf_values):
+        counter.launches.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trained = ScreeningModel.train(smiles, labels, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    train_launches = {"forest_level_histogram": tr.level_histogram.launches.count,
+                      "forest_best_splits": tr.best_splits.launches.count,
+                      "forest_leaf_values": tr.leaf_values.launches.count}
+    want_launches = {"forest_level_histogram": N_TREES * TRAIN_DEPTH,
+                     "forest_best_splits": N_TREES * TRAIN_DEPTH,
+                     "forest_leaf_values": N_TREES}
+    if train_launches != want_launches:
+        raise AssertionError(f"ScreeningModel.train launches {train_launches}, "
+                             f"expected {want_launches}")
+    twice = ScreeningModel.train(smiles, labels, device="cuda")
+    for key in ("feat", "thr", "leaf"):
+        if not torch.equal(getattr(trained.ensemble, key),
+                           getattr(twice.ensemble, key)):
+            raise AssertionError(f"two cuda fits with one seed differ in {key}")
+    same_projection = all(np.array_equal(getattr(trained, k), getattr(twice, k))
+                          for k in ("scaler_mean", "scaler_scale", "pca_mean",
+                                    "pca_components"))
+
+    x_fp, bad = fingerprints(smiles, "morgan", 2048)
+    if bad:
+        raise AssertionError(f"labelled set holds invalid SMILES {bad[:5]}")
+    x_dev = torch.from_numpy(x_fp).to(cuda)
+    z = ((x_dev - torch.from_numpy(trained.scaler_mean).to(cuda))
+         / torch.from_numpy(trained.scaler_scale).to(cuda)
+         - torch.from_numpy(trained.pca_mean).to(cuda)
+         ) @ torch.from_numpy(trained.pca_components).to(cuda).T
+    proba = raw_predict(trained.ensemble, z.contiguous(), apply_sigmoid=True)
+    train_acc = float(((proba > 0.5).cpu().numpy() == labels).mean())
+    majority = max(labels.mean(), 1 - labels.mean())
+    if not train_acc > majority:
+        raise AssertionError(f"training accuracy {train_acc:.4f} is not above "
+                             f"the majority share {majority:.4f}")
+
+    z_np = z.cpu().numpy()
+    kw = dict(n_estimators=N_TREES, learning_rate=0.1, max_depth=TRAIN_DEPTH,
+              subsample=1.0, seed=42)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    on_cuda = GBDTClassifier(device="cuda", **kw).fit(z_np, labels)
+    cuda_fit_s = time.time() - t0
+    t0 = time.time()
+    on_cpu = GBDTClassifier(device="cpu", **kw).fit(z_np, labels)
+    cpu_fit_s = time.time() - t0
+    fit_kw = dict(task="cls", lam=1.0, min_child=1.0, learning_rate=0.1,
+                  base_score=on_cpu.ensemble_.base_score, tol=1e-5)
+    cuda_state = on_cuda.ensemble_.to_state()
+    cmp = compare_gbdt_fits(z_np, labels, on_cpu.ensemble_.to_state(),
+                            cuda_state, **fit_kw)
+    audit = compare_gbdt_fits(z_np, labels, None, cuda_state, **fit_kw)
+    n_nodes = N_TREES * ((1 << TRAIN_DEPTH) - 1)
+    if not (cmp.ok and audit.ok) or audit.near_ties > 0.01 * n_nodes or \
+            audit.max_leaf_diff > 1e-4:
+        raise AssertionError(f"GBDTClassifier cuda vs cpu: {cmp}; along the "
+                             f"cuda fit's own splits: {audit}")
+
+    smiles6 = synthetic_smiles(CHUNK + 500, seed=3)
+    smiles6.insert(7, INVALID[0])
+    mols6 = [(s, f"T{i:06d}") for i, s in enumerate(smiles6)]
+    with tempfile.TemporaryDirectory() as tmp:
+        gpu_csv = os.path.join(tmp, "cuda.csv")
+        stats6 = screen(trained, iter(mols6), out_csv=gpu_csv, chunk_size=8192,
+                        device="cuda")
+        rows6 = read_csv(gpu_csv)
+        # a trained model's thresholds are quantile edges, i.e. the z of
+        # training molecules, and the stream repeats molecules of the same
+        # generator: many rows sit on a threshold, so their share is not capped
+        mism6, near6, worst6 = screen_against_cpu(
+            trained.to("cpu"), trained.ensemble.to_state(), mols6, gpu_csv,
+            os.path.join(tmp, "cpu.csv"), max_near_share=None)
+    if len(rows6) != len(mols6) or rows6[7][2] != "invalid":
+        raise AssertionError("screen() with the trained model lost rows")
+    print(f"[6 train] ScreeningModel.train(cuda) on {len(smiles)} molecules "
+          f"(Morgan 2048, PCA 30, {N_TREES} trees of depth {TRAIN_DEPTH}, "
+          f"subsample 0.8): {train_s:.3f} s wall | launches {train_launches} | "
+          f"a second fit grew the same trees (scaler and PCA identical: "
+          f"{same_projection}) | training accuracy {train_acc:.4f}, majority "
+          f"share {majority:.4f} | GBDTClassifier(subsample=1) on z: cuda "
+          f"{cuda_fit_s:.3f} s, cpu {cpu_fit_s:.3f} s wall; against the cpu "
+          f"fit: {cmp.trees_compared} trees equal ({cmp.equal} nodes equal, "
+          f"{cmp.equivalent} equivalent), first near tie at "
+          f"{cmp.first_near_tie}, max |dleaf| {cmp.max_leaf_diff:.3g}; along "
+          f"the cuda fit's own splits, all {audit.trees_compared} trees: "
+          f"{audit.equal} nodes equal to the plain best split, "
+          f"{audit.equivalent} equivalent, {audit.near_ties} near ties (limit "
+          f"1%), max |dleaf| {audit.max_leaf_diff:.3g} (limit 1e-4) | "
+          f"screen(cuda) with "
+          f"the trained model {stats6.mol_per_s:.1f} mol/s, first {PREFIX} vs "
+          f"cpu: {len(mism6)} rows differ, all near ties ({near6} near-tie "
+          f"rows), max |dProbability| {worst6:.3g}", flush=True)
 
     kernels = [
         {"name": "packed_project", "route": "cuda",
@@ -281,6 +594,44 @@ def main() -> int:
          "ms_fingerprints": k2_fp_ms, "plain_ms_fingerprints": k2_fp_plain_ms,
          "bound_share_fingerprints": k2_bound["bound_ms"] / k2_fp_ms},
     ]
+    # the trainer's kernels at n = 7,809, F = 30: K3 and K4 at level 5 (the
+    # widest level of depth 6), K5 over 64 leaves; every level in *_levels
+    head, last = TRAIN_ROWS[0], TRAIN_DEPTH - 1
+    train_kernels = (
+        ("forest_level_histogram", "k3", "bbbp_tpu/ops/forest_tpu.py:154",
+         k3_err, "torch.bincount(keys, weights=g) and (keys, weights=h), keys "
+         "precomputed; timed between events, as it synchronises"),
+        ("forest_best_splits", "k4", "bbbp_tpu/ops/forest_tpu.py:125", 0.0, None),
+        ("forest_leaf_values", "k5", "bbbp_tpu/ops/forest_tpu.py:340", k5_err,
+         None))
+    for name, key, replaces, err, library in train_kernels:
+        t = timed[head, "k5"] if key == "k5" else timed[head, last]
+        entry = {"name": name, "route": "cuda",
+                 "source": "bbbp_tpu_torch/csrc/forest_train.cu",
+                 "replaces": replaces, "launches": train_launches[name],
+                 "max_abs_err": err, "ms": t[key], "plain_ms": t[key + "_plain"],
+                 "bound_ms": t[key + "_bound"]["bound_ms"],
+                 "bound_by": t[key + "_bound"]["bound_by"],
+                 "bound_share": t[key + "_bound"]["bound_ms"] / t[key],
+                 "library_ms": t.get(key + "_library")}
+        if library:
+            entry["library_call"] = library
+        if key == "k5":
+            entry["shape"] = f"n={head}, 64 leaves"
+            entry["ms_n65536"] = timed[65536, "k5"]["k5"]
+            entry["plain_ms_n65536"] = timed[65536, "k5"]["k5_plain"]
+        else:
+            entry["shape"] = f"n={head}, F={TRAIN_F}, level {last}"
+            for n in TRAIN_ROWS:
+                suffix = "_levels" if n == head else f"_levels_n{n}"
+                entry["ms" + suffix] = levels(n, key)
+                entry["plain_ms" + suffix] = levels(n, key + "_plain")
+                entry["bound_ms" + suffix] = levels(n, key + "_bound", "bound_ms")
+                if library:
+                    entry["library_ms" + suffix] = levels(n, key + "_library")
+        if key == "k4":
+            entry["near_tie_nodes"] = k4_near
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {nvidia_smi()}")
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,7 @@ def profile(table_path: str):
     from bbbp_tpu_torch.ops.forest import raw_predict
     from bbbp_tpu_torch.pipelines.screen import ScreeningModel, screen
     from bbbp_tpu_torch.testing import full_width_screening_state
+    from bbbp_tpu_torch.timing import profile_summary, profiler_table
 
     model = ScreeningModel.from_state(full_width_screening_state(0)).to("cuda")
     mols = [(s, f"M{i:07d}") for i, s in
@@ -60,34 +61,17 @@ def profile(table_path: str):
                     "dense_forest_predict": raw_predict.launches.count}
         rates = [run().mol_per_s for _ in range(3)]
 
-    by_name, spans = {}, []
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = ev.name
-        key = ("dense_forest_predict" if "dense_forest" in name else
-               "packed_project" if "packed_project" in name else
-               "H2D" if "HtoD" in name else "D2H" if "DtoH" in name else name)
-        entry = by_name.setdefault(key, {"ms": 0.0, "count": 0})
-        entry["ms"] += ev.time_range.elapsed_us() / 1e3
-        entry["count"] += 1
-        spans.append((ev.time_range.start, ev.time_range.end))
-    sort_key = ("self_device_time_total"
-                if hasattr(prof.key_averages()[0], "self_device_time_total")
-                else "self_cuda_time_total")
-    with open(table_path, "w") as f:
-        f.write(prof.key_averages().table(sort_by=sort_key, row_limit=20))
-    spans.sort()
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in spans:                     # union of device intervals
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
+    def classify(name):
+        return ("dense_forest_predict" if "dense_forest" in name else
+                "packed_project" if "packed_project" in name else
+                "H2D" if "HtoD" in name else "D2H" if "DtoH" in name else name)
+
+    summary = profile_summary(prof, classify)
+    profiler_table(prof, table_path)
     return {"molecules": PROFILE_N, "chunk": CHUNK, "dispatchers": 2,
             "csv": True, "wall_s": wall, "featurize_s": stats.featurize_s,
             "mol_per_s_profiled": stats.mol_per_s, "launches": launches,
-            "device": by_name, "device_busy_ms": busy_us / 1e3,
-            "busy_share": busy_us / 1e6 / wall,
+            **summary, "busy_share": summary["device_busy_ms"] / 1e3 / wall,
             "mol_per_s_3_runs_unprofiled": rates}
 
 
