@@ -75,7 +75,7 @@ def _run(cmd: List[str], name: str) -> None:
 def _build(name: str, sources: List[str], cmd: List[str],
            make: Callable[[str], None]) -> str:
     """``make(tmp)`` builds the library into ``tmp`` unless ``out`` for this
-    key (the sources and ``cmd``) exists."""
+    key (the sources and ``cmd``, every command ``make`` runs) exists."""
     h = hashlib.sha256(" ".join(cmd).encode())
     h.update(platform.machine().encode())
     for src in sources:
@@ -134,8 +134,8 @@ def build_kernels() -> str:
                 if os.path.exists(obj):
                     os.remove(obj)
 
-    return _build("kernels", sources, [nvcc] + COMPILE_FLAGS + ["-c"] + sources,
-                  make)
+    key = [nvcc] + COMPILE_FLAGS + ["-c"] + sources + ["&&"] + NVCC_FLAGS
+    return _build("kernels", sources, key, make)
 
 
 def build_chem() -> str:
@@ -172,7 +172,7 @@ def kernels_lib() -> ctypes.CDLL:
     lib.bbbp_forest_level_histogram.argtypes = [
         _P, _I, _I,            # xb [n, F] uint8
         _P, _P, _P, _I,        # pos [n] int32, g, h [n] f32, n_nodes
-        _P, _P,                # scratch: acc [nodes·F·128] int64, max bits [2]
+        _P, _P,                # bounds [2] f32, scratch acc [nodes·F·128] int64
         _P, _P,                # out [nodes, F, 64, 2] f32, stream
     ]
     lib.bbbp_forest_best_splits.restype = _I
@@ -185,7 +185,7 @@ def kernels_lib() -> ctypes.CDLL:
     lib.bbbp_forest_leaf_values.argtypes = [
         _P, _I, _P, _P,        # pos [n] int32, g, h [n] f32
         _I, _F, _F,            # n_leaves, lambda, scale
-        _P, _P,                # scratch: acc [2·n_leaves] int64, max bits [2]
+        _P, _P,                # bounds [2] f32, scratch acc [2·n_leaves] int64
         _P, _P, _P,            # leaf [n_leaves] f32, preds [n] f32 (in place), stream
     ]
     return lib

@@ -18,9 +18,11 @@
 // Determinism. Two fits with one seed must grow the same trees, so K3 and
 // K5 give the same sums on every run: each value is quantised to a 64-bit
 // integer, q = rint(v * 2^e), and integer adds are associative, so the
-// order in which atomics land does not change the sum. e is chosen per call
-// from max|v| over the rows (an exact, order-free reduction), so that
-// n * max|v| * 2^e < 2^62 and no sum can overflow. The result is the exact
+// order in which atomics land does not change the sum. e is chosen from
+// max|v| over the rows (an exact, order-free reduction), so that
+// n * max|v| * 2^e < 2^62 and no sum can overflow. The caller passes
+// (max|g|, max|h|) in device memory: g and h do not change within a tree, so
+// a fit takes the maxima once a tree and hands them to every K3 and K5 call. The result is the exact
 // sum of the quantised values rounded once to f32: its error against the
 // exact sum is at most one f32 rounding plus n * 2^-e / 2, which is below
 // 2^-62 * n * max|v| * n. The plain versions sum in f32 in row order, so the
@@ -33,7 +35,7 @@
 // histogram once (nodes * F * 512 B); at the main path's shapes (n = 7,809,
 // F = 30, levels 0-5) that is well under a microsecond at 3.35 TB/s, and
 // the kernel is bound by its shared-memory atomics (two 64-bit adds per row
-// and feature) and by the launch chain (memset, max, accumulate, finish).
+// and feature) and by the launch chain (memset, accumulate, finish).
 // K4 and K5 are small: one pass over the histogram, one over the rows.
 //
 // K3 design: a block owns a tile of 64 (node, feature) pairs, min(F, 32)
@@ -72,30 +74,8 @@ typedef unsigned long long u64;
 
 // ---- fixed point ------------------------------------------------------------
 
-// max |g| and |h| over the rows, as f32 bits (non-negative floats order as
-// their bit patterns), into out[0], out[1] (zeroed by the caller)
-__global__ void max_abs_kernel(const float* __restrict__ g,
-                               const float* __restrict__ h, int n,
-                               unsigned* __restrict__ out) {
-  unsigned mg = 0, mh = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    mg = max(mg, __float_as_uint(fabsf(g[i])));
-    mh = max(mh, __float_as_uint(fabsf(h[i])));
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    mg = max(mg, __shfl_xor_sync(0xffffffffu, mg, o));
-    mh = max(mh, __shfl_xor_sync(0xffffffffu, mh, o));
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMax(out, mg);
-    atomicMax(out + 1, mh);
-  }
-}
-
 // 2^e with n * max * 2^e < 2^62
-__device__ __forceinline__ double fixed_scale(unsigned max_bits, int n) {
-  const float m = __uint_as_float(max_bits);
+__device__ __forceinline__ double fixed_scale(float m, int n) {
   if (!(m > 0.f) || !isfinite(m)) return 1.0;
   // bound < 2^(ilogb(bound) + 1); bound >= 2^-149, so 2^(62 - e) is finite
   const int e = ilogb(static_cast<double>(m) * static_cast<double>(n)) + 1;
@@ -122,7 +102,7 @@ level_hist_kernel(const uint8_t* __restrict__ xb, int n, int F,
                   const int* __restrict__ pos, const float* __restrict__ g,
                   const float* __restrict__ h, int n_nodes, int tile_nodes,
                   int tile_feats, int rows_per_split,
-                  const unsigned* __restrict__ max_bits,
+                  const float* __restrict__ bounds,
                   u64* __restrict__ acc) {
   extern __shared__ u64 tile[];             // [pair][bin][g, h]
   const int f_tiles = (F + tile_feats - 1) / tile_feats;
@@ -134,8 +114,8 @@ level_hist_kernel(const uint8_t* __restrict__ xb, int n, int F,
   for (int i = threadIdx.x; i < entries; i += blockDim.x) tile[i] = 0;
   __syncthreads();
 
-  const double sg = fixed_scale(max_bits[0], n);
-  const double sh = fixed_scale(max_bits[1], n);
+  const double sg = fixed_scale(bounds[0], n);
+  const double sh = fixed_scale(bounds[1], n);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -185,10 +165,10 @@ level_hist_kernel(const uint8_t* __restrict__ xb, int n, int F,
 
 __global__ void hist_finish_kernel(const long long* __restrict__ acc,
                                    size_t total, int n,
-                                   const unsigned* __restrict__ max_bits,
+                                   const float* __restrict__ bounds,
                                    float* __restrict__ out) {
-  const double sg = fixed_scale(max_bits[0], n);
-  const double sh = fixed_scale(max_bits[1], n);
+  const double sg = fixed_scale(bounds[0], n);
+  const double sh = fixed_scale(bounds[1], n);
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x)
     out[i] = dequantise(acc[i], (i & 1) ? sh : sg);
@@ -359,13 +339,13 @@ best_splits_oblivious_kernel(const float2* __restrict__ hist, int n_nodes,
 __global__ void leaf_sums_kernel(const int* __restrict__ pos, int n,
                                  const float* __restrict__ g,
                                  const float* __restrict__ h, int n_leaves,
-                                 const unsigned* __restrict__ max_bits,
+                                 const float* __restrict__ bounds,
                                  u64* __restrict__ acc) {
   extern __shared__ u64 sums[];             // [leaf][g, h]
   for (int i = threadIdx.x; i < 2 * n_leaves; i += blockDim.x) sums[i] = 0;
   __syncthreads();
-  const double sg = fixed_scale(max_bits[0], n);
-  const double sh = fixed_scale(max_bits[1], n);
+  const double sg = fixed_scale(bounds[0], n);
+  const double sh = fixed_scale(bounds[1], n);
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += gridDim.x * blockDim.x) {
     const int p = pos[r];
@@ -382,12 +362,12 @@ __global__ void leaf_sums_kernel(const int* __restrict__ pos, int n,
 __global__ void leaf_apply_kernel(const int* __restrict__ pos, int n,
                                   int n_leaves, float lam, float scale,
                                   const long long* __restrict__ acc,
-                                  const unsigned* __restrict__ max_bits,
+                                  const float* __restrict__ bounds,
                                   float* __restrict__ leaf,
                                   float* __restrict__ preds) {
   extern __shared__ float s_leaf[];
-  const double sg = fixed_scale(max_bits[0], n);
-  const double sh = fixed_scale(max_bits[1], n);
+  const double sg = fixed_scale(bounds[0], n);
+  const double sh = fixed_scale(bounds[1], n);
   for (int i = threadIdx.x; i < n_leaves; i += blockDim.x) {
     const float gs = dequantise(acc[2 * i], sg);
     const float hs = dequantise(acc[2 * i + 1], sh);
@@ -422,20 +402,18 @@ int leaf_smem_raised = 0;
 extern "C" int bbbp_forest_level_histogram(const void* xb, int n, int F,
                                            const void* pos, const void* g,
                                            const void* h, int n_nodes,
-                                           void* acc, void* max_bits,
+                                           const void* bounds, void* acc,
                                            void* out, void* stream) {
   if (n < 0 || F <= 0 || n_nodes <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t total = static_cast<size_t>(n_nodes) * F * kBins * 2;
   cudaError_t err = cudaMemsetAsync(acc, 0, total * sizeof(u64), s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(max_bits, 0, 2 * sizeof(unsigned), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  unsigned* mb = static_cast<unsigned*>(max_bits);
+  const float* mb = static_cast<const float*>(bounds);
   if (n > 0) {
     const float* gp = static_cast<const float*>(g);
     const float* hp = static_cast<const float*>(h);
-    max_abs_kernel<<<blocks_for(n, 256), 256, 0, s>>>(gp, hp, n, mb);
     const int tile_feats = F < kTileFeats ? F : kTileFeats;
     const int tile_nodes = kTilePairs / tile_feats;
     const int tiles = ((n_nodes + tile_nodes - 1) / tile_nodes) *
@@ -486,20 +464,19 @@ extern "C" int bbbp_forest_best_splits(const void* hist, int n_nodes, int F,
 
 extern "C" int bbbp_forest_leaf_values(const void* pos, int n, const void* g,
                                        const void* h, int n_leaves, float lam,
-                                       float scale, void* acc, void* max_bits,
-                                       void* leaf, void* preds, void* stream) {
+                                       float scale, const void* bounds,
+                                       void* acc, void* leaf, void* preds,
+                                       void* stream) {
   if (n < 0 || n_leaves <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(acc, 0, 2 * n_leaves * sizeof(u64), s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(max_bits, 0, 2 * sizeof(unsigned), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int* pp = static_cast<const int*>(pos);
-  unsigned* mb = static_cast<unsigned*>(max_bits);
+  const float* mb = static_cast<const float*>(bounds);
   const int blocks = blocks_for(n, 256) < 264 ? blocks_for(n, 256) : 264;
   if (n > 0) {
     const float* gp = static_cast<const float*>(g);
     const float* hp = static_cast<const float*>(h);
-    max_abs_kernel<<<blocks_for(n, 256), 256, 0, s>>>(gp, hp, n, mb);
     const int smem = 2 * n_leaves * static_cast<int>(sizeof(u64));
     err = shared_limit(reinterpret_cast<const void*>(leaf_sums_kernel),
                        &leaf_smem_raised, smem);

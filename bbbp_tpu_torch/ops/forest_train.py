@@ -204,6 +204,23 @@ def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+def gradient_bounds(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """f32 [2] (max |g|, max |h|) on the device of ``g``: the range K3 and
+    K5 quantise the rows into. g and h do not change within a tree, so a
+    fit takes it once a tree and passes it to every K3 and K5 call."""
+    if g.numel() == 0:
+        return torch.zeros(2, dtype=torch.float32, device=g.device)
+    return torch.stack((g.abs().amax(), h.abs().amax()))
+
+
+def _check_bounds(bounds: Optional[torch.Tensor], g: torch.Tensor,
+                  h: torch.Tensor) -> torch.Tensor:
+    if bounds is None:
+        return gradient_bounds(g, h)
+    _check_rows("bounds", bounds, torch.float32, 2, g.device)
+    return bounds
+
+
 def _kernel_device(t: torch.Tensor, kernel: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); any other device raises."""
@@ -215,13 +232,15 @@ def _kernel_device(t: torch.Tensor, kernel: str) -> bool:
 
 
 def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
-                    h: torch.Tensor, n_nodes: int) -> torch.Tensor:
+                    h: torch.Tensor, n_nodes: int,
+                    bounds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3. xb uint8 [n, F] (bins < 64), pos int32 [n] in [0, n_nodes),
     g, h f32 [n] → hist f32 [n_nodes, F, 64, 2].
 
     On a CUDA tensor the kernel sums in 64-bit fixed point, so the result
-    is the same from run to run whatever order the rows arrive in; on a CPU
-    tensor ``level_histogram_reference`` runs."""
+    is the same from run to run whatever order the rows arrive in;
+    ``bounds`` is ``gradient_bounds(g, h)``, taken here when not given. On a
+    CPU tensor ``level_histogram_reference`` runs."""
     if xb.dtype != torch.uint8 or xb.dim() != 2:
         raise TypeError(f"xb must be a 2-D uint8 tensor, got {xb.dtype} "
                         f"{tuple(xb.shape)}")
@@ -239,12 +258,12 @@ def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
                       device=xb.device)
     if out.numel() == 0:
         return out
+    bounds = _check_bounds(bounds, g, h)
     acc = torch.empty(out.numel(), dtype=torch.int64, device=xb.device)
-    max_bits = torch.empty(2, dtype=torch.int32, device=xb.device)
     with torch.cuda.device(xb.device):
         rc = kernels_lib().bbbp_forest_level_histogram(
             xb.data_ptr(), n, n_feat, pos.data_ptr(), g.data_ptr(),
-            h.data_ptr(), n_nodes, acc.data_ptr(), max_bits.data_ptr(),
+            h.data_ptr(), n_nodes, bounds.data_ptr(), acc.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_histogram")
     level_histogram.launches.add()
@@ -289,11 +308,12 @@ def best_splits(hist: torch.Tensor, col_mask: torch.Tensor, lam: float,
 
 
 def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
-                n_leaves: int, lam: float, scale: float,
-                preds: torch.Tensor) -> torch.Tensor:
+                n_leaves: int, lam: float, scale: float, preds: torch.Tensor,
+                bounds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K5. pos int32 [n] in [0, n_leaves), g, h f32 [n], preds f32 [n]
     (updated in place, as the reference's scan carry is replaced) →
-    leaf f32 [n_leaves]. The kernel sums in 64-bit fixed point, as K3."""
+    leaf f32 [n_leaves]. The kernel sums in 64-bit fixed point, as K3, with
+    the same ``bounds``."""
     if pos.dim() != 1:
         raise TypeError(f"pos must be 1-D, got {tuple(pos.shape)}")
     n = pos.shape[0]
@@ -305,13 +325,13 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         raise ValueError(f"n_leaves must be in [1, {1 << MAX_DEPTH}], got {n_leaves}")
     if not _kernel_device(pos, "forest_leaf_values"):
         return leaf_values_reference(pos, g, h, n_leaves, lam, scale, preds)
+    bounds = _check_bounds(bounds, g, h)
     leaf = torch.empty(n_leaves, dtype=torch.float32, device=pos.device)
     acc = torch.empty(2 * n_leaves, dtype=torch.int64, device=pos.device)
-    max_bits = torch.empty(2, dtype=torch.int32, device=pos.device)
     with torch.cuda.device(pos.device):
         rc = kernels_lib().bbbp_forest_leaf_values(
             pos.data_ptr(), n, g.data_ptr(), h.data_ptr(), n_leaves,
-            float(lam), float(scale), acc.data_ptr(), max_bits.data_ptr(),
+            float(lam), float(scale), bounds.data_ptr(), acc.data_ptr(),
             leaf.data_ptr(), preds.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_leaf_values")
@@ -388,18 +408,19 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
         col_mask = torch.rand(n_feat, generator=gen, device=dev) < colsample
         # at least one feature: the first drawn, else feature 0
         col_mask = col_mask | (feat_ids == col_mask.to(torch.uint8).argmax())
+        bounds = gradient_bounds(g, h) if dev.type == "cuda" else None
 
         pos = torch.zeros(n, dtype=torch.int32, device=dev)
         for level in range(depth):
             nodes, off = 1 << level, (1 << level) - 1
-            hist = level_histogram(xb, pos, g, h, nodes)
+            hist = level_histogram(xb, pos, g, h, nodes, bounds)
             f_l, b_l, _ = best_splits(hist, col_mask, lam, min_child, oblivious)
             feats[t, off:off + nodes] = f_l
             bins[t, off:off + nodes] = b_l
             row_f = f_l[pos].long()
             xf = xb.gather(1, row_f[:, None])[:, 0]
             pos = 2 * pos + (xf.int() > b_l[pos]).int()
-        leaves[t] = leaf_values(pos, g, h, n_leaves, lam, scale, preds)
+        leaves[t] = leaf_values(pos, g, h, n_leaves, lam, scale, preds, bounds)
 
     thrs = edge_vals[feats.long(), bins]
     return preds, feats, thrs, leaves

@@ -81,8 +81,7 @@ def profile(table_path: str):
 
     def classify(name):
         for kernel in ("level_hist_kernel", "hist_finish_kernel",
-                       "max_abs_kernel", "best_splits", "leaf_sums_kernel",
-                       "leaf_apply_kernel"):
+                       "best_splits", "leaf_sums_kernel", "leaf_apply_kernel"):
             if kernel in name:
                 return kernel
         return "Memset" if "Memset" in name else "torch ops"
