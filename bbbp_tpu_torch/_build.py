@@ -188,6 +188,19 @@ def kernels_lib() -> ctypes.CDLL:
         _P, _P,                # bounds [2] f32, scratch acc [2·n_leaves] int64
         _P, _P, _P,            # leaf [n_leaves] f32, preds [n] f32 (in place), stream
     ]
+    lib.bbbp_tanimoto_topk.restype = _I
+    lib.bbbp_tanimoto_topk.argtypes = [
+        _P, _I, _P, _I, _I,    # q [nq, words], r [nr, words] packed bits
+        _I, _P, _P,            # k, scratch row sums sq [nq], sr [nr] f32
+        _P, _P, _P,            # sim [nq, k] f32, idx [nq, k] int64, stream
+    ]
+    for gram in (lib.bbbp_tanimoto_gram, lib.bbbp_minmax_gram):
+        gram.restype = _I
+        gram.argtypes = [
+            _P, _I, _P, _I, _I,    # q [nq, words], r [nr, words] uint32
+            _P, _P, _P,            # w f32 or null, scratch sq [nq], sr [nr]
+            _P, _P,                # out [nq, nr] f32, stream
+        ]
     return lib
 
 

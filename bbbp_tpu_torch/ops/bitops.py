@@ -23,13 +23,28 @@ MAX_BITS = 65_536                 # the kernel's bit indices are uint16
 
 
 def pack_bits(dense: np.ndarray) -> np.ndarray:
-    """[N, n_bits] {0,1} float/int → [N, n_bits/32] uint32 (little-endian bits)."""
+    """[N, n_bits] {0,1} float/int → [N, ceil(n_bits/32)] uint32
+    (little-endian bits). A width that is no multiple of 32 (MACCS has 167
+    bits) is padded with zero bits to the next one."""
     n, d = dense.shape
-    if d % 32 != 0:
-        raise ValueError(f"bit width must be a multiple of 32, got {d}")
     b = (np.asarray(dense) > 0.5).astype(np.uint8)
+    if d % 32 != 0:
+        b = np.pad(b, ((0, 0), (0, -d % 32)))
+        d = b.shape[1]
     packed = np.packbits(b.reshape(n, d // 8, 8)[:, :, ::-1], axis=-1)
     return np.ascontiguousarray(packed.reshape(n, d // 8)).view(np.uint32)
+
+
+def pack_bits_tensor(dense: torch.Tensor) -> torch.Tensor:
+    """``pack_bits`` with torch ops, on the device of ``dense``: [N, n_bits]
+    {0,1} → [N, ceil(n_bits/32)] int32 words, pad bits zero."""
+    n, d = dense.shape
+    bits = (dense > 0.5).to(torch.int64)
+    if d % 32 != 0:
+        bits = torch.nn.functional.pad(bits, (0, -d % 32))
+    shifts = torch.arange(32, dtype=torch.int64, device=dense.device)
+    words = (bits.view(n, -1, 32) << shifts).sum(dim=-1)     # in [0, 2^32)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
 def project_weights(scaler_mean: np.ndarray, scaler_scale: np.ndarray,

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from bbbp_tpu_torch.data.zinc import chunked, iter_smi_dir, iter_smi_file
-from bbbp_tpu_torch.native.bindings import fingerprints, fingerprints_packed
+from bbbp_tpu_torch.chem.featurize import FP_KINDS, fingerprints
+from bbbp_tpu_torch.native.bindings import fingerprints_packed
 from bbbp_tpu_torch.ops.bitops import packed_project, project_weights
 from bbbp_tpu_torch.ops.forest import DenseTreeEnsemble, raw_predict
 from bbbp_tpu_torch.ops.forest_train import GBDTClassifier, resolve_device
@@ -43,7 +44,6 @@ from bbbp_tpu_torch.ops.pca import PCA
 from bbbp_tpu_torch.ops.scaler import StandardScaler
 
 PACKED_KINDS = ("morgan", "rdkit")
-DENSE_KINDS = ("maccs",)
 
 
 @dataclass
@@ -87,10 +87,9 @@ class ScreeningModel:
         (300 trees of depth 6, lr 0.1, subsample 0.8, 64 quantile bins), the
         fits on ``device``. Molecules that fail to parse are left out."""
         device = resolve_device(device)
-        x, bad = fingerprints(smiles, fp_kind, n_bits, threads=workers or 0)
-        ok = np.ones(len(smiles), dtype=bool)
-        ok[bad] = False
-        xt = torch.from_numpy(x[ok]).to(device)
+        fp = fingerprints(smiles, fp_kind, n_bits, workers=workers)
+        ok = fp.ok_mask
+        xt = torch.from_numpy(fp.features[ok]).to(device)
         scaler = StandardScaler().fit(xt)
         xs = scaler.transform(xt)
         pca = PCA(pca_dim).fit(xs)
@@ -137,8 +136,8 @@ class ScreeningModel:
 
 
 def _make_device_fn(model: ScreeningModel) -> Callable:
-    """Dense path (maccs): standardize → PCA as a plain matmul → forest
-    kernel with the sigmoid in its epilogue."""
+    """Dense path (every kind but morgan and rdkit): standardize → PCA as a
+    plain matmul → forest kernel with the sigmoid in its epilogue."""
     def dev(a):
         return torch.as_tensor(a, dtype=torch.float32, device=model.device)
 
@@ -165,18 +164,19 @@ def _make_packed_device_fn(model: ScreeningModel) -> Callable:
 
 
 def _featurizer(model: ScreeningModel, workers: Optional[int]):
-    """(packed?, fn(smiles) → (features, bad indices)) for the model's kind."""
-    threads = workers or 0
+    """(packed?, fn(smiles) → (features, bad indices)) for the model's
+    kind: packed words from C++ for morgan and rdkit, dense rows from C++
+    for maccs and from the Python featurizer for the other kinds."""
     if model.fp_kind in PACKED_KINDS:
         return True, lambda smiles: fingerprints_packed(
-            smiles, model.fp_kind, model.n_bits, threads=threads)
-    if model.fp_kind in DENSE_KINDS:
-        return False, lambda smiles: fingerprints(
-            smiles, model.fp_kind, model.n_bits, threads=threads)
-    raise NotImplementedError(
-        f"fingerprint kind {model.fp_kind!r} needs the Python featurizer, "
-        "which the port has not carried over yet (ROADMAP.md, queue 1: "
-        "'Featurizer kinds outside the C++ library')")
+            smiles, model.fp_kind, model.n_bits, threads=workers or 0)
+    if model.fp_kind not in FP_KINDS:
+        raise ValueError(f"unknown fingerprint kind {model.fp_kind!r}")
+
+    def dense(smiles):
+        fp = fingerprints(smiles, model.fp_kind, model.n_bits, workers=workers)
+        return fp.features, fp.bad_indices
+    return False, dense
 
 
 class ScreenBackendError(RuntimeError):

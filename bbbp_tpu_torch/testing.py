@@ -7,7 +7,14 @@ their real shapes and to compare two forests.
 - ``labelled_training_set``: molecules and labels at B3DB classification's
   size, made from a seed;
 - ``near_tie_rows`` and ``compare_gbdt_fits``: comparisons of two
-  implementations that sum in different orders.
+  implementations that sum in different orders;
+- ``tanimoto_tie_case`` and ``count_case``: fingerprints with many equal
+  rows (ties at the k-th place of a top-k search) and zero rows, and count
+  vectors above the clip;
+- ``regression_molecules``: molecules and a target at B3DB regression's
+  size, made from a seed;
+- ``regression_legs``: the regression stack's three chemistry-kernel legs,
+  driven fold by fold as ``bbbp_tpu/train/regression.py`` drives them.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 N_TREES, DEPTH, PCA_DIM, N_BITS = 300, 6, 30, 2048
 INF_SHARE = 0.05
 B3DB_CLASSIFICATION_SIZE = 7809
+B3DB_REGRESSION_SIZE = 1058
 POSITIVE_SHARE = 2 / 3
 
 
@@ -243,4 +251,98 @@ def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
         out.trees_compared += 1
         leaf = torch.tensor(follow["leaf"][t])
         preds = preds.double().add_(leaf[pos.long()].double(), alpha=lr32).float()
+    return out
+
+
+def tanimoto_tie_case(seed: int, nq: int, nr: int, d: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """0/1 f32 (queries [nq, d], references [nr, d]). Rows are drawn from 12
+    prototypes, so many reference rows are equal and most queries have
+    several references tied at the k-th place; 2% of the query bits are
+    flipped; where the sizes allow, two rows on each side are all zero."""
+    rng = np.random.default_rng(seed)
+    protos = (rng.random((12, d)) < 0.3).astype(np.float32)
+    r = protos[rng.integers(0, len(protos), nr)]
+    q = protos[rng.integers(0, len(protos), nq)]
+    q = np.where(rng.random(q.shape) < 0.02, 1 - q, q).astype(np.float32)
+    if nr > 4:
+        r[[1, nr // 2]] = 0.0
+    if nq > 4:
+        q[[0, nq - 1]] = 0.0
+    return q, r
+
+
+def count_case(seed: int, n: int, d: int, high: int = 6) -> np.ndarray:
+    """f32 [n, d] integer counts in [0, high), 60% of them zero, row 2 all
+    zero (where n > 2) and one count of 40."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, high, (n, d)).astype(np.float32)
+    c[rng.random((n, d)) < 0.6] = 0.0
+    if n > 2:
+        c[2] = 0.0
+    c[-1, 0] = 40.0
+    return c
+
+
+def regression_molecules(n: int = B3DB_REGRESSION_SIZE, seed: int = 1
+                         ) -> Tuple[List[str], np.ndarray]:
+    """``n`` ``synthetic_smiles`` of another seed than the labelled set's
+    (B3DB regression has 1,058 molecules) and an f32 target: a seeded random
+    linear score of the MACCS bits plus N(0, 0.3²) noise, standardized."""
+    from bbbp_tpu_torch.data.zinc import synthetic_smiles
+    from bbbp_tpu_torch.native.bindings import fingerprints
+
+    smiles = synthetic_smiles(n, seed=seed)
+    x, _ = fingerprints(smiles, "maccs")
+    rng = np.random.default_rng(seed)
+    score = x.astype(np.float64) @ rng.normal(size=x.shape[1])
+    score = (score - score.mean()) / max(score.std(), 1e-12)
+    return smiles, (score + rng.normal(0, 0.3, n)).astype(np.float32)
+
+
+def regression_legs(desc: np.ndarray, maccs: np.ndarray, counts: np.ndarray,
+                    y: np.ndarray, device=None, n_folds: int = 10,
+                    seed: int = 0, estimators=None) -> dict:
+    """The ``tknn``, ``tkrr`` and ``ckrr`` legs of the regression stack over
+    (descriptors, MACCS, Morgan counts) and a target, as
+    ``bbbp_tpu/train/regression.py`` calls them with its defaults
+    (``TanimotoKNNRegressor(10)``, ``TanimotoKernelRidge(0.1)``,
+    ``ChemKernelRidge(0.06, weights=(0.25,) * 4)`` on each fold's training
+    rows), plus the first fold once more with IDF bit weights and both
+    ``full_gram``s (the fine-grained CV path, IDF-weighted for the combined
+    kernel). Returns f32 arrays: out-of-fold predictions ``tknn``, ``tkrr``,
+    ``ckrr`` [n], ``ckrr_idf`` [first fold], ``gram_tkrr`` and ``gram_ckrr``
+    [n, n].
+
+    ``estimators`` is the module that holds the classes (default: the
+    port's ``ops.similarity``, which takes ``device``; the tests pass the
+    JAX package's with ``device=None``)."""
+    if estimators is None:
+        from bbbp_tpu_torch.ops import similarity as estimators
+    on = {} if device is None else {"device": device}
+    n = len(y)
+    folds = np.array_split(np.random.default_rng(seed).permutation(n), n_folds)
+    fp_bits = (np.asarray(maccs) > 0).astype(np.float32)
+    idf = estimators.ChemKernelRidge.idf_weights(maccs, counts)
+    quarter = (0.25, 0.25, 0.25, 0.25)
+    out = {leg: np.zeros(n, np.float32) for leg in ("tknn", "tkrr", "ckrr")}
+
+    def ckrr(tr, te, bit_weights):
+        model = estimators.ChemKernelRidge(0.06, weights=quarter,
+                                           bit_weights=bit_weights, **on)
+        model.fit(maccs[tr], counts[tr], desc[tr], y[tr])
+        return model.predict(maccs[te], counts[te], desc[te])
+
+    for te in folds:
+        tr = np.setdiff1d(np.arange(n), te)
+        out["tknn"][te] = estimators.TanimotoKNNRegressor(10, **on).fit(
+            fp_bits[tr], y[tr]).predict(fp_bits[te])
+        out["tkrr"][te] = estimators.TanimotoKernelRidge(0.1, **on).fit(
+            fp_bits[tr], y[tr]).predict(fp_bits[te])
+        out["ckrr"][te] = ckrr(tr, te, None)
+    out["ckrr_idf"] = np.asarray(
+        ckrr(np.setdiff1d(np.arange(n), folds[0]), folds[0], idf), np.float32)
+    out["gram_tkrr"] = estimators.TanimotoKernelRidge.full_gram(fp_bits, **on)
+    out["gram_ckrr"] = estimators.ChemKernelRidge(
+        0.06, weights=quarter, bit_weights=idf, **on).full_gram(maccs, counts, desc)
     return out

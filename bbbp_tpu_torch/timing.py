@@ -118,6 +118,32 @@ def leaf_values_bound(n: int, n_leaves: int) -> Dict[str, object]:
     return _bound(12 * n + 8 * n + 4 * n_leaves, 4 * n + 2 * n_leaves)
 
 
+def topk_bound(nq: int, nr: int, words: int, k: int) -> Dict[str, object]:
+    """The packed queries and references read once, (sim f32, idx int64)
+    [nq, k] written once; per pair three integer operations a word (AND,
+    popcount, add) and five for the epilogue (add, subtract, max, division,
+    one compare of the selection). The table of peaks has no integer rate;
+    the f32 rate stands in for it."""
+    return _bound((nq + nr) * words * 4 + nq * k * 12,
+                  nq * nr * (3 * words + 5))
+
+
+def gram_bound(nq: int, nr: int, words: int, values_per_word: int = 32,
+               weighted_terms: int = 0) -> Dict[str, object]:
+    """Both packed operands (and the weights, where given) read once, the f32
+    [nq, nr] result written once. Per pair and word: AND, popcount and add
+    for 32 bits (three integer operations), or a byte-wise minimum and a dot
+    product with ones for four counts (two); four more a pair for the
+    epilogue. ``weighted_terms`` is what a weighted call's data needs
+    besides: the number of (pair, set bit of a AND b) terms for bits, or of
+    (pair, count) products for counts, one multiply-add (two operations)
+    each."""
+    per_word = 3 if values_per_word == 32 else 2
+    w_bytes = words * values_per_word * 4 if weighted_terms else 0
+    return _bound((nq + nr) * words * 4 + w_bytes + nq * nr * 4,
+                  nq * nr * (per_word * words + 4) + 2 * weighted_terms)
+
+
 def profile_summary(prof, classify: Callable[[str], str]) -> Dict[str, object]:
     """Device time of a ``torch.profiler`` run: ms and count by
     ``classify(event name)``, and the busy ms (the union of the device

@@ -40,7 +40,32 @@ before its last line):
    trees up to equivalent splits and a counted near tie; training accuracy
    above the majority share; and ``screen()`` with the trained model on
    ``cuda`` against ``cpu`` on a prefix of molecules not in the training
-   set, under phase 4's near-tie rule (at most 1% near-tie rows).
+   set, under phase 4's near-tie rule (at most 1% near-tie rows);
+7. the similarity kernels (``ops/similarity.py``: K6 ``tanimoto_topk``,
+   K7 ``tanimoto_gram``, K8 ``minmax_gram``) against their plain versions
+   on the card, on the MACCS bits, Morgan bits and Morgan counts of the
+   7,809 labelled molecules and of 1,058 further ones
+   (``testing.regression_molecules``): the transfer path's shapes (1,058
+   queries against 7,809 rows, d = 167, k = 25), a regression fold's
+   (106 against 952, d = 167 and 2048, k = 10), the full grams (1,058 x
+   1,058), Nq = 1, Nr = 1, k = 1, k = Nr, k = 1,024, zero rows, forced
+   ties, IDF weights and counts above the clip. K6's indices equal and its
+   similarities bit-equal, K7 and K8 bit-equal without weights and within
+   1e-5 with; then each timed beside its plain version, its bound and a
+   library form (one ``torch.matmul`` on operands already unpacked, with
+   the epilogue; for K6 followed by ``torch.topk``, which orders ties
+   otherwise);
+8. the transfer path: ``transfer_features`` on ``cuda`` at full width (all
+   four models, 400/400/300 trees, k = 25, holdout 0.1) with the labelled
+   set as the aux data and the 1,058 molecules as the regression set: the
+   launches of every kernel, the four holdout AUCs (each above 0.6), the
+   wall time by stage, the ``transfer_tknn`` column within 1e-6 of a
+   ``cpu`` run, and the cache file read back. Then the regression stack's
+   three chemistry-kernel legs on the 1,058 molecules with a seeded target,
+   10 folds (``TanimotoKNNRegressor``, ``TanimotoKernelRidge``,
+   ``ChemKernelRidge``, one fold more with IDF weights, and both
+   ``full_gram``s), ``cuda`` against ``cpu``: kNN within 1e-5, ridge within
+   2e-3 (two f32 Cholesky solves), grams within 1e-5.
 
 Then one JSON line for the kernels (each with its time and its plain
 version's, its bound from ``bbbp_tpu_torch/timing.py`` and a library
@@ -70,6 +95,12 @@ INVALID = ("NOT_A_SMILES((", "C1CC", "[Xx]")
 TRAIN_ROWS = (7809, 65536)        # B3DB classification's size, and a larger one
 TRAIN_DEPTH = 6
 TRAIN_F = 30
+
+
+REG_FOLDS = 10
+FOLD_ROWS = 106                   # a tenth of B3DB regression's 1,058 rows
+AUC_FLOOR = 0.6
+LEVELS = 16
 
 
 def read_csv(path: str):
@@ -169,6 +200,278 @@ def split_mismatches(tr, hist, mask, min_child, oblivious, got, want):
                                  f"{[int(t[node]) for t in want]}")
         worst = max(worst, abs(float(a - b)))
     return int(differ.sum()), worst
+
+
+def similarity_phase(cuda, card, aux_raw, reg_raw):
+    """Phase 7. ``aux_raw`` and ``reg_raw`` are (descriptors, MACCS, Morgan
+    counts) of the labelled and the regression molecules. Returns the
+    kernels' errors, times and bounds."""
+    import torch
+
+    from bbbp_tpu_torch.ops import similarity as sm
+    from bbbp_tpu_torch.testing import count_case, tanimoto_tie_case
+    from bbbp_tpu_torch.timing import device_ms, gram_bound, topk_bound
+
+    aux_m, reg_m = sm.packed_bits(aux_raw[1], cuda), sm.packed_bits(reg_raw[1], cuda)
+    reg_b = sm.packed_bits(reg_raw[2], cuda)              # Morgan bits, 64 words
+    reg_c = sm.pack_counts(reg_raw[2], LEVELS, cuda)    # counts, 512 words
+    w_m, w_b, _ = sm.ChemKernelRidge.idf_weights(reg_raw[1], reg_raw[2])
+    w_m = sm.pad_weights(w_m, reg_m.shape[1] * 32, cuda)
+    w_b = sm.pad_weights(w_b, reg_b.shape[1] * 32, cuda)
+    n = reg_m.shape[0]
+    fold = FOLD_ROWS
+
+    def tied_queries(q, r, k, sim):
+        """Queries with more references at the k-th similarity than the
+        top k hold: there the tie order decides the indices."""
+        full = sm.tanimoto_gram_reference(q, r)
+        kth = sim[:, k - 1:k]
+        return int(((full == kth).sum(1) > (sim == kth).sum(1)).sum())
+
+    tie_q, tie_r = (sm.packed_bits(a, cuda) for a in tanimoto_tie_case(7, 60, 3000, 167))
+    small_q, small_r = (sm.packed_bits(a, cuda) for a in tanimoto_tie_case(8, 33, 40, 40))
+    topk_cases = [("transfer", reg_m, aux_m, 25),
+                  ("fold d=167", reg_m[:fold], reg_m[fold:], 10),
+                  ("fold d=2048", reg_b[:fold], reg_b[fold:], 10),
+                  ("Nq=1 k=64", reg_m[:1], aux_m, 64),
+                  ("Nr=1 k=1", reg_m[:17], aux_m[:1], 1),
+                  ("k=Nr=40", small_q, small_r, 40),
+                  ("forced ties", tie_q, tie_r, 25),
+                  ("k=1024", reg_m[:9], aux_m, 1024)]
+    ties = {}
+    k6_err = 0.0
+    for name, q, r, k in topk_cases:
+        sim, idx = sm.tanimoto_topk_packed(q, r, k)
+        want_sim, want_idx = sm.tanimoto_topk_reference(q, r, k)
+        torch.cuda.synchronize()
+        k6_err = max(k6_err, float((sim - want_sim).abs().max()))
+        if not (torch.equal(idx, want_idx) and torch.equal(sim, want_sim)):
+            raise AssertionError(
+                f"tanimoto_topk {name}: {int((idx != want_idx).sum())} indices "
+                f"differ, max |dsim| {float((sim - want_sim).abs().max()):.3g}")
+        if name in ("transfer", "forced ties"):
+            ties[name] = (tied_queries(q, r, k, want_sim), q.shape[0])
+    if min(t for t, _ in ties.values()) == 0:
+        raise AssertionError(f"no ties at the k-th place to decide: {ties}")
+
+    def held(name, fn, ref, q, r, w):
+        """max |kernel - plain|: 0 demanded without weights, 1e-5 with."""
+        got, want = fn(q, r, w), ref(q, r, w)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        if (w is None and not torch.equal(got, want)) or err > 1e-5:
+            raise AssertionError(f"{name} {tuple(got.shape)}: max |err| {err:.3g}")
+        return err
+
+    k7_err = k8_err = 0.0
+    gram_cases = [(reg_m, reg_m, w_m), (reg_b, reg_b, w_b),
+                  (reg_b[:fold], reg_b[fold:], w_b), (reg_m[:1], aux_m, w_m),
+                  (reg_m[:17], aux_m[:1], w_m), (tie_q, tie_r, w_m)]
+    for q, r, w in gram_cases:
+        held("tanimoto_gram", sm.tanimoto_gram, sm.tanimoto_gram_reference, q, r, None)
+        k7_err = max(k7_err, held("tanimoto_gram (weighted)", sm.tanimoto_gram,
+                                  sm.tanimoto_gram_reference, q, r, w))
+
+    def minmax_ref(levels):
+        return lambda q, r, w: sm.minmax_gram_reference(q, r, w, levels)
+
+    high = [sm.pack_counts(count_case(s, rows, d, 41), 8, cuda)
+            for s, rows, d in ((1, 70, 2048), (2, 45, 2048), (3, 23, 30), (4, 19, 30))]
+    w_c = sm.pad_weights(sm.ChemKernelRidge.idf_weights(reg_raw[1], reg_raw[2])[2],
+                          reg_c.shape[1] * 4, cuda)
+    count_cases = [(reg_c, reg_c, w_c, LEVELS), (reg_c[:fold], reg_c[fold:], w_c, LEVELS),
+                   (reg_c[:1], reg_c, w_c, LEVELS), (high[0], high[1], w_c, 8),
+                   (high[2], high[3], w_c[:high[2].shape[1] * 4].contiguous(), 8)]
+    for q, r, w, levels in count_cases:
+        held("minmax_gram", sm.minmax_gram, minmax_ref(levels), q, r, None)
+        k8_err = max(k8_err, held("minmax_gram (weighted)", sm.minmax_gram,
+                                  minmax_ref(levels), q, r, w))
+
+    # -- times: the kernel, its plain version, a library form, the bound
+    def floats(words_, d):
+        from bbbp_tpu_torch.ops.bitops import unpack_bits_reference
+        return unpack_bits_reference(words_, d).contiguous()
+
+    def library_tanimoto(qf, rf, k=None):
+        inter = qf @ rf.T
+        union = qf.sum(1)[:, None] + rf.sum(1)[None, :] - inter
+        sim = inter / torch.clamp(union, min=1e-9)
+        return sim if k is None else torch.topk(sim, k, dim=1)
+
+    timed = {}
+    aux_mf, reg_mf, reg_bf = floats(aux_m, 167), floats(reg_m, 167), floats(reg_b, 2048)
+    k6_shapes = {"transfer": (reg_m, aux_m, reg_mf, aux_mf, 25),
+                 "fold_d167": (reg_m[:fold], reg_m[fold:], reg_mf[:fold], reg_mf[fold:], 10),
+                 "fold_d2048": (reg_b[:fold], reg_b[fold:], reg_bf[:fold], reg_bf[fold:], 10)}
+    for name, (q, r, qf, rf, k) in k6_shapes.items():
+        timed["k6", name] = {
+            "ms": device_ms(lambda: sm.tanimoto_topk_packed(q, r, k)),
+            "plain_ms": device_ms(lambda: sm.tanimoto_topk_reference(q, r, k)),
+            "library_ms": device_ms(lambda: library_tanimoto(qf, rf, k)),
+            "bound": topk_bound(q.shape[0], r.shape[0], q.shape[1], k),
+            "shape": f"Nq={q.shape[0]}, Nr={r.shape[0]}, d={qf.shape[1]}, k={k}"}
+    k7_shapes = {"gram_d2048": (reg_b, reg_bf, w_b), "gram_d167": (reg_m, reg_mf, w_m)}
+    for name, (q, qf, w) in k7_shapes.items():
+        set_terms = int((qf @ qf.T).sum().item())
+        timed["k7", name] = {
+            "ms": device_ms(lambda: sm.tanimoto_gram(q, q)),
+            "plain_ms": device_ms(lambda: sm.tanimoto_gram_reference(q, q)),
+            "library_ms": device_ms(lambda: library_tanimoto(qf, qf)),
+            "bound": gram_bound(n, n, q.shape[1]),
+            "ms_weighted": device_ms(lambda: sm.tanimoto_gram(q, q, w)),
+            "plain_ms_weighted": device_ms(
+                lambda: sm.tanimoto_gram_reference(q, q, w)),
+            "bound_weighted": gram_bound(n, n, q.shape[1], 32, set_terms),
+            "shape": f"Nq=Nr={n}, d={qf.shape[1]}"}
+    counts_f = sm.unpack_counts_reference(reg_c)
+    level_rows = torch.cat([(counts_f >= t).float() for t in range(1, LEVELS + 1)],
+                           dim=1)                       # [n, 16 * 2048]
+    row_sums = counts_f.sum(1)
+
+    def library_minmax():
+        inter = level_rows @ level_rows.T
+        union = row_sums[:, None] + row_sums[None, :] - inter
+        return inter / torch.clamp(union, min=1e-9)
+
+    if not torch.equal(library_minmax(), sm.minmax_gram(reg_c, reg_c)):
+        raise AssertionError("the level-stacked matmul differs from minmax_gram")
+    nonzero_terms = int((level_rows[:, :2048] @ level_rows[:, :2048].T).sum().item())
+    timed["k8", "gram"] = {
+        "ms": device_ms(lambda: sm.minmax_gram(reg_c, reg_c)),
+        "plain_ms": device_ms(lambda: sm.minmax_gram_reference(reg_c, reg_c, None,
+                                                                LEVELS)),
+        "library_ms": device_ms(library_minmax),
+        "bound": gram_bound(n, n, reg_c.shape[1], 4),
+        "ms_weighted": device_ms(lambda: sm.minmax_gram(reg_c, reg_c, w_c)),
+        "plain_ms_weighted": device_ms(
+            lambda: sm.minmax_gram_reference(reg_c, reg_c, w_c, LEVELS)),
+        "bound_weighted": gram_bound(n, n, reg_c.shape[1], 4, nonzero_terms),
+        "shape": f"Nq=Nr={n}, d=2048 counts clipped at {LEVELS}"}
+
+    def line(t):
+        return (f"{t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
+                f"library {t['library_ms']:.4f}, bound {t['bound']['bound_ms']:.5f} "
+                f"({t['bound']['bound_by']})" + (
+                    f"; weighted kernel {t['ms_weighted']:.4f}, plain "
+                    f"{t['plain_ms_weighted']:.4f}, bound "
+                    f"{t['bound_weighted']['bound_ms']:.5f}" if "ms_weighted" in t else ""))
+
+    print(f"[7 similarity kernels] tanimoto_topk {len(topk_cases)} cases "
+          f"({[c[0] for c in topk_cases]}): indices equal, similarities "
+          f"bit-equal; queries with ties at the k-th place "
+          f"{ {k: f'{a} of {b}' for k, (a, b) in ties.items()} } | tanimoto_gram "
+          f"{len(gram_cases)} cases bit-equal without weights, max |err| "
+          f"{k7_err:.3g} with IDF weights (limit 1e-5) | minmax_gram "
+          f"{len(count_cases)} cases (counts up to 40, clip 16 and 8) bit-equal "
+          f"without weights, max |err| {k8_err:.3g} with (limit 1e-5) | on {card}",
+          flush=True)
+    for (kernel, shape), t in timed.items():
+        print(f"[7 similarity kernels] {kernel} {shape}: {line(t)}", flush=True)
+    return {"k6_err": k6_err, "k7_err": k7_err, "k8_err": k8_err, "timed": timed}
+
+
+def r2(y, pred):
+    return 1.0 - float(((y - pred) ** 2).sum() / ((y - y.mean()) ** 2).sum())
+
+
+def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
+    """Phase 8. ``aux`` and ``reg`` are (smiles, labels or target);
+    ``counters`` maps a kernel's name to its wrapper. Returns the launches
+    of the transfer run and of the legs."""
+    import torch
+
+    from bbbp_tpu_torch.testing import regression_legs
+    from bbbp_tpu_torch.train.transfer import TransferConfig, transfer_features
+
+    def reset():
+        for fn in counters.values():
+            fn.launches.reset()
+
+    def read():
+        return {name: fn.launches.count for name, fn in counters.items()}
+
+    reg_smiles, y = reg
+    cfg = TransferConfig(cache_dir=cache_dir)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = transfer_features(reg_smiles, cfg, aux_data=aux, verbose=False,
+                            device="cuda")
+    wall = time.time() - t0
+    launched = read()
+    per_level = 2 * (2 * cfg.trees * cfg.depth + cfg.rf_trees * cfg.rf_depth)
+    want = {"packed_project": 0, "dense_forest_predict": 6,
+            "forest_level_histogram": per_level, "forest_best_splits": per_level,
+            "forest_leaf_values": 2 * (2 * cfg.trees + cfg.rf_trees),
+            "tanimoto_topk": 2, "tanimoto_gram": 0, "minmax_gram": 0}
+    if launched != want:
+        raise AssertionError(f"transfer_features launches {launched}, expected {want}")
+    f = res.features
+    if f.shape != (len(reg_smiles), 4) or not np.isfinite(f).all() or \
+            f.min() < 0 or f.max() > 1 or res.names != [
+                f"transfer_{m}" for m in cfg.models]:
+        raise AssertionError(f"transfer features {f.shape} {res.names}")
+    if min(res.holdout_auc.values()) <= AUC_FLOOR or set(res.holdout_auc) != set(cfg.models):
+        raise AssertionError(f"holdout AUCs {res.holdout_auc}, floor {AUC_FLOOR}")
+    again = transfer_features(reg_smiles, cfg, aux_data=aux, verbose=False,
+                              device="cuda")
+    if not np.array_equal(again.features, f) or read() != launched:
+        raise AssertionError("the transfer cache file was not read back")
+    on_cpu = transfer_features(
+        reg_smiles, TransferConfig(models=("tknn",), cache_dir=cache_dir),
+        aux_data=aux, verbose=False, device="cpu")
+    tknn_err = float(np.abs(on_cpu.features[:, 0] - f[:, 3]).max())
+    if tknn_err > 1e-6 or abs(on_cpu.holdout_auc["tknn"]
+                              - res.holdout_auc["tknn"]) > 1e-9:
+        raise AssertionError(f"transfer_tknn cuda vs cpu: max |err| {tknn_err:.3g}")
+    stages = {k: round(v, 3) for k, v in res.seconds.items()}
+    print(f"[8 transfer] transfer_features(cuda) {len(aux[0])} aux molecules, "
+          f"{len(reg_smiles)} regression molecules, "
+          f"{reg_raw[0].shape[1] + reg_raw[1].shape[1] + cfg.morgan_pca_dim} "
+          f"features, models "
+          f"{cfg.models} ({cfg.trees}/{cfg.trees}/{cfg.rf_trees} trees, k "
+          f"{cfg.tknn_k}): {wall:.3f} s wall with the raw features cached | "
+          f"stage s {stages} | launches {launched} | holdout AUC "
+          f"{ {k: round(v, 4) for k, v in res.holdout_auc.items()} } (floor "
+          f"{AUC_FLOOR}) | transfer_tknn cuda vs cpu max |err| {tknn_err:.3g} "
+          f"(limit 1e-6) | cache file read back | on {card}", flush=True)
+
+    # -- the regression stack's chemistry-kernel legs -----------------------
+    n = len(y)
+
+    def legs(device):
+        return regression_legs(*reg_raw, y, device=device, n_folds=REG_FOLDS)
+
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    on_cuda = legs("cuda")
+    cuda_s = time.time() - t0
+    leg_launches = read()
+    want = {"tanimoto_topk": REG_FOLDS, "tanimoto_gram": 6 * REG_FOLDS + 4 + 3,
+            "minmax_gram": 2 * REG_FOLDS + 2 + 1}
+    if {k: leg_launches[k] for k in want} != want:
+        raise AssertionError(f"the legs' launches {leg_launches}, expected {want}")
+    t0 = time.time()
+    on_cpu = legs("cpu")
+    cpu_s = time.time() - t0
+    limits = {"tknn": 1e-5, "tkrr": 2e-3, "ckrr": 2e-3, "ckrr_idf": 2e-3,
+              "gram_tkrr": 1e-5, "gram_ckrr": 1e-5}
+    errs = {k: float(np.abs(on_cuda[k] - on_cpu[k]).max()) for k in limits}
+    scores = {k: r2(y, on_cuda[k]) for k in ("tknn", "tkrr", "ckrr")}
+    if any(not np.isfinite(on_cuda[k]).all() or errs[k] > limits[k] for k in limits):
+        raise AssertionError(f"the legs cuda vs cpu: max |err| {errs}, limits {limits}")
+    if min(scores.values()) <= 0 or on_cuda["gram_ckrr"].shape != (n, n):
+        raise AssertionError(f"out-of-fold R2 of the legs {scores}")
+    print(f"[8 legs] {REG_FOLDS} folds over {n} molecules (MACCS k=10 kNN, "
+          f"Tanimoto ridge lam 0.1, combined-kernel ridge lam 0.06, one fold "
+          f"with IDF weights, both full grams): cuda {cuda_s:.3f} s, cpu "
+          f"{cpu_s:.3f} s wall | launches "
+          f"{ {k: leg_launches[k] for k in want} } | out-of-fold R2 "
+          f"{ {k: round(v, 4) for k, v in scores.items()} } | cuda vs cpu max "
+          f"|err| { {k: float(f'{v:.3g}') for k, v in errs.items()} } (limits "
+          f"{limits}) | on {card}", flush=True)
+    return launched, leg_launches
 
 
 def main() -> int:
@@ -586,6 +889,31 @@ def main() -> int:
           f"{len(mism6)} rows differ, all near ties ({near6} near-tie rows, "
           f"limit 1%), max |dProbability| {worst6:.3g}", flush=True)
 
+    # -- phases 7 and 8: the similarity kernels and the transfer path ---------
+    from bbbp_tpu_torch.ops import similarity as sm
+    from bbbp_tpu_torch.testing import regression_molecules
+    from bbbp_tpu_torch.train.transfer import raw_transfer_features
+
+    reg_smiles, reg_y = regression_molecules()
+    counters = {"packed_project": packed_project,
+                "dense_forest_predict": raw_predict,
+                "forest_level_histogram": tr.level_histogram,
+                "forest_best_splits": tr.best_splits,
+                "forest_leaf_values": tr.leaf_values,
+                "tanimoto_topk": sm.tanimoto_topk_packed,
+                "tanimoto_gram": sm.tanimoto_gram, "minmax_gram": sm.minmax_gram}
+    with tempfile.TemporaryDirectory() as cache:
+        t0 = time.time()
+        aux_raw = raw_transfer_features(smiles, cache_dir=cache)
+        reg_raw = raw_transfer_features(reg_smiles, cache_dir=cache)
+        print(f"[7 featurize] descriptors, MACCS and Morgan counts of "
+              f"{len(smiles)} + {len(reg_smiles)} molecules (Python featurizer "
+              f"over {os.cpu_count()} cores, MACCS from C++): "
+              f"{time.time() - t0:.3f} s wall", flush=True)
+        p7 = similarity_phase(cuda, card, aux_raw, reg_raw)
+        transfer_launches, leg_launches = transfer_phase(
+            card, counters, (smiles, labels), (reg_smiles, reg_y), reg_raw, cache)
+
     kernels = [
         {"name": "packed_project", "route": "cuda",
          "source": "bbbp_tpu_torch/csrc/packed_project.cu",
@@ -603,7 +931,9 @@ def main() -> int:
         {"name": "dense_forest_predict", "route": "cuda",
          "source": "bbbp_tpu_torch/csrc/dense_forest.cu",
          "replaces": "bbbp_tpu/ops/forest_tpu.py:85",
-         "launches": launches["dense_forest_predict"], "max_abs_err": k2_err,
+         "launches": launches["dense_forest_predict"],
+         "launches_transfer": transfer_launches["dense_forest_predict"],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"],
          "bound_share": k2_bound["bound_ms"] / k2_ms, "library_ms": None,
@@ -626,6 +956,7 @@ def main() -> int:
         entry = {"name": name, "route": "cuda",
                  "source": "bbbp_tpu_torch/csrc/forest_train.cu",
                  "replaces": replaces, "launches": train_launches[name],
+                 "launches_transfer": transfer_launches[name],
                  "max_abs_err": err, "ms": t[key], "plain_ms": t[key + "_plain"],
                  "bound_ms": t[key + "_bound"]["bound_ms"],
                  "bound_by": t[key + "_bound"]["bound_by"],
@@ -648,6 +979,44 @@ def main() -> int:
                     entry["library_ms" + suffix] = levels(n, key + "_library")
         if key == "k4":
             entry["near_tie_nodes"] = k4_near
+        kernels.append(entry)
+    # the similarity kernels: K6 at the transfer path's shape, K7 and K8 at
+    # the full gram of the regression set, d = 2048; other shapes beside
+    similarity_kernels = (
+        ("tanimoto_topk", "k6", "transfer", "bbbp_tpu/ops/similarity.py:24",
+         p7["k6_err"],
+         "torch.matmul on bits already unpacked, the epilogue, torch.topk: "
+         "orders ties otherwise"),
+        ("tanimoto_gram", "k7", "gram_d2048", "bbbp_tpu/ops/similarity.py:60",
+         p7["k7_err"], "torch.matmul on bits already unpacked, and the epilogue"),
+        ("minmax_gram", "k8", "gram", "bbbp_tpu/ops/similarity.py:106",
+         p7["k8_err"], "one torch.matmul of the 16 level indicators stacked to "
+         "[N, 16 * 2048], already expanded, and the epilogue"))
+    for name, key, main_shape, replaces, err, library in similarity_kernels:
+        t = p7["timed"][key, main_shape]
+        entry = {"name": name, "route": "cuda",
+                 "source": "bbbp_tpu_torch/csrc/similarity.cu",
+                 "replaces": replaces,
+                 "launches": (transfer_launches if key == "k6" else leg_launches)[name],
+                 "launches_legs": leg_launches[name], "max_abs_err": err,
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound"]["bound_ms"],
+                 "bound_by": t["bound"]["bound_by"],
+                 "bound_share": t["bound"]["bound_ms"] / t["ms"],
+                 "library_ms": t["library_ms"], "library_call": library,
+                 "shape": t["shape"]}
+        for (k, shape), other in p7["timed"].items():
+            if k != key:
+                continue
+            suffix = "" if shape == main_shape else "_" + shape
+            for field in ("ms", "plain_ms", "library_ms", "ms_weighted",
+                          "plain_ms_weighted"):
+                if field in other and (suffix or field.endswith("weighted")):
+                    entry[field + suffix] = other[field]
+            if suffix:
+                entry["bound_ms" + suffix] = other["bound"]["bound_ms"]
+            if "bound_weighted" in other:
+                entry["bound_ms_weighted" + suffix] = other["bound_weighted"]["bound_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {nvidia_smi()}")

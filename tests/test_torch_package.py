@@ -36,12 +36,12 @@ def test_importing_every_module_loads_neither_jax_nor_bbbp_tpu():
     proc = _py("-c", _IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 10
+    assert int(n_modules) >= 30        # chem, data, native, ops, pipelines, train
     assert leaked.strip() == "[]"
 
 
 def test_sources_import_neither_jax_nor_bbbp_tpu():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bbbp_tpu)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bbbp_tpu|pandas)\b", re.M)
     for root, _, files in os.walk(PKG):
         for fn in files:
             if fn.endswith(".py"):

@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 import bbbp_tpu.pipelines.screen as jscr  # noqa: E402
 import bbbp_tpu_torch.pipelines.screen as tscr  # noqa: E402
 from bbbp_tpu.data.zinc import synthetic_smiles  # noqa: E402
+from bbbp_tpu_torch.chem.featurize import fingerprints as chem_fingerprints  # noqa: E402
 from bbbp_tpu_torch.native.bindings import fingerprints, fingerprints_packed  # noqa: E402
 from bbbp_tpu_torch.ops.bitops import packed_project_reference  # noqa: E402
 from bbbp_tpu_torch.testing import full_width_screening_state, near_tie_rows  # noqa: E402
@@ -41,6 +42,11 @@ def jax_maccs():
     return _jax_trained("maccs")
 
 
+@pytest.fixture(scope="module", params=["pairs", "morgan_counts", "avalon"])
+def jax_python_kind(request):
+    return _jax_trained(request.param)
+
+
 @pytest.fixture(scope="module")
 def port_model(jax_morgan, tmp_path_factory):
     path = tmp_path_factory.mktemp("model") / "jax.pkl"
@@ -54,7 +60,7 @@ def _z(model, smiles):
         packed, _ = fingerprints_packed(smiles, model.fp_kind, model.n_bits)
         return packed_project_reference(torch.from_numpy(packed.view(np.int32)),
                                         model.proj_w, model.proj_c0).numpy()
-    x, _ = fingerprints(smiles, model.fp_kind, model.n_bits)
+    x = chem_fingerprints(smiles, model.fp_kind, model.n_bits, workers=1).features
     return ((x - model.scaler_mean) / model.scaler_scale - model.pca_mean
             ) @ model.pca_components.T
 
@@ -142,12 +148,36 @@ def test_full_width_model_through_both_device_fns(tmp_path):
         assert not (differ & ~near).any(), name
 
 
+def test_screen_csv_matches_jax_for_python_featurizer_kinds(jax_python_kind,
+                                                            tmp_path):
+    """pairs, morgan_counts and avalon come from the Python featurizer and
+    go through the dense path, in both packages."""
+    jm = jax_python_kind
+    jm.save(str(tmp_path / "m.pkl"))
+    tm = tscr.ScreeningModel.load(str(tmp_path / "m.pkl"))
+    smiles = synthetic_smiles(200, seed=2)
+    smiles.insert(31, "C1CC")
+    mols = [(s, f"ID{i}") for i, s in enumerate(smiles)]
+    jscr.screen(jm, iter(mols), out_csv=str(tmp_path / "jax.csv"), chunk_size=32,
+                workers=1)
+    stats = tscr.screen(tm, iter(mols), out_csv=str(tmp_path / "port.csv"),
+                        chunk_size=32, workers=1, device="cpu")
+    assert (stats.n_molecules, stats.n_invalid) == (201, 1)
+    assert _rows(tmp_path / "port.csv")[31][2:] == ["invalid", ""]
+    _assert_same_screen(tmp_path / "jax.csv", tmp_path / "port.csv", tm, smiles)
+
+
 def test_unported_fingerprint_kind_names_the_roadmap(port_model):
+    """No kind of the JAX package is left unported, so nothing names the
+    roadmap any more: every one of its kinds gets a featurizer, and a kind
+    it does not have is a ValueError."""
     import dataclasses
 
-    avalon = dataclasses.replace(port_model, fp_kind="avalon")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscr.screen(avalon, iter([("CCO", "a")]), out_csv=None, device="cpu")
+    for kind in ("morgan", "rdkit", "maccs", "pairs", "morgan_counts", "avalon"):
+        tscr._featurizer(dataclasses.replace(port_model, fp_kind=kind), 1)
+    other = dataclasses.replace(port_model, fp_kind="ecfp9")
+    with pytest.raises(ValueError, match="ecfp9"):
+        tscr.screen(other, iter([("CCO", "a")]), out_csv=None, device="cpu")
 
 
 def test_main_screens_a_smi_file(port_model, tmp_path):
