@@ -20,7 +20,9 @@
 //
 // Design:
 // - Row sums (popcounts, count sums, or their weighted forms) are taken once
-//   a call by row_sums_kernel, one thread a row, in ascending index order.
+//   a call by row_sums_kernel, one warp a row: lane l adds the words l,
+//   l + 32, ... in ascending order and the 32 partial sums meet in a fixed
+//   shuffle tree, so a sum is the same from run to run.
 // - K7 and K8 are one tiled kernel, gram_kernel: a block of 256 threads
 //   computes a 32 x 32 tile of the result; the tile's query and reference
 //   rows pass through shared memory 64 words at a time, padded to 65 so that
@@ -49,6 +51,7 @@ constexpr int kTile = 32;            // result tile edge
 constexpr int kGramThreads = 256;    // 32 x 8: four result rows a thread
 constexpr int kChunk = 64;           // words staged a step
 constexpr int kPad = kChunk + 1;
+constexpr int kRowSumThreads = 256;  // eight rows a block
 
 constexpr int kTopkThreads = 256;
 constexpr int kTopkCap = 2048;       // candidate buffer, a power of two
@@ -88,24 +91,31 @@ struct CountOp {
   }
 };
 
-// out[i] = Σ count(x[i, :]) or Σ w·x[i, :], in ascending index order.
+// out[i] = Σ count(x[i, :]) or Σ w·x[i, :], one warp a row.
 template <typename Op, bool kWeighted>
-__global__ void row_sums_kernel(const uint32_t* __restrict__ x, int n,
-                                int words, const float* __restrict__ w,
-                                float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__global__ void __launch_bounds__(kRowSumThreads)
+    row_sums_kernel(const uint32_t* __restrict__ x, int n, int words,
+                    const float* __restrict__ w, float* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * (kRowSumThreads / 32) + threadIdx.x / 32;
+  if (i >= n) return;                  // a whole warp leaves together
   const uint32_t* row = x + (size_t)i * words;
   if (kWeighted) {
     float s = 0.0f;
-    for (int c = 0; c < words; ++c) {
+    for (int c = lane; c < words; c += 32) {
       s = __fadd_rn(s, Op::weigh(__ldg(row + c), w + c * Op::kPerWord));
     }
-    out[i] = s;
+    for (int step = 16; step > 0; step >>= 1) {
+      s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, step));
+    }
+    if (lane == 0) out[i] = s;
   } else {
     int s = 0;
-    for (int c = 0; c < words; ++c) s += Op::count(__ldg(row + c));
-    out[i] = static_cast<float>(s);
+    for (int c = lane; c < words; c += 32) s += Op::count(__ldg(row + c));
+    for (int step = 16; step > 0; step >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, step);
+    }
+    if (lane == 0) out[i] = static_cast<float>(s);
   }
 }
 
@@ -276,11 +286,14 @@ template <typename Op>
 cudaError_t row_sums(const uint32_t* x, int n, int words, const float* w,
                      float* out, cudaStream_t s) {
   if (n <= 0) return cudaSuccess;
-  const int blocks = (n + 127) / 128;
+  const int rows = kRowSumThreads / 32;
+  const int blocks = (n + rows - 1) / rows;
   if (w != nullptr) {
-    row_sums_kernel<Op, true><<<blocks, 128, 0, s>>>(x, n, words, w, out);
+    row_sums_kernel<Op, true><<<blocks, kRowSumThreads, 0, s>>>(x, n, words, w,
+                                                                out);
   } else {
-    row_sums_kernel<Op, false><<<blocks, 128, 0, s>>>(x, n, words, w, out);
+    row_sums_kernel<Op, false><<<blocks, kRowSumThreads, 0, s>>>(x, n, words, w,
+                                                                 out);
   }
   return cudaGetLastError();
 }

@@ -16,9 +16,10 @@ versions on a CPU tensor:
   weighted.
 
 ``tanimoto_topk``, ``tanimoto_matrix``, ``tanimoto_matrix_w``,
-``minmax_matrix`` and ``minmax_matrix_w`` take dense matrices as the JAX
-functions do, pack them and call the wrappers. ``rbf_matrix`` and the ridge
-solves are plain f32 torch ops (TF32 off).
+``minmax_matrix`` and ``minmax_matrix_w`` take dense matrices (arrays or
+tensors) as the JAX functions do, move them to ``device`` (``cuda`` unless
+the caller asks for ``cpu``), pack them there and call the wrappers.
+``rbf_matrix`` and the ridge solves are plain f32 torch ops (TF32 off).
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ import numpy as np
 import torch
 
 from bbbp_tpu_torch._build import LaunchCounter, check_launch, kernels_lib
-from bbbp_tpu_torch.ops.bitops import (PACKED_DTYPES, pack_bits,
-                                       pack_bits_tensor, unpack_bits_reference)
+from bbbp_tpu_torch.ops.bitops import (PACKED_DTYPES, pack_bits_tensor,
+                                       unpack_bits_reference)
 from bbbp_tpu_torch.ops.forest_train import resolve_device
 
 MAX_TOPK_K = 1024         # the top-k kernel's candidate buffer
@@ -50,10 +51,13 @@ def pack_counts(counts, levels: int = 16, device=None) -> torch.Tensor:
     on ``device`` (default: where ``counts`` lies)."""
     if not 1 <= levels <= MAX_LEVELS:
         raise ValueError(f"levels must be in [1, {MAX_LEVELS}], got {levels}")
-    c = torch.as_tensor(counts, device=device)
+    if isinstance(counts, torch.Tensor):
+        c = torch.clamp(counts.to(device), min=0, max=levels).to(torch.uint8)
+    else:                           # clipped on the host: bytes cross over
+        c = torch.from_numpy(np.clip(np.asarray(counts), 0, levels
+                                     ).astype(np.uint8)).to(device)
     if c.dim() != 2:
         raise ValueError(f"counts must be [N, d], got {tuple(c.shape)}")
-    c = torch.clamp(c, min=0, max=levels).to(torch.uint8)
     if c.shape[1] % 4 != 0:
         c = torch.nn.functional.pad(c, (0, -c.shape[1] % 4))
     return c.contiguous().view(torch.int32)
@@ -265,53 +269,65 @@ minmax_gram.launches = LaunchCounter()
 # The JAX package's functions, on dense matrices
 # ---------------------------------------------------------------------------
 
-def _dense_pair(q, r) -> Tuple[torch.Tensor, torch.Tensor]:
-    q = torch.as_tensor(q)
-    return q, torch.as_tensor(r, device=q.device)
+Device = Union[str, torch.device]
 
 
-def tanimoto_topk(q, r, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def packed_bits(x, device: Device) -> torch.Tensor:
+    """Fingerprints (array or tensor; anything > 0 is a set bit) → packed
+    words on ``device``. The bits cross to the device as bytes and are
+    packed there."""
+    bits = x > 0 if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.asarray(x) > 0)
+    return pack_bits_tensor(bits.to(device))
+
+
+def tanimoto_topk(q, r, k: int, device: Device = "cuda"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(similarities [Nq, k], indices [Nq, k]) of the k most similar
-    reference rows per query. q, r are 0/1 [N, d] matrices."""
-    q, r = _dense_pair(q, r)
-    return tanimoto_topk_packed(pack_bits_tensor(q), pack_bits_tensor(r), k)
+    reference rows per query. q, r are 0/1 [N, d] matrices (arrays or
+    tensors), moved to ``device``."""
+    dev = resolve_device(device)
+    return tanimoto_topk_packed(packed_bits(q, dev), packed_bits(r, dev), k)
 
 
-def tanimoto_matrix(q, r) -> torch.Tensor:
+def tanimoto_matrix(q, r, device: Device = "cuda") -> torch.Tensor:
     """Full [Nq, Nr] Tanimoto similarity matrix of 0/1 matrices."""
-    q, r = _dense_pair(q, r)
-    return tanimoto_gram(pack_bits_tensor(q), pack_bits_tensor(r))
+    dev = resolve_device(device)
+    return tanimoto_gram(packed_bits(q, dev), packed_bits(r, dev))
 
 
-def tanimoto_matrix_w(q, r, w) -> torch.Tensor:
+def tanimoto_matrix_w(q, r, w, device: Device = "cuda") -> torch.Tensor:
     """Per-bit-weighted Tanimoto on binary matrices:
     K = Σ w_i a_i b_i / (Σ w_i a_i + Σ w_i b_i − Σ w_i a_i b_i)."""
-    q, r = _dense_pair(q, r)
-    qw, rw = pack_bits_tensor(q), pack_bits_tensor(r)
-    return tanimoto_gram(qw, rw, pad_weights(w, qw.shape[1] * 32, q.device))
+    dev = resolve_device(device)
+    qw, rw = packed_bits(q, dev), packed_bits(r, dev)
+    return tanimoto_gram(qw, rw, pad_weights(w, qw.shape[1] * 32, dev))
 
 
-def minmax_matrix(qc, rc, levels: int = 16) -> torch.Tensor:
+def minmax_matrix(qc, rc, levels: int = 16, device: Device = "cuda"
+                  ) -> torch.Tensor:
     """Min-max (generalized Tanimoto) kernel for count fingerprints:
     K = Σ_k min(a_k, b_k) / Σ_k max(a_k, b_k), counts clipped at ``levels``
     on both sides."""
-    qc, rc = _dense_pair(qc, rc)
-    return minmax_gram(pack_counts(qc, levels), pack_counts(rc, levels))
+    dev = resolve_device(device)
+    return minmax_gram(pack_counts(qc, levels, dev), pack_counts(rc, levels, dev))
 
 
-def minmax_matrix_w(qc, rc, w, levels: int = 16) -> torch.Tensor:
+def minmax_matrix_w(qc, rc, w, levels: int = 16, device: Device = "cuda"
+                    ) -> torch.Tensor:
     """Per-bit-weighted min-max kernel on count vectors:
     K = Σ w_i min(a_i, b_i) / Σ w_i max(a_i, b_i)."""
-    qc, rc = _dense_pair(qc, rc)
-    qp, rp = pack_counts(qc, levels), pack_counts(rc, levels)
-    return minmax_gram(qp, rp, pad_weights(w, qp.shape[1] * 4, qc.device))
+    dev = resolve_device(device)
+    qp, rp = pack_counts(qc, levels, dev), pack_counts(rc, levels, dev)
+    return minmax_gram(qp, rp, pad_weights(w, qp.shape[1] * 4, dev))
 
 
-def rbf_matrix(qd, rd, gamma) -> torch.Tensor:
+def rbf_matrix(qd, rd, gamma, device: Device = "cuda") -> torch.Tensor:
     """RBF kernel on dense descriptor vectors (pairwise distances via the
     norm + cross-matmul identity), in f32 with TF32 off."""
-    qd = torch.as_tensor(qd, dtype=torch.float32)
-    rd = torch.as_tensor(rd, dtype=torch.float32, device=qd.device)
+    dev = resolve_device(device)
+    qd = torch.as_tensor(qd, dtype=torch.float32).to(dev)
+    rd = torch.as_tensor(rd, dtype=torch.float32).to(dev)
     with f32_matmul():
         d2 = ((qd ** 2).sum(1, keepdim=True) + (rd ** 2).sum(1)[None, :]
               - 2.0 * qd @ rd.T)
@@ -321,13 +337,6 @@ def rbf_matrix(qd, rd, gamma) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Estimators
 # ---------------------------------------------------------------------------
-
-def packed_bits(x, device: torch.device) -> torch.Tensor:
-    """Array of fingerprints (anything > 0 is a set bit) → packed words on
-    ``device``; packed on the host, so 1/32 of the floats is copied."""
-    words = pack_bits(np.asarray(x) > 0)
-    return torch.from_numpy(words.view(np.int32)).to(device)
-
 
 def _ridge_solve(k: torch.Tensor, lam: float, resid: torch.Tensor) -> torch.Tensor:
     """alpha = (K + lam·I)⁻¹ resid by an f32 Cholesky factorisation, as the
@@ -475,7 +484,7 @@ class ChemKernelRidge:
         if w[2]:
             k = k + w[2] * minmax_gram(qc, rc, padded(2, qc, 4))
         if w[3]:
-            k = k + w[3] * rbf_matrix(qd, rd, self._gamma)
+            k = k + w[3] * rbf_matrix(qd, rd, self._gamma, dev)
         return k
 
     def _standardize(self, desc: np.ndarray) -> None:
@@ -486,7 +495,7 @@ class ChemKernelRidge:
     def _blocks(self, maccs, counts, desc):
         dev = resolve_device(self.device)
         return (packed_bits(maccs, dev), packed_bits(counts, dev),
-                pack_counts(np.asarray(counts, np.float32), self.levels, dev),
+                pack_counts(counts, self.levels, dev),
                 torch.as_tensor(np.asarray(
                     (np.asarray(desc) - self._mu) * self._inv, np.float32),
                     device=dev))
@@ -570,7 +579,7 @@ def estimator_from_state(kind: str, state: dict,
                               state["levels"], state["bit_weights"], device=dev)
         maccs, bits, counts, desc = state["train"]
         est._train = (packed_bits(maccs, dev), packed_bits(bits, dev),
-                      pack_counts(np.asarray(counts, np.float32), est.levels, dev),
+                      pack_counts(counts, est.levels, dev),
                       f32(desc))
         est._mu = np.asarray(state["mu"], np.float32)
         est._inv = np.asarray(state["inv"], np.float32)

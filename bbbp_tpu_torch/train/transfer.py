@@ -167,12 +167,13 @@ def raw_transfer_features(smiles: Sequence[str],
 def _aux_feature_basis(smiles: Sequence[str], morgan_pca_dim: int,
                        workers: Optional[int] = None,
                        cache_dir: Optional[str] = None,
-                       device: Union[str, torch.device] = "cpu", raw=None):
+                       device: Union[str, torch.device] = "cuda", raw=None):
     """Fit the aux feature transform (scaler + Morgan-count PCA) on the aux
     molecules, on ``device``, and return (x, maccs, apply). ``apply``
     re-applies the same transform to any other molecule list (the
     regression set): everything is fit on aux rows only. ``raw`` is a list's
     ``raw_transfer_features`` where the caller already has them."""
+    device = resolve_device(device)
     desc, maccs, counts = raw or raw_transfer_features(smiles, workers,
                                                        cache_dir)
 

@@ -15,23 +15,25 @@ before its last line):
    fingerprints of ``synthetic_smiles(16384, seed=1)``;
 3. kernel 2 (``dense_forest_predict``, via ``raw_predict``) against its
    plain version on the card (depth 0, 1, 6, 8 and 12, F = 30 and 2048,
-   T = 300 and 301), then timed on the z of the random words and of the
-   fingerprints;
+   T = 300 and 301; the aux forests' F = 326 with 400 trees of depth 6 and
+   300 of depth 10), then timed on the z of the random words and of the
+   fingerprints, and at F = 326 on 1,058 and 7,809 rows;
 4. the slice: ``screen()`` on ``cuda`` with the full-width fixture model over
    65,536 + a ragged tail of ``synthetic_smiles`` and 3 invalid SMILES; both
    kernels' launch counters must move, and the first 2,048 rows must match
    ``screen(device="cpu")``;
 5. the trainer's kernels (``ops/forest_train.py``: K3 ``level_histogram``,
    K4 ``best_splits``, K5 ``leaf_values``) against their plain versions on
-   the card, for n = 1, 7,809 and 65,536 rows, F = 30, 167 and 300 features
-   and levels 0, 5 and 9, with zero-weight rows, constant features (exact
+   the card, for n = 1, 7,809 and 65,536 rows, F = 30, 167, 300 and 326
+   features and levels 0, 5 and 9, with zero-weight rows, constant features (exact
    ties), column masks, oblivious mode and min_child masking: K3 within one
    f32 rounding of the exact (float64) sum and bit-identical over two runs,
    K4 equal to the plain version but at counted near ties (their largest
    score gap is K4's max_abs_err), K5 within 1e-6 relative; then each timed
    at the training path's shapes (n = 7,809 and 65,536, F = 30, every level
-   of depth 6) beside its plain version, its bound and, for K3,
-   ``torch.bincount``;
+   of depth 6) and the transfer path's (n = 7,809, F = 326, levels 0, 5 and
+   9; K4 also in oblivious mode) beside its plain version, its bound and,
+   for K3, ``torch.bincount``;
 6. training: ``ScreeningModel.train`` on ``cuda`` at full width over the
    7,809-molecule labelled set (``testing.labelled_training_set``), with
    every trainer kernel's launch count (300 trees × 6 levels); a second fit
@@ -55,7 +57,13 @@ before its last line):
    library form (one ``torch.matmul`` on operands already unpacked, with
    the epilogue; for K6 followed by ``torch.topk``, which orders ties
    otherwise);
-8. the transfer path: ``transfer_features`` on ``cuda`` at full width (all
+8. the transfer path: first a ``GBDTClassifier(subsample=1)`` fit of 30
+   trees on ``cuda`` over the aux molecules' 326 features, audited node by
+   node along its own splits against the plain arithmetic as in phase 6,
+   its margins through the forest kernel against the plain version, and
+   K3 and K4 timed on its own binned rows (MACCS bits fill two bins a
+   feature) at levels 0, 5 and 9;
+   then ``transfer_features`` on ``cuda`` at full width (all
    four models, 400/400/300 trees, k = 25, holdout 0.1) with the labelled
    set as the aux data and the 1,058 molecules as the regression set: the
    launches of every kernel, the four holdout AUCs (each above 0.6), the
@@ -95,7 +103,10 @@ INVALID = ("NOT_A_SMILES((", "C1CC", "[Xx]")
 TRAIN_ROWS = (7809, 65536)        # B3DB classification's size, and a larger one
 TRAIN_DEPTH = 6
 TRAIN_F = 30
-
+WIDE_F = 326                      # the transfer path's aux features
+WIDE_LEVELS = (0, 5, 9)           # depth 6 (gbdt, oblivious) and depth 10 (rf)
+WIDE_FORESTS = ((6, 400), (10, 300))      # (depth, trees) of the aux forests
+AUDIT_TREES = 30
 
 REG_FOLDS = 10
 FOLD_ROWS = 106                   # a tenth of B3DB regression's 1,058 rows
@@ -374,6 +385,120 @@ def r2(y, pred):
     return 1.0 - float(((y - pred) ** 2).sum() / ((y - y.mean()) ** 2).sum())
 
 
+def wide_fit_audit(card, aux, aux_raw):
+    """Phase 8, first part: the trainer's kernels and the forest kernel on
+    the transfer path's own 326-feature matrix. A deterministic
+    ``GBDTClassifier`` fit on ``cuda`` is replayed on the CPU along its own
+    splits (every node against the plain best split, every leaf against the
+    plain leaf values), its margins come through the forest kernel and
+    the plain version, and K3 and K4 are timed on its binned rows."""
+    import torch
+
+    from bbbp_tpu_torch.ops.forest import dense_predict_reference, raw_predict
+    from bbbp_tpu_torch.ops import forest_train as tr
+    from bbbp_tpu_torch.ops.forest_train import (GBDTClassifier,
+                                                 RandomForestClassifier)
+    from bbbp_tpu_torch.testing import compare_gbdt_fits
+    from bbbp_tpu_torch.timing import (best_splits_bound, device_ms,
+                                       level_histogram_bound)
+    from bbbp_tpu_torch.train.transfer import TransferConfig, _aux_feature_basis
+
+    cfg = TransferConfig()
+    labels = np.asarray(aux[1], np.float32)
+    aux_x, _, _ = _aux_feature_basis(aux[0], cfg.morgan_pca_dim, device="cuda",
+                                     raw=aux_raw)
+    if aux_x.shape != (len(labels), WIDE_F):
+        raise AssertionError(f"aux features {aux_x.shape}, expected F={WIDE_F}")
+    t0 = time.time()
+    fit = GBDTClassifier(n_estimators=AUDIT_TREES, learning_rate=cfg.learning_rate,
+                         max_depth=cfg.depth, subsample=1.0, seed=cfg.seed,
+                         device="cuda").fit(aux_x, labels)
+    fit_s = time.time() - t0
+    ens = fit.ensemble_
+    t0 = time.time()
+    audit = compare_gbdt_fits(aux_x, labels, None, ens.to_state(), task="cls",
+                              lam=1.0, min_child=1.0,
+                              learning_rate=cfg.learning_rate,
+                              base_score=ens.base_score, tol=1e-5)
+    audit_s = time.time() - t0
+    n_nodes = AUDIT_TREES * ((1 << cfg.depth) - 1)
+    if not audit.ok or audit.trees_compared != AUDIT_TREES or \
+            audit.near_ties > 0.01 * n_nodes or audit.max_leaf_diff > 1e-4:
+        raise AssertionError(f"GBDTClassifier(cuda) at F={WIDE_F} along its own "
+                             f"splits: {audit}")
+    x = torch.from_numpy(aux_x).to("cuda")
+    got = raw_predict(ens, x)
+    want = dense_predict_reference(ens.feat, ens.thr, ens.leaf, x, ens.depth,
+                                   ens.base_score, ens.tree_scale)
+    forest_err = float((got - want).abs().max())
+    if forest_err > 2e-5:
+        raise AssertionError(f"dense_forest on the fitted F={WIDE_F} forest: max "
+                             f"|err| {forest_err:.3g}")
+
+    # K3 and K4 timed on the path's own rows: the fit's binned matrix (167
+    # of its features are MACCS bits, two bins each), the first tree's
+    # gradients, and the rows' nodes under the first tree of the fit (levels
+    # 0 and 5) and of a depth-10 random forest (level 9)
+    xb = torch.from_numpy(fit.mapper_.transform(aux_x)).to("cuda")
+    y = torch.from_numpy(labels).to("cuda")
+    p0 = torch.sigmoid(torch.full_like(y, float(ens.base_score)))
+    g, h = p0 - y, torch.clamp(p0 * (1 - p0), min=1e-6)
+    bounds = tr.gradient_bounds(g, h)
+    rf = RandomForestClassifier(n_estimators=2, max_depth=cfg.rf_depth,
+                                seed=cfg.seed, device="cuda").fit(aux_x, labels)
+    every = torch.ones(WIDE_F, dtype=torch.bool, device="cuda")
+    rows = torch.arange(len(labels), device="cuda")
+    fitted = {}
+    for level in WIDE_LEVELS:
+        trees = ens if level < cfg.depth else rf.ensemble_
+        pos = torch.zeros(len(labels), dtype=torch.int64, device="cuda")
+        for lv in range(level):
+            node = (1 << lv) - 1 + pos
+            pos = 2 * pos + (x[rows, trees.feat[0, node].long()]
+                             > trees.thr[0, node]).long()
+        pos, nodes = pos.int(), 1 << level
+        hist = tr.level_histogram(xb, pos, g, h, nodes, bounds)
+        fitted[level] = {
+            "k3": device_ms(lambda: tr.level_histogram(xb, pos, g, h, nodes, bounds)),
+            "k3_plain": device_ms(lambda: tr.level_histogram_reference(
+                xb, pos, g, h, nodes)),
+            "k3_bound_ms": level_histogram_bound(len(labels), WIDE_F, nodes)["bound_ms"],
+            "k4": device_ms(lambda: tr.best_splits(hist, every, 1.0, 1.0, False)),
+            "k4_plain": device_ms(lambda: tr.best_splits_reference(
+                hist, every, 1.0, 1.0, False)),
+            "k4_oblivious": device_ms(lambda: tr.best_splits(
+                hist, every, 1.0, 1.0, True)),
+            "k4_oblivious_plain": device_ms(lambda: tr.best_splits_reference(
+                hist, every, 1.0, 1.0, True)),
+            "k4_bound_ms": best_splits_bound(nodes, WIDE_F)["bound_ms"],
+            "occupied_nodes": int(torch.unique(pos).numel())}
+
+    def over_levels(key):
+        return fmt([fitted[lv][key] for lv in WIDE_LEVELS])
+
+    print(f"[8 wide fit] on the fit's own binned rows, levels {WIDE_LEVELS} "
+          f"(occupied nodes {[fitted[lv]['occupied_nodes'] for lv in WIDE_LEVELS]}; "
+          f"ms): level_histogram {over_levels('k3')}, plain "
+          f"{over_levels('k3_plain')}, bound {over_levels('k3_bound_ms')}; "
+          f"best_splits {over_levels('k4')}, plain {over_levels('k4_plain')}, "
+          f"oblivious {over_levels('k4_oblivious')}, plain "
+          f"{over_levels('k4_oblivious_plain')}, bound "
+          f"{over_levels('k4_bound_ms')}", flush=True)
+    print(f"[8 wide fit] GBDTClassifier(subsample=1, {AUDIT_TREES} trees of "
+          f"depth {cfg.depth}) on cuda over {aux_x.shape[0]} x {WIDE_F} aux "
+          f"features: {fit_s:.3f} s; along its own splits {audit.equal} of "
+          f"{n_nodes} nodes equal to the plain best split, {audit.equivalent} "
+          f"equivalent, {audit.near_ties} near ties (limit 1%), max |dleaf| "
+          f"{audit.max_leaf_diff:.3g} (limit 1e-4), replayed on the CPU in "
+          f"{audit_s:.1f} s | its margins, forest kernel against plain: max "
+          f"|err| {forest_err:.3g} (atol 2e-5) | on {card}", flush=True)
+    return {"forest_err": forest_err, "fitted": fitted,
+            "audit": {"trees": AUDIT_TREES, "nodes": n_nodes, "equal": audit.equal,
+                      "equivalent": audit.equivalent,
+                      "near_ties": audit.near_ties,
+                      "max_leaf_diff": audit.max_leaf_diff}}
+
+
 def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
     """Phase 8. ``aux`` and ``reg`` are (smiles, labels or target);
     ``counters`` maps a kernel's name to its wrapper. Returns the launches
@@ -581,6 +706,8 @@ def main() -> int:
     n = 16384
     cases = [(depth, n_feat, 300) for depth in (0, 1, 6, 8, 12)
              for n_feat in (30, 2048)] + [(6, 30, 301)]
+    cases += [(depth, WIDE_F, n_trees) for depth, n_trees in WIDE_FORESTS]
+    wide = {}
     for depth, n_feat, n_trees in cases:
         x = torch.from_numpy(
             rng.standard_normal((n, n_feat)).astype(np.float32)).to(cuda)
@@ -603,6 +730,19 @@ def main() -> int:
             raise AssertionError(f"dense_forest D={depth} F={n_feat} "
                                  f"T={n_trees}: max |err| {err:.3g}, "
                                  f"sigmoid {err_p:.3g}")
+        if n_feat == WIDE_F:
+            wide[depth, n_trees] = (ens, x)
+    k2_wide = {}
+    for (depth, n_trees), (e, x) in wide.items():
+        for rows in (1058, TRAIN_ROWS[0]):
+            xr = x[:rows].contiguous()
+            bound = forest_bound(rows, WIDE_F, n_trees, depth)
+            k2_wide[f"n{rows}_T{n_trees}_D{depth}"] = {
+                "ms": device_ms(lambda: raw_predict(e, xr, apply_sigmoid=True)),
+                "plain_ms": device_ms(lambda: torch.sigmoid(
+                    dense_predict_reference(e.feat, e.thr, e.leaf, xr, depth,
+                                            e.base_score, e.tree_scale))),
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
     ens = model.ensemble
 
     def forest_ms(z):
@@ -619,8 +759,10 @@ def main() -> int:
           f"D=6: z of the random words kernel {k2_ms:.4f} ms, plain "
           f"{k2_plain_ms:.4f} ms; z of the fingerprints kernel "
           f"{k2_fp_ms:.4f} ms, plain {k2_fp_plain_ms:.4f} ms; bound "
-          f"{k2_bound['bound_ms']:.5f} ms ({k2_bound['bound_by']})",
-          flush=True)
+          f"{k2_bound['bound_ms']:.5f} ms ({k2_bound['bound_by']}) | F={WIDE_F} "
+          f"(rows, trees, depth; kernel / plain / bound ms): " + "; ".join(
+              f"{k} {t['ms']:.4f} / {t['plain_ms']:.4f} / {t['bound_ms']:.5f}"
+              for k, t in k2_wide.items()), flush=True)
 
     # -- phase 4: the slice --------------------------------------------------
     smiles = synthetic_smiles(SLICE_N, seed=1)
@@ -663,11 +805,13 @@ def main() -> int:
     # -- phase 5: the trainer's kernels against their plain versions --------
     t5 = time.time()
     k3_err = k3_err_plain = k4_err = k5_err = 0.0
-    k4_calls = k4_near = 0
+    k4_calls = k4_near = k3_cases = 0
+    feats = (30, 167, 300, WIDE_F)
     for n in (1, 7809, 65536):
-        for n_feat in (30, 167, 300):
+        for n_feat in feats:
             for level in (0, 5, 9):
                 nodes = 1 << level
+                k3_cases += 1
                 xb, pos, g, h = level_case(n, n_feat, level, n + n_feat + level,
                                            cuda)
                 hist = tr.level_histogram(xb, pos, g, h, nodes)
@@ -723,20 +867,22 @@ def main() -> int:
             k5_err = max(k5_err, float(leaf_err.max()), float(pred_err.max()))
 
     timed = {}
-    every = torch.ones(TRAIN_F, dtype=torch.bool, device=cuda)
-    for n in TRAIN_ROWS:
-        for level in range(TRAIN_DEPTH):
+    shapes = [(n, TRAIN_F, tuple(range(TRAIN_DEPTH))) for n in TRAIN_ROWS]
+    shapes.append((TRAIN_ROWS[0], WIDE_F, WIDE_LEVELS))
+    for n, n_feat, shape_levels in shapes:
+        every = torch.ones(n_feat, dtype=torch.bool, device=cuda)
+        for level in shape_levels:
             nodes = 1 << level
-            xb, pos, g, h = level_case(n, TRAIN_F, level, level, cuda)
+            xb, pos, g, h = level_case(n, n_feat, level, level, cuda)
             bounds = tr.gradient_bounds(g, h)      # once a tree in a fit
             hist = tr.level_histogram(xb, pos, g, h, nodes, bounds)
-            keys = (pos.long()[:, None] * (TRAIN_F * 64)
-                    + torch.arange(TRAIN_F, device=cuda)[None, :] * 64
+            keys = (pos.long()[:, None] * (n_feat * 64)
+                    + torch.arange(n_feat, device=cuda)[None, :] * 64
                     + xb.long()).reshape(-1)
-            wg = g[:, None].expand(n, TRAIN_F).reshape(-1)
-            wh = h[:, None].expand(n, TRAIN_F).reshape(-1)
-            length = nodes * TRAIN_F * 64
-            timed[n, level] = {
+            wg = g[:, None].expand(n, n_feat).reshape(-1)
+            wh = h[:, None].expand(n, n_feat).reshape(-1)
+            length = nodes * n_feat * 64
+            timed[n, n_feat, level] = {
                 "k3": device_ms(lambda: tr.level_histogram(xb, pos, g, h, nodes,
                                                            bounds)),
                 "k3_plain": device_ms(lambda: tr.level_histogram_reference(
@@ -744,12 +890,18 @@ def main() -> int:
                 "k3_library": event_ms(lambda: (
                     torch.bincount(keys, weights=wg, minlength=length),
                     torch.bincount(keys, weights=wh, minlength=length))),
-                "k3_bound": level_histogram_bound(n, TRAIN_F, nodes),
+                "k3_bound": level_histogram_bound(n, n_feat, nodes),
                 "k4": device_ms(lambda: tr.best_splits(hist, every, 1.0, 1.0, False)),
                 "k4_plain": device_ms(lambda: tr.best_splits_reference(
                     hist, every, 1.0, 1.0, False)),
-                "k4_bound": best_splits_bound(nodes, TRAIN_F),
+                "k4_oblivious": device_ms(lambda: tr.best_splits(
+                    hist, every, 1.0, 1.0, True)),
+                "k4_oblivious_plain": device_ms(lambda: tr.best_splits_reference(
+                    hist, every, 1.0, 1.0, True)),
+                "k4_bound": best_splits_bound(nodes, n_feat),
             }
+        if n_feat != TRAIN_F:
+            continue
         leaf_pos = torch.randint(0, 1 << TRAIN_DEPTH, (n,), dtype=torch.int32,
                                  device=cuda)
         margins = torch.zeros(n, device=cuda)
@@ -759,10 +911,21 @@ def main() -> int:
             "k5_plain": device_ms(lambda: tr.leaf_values_reference(
                 leaf_pos, g, h, 1 << TRAIN_DEPTH, 1.0, 0.1, margins)),
             "k5_bound": leaf_values_bound(n, 1 << TRAIN_DEPTH)}
+    n = TRAIN_ROWS[0]                          # rf: 1,024 leaves
+    _, _, g, h = level_case(n, 1, 0, 10, cuda)
+    leaf_pos = torch.randint(0, 1024, (n,), dtype=torch.int32, device=cuda)
+    margins, bounds = torch.zeros(n, device=cuda), tr.gradient_bounds(g, h)
+    timed[n, "k5_1024"] = {
+        "k5": device_ms(lambda: tr.leaf_values(leaf_pos, g, h, 1024, 1.0, 0.1,
+                                               margins, bounds)),
+        "k5_plain": device_ms(lambda: tr.leaf_values_reference(
+            leaf_pos, g, h, 1024, 1.0, 0.1, margins)),
+        "k5_bound": leaf_values_bound(n, 1024)}
 
-    def levels(n, key, field=None):
-        return [timed[n, lv][key][field] if field else timed[n, lv][key]
-                for lv in range(TRAIN_DEPTH)]
+    def levels(n, key, field=None, n_feat=TRAIN_F):
+        return [timed[n, n_feat, lv][key][field] if field
+                else timed[n, n_feat, lv][key]
+                for lv in (range(TRAIN_DEPTH) if n_feat == TRAIN_F else WIDE_LEVELS)]
 
     for n in TRAIN_ROWS:
         print(f"[5 trainer kernels] n={n}, F={TRAIN_F}, levels 0-5 (ms): "
@@ -775,7 +938,24 @@ def main() -> int:
               f"(64 leaves) {timed[n, 'k5']['k5']:.4f}, plain "
               f"{timed[n, 'k5']['k5_plain']:.4f}, bound "
               f"{timed[n, 'k5']['k5_bound']['bound_ms']:.6f}", flush=True)
-    print(f"[5 trainer kernels] 27 (n, F, level) cases: level_histogram max "
+    head = TRAIN_ROWS[0]
+
+    def wide_levels(key, field=None):
+        return fmt(levels(head, key, field, WIDE_F))
+
+    print(f"[5 trainer kernels] n={head}, F={WIDE_F}, levels {WIDE_LEVELS} (ms): "
+          f"level_histogram {wide_levels('k3')}, plain {wide_levels('k3_plain')}, "
+          f"bincount x2 {wide_levels('k3_library')}, bound "
+          f"{wide_levels('k3_bound', 'bound_ms')}; best_splits "
+          f"{wide_levels('k4')}, plain {wide_levels('k4_plain')}, oblivious "
+          f"{wide_levels('k4_oblivious')}, plain "
+          f"{wide_levels('k4_oblivious_plain')}, bound "
+          f"{wide_levels('k4_bound', 'bound_ms')}; leaf_values (1,024 leaves) "
+          f"{timed[head, 'k5_1024']['k5']:.4f}, plain "
+          f"{timed[head, 'k5_1024']['k5_plain']:.4f}, bound "
+          f"{timed[head, 'k5_1024']['k5_bound']['bound_ms']:.6f}", flush=True)
+    print(f"[5 trainer kernels] {k3_cases} (n, F, level) cases, F in {feats}: "
+          f"level_histogram max "
           f"|err| {k3_err:.3g} against the exact sum (limit 2.4e-7 |sum| + "
           f"1e-9 n max|v|), {k3_err_plain:.3g} against the plain f32 sum, "
           f"two runs bit-identical; best_splits {k4_calls} calls equal to the "
@@ -911,6 +1091,7 @@ def main() -> int:
               f"over {os.cpu_count()} cores, MACCS from C++): "
               f"{time.time() - t0:.3f} s wall", flush=True)
         p7 = similarity_phase(cuda, card, aux_raw, reg_raw)
+        wide_audit = wide_fit_audit(card, (smiles, labels), aux_raw)
         transfer_launches, leg_launches = transfer_phase(
             card, counters, (smiles, labels), (reg_smiles, reg_y), reg_raw, cache)
 
@@ -938,7 +1119,9 @@ def main() -> int:
          "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"],
          "bound_share": k2_bound["bound_ms"] / k2_ms, "library_ms": None,
          "ms_fingerprints": k2_fp_ms, "plain_ms_fingerprints": k2_fp_plain_ms,
-         "bound_share_fingerprints": k2_bound["bound_ms"] / k2_fp_ms},
+         "bound_share_fingerprints": k2_bound["bound_ms"] / k2_fp_ms,
+         "max_abs_err_fitted_f326": wide_audit["forest_err"],
+         "f326": k2_wide},
     ]
     # the trainer's kernels at n = 7,809, F = 30: K3 and K4 at level 5 (the
     # widest level of depth 6), K5 over 64 leaves; every level in *_levels
@@ -952,7 +1135,7 @@ def main() -> int:
         ("forest_leaf_values", "k5", "bbbp_tpu/ops/forest_tpu.py:340", k5_err,
          None))
     for name, key, replaces, err, library in train_kernels:
-        t = timed[head, "k5"] if key == "k5" else timed[head, last]
+        t = timed[head, "k5"] if key == "k5" else timed[head, TRAIN_F, last]
         entry = {"name": name, "route": "cuda",
                  "source": "bbbp_tpu_torch/csrc/forest_train.cu",
                  "replaces": replaces, "launches": train_launches[name],
@@ -968,6 +1151,10 @@ def main() -> int:
             entry["shape"] = f"n={head}, 64 leaves"
             entry["ms_n65536"] = timed[65536, "k5"]["k5"]
             entry["plain_ms_n65536"] = timed[65536, "k5"]["k5_plain"]
+            deep = timed[head, "k5_1024"]
+            entry["ms_1024_leaves"] = deep["k5"]
+            entry["plain_ms_1024_leaves"] = deep["k5_plain"]
+            entry["bound_ms_1024_leaves"] = deep["k5_bound"]["bound_ms"]
         else:
             entry["shape"] = f"n={head}, F={TRAIN_F}, level {last}"
             for n in TRAIN_ROWS:
@@ -977,8 +1164,26 @@ def main() -> int:
                 entry["bound_ms" + suffix] = levels(n, key + "_bound", "bound_ms")
                 if library:
                     entry["library_ms" + suffix] = levels(n, key + "_library")
+            # the transfer path's width, at levels WIDE_LEVELS
+            entry["levels_f326"] = list(WIDE_LEVELS)
+            fields = ["", "_plain"] + (["_library"] if library else []) + (
+                ["_oblivious", "_oblivious_plain"] if key == "k4" else [])
+            names = {"": "ms", "_plain": "plain_ms", "_library": "library_ms",
+                     "_oblivious": "ms_oblivious",
+                     "_oblivious_plain": "plain_ms_oblivious"}
+            for field in fields:
+                entry[names[field] + "_f326_levels"] = levels(head, key + field,
+                                                              n_feat=WIDE_F)
+            entry["bound_ms_f326_levels"] = levels(head, key + "_bound",
+                                                   "bound_ms", WIDE_F)
+            # the same on the aux molecules' own binned rows
+            for field in fields:
+                if field != "_library":
+                    entry[names[field] + "_f326_fitted_levels"] = [
+                        wide_audit["fitted"][lv][key + field] for lv in WIDE_LEVELS]
         if key == "k4":
             entry["near_tie_nodes"] = k4_near
+            entry["audit_f326"] = wide_audit["audit"]
         kernels.append(entry)
     # the similarity kernels: K6 at the transfer path's shape, K7 and K8 at
     # the full gram of the regression set, d = 2048; other shapes beside

@@ -93,7 +93,7 @@ def test_tanimoto_topk_indices_and_similarities_equal_jax(case, jnp, jsim):
         (q, r), k = tanimoto_tie_case(d, 60, 400, d), 10
     want_sim, want_idx = (np.asarray(a) for a in jsim.tanimoto_topk(
         jnp.asarray(q), jnp.asarray(r), k))
-    sim, idx = tsim.tanimoto_topk(torch.from_numpy(q), torch.from_numpy(r), k)
+    sim, idx = tsim.tanimoto_topk(q, r, k, device="cpu")
     assert sim.dtype == torch.float32 and idx.dtype == torch.int64
     if case in ("ties_d40", "ties_d167", "maccs_k25"):
         # the case does hold ties at the k-th place, where a sort that is
@@ -114,12 +114,12 @@ def test_tanimoto_matrix_bit_equal_and_weighted_close(d, jnp, jsim):
     r[7] = 0.0
     w = rng.uniform(0.1, 3.0, d).astype(np.float32)
     want = np.asarray(jsim.tanimoto_matrix(jnp.asarray(q), jnp.asarray(r)))
-    got = tsim.tanimoto_matrix(torch.from_numpy(q), torch.from_numpy(r))
+    got = tsim.tanimoto_matrix(torch.from_numpy(q), r, device="cpu")
     assert np.array_equal(got.numpy(), want)
     assert got[5].abs().max() == 0 and got[:, 7].abs().max() == 0
     want_w = np.asarray(jsim.tanimoto_matrix_w(jnp.asarray(q), jnp.asarray(r),
                                                jnp.asarray(w)))
-    got_w = tsim.tanimoto_matrix_w(torch.from_numpy(q), torch.from_numpy(r), w)
+    got_w = tsim.tanimoto_matrix_w(q, r, w, device="cpu")
     np.testing.assert_allclose(got_w.numpy(), want_w, rtol=0, atol=1e-5)
 
 
@@ -132,18 +132,17 @@ def test_minmax_matrix_bit_equal_and_weighted_close(d, levels, high, jnp, jsim):
     qc, rc = count_case(d, 23, d, high), count_case(d + 1, 19, d, high)
     w = rng.uniform(0.1, 3.0, d).astype(np.float32)
     want = np.asarray(jsim.minmax_matrix(jnp.asarray(qc), jnp.asarray(rc), levels))
-    got = tsim.minmax_matrix(torch.from_numpy(qc), torch.from_numpy(rc), levels)
+    got = tsim.minmax_matrix(qc, torch.from_numpy(rc), levels, device="cpu")
     assert np.array_equal(got.numpy(), want)
     want_w = np.asarray(jsim.minmax_matrix_w(jnp.asarray(qc), jnp.asarray(rc),
                                              jnp.asarray(w), levels))
-    got_w = tsim.minmax_matrix_w(torch.from_numpy(qc), torch.from_numpy(rc), w,
-                                 levels)
+    got_w = tsim.minmax_matrix_w(qc, rc, w, levels, device="cpu")
     np.testing.assert_allclose(got_w.numpy(), want_w, rtol=0, atol=1e-5)
 
 
 def test_minmax_identical_rows_above_the_clip_are_similarity_one():
     a = torch.tensor([[40.0, 1.0]])
-    assert abs(float(tsim.minmax_matrix(a, a, 8)[0, 0]) - 1.0) < 1e-6
+    assert abs(float(tsim.minmax_matrix(a, a, 8, device="cpu")[0, 0]) - 1.0) < 1e-6
 
 
 def test_rbf_matrix_matches_jax(jnp, jsim):
@@ -154,7 +153,7 @@ def test_rbf_matrix_matches_jax(jnp, jsim):
     b = rng.normal(size=(25, 9)).astype(np.float32)
     want = np.asarray(jsim.rbf_matrix(jnp.asarray(a), jnp.asarray(b),
                                       jnp.float32(0.07)))
-    got = tsim.rbf_matrix(a, b, np.float32(0.07))
+    got = tsim.rbf_matrix(a, b, np.float32(0.07), device="cpu")
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
@@ -293,7 +292,7 @@ def both_legs(jsim):
 
 def test_wrappers_on_cpu_run_plain_versions_without_launch():
     q, r = tanimoto_tie_case(5, 8, 40, 40)
-    qw, rw = (tbit.pack_bits_tensor(torch.from_numpy(a)) for a in (q, r))
+    qw, rw = (tsim.packed_bits(a, "cpu") for a in (q, r))
     qc = tsim.pack_counts(q * 3)
     rc = tsim.pack_counts(r * 2)
     for fn in (tsim.tanimoto_topk_packed, tsim.tanimoto_gram, tsim.minmax_gram):
@@ -351,6 +350,27 @@ def test_estimators_on_cuda_raise_without_a_card(cls, monkeypatch):
             est.fit(maccs, y)
 
 
+@pytest.mark.parametrize("fn", ["tanimoto_topk", "tanimoto_matrix",
+                                "tanimoto_matrix_w", "minmax_matrix",
+                                "minmax_matrix_w", "rbf_matrix"])
+def test_functions_default_to_cuda_and_raise_without_a_card(fn, monkeypatch):
+    """Arrays are moved to the device asked for; none runs the plain
+    version on the CPU because its input happened to lie there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q, r = tanimoto_tie_case(5, 8, 40, 40)
+    w = np.ones(40, np.float32)
+    args = {"tanimoto_topk": (q, r, 3), "tanimoto_matrix": (q, r),
+            "tanimoto_matrix_w": (q, r, w), "minmax_matrix": (q, r),
+            "minmax_matrix_w": (q, r, w), "rbf_matrix": (q, r, 0.1)}[fn]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(tsim, fn)(*args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(tsim, fn)(*(torch.from_numpy(a) if isinstance(a, np.ndarray)
+                            else a for a in args))
+    out = getattr(tsim, fn)(*args, device="cpu")
+    assert (out[0] if fn == "tanimoto_topk" else out).device.type == "cpu"
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_cuda(cuda_device):
     """K6, K7 and K8 against their plain versions on the card: the top-k
@@ -361,8 +381,7 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
     for nq, nr, d, k in ((60, 400, 167, 25), (1, 5000, 167, 64), (33, 40, 40, 40),
                          (17, 1, 30, 1), (50, 3000, 2048, 10)):
         q, r = tanimoto_tie_case(nq + nr, nq, nr, d)
-        qw, rw = (tbit.pack_bits_tensor(torch.from_numpy(a).to(cuda_device))
-                  for a in (q, r))
+        qw, rw = (tsim.packed_bits(a, cuda_device) for a in (q, r))
         before = tsim.tanimoto_topk_packed.launches.count
         sim, idx = tsim.tanimoto_topk_packed(qw, rw, k)
         assert tsim.tanimoto_topk_packed.launches.count == before + 1

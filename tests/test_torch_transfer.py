@@ -266,3 +266,13 @@ def test_transfer_features_on_cuda_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttr.transfer_features(["CCO"], aux_data=_aux(1), verbose=False)
+
+
+def test_aux_feature_basis_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    raw = (np.zeros((4, 3), np.float32), np.zeros((4, 167), np.float32),
+           np.zeros((4, 8), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttr._aux_feature_basis(["C"] * 4, 2, raw=raw)
+    x, maccs, _ = ttr._aux_feature_basis(["C"] * 4, 2, raw=raw, device="cpu")
+    assert x.shape == (4, 3 + 167 + 2) and maccs.shape == (4, 167)
