@@ -172,13 +172,16 @@ def kernels_lib() -> ctypes.CDLL:
     lib.bbbp_forest_level_histogram.argtypes = [
         _P, _I, _I,            # xb [n, F] uint8
         _P, _P, _P, _I,        # pos [n] int32, g, h [n] f32, n_nodes
-        _P, _P,                # bounds [2] f32, scratch acc [nodes·F·128] int64
+        _P, _P,                # bounds [2] f32, n_bins [F] uint8 or null
+        _I, _I, _I, _I,        # tile_feats, threads, rows_per_item, own_rows
+        _P, _P, _P,            # scratch: rows, plan, acc
         _P, _P,                # out [nodes, F, 64, 2] f32, stream
     ]
     lib.bbbp_forest_best_splits.restype = _I
     lib.bbbp_forest_best_splits.argtypes = [
         _P, _I, _I,            # hist [nodes, F, 64, 2] f32
         _P, _F, _F, _I,        # col_mask [F] bool, lambda, min_child, oblivious
+        _P,                    # scratch int32 [2·candidates] or null
         _P, _P, _P, _P,        # feat, bin [nodes] int32, has_split bool, stream
     ]
     lib.bbbp_forest_leaf_values.restype = _I

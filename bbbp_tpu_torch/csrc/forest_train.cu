@@ -26,35 +26,93 @@
 // sum of the quantised values rounded once to f32: its error against the
 // exact sum is at most one f32 rounding plus n * 2^-e / 2, which is below
 // 2^-62 * n * max|v| * n. The plain versions sum in f32 in row order, so the
-// two differ by the plain version's own rounding error. (The alternative,
-// warp-owned row ranges with a lane-ordered reduction of colliding keys, needs
-// per-warp partial histograms added in a fixed order; fixed point needs
-// neither and keeps one shared histogram tile per block.)
+// two differ by the plain version's own rounding error;
+// level_histogram_fixed_reference repeats the fixed-point arithmetic in
+// torch and equals K3 bit for bit.
 //
 // What bounds them here. K3 reads xb once (n * F bytes) and writes the
-// histogram once (nodes * F * 512 B); at the main path's shapes (n = 7,809,
-// F = 30, levels 0-5) that is well under a microsecond at 3.35 TB/s, and
-// the kernel is bound by its shared-memory atomics (two 64-bit adds per row
-// and feature) and by the launch chain (memset, accumulate, finish).
-// K4 and K5 are small: one pass over the histogram, one over the rows.
+// histogram once (nodes * F * 512 B): under a microsecond at the screening
+// trainer's shape (n = 7,809, F = 30, levels 0-5), 26 us at the transfer
+// path's deepest (F = 326, level 9, an 85 MB histogram). What a histogram
+// kernel pays above that is (a) shared-memory atomics, two 64-bit adds per
+// row and feature, which collide when a feature has two bins and most rows
+// sit in one of them, (b) rows that a block reads and does not use, and (c)
+// passes over the histogram besides the one write. The design below removes
+// the three; measured on an H100 (700 W), what is left is the chain of its
+// launches: the one-block sort takes 5-8 us of a 12-16 us call at F = 30 and
+// of a 25-32 us call at F = 326, levels 0-5, and at level 9 (60-67 us)
+// 10,752 blocks of ~15 rows each pay a block's start-up for 8 KB of output.
+// K4 reads the histogram once; its work is a chain of dependent f32 adds
+// and two IEEE divisions a bin, and it is bound by the instruction rate, not
+// by bytes. K5 is small: one pass over the rows.
 //
-// K3 design: a block owns a tile of 64 (node, feature) pairs, min(F, 32)
-// features by 64 / min(F, 32) nodes (at most 64 KB of int64 (g, h) bins in
-// shared memory), and a range of rows; grid = (pair tiles, row splits). A warp loads 32 rows' pos,
-// keeps those whose node is in its tile (ballot), and for each such row its
-// lanes take one feature each and add the row's quantised (g, h) to the
-// tile. At the end the block adds its non-zero bins to a global int64
-// histogram with atomics, and a finish kernel converts it to f32.
+// K3 design.
+// 1. hist_group_kernel, one block: a counting sort of the rows by node
+//    (count in shared memory, exclusive scan, scatter). It drops the rows
+//    of weight 0 (g = h = 0), writes the kept rows' indices in node order
+//    and lays out the work. It is one multiprocessor's serial section of
+//    every call, so it does the least it can per row: the rows are
+//    quantised by the blocks that use them, 8 rows' loads a thread are in
+//    flight together, the first 8,192 rows' nodes stay in registers between
+//    count and scatter, and the scatter goes through shared memory so that
+//    global memory is written in order. An item is
+//    (node, row range). A node of at most own_rows rows is one item, so
+//    one block owns it; a larger node is cut into items of rows_per_item
+//    rows and gets a slot in a small int64 accumulator. The other blocks of
+//    the same launch zero that accumulator and take the two fixed-point
+//    scales and their inverses, once a call (ilogb and ldexp in float64 cost
+//    ~1,300 cycles).
+// 2. level_hist_kernel, grid (items, feature tiles): a block reads only its
+//    item's rows. A lane keeps one feature of the tile for all its rows.
+//    A feature of at most 4 occupied bins (n_bins, from the bin mapper's
+//    edges) is summed in the lane's registers, as the node total and bins
+//    1-3, and reaches shared memory once a block; the others add to a
+//    shared tile that holds only occupied bins. A 64-bit add on shared
+//    memory is a compare-and-swap loop on this card, so the tile is added
+//    to as two 32-bit words with the carry taken from the low word's
+//    returned value: two native atomics, exact modulo 2^64 in any order.
+//    The block that owns a node converts its tile to f32 and writes out
+//    itself, zeros included; a block of a split node adds its non-zero
+//    bins to the node's accumulator slot.
+// 3. hist_finish_kernel converts the slots of split nodes only. It is not
+//    launched when no node can be split (n <= own_rows).
+// The wrapper's histogram_plan sets the sizes: 8 features a tile up to
+// F = 64 and 16 above, 256 rows an item, nodes split above 512 rows, 256
+// threads a block or 128 where a node holds under 128 rows on average (of
+// the sizes tried on the card, these were the fastest at n = 7,809).
+// Order never enters an integer sum, so the result equals the exact sum of
+// the quantised values whatever the grouping.
 //
-// K4 design: a block per node (in oblivious mode one block for the level);
-// a thread per feature walks the 64 bins twice, once for the chunk totals
-// and once for the gains, in the order of the plain version (sequential
-// inside 16-bin chunks, chunk offsets added last, as the reference's CPU
-// cumsum sums). Every operation is an explicitly rounded f32 op, so the
-// kernel's gains are bit-equal to the plain version's on the same
-// histogram. (gain, index) pairs meet in a block reduction that keeps the
-// first index on ties; NaN counts as the largest value, as torch.argmax
-// and jnp.argmax treat it.
+// K4 design: four lanes a feature, one 16-bin chunk each. The plain version
+// sums sequentially inside a 16-bin chunk and adds the chunk offsets last
+// (as the reference's CPU cumsum sums), so the chunks are independent until
+// the offsets: a lane keeps its 16 running (g, h) sums in registers, the
+// four lanes exchange their chunk totals by shuffle and each forms the
+// offsets in chunk order, then its 16 gains. One pass over the histogram.
+// A warp copies 8 features (4 KB, contiguous) from the histogram into its
+// shared-memory stage with cp.async, 16 coalesced bytes a lane. Each 16-bin
+// chunk is padded by 16 bytes (cp.async needs 16-byte aligned rows), which
+// spreads the lanes' chunks over 8 bank groups instead of one. Masked-out
+// features are not read. Measured, the kernel is bound by the instruction
+// rate, not by the copy (85 MB at level 9 took 94 us with the next copy
+// in flight behind the arithmetic, and as long without): two IEEE
+// divisions a bin. So the divisions of a bin are skipped where none of the
+// warp's 32 bins is valid, which at deep levels is most of them. Every
+// operation is an explicitly rounded f32 op in the plain version's order,
+// so the gains are bit-equal to the plain version's on the same histogram. (gain, index) pairs meet in a reduction
+// that keeps the first index on ties; NaN counts as the largest value, as
+// torch.argmax and jnp.argmax treat it.
+// Per-node mode: grid (nodes, blocks of 64 features), a warp per group of 8
+// features, so a level of few nodes still fills the card; where a node has
+// more than one block, each writes its best (gain, index) and a second
+// small launch takes the first-index maximum per node.
+// Oblivious mode: the grid runs over groups of 4 features. A block's warps
+// compute the masked gains of (node, feature) pairs for a run of 32 nodes
+// into shared memory (an invalid entry is stored as -0.0f, which adds
+// nothing and marks itself), then one thread per (feature, bin) adds the
+// run in node order, the plain version's order. Each block writes its best
+// (gain, index); a second one-block launch takes the first-index maximum of
+// those and writes the level's split to every node.
 
 #include <cmath>
 #include <cstdint>
@@ -64,11 +122,24 @@ namespace {
 
 constexpr int kBins = 64;
 constexpr int kChunk = 16;                  // bin-sum order, see K4 design
-constexpr int kTilePairs = 64;              // (node, feature) pairs a block
-constexpr int kTileFeats = 32;              // one feature a lane
+constexpr int kChunks = kBins / kChunk;
+constexpr int kFewBins = 4;                 // summed in registers up to here
 constexpr int kHistThreads = 256;
+constexpr int kHistUnroll = 8;              // rows a lane has in flight
+constexpr int kSortThreads = 1024;
+constexpr int kSortUnroll = 8;
+constexpr int kFewNodes = 8;                // levels whose rows share counters
+constexpr int kMaxSlots = 64;               // split nodes a level
+constexpr int kMaxSortNodes = 8192;         // 32 KB of shared counters
+constexpr int kSortStagedRows = 10240;      // ordered in shared memory up to here
 constexpr int kSplitThreads = 256;
-constexpr int kTargetBlocks = 528;          // 4 a multiprocessor
+constexpr int kGroupFeats = 32 / kChunks;   // features a warp stages at once
+constexpr int kChunkStride = 2 * kChunk + 4;        // floats: 16-byte rows, padded
+constexpr int kStageFloats = 32 * kChunkStride;     // a warp's stage
+constexpr int kSplitFeats = (kSplitThreads / 32) * kGroupFeats;    // a block
+constexpr int kOblFeats = 4;                // features a block, oblivious
+constexpr int kOblRun = 32;                 // nodes a run
+constexpr int kOblThreads = kOblFeats * kBins;
 
 typedef unsigned long long u64;
 
@@ -90,6 +161,14 @@ __device__ __forceinline__ float dequantise(long long q, double scale) {
   return static_cast<float>(static_cast<double>(q) / scale);
 }
 
+// dequantise(q, scale) with inverse = 1 / scale. The scale is a power of
+// two, so is its inverse, and q * inverse is the same float64 as q / scale
+// (both exact, and normal: |q| >= 1, scale <= 2^211); the division it saves
+// is a subroutine of float64 operations for every occupied bin.
+__device__ __forceinline__ float bin_value(long long q, double inverse) {
+  return static_cast<float>(static_cast<double>(q) * inverse);
+}
+
 int blocks_for(int n, int threads) {
   const int b = (n + threads - 1) / threads;
   return b < 1 ? 1 : (b > 1024 ? 1024 : b);
@@ -97,81 +176,358 @@ int blocks_for(int n, int threads) {
 
 // ---- K3 ---------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kHistThreads)
-level_hist_kernel(const uint8_t* __restrict__ xb, int n, int F,
-                  const int* __restrict__ pos, const float* __restrict__ g,
-                  const float* __restrict__ h, int n_nodes, int tile_nodes,
-                  int tile_feats, int rows_per_split,
-                  const float* __restrict__ bounds,
-                  u64* __restrict__ acc) {
-  extern __shared__ u64 tile[];             // [pair][bin][g, h]
-  const int f_tiles = (F + tile_feats - 1) / tile_feats;
-  const int node0 = (blockIdx.x / f_tiles) * tile_nodes;
-  const int f0 = (blockIdx.x % f_tiles) * tile_feats;
-  const int n_count = min(tile_nodes, n_nodes - node0);
-  const int f_count = min(tile_feats, F - f0);
-  const int entries = n_count * f_count * kBins * 2;
-  for (int i = threadIdx.x; i < entries; i += blockDim.x) tile[i] = 0;
+// Exclusive prefix of v over the block's threads; *total gets the sum.
+__device__ long long block_exclusive_scan(long long v, long long* total) {
+  __shared__ long long s_warp[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long inc = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long up = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += up;
+  }
+  if (lane == 31) s_warp[warp] = inc;
   __syncthreads();
-
-  const double sg = fixed_scale(bounds[0], n);
-  const double sh = fixed_scale(bounds[1], n);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(n, r_begin + rows_per_split);
-  for (int base = r_begin + warp * 32; base < r_end; base += warps * 32) {
-    const int r = base + lane;
-    int p = -1;
-    long long qg = 0, qh = 0;
-    if (r < r_end) {
-      p = pos[r] - node0;
-      if (p >= 0 && p < n_count) {
-        qg = quantise(g[r], sg);
-        qh = quantise(h[r], sh);
-      }
+  if (warp == 0) {
+    const long long w = lane < (blockDim.x >> 5) ? s_warp[lane] : 0;
+    long long winc = w;
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long up = __shfl_up_sync(0xffffffffu, winc, o);
+      if (lane >= o) winc += up;
     }
-    unsigned todo = __ballot_sync(0xffffffffu, (qg | qh) != 0);
-    while (todo) {
-      const int src = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int row = base + src;
-      const int node = __shfl_sync(0xffffffffu, p, src);
-      const long long rg = __shfl_sync(0xffffffffu, qg, src);
-      const long long rh = __shfl_sync(0xffffffffu, qh, src);
-      for (int f = lane; f < f_count; f += 32) {
-        const int b = xb[static_cast<size_t>(row) * F + f0 + f];
-        if (b >= kBins) continue;
-        u64* cell = tile + (static_cast<size_t>(node * f_count + f) * kBins + b) * 2;
-        atomicAdd(cell, static_cast<u64>(rg));
-        atomicAdd(cell + 1, static_cast<u64>(rh));
-      }
-    }
+    s_warp[lane] = winc - w;
+    if (lane == 31) *total = winc;
   }
   __syncthreads();
+  return s_warp[warp] + inc - v;
+}
 
-  for (int i = threadIdx.x; i < entries; i += blockDim.x) {
-    const u64 v = tile[i];
-    if (v == 0) continue;
-    const int pair = i / (kBins * 2);
-    const int node = node0 + pair / f_count;
-    const int f = f0 + pair % f_count;
-    atomicAdd(acc + (static_cast<size_t>(node) * F + f) * (kBins * 2) +
-                  i % (kBins * 2),
-              v);
+// The nodes of the block's rows first + u * blockDim.x + threadIdx.x, u <
+// kSortUnroll: -1 for a row of weight 0 (g = h = 0, as subsampling leaves
+// them), a row outside the level or a slot past n. The loads of all
+// kSortUnroll rows are in flight together.
+__device__ __forceinline__ void live_nodes(const int* __restrict__ pos, int n,
+                                           const float* __restrict__ g,
+                                           const float* __restrict__ h,
+                                           int n_nodes, int first,
+                                           int (&node)[kSortUnroll]) {
+  float gv[kSortUnroll], hv[kSortUnroll];
+#pragma unroll
+  for (int u = 0; u < kSortUnroll; ++u) {
+    const int r = first + u * blockDim.x + threadIdx.x;
+    node[u] = r < n ? pos[r] : -1;
+    gv[u] = r < n ? g[r] : 0.f;
+    hv[u] = r < n ? h[r] : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < kSortUnroll; ++u)
+    if (node[u] >= n_nodes || (gv[u] == 0.f && hv[u] == 0.f)) node[u] = -1;
+}
+
+// Where this lane's kSortUnroll rows go: every (warp, node) adds its rows
+// to the node's counter, and with kScatter place[u] gets, for each row, the
+// rows of its node that the counter held and that the warp puts ahead of it
+// (any order inside a node will do). Levels of at most kFewNodes nodes count
+// a warp's rows of all nodes at once, in 16-bit fields of two 64-bit words
+// that a shuffle scan sums over the lanes, and add once a (warp, node): at
+// level 0 every row holds node 0, and one add a row to one counter is
+// 8,000 adds in a queue. Deeper levels, where the rows of a warp seldom
+// meet, add row by row.
+template <bool kScatter>
+__device__ __forceinline__ void add_rows(int* s_cnt, int n_nodes,
+                                         const int (&node)[kSortUnroll],
+                                         int (&place)[kSortUnroll]) {
+  const int lane = threadIdx.x & 31;
+  if (n_nodes > kFewNodes) {
+#pragma unroll
+    for (int u = 0; u < kSortUnroll; ++u)
+      if (node[u] >= 0) place[u] = atomicAdd(s_cnt + node[u], 1);
+    return;
+  }
+  // field k & 3 of word k >> 2: rows of node k; a warp holds at most 256
+  const auto field = [](u64 low, u64 high, int k) {
+    return static_cast<int>((k < 4 ? low : high) >> (16 * (k & 3))) & 0xffff;
+  };
+  u64 mine0 = 0, mine1 = 0;
+#pragma unroll
+  for (int u = 0; u < kSortUnroll; ++u) {
+    if (node[u] < 0) continue;
+    if (kScatter) place[u] = field(mine0, mine1, node[u]);   // this lane's earlier rows
+    const u64 one = 1ull << (16 * (node[u] & 3));
+    mine0 += node[u] < 4 ? one : 0;
+    mine1 += node[u] < 4 ? 0 : one;
+  }
+  u64 upto0 = mine0, upto1 = mine1;         // inclusive over the lanes
+  for (int o = 1; o < 32; o <<= 1) {
+    const u64 up0 = __shfl_up_sync(0xffffffffu, upto0, o);
+    const u64 up1 = __shfl_up_sync(0xffffffffu, upto1, o);
+    if (lane >= o) {
+      upto0 += up0;
+      upto1 += up1;
+    }
+  }
+  const u64 all0 = __shfl_sync(0xffffffffu, upto0, 31);
+  const u64 all1 = __shfl_sync(0xffffffffu, upto1, 31);
+  int first = 0;                            // lane k: node k's rows before the warp's
+  if (lane < n_nodes) {
+    const int rows = field(all0, all1, lane);
+    if (rows) first = atomicAdd(s_cnt + lane, rows);
+  }
+  if (!kScatter) return;
+#pragma unroll
+  for (int u = 0; u < kSortUnroll; ++u) {
+    const int of_node = __shfl_sync(0xffffffffu, first, node[u] < 0 ? 0 : node[u]);
+    if (node[u] >= 0)
+      place[u] += of_node + field(upto0 - mine0, upto1 - mine1, node[u]);
   }
 }
 
-__global__ void hist_finish_kernel(const long long* __restrict__ acc,
-                                   size_t total, int n,
-                                   const float* __restrict__ bounds,
+// scratch plan: scales f64 [4] (g, h, then their inverses), items
+// [max_items] int4 (node, first row, end row, slot or -1), slot_node
+// [acc_slots], info {items, slots in use}
+__global__ void __launch_bounds__(kSortThreads)
+hist_group_kernel(const int* __restrict__ pos, int n,
+                  const float* __restrict__ g, const float* __restrict__ h,
+                  int n_nodes, int rows_per_item, int own_rows,
+                  const float* __restrict__ bounds, int* __restrict__ rows,
+                  double* __restrict__ scales, int4* __restrict__ items,
+                  int* __restrict__ slot_node, int* __restrict__ info,
+                  ulonglong2* __restrict__ acc, size_t acc_pairs) {
+  if (blockIdx.x > 0) {                     // the zeroing blocks
+    if (blockIdx.x == 1 && threadIdx.x < 2) {
+      // once a call, for the other kernels, and off this kernel's one long
+      // block: ilogb and ldexp in float64 take ~1,300 cycles
+      const double scale = n > 0 ? fixed_scale(bounds[threadIdx.x], n) : 1.0;
+      scales[threadIdx.x] = scale;
+      scales[2 + threadIdx.x] = 1.0 / scale;
+    }
+    const size_t stride = static_cast<size_t>(gridDim.x - 1) * blockDim.x;
+    for (size_t i = static_cast<size_t>(blockIdx.x - 1) * blockDim.x + threadIdx.x;
+         i < acc_pairs; i += stride)
+      acc[i] = make_ulonglong2(0, 0);
+    return;
+  }
+  extern __shared__ int s_cnt[];            // [n_nodes] counts, then cursors
+  __shared__ long long s_total;
+  __shared__ int4 s_split[kMaxSlots];       // a split node: rows, first item
+  for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) s_cnt[i] = 0;
+  __syncthreads();
+  // every thread walks the same number of row slots, so the warp-wide
+  // primitives below see whole warps; the first kSortUnroll * blockDim.x
+  // rows' nodes stay in registers for the scatter (all of them at the
+  // trainer's 7,809 rows: one multiprocessor reads pos, g and h once)
+  const int chunk = kSortUnroll * blockDim.x;
+  int kept_node[kSortUnroll], node[kSortUnroll], place[kSortUnroll];
+  live_nodes(pos, n, g, h, n_nodes, 0, kept_node);
+  add_rows<false>(s_cnt, n_nodes, kept_node, place);
+  for (int first = chunk; first < n; first += chunk) {
+    live_nodes(pos, n, g, h, n_nodes, first, node);
+    add_rows<false>(s_cnt, n_nodes, node, place);
+  }
+  __syncthreads();
+
+  // a run of nodes a thread; rows, items and slots before it in one scan:
+  // rows in the high word, items (< 2^24) and slots (< 2^8) in the low
+  const int per = (n_nodes + blockDim.x - 1) / blockDim.x;
+  const int node0 = min(n_nodes, static_cast<int>(threadIdx.x) * per);
+  const int node1 = min(n_nodes, node0 + per);
+  long long mine = 0;
+  for (int node = node0; node < node1; ++node) {
+    const int c = s_cnt[node];
+    const int n_items = c > own_rows ? (c + rows_per_item - 1) / rows_per_item : 1;
+    mine += (static_cast<long long>(c) << 32) + (n_items << 8) + (c > own_rows);
+  }
+  const long long before = block_exclusive_scan(mine, &s_total);
+  int start = static_cast<int>(before >> 32);
+  int item = static_cast<int>(before & 0xffffffff) >> 8;
+  int slot = static_cast<int>(before & 0xff);
+  for (int node = node0; node < node1; ++node) {
+    const int c = s_cnt[node];
+    if (c > own_rows) {                     // its items: by all threads, below
+      s_split[slot] = make_int4(node, start, start + c, item);
+      slot_node[slot++] = node;
+      item += (c + rows_per_item - 1) / rows_per_item;
+    } else {
+      items[item++] = make_int4(node, start, start + c, -1);
+    }
+    s_cnt[node] = start;
+    start += c;
+  }
+  if (threadIdx.x == 0) {
+    info[0] = static_cast<int>(s_total & 0xffffffff) >> 8;
+    info[1] = static_cast<int>(s_total & 0xff);
+  }
+  __syncthreads();
+  for (int k = 0; k < static_cast<int>(s_total & 0xff); ++k) {
+    const int4 split = s_split[k];
+    for (int j = threadIdx.x; split.y + j * rows_per_item < split.z; j += blockDim.x)
+      items[split.w + j] =
+          make_int4(split.x, split.y + j * rows_per_item,
+                    min(split.y + (j + 1) * rows_per_item, split.z), k);
+  }
+  // the scatter: through shared memory where the rows fit there, so that
+  // global memory is written in order (32 scattered 4-byte stores a warp
+  // keep one multiprocessor busy for microseconds)
+  const bool staged = n <= kSortStagedRows;
+  int* ordered = staged ? s_cnt + n_nodes : rows;
+  auto scatter = [&](const int (&nodes)[kSortUnroll], int first_row) {
+    add_rows<true>(s_cnt, n_nodes, nodes, place);
+#pragma unroll
+    for (int u = 0; u < kSortUnroll; ++u)
+      if (nodes[u] >= 0)
+        ordered[place[u]] = first_row + u * blockDim.x + threadIdx.x;
+  };
+  scatter(kept_node, 0);
+  for (int first = chunk; first < n; first += chunk) {
+    live_nodes(pos, n, g, h, n_nodes, first, node);
+    scatter(node, first);
+  }
+  if (!staged) return;
+  __syncthreads();
+  const int kept = static_cast<int>(s_total >> 32);
+  for (int i = threadIdx.x; i < kept; i += blockDim.x) rows[i] = ordered[i];
+}
+
+// cell += v modulo 2^64 with two 32-bit atomics: the low word's old value
+// tells whether this add carried, and the carries of all adds together are
+// what the low words' sum carries, in any order.
+__device__ __forceinline__ void shared_add64(u64* cell, long long value) {
+  if (value == 0) return;
+  unsigned* w = reinterpret_cast<unsigned*>(cell);
+  const unsigned lo = static_cast<unsigned>(static_cast<u64>(value));
+  unsigned hi = static_cast<unsigned>(static_cast<u64>(value) >> 32);
+  if (lo) {
+    const unsigned old = atomicAdd(w, lo);
+    hi += (old + lo) < lo;
+  }
+  if (hi) atomicAdd(w + 1, hi);
+}
+
+__global__ void __launch_bounds__(kHistThreads)
+level_hist_kernel(const uint8_t* __restrict__ xb, int F,
+                  const float* __restrict__ g, const float* __restrict__ h,
+                  const uint8_t* __restrict__ n_bins, int tile_shift,
+                  const int* __restrict__ rows, const double* __restrict__ scales,
+                  const int4* __restrict__ items, const int* __restrict__ info,
+                  u64* __restrict__ acc, float2* __restrict__ out) {
+  extern __shared__ u64 tile[];             // [occupied bin of the tile][g, h]
+  __shared__ int s_off[33];                 // first tile bin of a feature
+  __shared__ int s_nb[32];
+  const int tile_feats = 1 << tile_shift;
+  const int f0 = blockIdx.y * tile_feats;
+  const int f_count = min(tile_feats, F - f0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // these loads are in flight at once; an item past the count is allocated
+  const int4 item = items[blockIdx.x];
+  const double sg = scales[0], sh = scales[1];
+  int lane_nb = 0;
+  if (warp == 0 && lane < f_count)
+    lane_nb = n_bins ? min(static_cast<int>(n_bins[f0 + lane]), kBins) : kBins;
+  if (static_cast<int>(blockIdx.x) >= info[0]) return;
+  if (warp == 0) {
+    int inc = lane_nb;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += up;
+    }
+    s_nb[lane] = lane_nb;
+    s_off[lane] = inc - lane_nb;
+    if (lane == 31) s_off[32] = inc;
+  }
+  __syncthreads();
+  const int cells = s_off[f_count];
+  for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) tile[i] = 0;
+  __syncthreads();
+
+  // a lane keeps feature f for rows sub, sub + step, ... of the item, the
+  // loads of kHistUnroll of them in flight together
+  const int f = lane & (tile_feats - 1);
+  const int rows_a_warp = 32 >> tile_shift;
+  const int step = (blockDim.x >> 5) * rows_a_warp;
+  if (f < f_count) {
+    const int nb = s_nb[f];
+    const bool few = nb <= kFewBins;
+    u64* cell0 = tile + 2 * s_off[f];
+    const uint8_t* col = xb + f0 + f;
+    long long tg = 0, th = 0, g1 = 0, h1 = 0, g2 = 0, h2 = 0, g3 = 0, h3 = 0;
+    for (int i0 = item.y + warp * rows_a_warp + (lane >> tile_shift); i0 < item.z;
+         i0 += kHistUnroll * step) {
+      int r[kHistUnroll], b[kHistUnroll];
+      float gv[kHistUnroll], hv[kHistUnroll];
+#pragma unroll
+      for (int u = 0; u < kHistUnroll; ++u)
+        r[u] = i0 + u * step < item.z ? rows[i0 + u * step] : -1;
+#pragma unroll
+      for (int u = 0; u < kHistUnroll; ++u) {
+        b[u] = r[u] >= 0 ? col[static_cast<size_t>(r[u]) * F] : kBins;
+        gv[u] = r[u] >= 0 ? g[r[u]] : 0.f;
+        hv[u] = r[u] >= 0 ? h[r[u]] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kHistUnroll; ++u) {
+        if (b[u] >= nb) continue;
+        const long long qg = quantise(gv[u], sg), qh = quantise(hv[u], sh);
+        if (few) {
+          tg += qg;
+          th += qh;
+          if (b[u] == 1) { g1 += qg; h1 += qh; }
+          if (b[u] == 2) { g2 += qg; h2 += qh; }
+          if (b[u] == 3) { g3 += qg; h3 += qh; }
+        } else {
+          shared_add64(cell0 + 2 * b[u], qg);
+          shared_add64(cell0 + 2 * b[u] + 1, qh);
+        }
+      }
+    }
+    if (few) {                              // bins past nb hold 0 and are skipped
+      shared_add64(cell0, tg - g1 - g2 - g3);
+      shared_add64(cell0 + 1, th - h1 - h2 - h3);
+      shared_add64(cell0 + 2, g1);
+      shared_add64(cell0 + 3, h1);
+      shared_add64(cell0 + 4, g2);
+      shared_add64(cell0 + 5, h2);
+      shared_add64(cell0 + 6, g3);
+      shared_add64(cell0 + 7, h3);
+    }
+  }
+  __syncthreads();
+
+  const size_t pair0 = (static_cast<size_t>(item.w < 0 ? item.x : item.w) * F + f0) * kBins;
+  if (item.w < 0) {                         // the node is this block's: write out
+    for (int i = threadIdx.x; i < f_count * kBins; i += blockDim.x) {
+      const int tf = i / kBins, b = i % kBins;
+      float2 v = make_float2(0.f, 0.f);
+      if (b < s_nb[tf]) {
+        const u64* cell = tile + 2 * (s_off[tf] + b);
+        v.x = bin_value(static_cast<long long>(cell[0]), scales[2]);
+        v.y = bin_value(static_cast<long long>(cell[1]), scales[3]);
+      }
+      out[pair0 + i] = v;
+    }
+  } else {                                  // a part of a split node
+    for (int i = threadIdx.x; i < f_count * kBins; i += blockDim.x) {
+      const int tf = i / kBins, b = i % kBins;
+      if (b >= s_nb[tf]) continue;
+      const u64* cell = tile + 2 * (s_off[tf] + b);
+      if (cell[0]) atomicAdd(acc + 2 * (pair0 + i), cell[0]);
+      if (cell[1]) atomicAdd(acc + 2 * (pair0 + i) + 1, cell[1]);
+    }
+  }
+}
+
+// grid (acc_slots, parts): the slots in use become their nodes' histograms
+__global__ void hist_finish_kernel(const long long* __restrict__ acc, int F,
+                                   const int* __restrict__ slot_node,
+                                   const int* __restrict__ info,
+                                   const double* __restrict__ scales,
                                    float* __restrict__ out) {
-  const double sg = fixed_scale(bounds[0], n);
-  const double sh = fixed_scale(bounds[1], n);
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x)
-    out[i] = dequantise(acc[i], (i & 1) ? sh : sg);
+  if (static_cast<int>(blockIdx.x) >= info[1]) return;
+  const double inverse_g = scales[2], inverse_h = scales[3];
+  const size_t len = static_cast<size_t>(F) * kBins * 2;
+  const long long* src = acc + blockIdx.x * len;
+  float* dst = out + slot_node[blockIdx.x] * len;
+  for (size_t i = blockIdx.y * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < len; i += static_cast<size_t>(gridDim.y) * blockDim.x)
+    dst[i] = bin_value(src[i], (i & 1) ? inverse_h : inverse_g);
 }
 
 // ---- K4 ---------------------------------------------------------------------
@@ -213,64 +569,97 @@ __device__ Best block_best(Best mine) {
       if (better(og, oi, mine.gain, mine.idx)) mine = {og, oi};
     }
   }
-  return mine;                              // valid in thread 0
+  return mine;                              // valid in warp 0
 }
 
-// The chunk offsets of one feature's (g, h) cumulative sums: off[k] is the
-// total of chunks 0..k-1, summed in chunk order; tg, th the feature's totals.
-struct Offsets {
-  float g[kBins / kChunk], h[kBins / kChunk];
-  float tg, th;
-};
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
 
-__device__ __forceinline__ Offsets chunk_offsets(const float2* __restrict__ hf) {
-  Offsets o;
-  float og = 0.f, oh = 0.f;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// A warp copies up to 8 features' bins into its stage: slice(s) is the 512 B of the feature for
+// slot s (the lane-th float4 holds bins 2 * lane and 2 * lane + 1), or null
+// for a slot that is not read.
+template <typename Slice>
+__device__ __forceinline__ void stage_copy(float* stage, int lane, Slice slice) {
 #pragma unroll
-  for (int k = 0; k < kBins / kChunk; ++k) {
-    float ag = hf[k * kChunk].x, ah = hf[k * kChunk].y;
-#pragma unroll
-    for (int i = 1; i < kChunk; ++i) {
-      ag = __fadd_rn(ag, hf[k * kChunk + i].x);
-      ah = __fadd_rn(ah, hf[k * kChunk + i].y);
-    }
-    o.g[k] = og;
-    o.h[k] = oh;
-    if (k == kBins / kChunk - 1) {
-      o.tg = __fadd_rn(ag, og);
-      o.th = __fadd_rn(ah, oh);
-    }
-    og = __fadd_rn(og, ag);
-    oh = __fadd_rn(oh, ah);
+  for (int s = 0; s < kGroupFeats; ++s) {
+    const float4* src = slice(s);
+    if (src)
+      cp_async16(stage + (s * kChunks + lane / (kChunk / 2)) * kChunkStride +
+                     (lane % (kChunk / 2)) * 4,
+                 src + lane);
   }
-  return o;
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
 }
 
-// Calls visit(b, gain, valid) for the 64 bins of one feature, in bin order.
+// Lane 4 * s + k of a warp holds chunk k (16 bins) of the feature staged in
+// slot s. Calls visit(b, gain, valid) for its bins in order. All 32 lanes
+// must call it: the four lanes of a feature exchange their chunk totals,
+// and the two divisions of a bin are skipped where no lane's bin is valid
+// (deep levels: most bins hold less than min_child on one side).
+// The sums are those of the plain version: sequential inside a chunk, the
+// offset of the chunks before it added last, in chunk order.
 template <typename Visit>
-__device__ __forceinline__ void feature_gains(const float2* __restrict__ hf,
-                                              bool col_ok, float lam,
-                                              float min_child, Visit visit) {
-  const Offsets o = chunk_offsets(hf);
-  const float parent = __fdiv_rn(__fmul_rn(o.tg, o.tg), __fadd_rn(o.th, lam));
+__device__ __forceinline__ void chunk_gains(const float* __restrict__ stage,
+                                            float lam, float min_child,
+                                            Visit visit) {
+  const int lane = threadIdx.x & 31, k = lane & (kChunks - 1);
+  const float2* bins = reinterpret_cast<const float2*>(stage + lane * kChunkStride);
+  float rg[kChunk], rh[kChunk];
+  float ag = 0.f, ah = 0.f;
 #pragma unroll
-  for (int k = 0; k < kBins / kChunk; ++k) {
-    float ag = 0.f, ah = 0.f;
+  for (int i = 0; i < kChunk; ++i) {
+    const float2 v = bins[i];
+    ag = i ? __fadd_rn(ag, v.x) : v.x;
+    ah = i ? __fadd_rn(ah, v.y) : v.y;
+    rg[i] = ag;
+    rh[i] = ah;
+  }
+  float og = 0.f, oh = 0.f, my_og = 0.f, my_oh = 0.f, tg = 0.f, th = 0.f;
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      const float2 v = hf[k * kChunk + i];
-      ag = i ? __fadd_rn(ag, v.x) : v.x;
-      ah = i ? __fadd_rn(ah, v.y) : v.y;
-      const float gl = __fadd_rn(ag, o.g[k]);
-      const float hl = __fadd_rn(ah, o.h[k]);
-      const float gr = __fsub_rn(o.tg, gl);
-      const float hr = __fsub_rn(o.th, hl);
+  for (int j = 0; j < kChunks; ++j) {
+    const float cg = __shfl_sync(0xffffffffu, ag, (lane & ~(kChunks - 1)) + j);
+    const float ch = __shfl_sync(0xffffffffu, ah, (lane & ~(kChunks - 1)) + j);
+    if (j == k) {
+      my_og = og;
+      my_oh = oh;
+    }
+    if (j == kChunks - 1) {
+      tg = __fadd_rn(cg, og);
+      th = __fadd_rn(ch, oh);
+    }
+    og = __fadd_rn(og, cg);
+    oh = __fadd_rn(oh, ch);
+  }
+  const float parent = __fdiv_rn(__fmul_rn(tg, tg), __fadd_rn(th, lam));
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    const float gl = __fadd_rn(rg[i], my_og);
+    const float hl = __fadd_rn(rh[i], my_oh);
+    const float gr = __fsub_rn(tg, gl);
+    const float hr = __fsub_rn(th, hl);
+    const bool valid = hl >= min_child && hr >= min_child;
+    float gain = 0.f;                         // read only where valid
+    if (__any_sync(0xffffffffu, valid)) {
       const float left = __fdiv_rn(__fmul_rn(gl, gl), __fadd_rn(hl, lam));
       const float right = __fdiv_rn(__fmul_rn(gr, gr), __fadd_rn(hr, lam));
-      const float gain = __fsub_rn(__fadd_rn(left, right), parent);
-      const bool valid = hl >= min_child && hr >= min_child && col_ok;
-      visit(k * kChunk + i, gain, valid);
+      gain = __fsub_rn(__fadd_rn(left, right), parent);
     }
+    visit(k * kChunk + i, gain, valid);
   }
 }
 
@@ -283,55 +672,130 @@ __device__ __forceinline__ void write_split(const Best& best, int node,
   has_split[node] = has;
 }
 
+// grid (nodes, blocks of kSplitFeats features). With one block a node the
+// split is written; with more, each writes its best (gain, index) to
+// cand_gain, cand_idx [node][block] for splits_pick_kernel.
 __global__ void __launch_bounds__(kSplitThreads)
-best_splits_kernel(const float2* __restrict__ hist, int F,
+best_splits_kernel(const float4* __restrict__ hist, int F,
                    const bool* __restrict__ col_mask, float lam,
-                   float min_child, int* feat, int* bin, bool* has_split) {
+                   float min_child, float* __restrict__ cand_gain,
+                   int* __restrict__ cand_idx, int* feat, int* bin,
+                   bool* has_split) {
+  __shared__ __align__(16) float stages[(kSplitThreads / 32) * kStageFloats];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* stage = stages + warp * kStageFloats;
   const int node = blockIdx.x;
-  Best mine{-INFINITY, 0x7fffffff};
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    const float2* hf = hist + (static_cast<size_t>(node) * F + f) * kBins;
-    feature_gains(hf, col_mask[f], lam, min_child,
-                  [&](int b, float gain, bool valid) {
-                    const float c = valid ? gain : -INFINITY;
-                    const int idx = f * kBins + b;
-                    if (better(c, idx, mine.gain, mine.idx)) mine = {c, idx};
-                  });
-  }
+  const int f_base = blockIdx.y * kSplitFeats + warp * kGroupFeats;
+  stage_copy(stage, lane, [&](int s) -> const float4* {
+    const int f = f_base + s;
+    return f < F && col_mask[f]
+               ? hist + (static_cast<size_t>(node) * F + f) * (kBins / 2)
+               : nullptr;
+  });
+  const int f = f_base + lane / kChunks;
+  const bool live = f < F && col_mask[f];       // else a stale stage slot
+  // bins come in index order, so a later one wins only if it is larger, or
+  // NaN where none was
+  float best = -INFINITY;
+  int best_bin = kBins;
+  chunk_gains(stage, lam, min_child, [&](int b, float gain, bool valid) {
+    const float c = valid ? gain : -INFINITY;
+    if ((!(c <= best) && best == best) || best_bin == kBins) {
+      best = c;
+      best_bin = b;
+    }
+  });
+  Best mine = live ? Best{best, f * kBins + best_bin} : Best{-INFINITY, 0x7fffffff};
   mine = block_best(mine);
-  if (threadIdx.x == 0) write_split(mine, node, feat, bin, has_split);
+  if (threadIdx.x != 0) return;
+  if (gridDim.y == 1) {
+    write_split(mine, node, feat, bin, has_split);
+  } else {
+    cand_gain[node * gridDim.y + blockIdx.y] = mine.gain;
+    cand_idx[node * gridDim.y + blockIdx.y] = mine.idx;
+  }
 }
 
-__global__ void __launch_bounds__(kSplitThreads)
-best_splits_oblivious_kernel(const float2* __restrict__ hist, int n_nodes,
-                             int F, const bool* __restrict__ col_mask,
-                             float lam, float min_child, int* feat, int* bin,
-                             bool* has_split) {
-  Best mine{-INFINITY, 0x7fffffff};
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    float total[kBins];
-    u64 any_valid = 0;
-#pragma unroll
-    for (int b = 0; b < kBins; ++b) total[b] = 0.f;
-    for (int node = 0; node < n_nodes; ++node) {   // node order, as the plain
-      const float2* hf = hist + (static_cast<size_t>(node) * F + f) * kBins;
-      feature_gains(hf, col_mask[f], lam, min_child,
-                    [&](int b, float gain, bool valid) {
-                      total[b] = __fadd_rn(total[b],
-                                           valid && gain > 0.f ? gain : 0.f);
-                      any_valid |= static_cast<u64>(valid) << b;
-                    });
+// a thread a node: the first-index maximum of its per_node candidates
+__global__ void splits_pick_kernel(const float* __restrict__ cand_gain,
+                                   const int* __restrict__ cand_idx,
+                                   int per_node, int n_nodes, int* feat,
+                                   int* bin, bool* has_split) {
+  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= n_nodes) return;
+  Best best{-INFINITY, 0x7fffffff};
+  for (int i = node * per_node; i < (node + 1) * per_node; ++i)
+    if (better(cand_gain[i], cand_idx[i], best.gain, best.idx))
+      best = {cand_gain[i], cand_idx[i]};
+  write_split(best, node, feat, bin, has_split);
+}
+
+// grid: groups of kOblFeats features; cand_gain, cand_idx [grid]
+__global__ void __launch_bounds__(kOblThreads)
+best_splits_oblivious_kernel(const float4* __restrict__ hist, int n_nodes, int F,
+                             const bool* __restrict__ col_mask, float lam,
+                             float min_child, float* __restrict__ cand_gain,
+                             int* __restrict__ cand_idx) {
+  extern __shared__ __align__(16) float stages[];   // the warps' stages, then gains
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  float* stage = stages + warp * kStageFloats;
+  float* gains = stages + warps * kStageFloats;     // [run node][feature][bin]
+  const int f0 = blockIdx.x * kOblFeats;
+  const int my_f = f0 + threadIdx.x / kBins, my_b = threadIdx.x % kBins;
+  float total = 0.f;
+  bool any_valid = false;
+  for (int run0 = 0; run0 < n_nodes; run0 += kOblRun) {
+    const int run = min(kOblRun, n_nodes - run0);
+    const int pairs = run * kOblFeats;      // pair = run node * kOblFeats + feature
+    for (int p0 = warp * kGroupFeats; p0 < pairs; p0 += warps * kGroupFeats) {
+      stage_copy(stage, lane, [&](int s) -> const float4* {
+        const int p = p0 + s, f = f0 + p % kOblFeats;
+        return p < pairs && f < F && col_mask[f]
+                   ? hist + (static_cast<size_t>(run0 + p / kOblFeats) * F + f) * (kBins / 2)
+                   : nullptr;
+      });
+      const int p = p0 + lane / kChunks, f = f0 + p % kOblFeats;
+      const bool live = p < pairs && f < F && col_mask[f];
+      float* dst = gains + static_cast<size_t>(p) * kBins;
+      chunk_gains(stage, lam, min_child, [&](int b, float gain, bool valid) {
+        // -0.0f: not valid here; it adds nothing to a sum that starts at +0
+        if (p < pairs) dst[b] = valid && live ? (gain > 0.f ? gain : 0.f) : -0.f;
+      });
+      __syncwarp();                         // before the stage is filled again
     }
-#pragma unroll
-    for (int b = 0; b < kBins; ++b) {
-      const float c = (any_valid >> b) & 1 ? total[b] : -INFINITY;
-      if (better(c, f * kBins + b, mine.gain, mine.idx)) mine = {c, f * kBins + b};
+    __syncthreads();
+    for (int node = 0; node < run; ++node) {        // node order, as the plain
+      const float v = gains[(node * kOblFeats + threadIdx.x / kBins) * kBins + my_b];
+      any_valid |= __float_as_uint(v) != 0x80000000u;
+      total = __fadd_rn(total, v);
     }
+    __syncthreads();
   }
+  Best mine = my_f < F ? Best{any_valid ? total : -INFINITY, my_f * kBins + my_b}
+                       : Best{-INFINITY, 0x7fffffff};
   mine = block_best(mine);
-  if (threadIdx.x == 0)
-    for (int node = 0; node < n_nodes; ++node)
-      write_split(mine, node, feat, bin, has_split);
+  if (threadIdx.x == 0) {
+    cand_gain[blockIdx.x] = mine.gain;
+    cand_idx[blockIdx.x] = mine.idx;
+  }
+}
+
+__global__ void oblivious_pick_kernel(const float* __restrict__ cand_gain,
+                                      const int* __restrict__ cand_idx,
+                                      int n_cand, int n_nodes, int* feat,
+                                      int* bin, bool* has_split) {
+  __shared__ Best s_best;
+  Best mine{-INFINITY, 0x7fffffff};
+  for (int i = threadIdx.x; i < n_cand; i += blockDim.x)
+    if (better(cand_gain[i], cand_idx[i], mine.gain, mine.idx))
+      mine = {cand_gain[i], cand_idx[i]};
+  mine = block_best(mine);
+  if (threadIdx.x == 0) s_best = mine;
+  __syncthreads();
+  const Best best = s_best;
+  for (int node = threadIdx.x; node < n_nodes; node += blockDim.x)
+    write_split(best, node, feat, bin, has_split);
 }
 
 // ---- K5 ---------------------------------------------------------------------
@@ -394,71 +858,107 @@ cudaError_t shared_limit(const void* kernel, int* raised_to, int bytes) {
   return err;
 }
 
-int hist_smem_raised = 0;
+int sort_smem_raised = 0;
+int oblivious_smem_raised = 0;
 int leaf_smem_raised = 0;
 
 }  // namespace
 
+// Scratch, all from the wrapper: rows int32 [n]; plan: f64 [4], then int32
+// [4 max_items + acc_slots + 2]; acc int64 [acc_slots * F * 128]. The
+// plan's sizes follow from rows_per_item and own_rows: max_items = n_nodes +
+// n / rows_per_item, acc_slots = min(n_nodes, n / (own_rows + 1)).
+// n_bins is uint8 [F], the occupied bins of each feature, or null for 64.
 extern "C" int bbbp_forest_level_histogram(const void* xb, int n, int F,
                                            const void* pos, const void* g,
                                            const void* h, int n_nodes,
-                                           const void* bounds, void* acc,
-                                           void* out, void* stream) {
-  if (n < 0 || F <= 0 || n_nodes <= 0)
+                                           const void* bounds,
+                                           const void* n_bins, int tile_feats,
+                                           int threads, int rows_per_item,
+                                           int own_rows, void* rows, void* plan,
+                                           void* acc, void* out, void* stream) {
+  if (n < 0 || F <= 0 || n_nodes <= 0 || n_nodes > kMaxSortNodes ||
+      n / (own_rows + 1) > kMaxSlots ||
+      rows_per_item <= 0 || own_rows < rows_per_item || threads < 32 ||
+      threads > kHistThreads || threads % 32 ||
+      (tile_feats != 8 && tile_feats != 16 && tile_feats != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t total = static_cast<size_t>(n_nodes) * F * kBins * 2;
-  cudaError_t err = cudaMemsetAsync(acc, 0, total * sizeof(u64), s);
+  const int max_items = n_nodes + n / rows_per_item;
+  const int by_rows = n / (own_rows + 1);
+  const int acc_slots = n_nodes < by_rows ? n_nodes : by_rows;
+  const size_t acc_pairs = static_cast<size_t>(acc_slots) * F * kBins;
+  double* scales = static_cast<double*>(plan);
+  int4* items = reinterpret_cast<int4*>(scales + 4);
+  int* slot_node = reinterpret_cast<int*>(items + max_items);
+  int* info = slot_node + acc_slots;
+  const float* gp = static_cast<const float*>(g);
+  const float* hp = static_cast<const float*>(h);
+  const size_t zero_blocks = (acc_pairs + 4 * kSortThreads - 1) / (4 * kSortThreads);
+  const int sort_smem = (n_nodes + (n <= kSortStagedRows ? n : 0)) *
+                        static_cast<int>(sizeof(int));
+  const cudaError_t err = shared_limit(
+      reinterpret_cast<const void*>(hist_group_kernel), &sort_smem_raised, sort_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float* mb = static_cast<const float*>(bounds);
-  if (n > 0) {
-    const float* gp = static_cast<const float*>(g);
-    const float* hp = static_cast<const float*>(h);
-    const int tile_feats = F < kTileFeats ? F : kTileFeats;
-    const int tile_nodes = kTilePairs / tile_feats;
-    const int tiles = ((n_nodes + tile_nodes - 1) / tile_nodes) *
-                      ((F + tile_feats - 1) / tile_feats);
-    const int max_splits = (n + 255) / 256;
-    int splits = (kTargetBlocks + tiles - 1) / tiles;
-    splits = splits < max_splits ? splits : max_splits;
-    const int rows = ((n + splits - 1) / splits + 31) / 32 * 32;
-    splits = (n + rows - 1) / rows;
-    const int smem = tile_nodes * tile_feats * kBins * 2 *
-                     static_cast<int>(sizeof(u64));
-    err = shared_limit(reinterpret_cast<const void*>(level_hist_kernel),
-                       &hist_smem_raised, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    level_hist_kernel<<<dim3(tiles, splits), kHistThreads, smem, s>>>(
-        static_cast<const uint8_t*>(xb), n, F, static_cast<const int*>(pos), gp,
-        hp, n_nodes, tile_nodes, tile_feats, rows, mb,
-        static_cast<u64*>(acc));
-  }
-  const int finish_blocks =
-      total >= 1024u * 256u ? 1024 : blocks_for(static_cast<int>(total), 256);
-  hist_finish_kernel<<<finish_blocks, 256, 0, s>>>(
-      static_cast<const long long*>(acc), total, n, mb, static_cast<float*>(out));
+  hist_group_kernel<<<1 + static_cast<int>(zero_blocks < 1 ? 1 : (zero_blocks < 128 ? zero_blocks : 128)),
+                      kSortThreads, sort_smem, s>>>(
+      static_cast<const int*>(pos), n, gp, hp, n_nodes, rows_per_item, own_rows,
+      static_cast<const float*>(bounds), static_cast<int*>(rows), scales, items,
+      slot_node, info, static_cast<ulonglong2*>(acc), acc_pairs);
+  const int tile_shift = tile_feats == 8 ? 3 : (tile_feats == 16 ? 4 : 5);
+  const dim3 grid(max_items, (F + tile_feats - 1) / tile_feats);
+  level_hist_kernel<<<grid, threads, tile_feats * kBins * 2 * sizeof(u64), s>>>(
+      static_cast<const uint8_t*>(xb), F, gp, hp,
+      static_cast<const uint8_t*>(n_bins), tile_shift,
+      static_cast<const int*>(rows), scales, items, info,
+      static_cast<u64*>(acc), static_cast<float2*>(out));
+  if (acc_slots > 0)
+    hist_finish_kernel<<<dim3(acc_slots, (F * kBins * 2 + 1023) / 1024), 256, 0, s>>>(
+        static_cast<const long long*>(acc), F, slot_node, info, scales,
+        static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch: int32 [2 * n_cand] candidates: n_cand = ceil(F / 4) in oblivious
+// mode, n_nodes * ceil(F / 64) per node when F > 64, else unused
 extern "C" int bbbp_forest_best_splits(const void* hist, int n_nodes, int F,
                                        const void* col_mask, float lam,
                                        float min_child, int oblivious,
-                                       void* feat, void* bin, void* has_split,
-                                       void* stream) {
+                                       void* scratch, void* feat, void* bin,
+                                       void* has_split, void* stream) {
   if (n_nodes <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = F >= kSplitThreads ? kSplitThreads : (F + 31) / 32 * 32;
-  const float2* hp = static_cast<const float2*>(hist);
+  const float4* hp = static_cast<const float4*>(hist);
   const bool* mp = static_cast<const bool*>(col_mask);
   int* fp = static_cast<int*>(feat);
   int* bp = static_cast<int*>(bin);
   bool* sp = static_cast<bool*>(has_split);
-  if (oblivious)
-    best_splits_oblivious_kernel<<<1, threads, 0, s>>>(hp, n_nodes, F, mp, lam,
-                                                       min_child, fp, bp, sp);
-  else
-    best_splits_kernel<<<n_nodes, threads, 0, s>>>(hp, F, mp, lam, min_child,
-                                                   fp, bp, sp);
+  if (oblivious) {
+    const int blocks = (F + kOblFeats - 1) / kOblFeats;
+    const int smem = ((kOblThreads / 32) * kStageFloats +
+                      kOblRun * kOblFeats * kBins) * static_cast<int>(sizeof(float));
+    const cudaError_t err = shared_limit(
+        reinterpret_cast<const void*>(best_splits_oblivious_kernel),
+        &oblivious_smem_raised, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    float* cand_gain = static_cast<float*>(scratch);
+    int* cand_idx = static_cast<int*>(scratch) + blocks;
+    best_splits_oblivious_kernel<<<blocks, kOblThreads, smem, s>>>(
+        hp, n_nodes, F, mp, lam, min_child, cand_gain, cand_idx);
+    oblivious_pick_kernel<<<1, 256, 0, s>>>(cand_gain, cand_idx, blocks, n_nodes,
+                                            fp, bp, sp);
+  } else {
+    const int per_node = (F + kSplitFeats - 1) / kSplitFeats;
+    const int groups = (F + kGroupFeats - 1) / kGroupFeats;
+    const int threads = per_node > 1 ? kSplitThreads : groups * 32;
+    float* cand_gain = static_cast<float*>(scratch);
+    int* cand_idx = static_cast<int*>(scratch) + n_nodes * per_node;
+    best_splits_kernel<<<dim3(n_nodes, per_node), threads, 0, s>>>(
+        hp, F, mp, lam, min_child, cand_gain, cand_idx, fp, bp, sp);
+    if (per_node > 1)
+      splits_pick_kernel<<<(n_nodes + 255) / 256, 256, 0, s>>>(
+          cand_gain, cand_idx, per_node, n_nodes, fp, bp, sp);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

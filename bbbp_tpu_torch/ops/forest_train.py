@@ -35,6 +35,7 @@ serves both.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -83,6 +84,12 @@ class BinMapper:
             out[f, :len(e)] = e
         return out
 
+    def bin_counts(self) -> np.ndarray:
+        """[F] uint8: the bins ``transform`` can give a feature, its edges
+        + 1 (2 for a constant feature, 3 for a 0/1 feature, whose rows
+        fill two of them)."""
+        return np.array([len(e) + 1 for e in self.edges_], dtype=np.uint8)
+
 
 # ---------------------------------------------------------------------------
 # Plain versions of the three kernels
@@ -102,6 +109,40 @@ def level_histogram_reference(xb: torch.Tensor, pos: torch.Tensor,
     out = torch.zeros((n_nodes * n_feat * MAX_BINS, 2), dtype=g.dtype, device=dev)
     out.index_add_(0, keys.reshape(-1), vals.reshape(-1, 2))
     return out.view(n_nodes, n_feat, MAX_BINS, 2)
+
+
+def fixed_point_scales(bounds: torch.Tensor, n: int) -> torch.Tensor:
+    """f64 [2]: the power of two 2^e with n · bound · 2^e < 2^62 that K3 and
+    K5 quantise g and h by (``fixed_scale`` in ``csrc/forest_train.cu``);
+    1 for a bound that is 0 or not finite."""
+    limit = bounds.double() * n
+    _, exponent = torch.frexp(limit)            # limit < 2^exponent
+    scale = torch.ldexp(torch.ones_like(limit), 62 - exponent)
+    return torch.where((bounds > 0) & torch.isfinite(bounds), scale,
+                       torch.ones_like(scale))
+
+
+def level_histogram_fixed_reference(xb: torch.Tensor, pos: torch.Tensor,
+                                    g: torch.Tensor, h: torch.Tensor,
+                                    n_nodes: int, bounds: torch.Tensor
+                                    ) -> torch.Tensor:
+    """K3's arithmetic in torch, on the CPU or the card, for tests: every
+    g and h is quantised to a 64-bit integer at ``fixed_point_scales``
+    (round half to even), the integers are summed by ``index_add_`` (exact
+    in any order), and each sum is divided by the scale in float64 and
+    rounded once to f32. ``bounds`` is ``gradient_bounds(g, h)``. The kernel
+    returns these bits."""
+    n, n_feat = xb.shape
+    dev = xb.device
+    scales = fixed_point_scales(bounds, n)
+    q = torch.round(torch.stack([g, h], dim=1).double() * scales).to(torch.int64)
+    keys = (pos.long()[:, None] * (n_feat * MAX_BINS)
+            + torch.arange(n_feat, device=dev)[None, :] * MAX_BINS + xb.long())
+    sums = torch.zeros((n_nodes * n_feat * MAX_BINS, 2), dtype=torch.int64,
+                       device=dev)
+    sums.index_add_(0, keys.reshape(-1),
+                    q[:, None, :].expand(n, n_feat, 2).reshape(-1, 2))
+    return (sums.double() / scales).float().view(n_nodes, n_feat, MAX_BINS, 2)
 
 
 def _cumsum_bins(x: torch.Tensor) -> torch.Tensor:
@@ -231,11 +272,69 @@ def _kernel_device(t: torch.Tensor, kernel: str) -> bool:
     return True
 
 
+def check_bin_counts(n_bins: torch.Tensor, xb: torch.Tensor,
+                     occupancy: bool = True) -> None:
+    """Raises unless ``n_bins`` is uint8 [F] on the device of ``xb`` and,
+    with ``occupancy``, every count lies in [1, 64] and above its feature's
+    largest bin in ``xb`` (that part reads the device: once a fit)."""
+    n_feat = xb.shape[1]
+    if n_bins.dtype != torch.uint8 or n_bins.shape != (n_feat,):
+        raise TypeError(f"n_bins must be uint8 [{n_feat}], got {n_bins.dtype} "
+                        f"{tuple(n_bins.shape)}")
+    if n_bins.device != xb.device:
+        raise ValueError(f"n_bins is on {n_bins.device}, xb on {xb.device}")
+    if not n_bins.is_contiguous():
+        raise ValueError("n_bins must be contiguous")
+    if not occupancy:
+        return
+    if n_feat and not bool(((n_bins >= 1) & (n_bins <= MAX_BINS)).all()):
+        raise ValueError(f"n_bins must lie in [1, {MAX_BINS}]")
+    if xb.shape[0] and n_feat:
+        largest = xb.amax(dim=0)
+        if bool((largest >= n_bins).any()):
+            f = int(torch.nonzero(largest >= n_bins)[0])
+            raise ValueError(f"n_bins[{f}] = {int(n_bins[f])}, but xb[:, {f}] "
+                             f"holds bin {int(largest[f])}")
+
+
+@functools.lru_cache(maxsize=256)
+def histogram_plan(n: int, n_feat: int, n_nodes: int) -> dict:
+    """How K3 cuts a level into blocks, and the scratch it needs. A feature
+    tile is 8 features (F ≤ 64) or 16; a node of at most ``own_rows`` rows
+    is one work item, a larger node is cut into items of ``rows_per_item``
+    rows and takes one of ``acc_slots`` slots in an int64 accumulator; a
+    block has 256 threads, or 128 where the nodes hold few rows each.
+    The offsets (in int64 words) lay the accumulator, the plan (four f64
+    scales, items as 4 × int32, the slots' nodes, two counts) and the row
+    order out in one buffer of ``words``."""
+    rows_per_item = max(256, 32 * -(-n // 2048))
+    own_rows = 2 * rows_per_item
+    max_items = n_nodes + n // rows_per_item
+    acc_slots = min(n_nodes, n // (own_rows + 1))
+    plan = acc_slots * n_feat * MAX_BINS * 2
+    rows = plan + 4 + (4 * max_items + acc_slots + 2 + 1) // 2
+    return {"tile_feats": 8 if n_feat <= 64 else 16,
+            "threads": 256 if n >= 128 * n_nodes else 128,
+            "rows_per_item": rows_per_item, "own_rows": own_rows,
+            "max_items": max_items, "acc_slots": acc_slots,
+            "plan": plan, "rows": rows,
+            "words": rows + (n + 1) // 2}
+
+
 def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
                     h: torch.Tensor, n_nodes: int,
-                    bounds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bounds: Optional[torch.Tensor] = None,
+                    n_bins: Optional[torch.Tensor] = None, *,
+                    bins_checked: bool = False) -> torch.Tensor:
     """K3. xb uint8 [n, F] (bins < 64), pos int32 [n] in [0, n_nodes),
     g, h f32 [n] → hist f32 [n_nodes, F, 64, 2].
+
+    ``n_bins`` uint8 [F], optional: the occupied bins of each feature
+    (``BinMapper.bin_counts``), so that the kernel keeps only those in
+    shared memory and sums a feature of at most 4 bins in registers; the
+    result does not depend on it. It is checked against ``xb`` unless the
+    caller has done so (``check_bin_counts``) and says ``bins_checked``: a
+    fit checks once, not at every level.
 
     On a CUDA tensor the kernel sums in 64-bit fixed point, so the result
     is the same from run to run whatever order the rows arrive in;
@@ -250,8 +349,10 @@ def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
     _check_rows("pos", pos, torch.int32, n, xb.device)
     _check_rows("g", g, torch.float32, n, xb.device)
     _check_rows("h", h, torch.float32, n, xb.device)
-    if n_nodes < 1:
-        raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
+    if not 1 <= n_nodes <= 1 << MAX_DEPTH:
+        raise ValueError(f"n_nodes must be in [1, {1 << MAX_DEPTH}], got {n_nodes}")
+    if n_bins is not None:
+        check_bin_counts(n_bins, xb, occupancy=not bins_checked)
     if not _kernel_device(xb, "forest_level_histogram"):
         return level_histogram_reference(xb, pos, g, h, n_nodes)
     out = torch.empty((n_nodes, n_feat, MAX_BINS, 2), dtype=torch.float32,
@@ -259,12 +360,19 @@ def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
     if out.numel() == 0:
         return out
     bounds = _check_bounds(bounds, g, h)
-    acc = torch.empty(out.numel(), dtype=torch.int64, device=xb.device)
+    plan = histogram_plan(n, n_feat, n_nodes)
+    scratch = torch.empty(plan["words"], dtype=torch.int64, device=xb.device)
+    base = scratch.data_ptr()
     with torch.cuda.device(xb.device):
         rc = kernels_lib().bbbp_forest_level_histogram(
             xb.data_ptr(), n, n_feat, pos.data_ptr(), g.data_ptr(),
-            h.data_ptr(), n_nodes, bounds.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            h.data_ptr(), n_nodes, bounds.data_ptr(),
+            None if n_bins is None else n_bins.data_ptr(),
+            plan["tile_feats"], plan["threads"], plan["rows_per_item"],
+            plan["own_rows"],
+            base + 8 * plan["rows"], base + 8 * plan["plan"], base,
+            out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_histogram")
     level_histogram.launches.add()
     return out
@@ -296,11 +404,17 @@ def best_splits(hist: torch.Tensor, col_mask: torch.Tensor, lam: float,
     feat = torch.empty(nodes, dtype=torch.int32, device=hist.device)
     b = torch.empty(nodes, dtype=torch.int32, device=hist.device)
     has_split = torch.empty(nodes, dtype=torch.bool, device=hist.device)
+    # a (gain, index) candidate of each block: of 4 features in oblivious
+    # mode, else of 64 features of a node (one block writes the split itself)
+    n_cand = -(-n_feat // 4) if oblivious else nodes * -(-n_feat // 64)
+    scratch = (torch.empty(2 * n_cand, dtype=torch.int32, device=hist.device)
+               if oblivious or n_feat > 64 else None)
     with torch.cuda.device(hist.device):
         rc = kernels_lib().bbbp_forest_best_splits(
             hist.data_ptr(), nodes, n_feat, col_mask.data_ptr(), float(lam),
-            float(min_child), int(bool(oblivious)), feat.data_ptr(),
-            b.data_ptr(), has_split.data_ptr(),
+            float(min_child), int(bool(oblivious)),
+            None if scratch is None else scratch.data_ptr(),
+            feat.data_ptr(), b.data_ptr(), has_split.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_best_splits")
     best_splits.launches.add()
@@ -364,21 +478,26 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
                colsample: float, base_score: float, seed: int, task: str,
                n_trees: int, depth: int, oblivious: bool, rf: bool,
                row_w: Optional[torch.Tensor] = None,
-               preds0: Optional[torch.Tensor] = None
+               preds0: Optional[torch.Tensor] = None,
+               n_bins: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Boosting (``task`` ``reg`` or ``cls``) or bagging (``rf``) on the
     device of ``xb`` [n, F] uint8, the counterpart of ``_fit_forest_device``
     and ``fit_forest_launched``. ``edge_vals`` [F, 64] f32, ``y`` [n] f32,
     ``row_w`` an optional [n] weight (rows of weight 0 contribute nothing),
-    ``preds0`` an optional starting margin. Returns (preds [n],
-    feats [T, 2^D − 1] int32, thrs [T, 2^D − 1] f32, leaves [T, 2^D] f32),
-    all on the device; random forests accumulate unscaled leaves in preds."""
+    ``preds0`` an optional starting margin, ``n_bins`` the optional uint8
+    [F] occupied bins of each feature for K3 (``BinMapper.bin_counts``; it
+    is checked against ``xb`` here, once; the trees do not depend on it).
+    Returns (preds [n], feats [T, 2^D − 1] int32, thrs [T, 2^D − 1] f32,
+    leaves [T, 2^D] f32), all on the device; random forests accumulate unscaled leaves in preds."""
     if task not in ("reg", "cls"):
         raise ValueError(f"task must be 'reg' or 'cls', got {task!r}")
     if not 0 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth must be in [0, {MAX_DEPTH}], got {depth}")
     dev = xb.device
     n, n_feat = xb.shape
+    if n_bins is not None:
+        check_bin_counts(n_bins, xb)
     n_internal, n_leaves = (1 << depth) - 1, 1 << depth
     y = y.to(dev, torch.float32)
     w_rows = (torch.ones(n, device=dev) if row_w is None
@@ -413,7 +532,8 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
         pos = torch.zeros(n, dtype=torch.int32, device=dev)
         for level in range(depth):
             nodes, off = 1 << level, (1 << level) - 1
-            hist = level_histogram(xb, pos, g, h, nodes, bounds)
+            hist = level_histogram(xb, pos, g, h, nodes, bounds, n_bins,
+                                   bins_checked=True)
             f_l, b_l, _ = best_splits(hist, col_mask, lam, min_child, oblivious)
             feats[t, off:off + nodes] = f_l
             bins[t, off:off + nodes] = b_l
@@ -472,6 +592,7 @@ class _ForestBase:
              sample_weight=None):
         device = resolve_device(self.device)
         xb, edge_vals = self._prepare(_host(x), device)
+        n_bins = torch.from_numpy(self.mapper_.bin_counts()).to(device)
         row_w = (None if sample_weight is None else
                  torch.as_tensor(np.asarray(sample_weight, np.float32), device=device))
         _, feats, thrs, leaves = fit_forest(
@@ -480,7 +601,7 @@ class _ForestBase:
             min_child=self.min_child_weight, subsample=self.subsample,
             colsample=self.colsample, base_score=base_score, seed=self.seed,
             task=task, n_trees=self.n_estimators, depth=self.max_depth,
-            oblivious=self.oblivious, rf=rf, row_w=row_w)
+            oblivious=self.oblivious, rf=rf, row_w=row_w, n_bins=n_bins)
         scale = (1.0 / self.n_estimators) if rf else self.learning_rate
         self.ensemble_ = DenseTreeEnsemble(feats, thrs, leaves, self.max_depth,
                                            base_score, scale)

@@ -150,7 +150,7 @@ class ForestComparison:
 def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
                       got: dict, *, task: str, lam: float, min_child: float,
                       learning_rate: float, base_score: float,
-                      tol: float) -> ForestComparison:
+                      tol: float, oblivious: bool = False) -> ForestComparison:
     """Compare a boosting fit ``got`` (the pickle's ensemble dict, numpy) on
     its training matrix ``z`` [n, F] with a reference, for deterministic
     fits only (``subsample=1``, ``colsample=1``, no sample weights). Each
@@ -164,7 +164,13 @@ def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
     margins. With ``ref=None`` the replay follows ``got``'s own splits and
     margins and holds each split against the plain version's best split
     on that state, so every node of every tree is checked; its leaves are
-    held against the plain leaf values."""
+    held against the plain leaf values.
+
+    With ``oblivious`` the fits are oblivious ones: a level's nodes share
+    one split, a candidate's score is its gain summed over the level's
+    nodes (non-positive and invalid entries count 0), and the gain scale is
+    the larger of the best score and the nodes' summed parent terms. Every
+    node of a level is counted."""
     from bbbp_tpu_torch.ops.forest_train import (BinMapper, _cumsum_bins,
                                                  best_splits_reference,
                                                  level_histogram_reference,
@@ -196,9 +202,14 @@ def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
             hl = _cumsum_bins(hist[..., 1])
             th = hl[..., -1]
             parent = _cumsum_bins(hist[..., 0])[..., -1] ** 2 / (th + lam)
+            if oblivious:
+                score = torch.where(valid & (gain > 0), gain,
+                                    torch.zeros_like(gain)).sum(0)
+                score = torch.where(valid.any(0), score, -torch.inf)
+                level_scale = float(parent.abs().amax(dim=1).sum())
             if ref is None:
                 bf, bb, bs = best_splits_reference(hist, every, lam, min_child,
-                                                   False)
+                                                   oblivious)
                 best_thr = torch.from_numpy(edges)[bf.long(), bb.long()]
             for k in range(nodes):
                 i = off + k
@@ -221,13 +232,18 @@ def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
                     if not np.isfinite(thr):
                         return 0.0, True
                     b = int((edges[f] < thr).sum())
-                    near_edge = bool((hl[k, f, b] - min_child).abs() <= tol * min_child
-                                     or (th[k, f] - hl[k, f, b] - min_child).abs()
-                                     <= tol * min_child)
+                    at = slice(None) if oblivious else k
+                    near_edge = bool((
+                        ((hl[at, f, b] - min_child).abs() <= tol * min_child)
+                        | ((th[at, f] - hl[at, f, b] - min_child).abs()
+                           <= tol * min_child)).any())
+                    if oblivious:
+                        return float(score[f, b]), bool(valid[:, f, b].any()) or near_edge
                     return float(gain[k, f, b]), bool(valid[k, f, b]) or near_edge
 
                 (rg, _), (cg, c_ok) = cand(rf, rt), cand(gf, gt)
-                scale = max(abs(rg), float(parent[k].abs().max()))
+                scale = max(abs(rg), level_scale if oblivious
+                            else float(parent[k].abs().max()))
                 if not (c_ok and abs(rg - cg) <= tol * scale):
                     out.mismatch = (t, i)
                     return out
@@ -252,6 +268,37 @@ def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
         leaf = torch.tensor(follow["leaf"][t])
         preds = preds.double().add_(leaf[pos.long()].double(), alpha=lr32).float()
     return out
+
+
+def mixed_level_case(seed: int, n: int, n_feat: int, level: int,
+                     one_node: bool = False, zero_share: float = 0.2
+                     ) -> Tuple[np.ndarray, ...]:
+    """One level's inputs with features of mixed occupancy, as the transfer
+    path's matrix has them: (xb uint8 [n, F], pos int32 [n], g, h f32 [n],
+    n_bins uint8 [F]). Feature f has 2 occupied bins when f % 3 == 0 (90%
+    of its rows in bin 0, as a rare fingerprint bit), 3 when f % 3 == 1 and
+    64 when f % 3 == 2; feature 0 is constant (1 bin). ``zero_share`` of
+    the rows have g = h = 0. With ``one_node`` every row sits in the
+    level's last node; otherwise the nodes' sizes are skewed (a third of
+    the rows in node 0)."""
+    r = np.random.default_rng(seed)
+    n_bins = np.array([(2, 3, 64)[f % 3] for f in range(n_feat)], np.uint8)
+    n_bins[0] = 1
+    xb = (r.random((n, n_feat)) * n_bins[None, :]).astype(np.uint8)
+    rare = (np.arange(n_feat) % 3 == 0) & (n_bins == 2)
+    xb[:, rare] = r.random((n, int(rare.sum()))) < 0.1
+    nodes = 1 << level
+    if one_node:
+        pos = np.full(n, nodes - 1, np.int32)
+    else:
+        pos = r.integers(0, nodes, n).astype(np.int32)
+        pos[r.random(n) < 1 / 3] = 0
+    g = r.normal(size=n).astype(np.float32)
+    h = r.uniform(0.05, 0.3, n).astype(np.float32)
+    zero = r.random(n) < zero_share
+    g[zero] = 0.0
+    h[zero] = 0.0
+    return xb, pos, g, h, n_bins
 
 
 def tanimoto_tie_case(seed: int, nq: int, nr: int, d: int

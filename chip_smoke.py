@@ -25,15 +25,21 @@ before its last line):
 5. the trainer's kernels (``ops/forest_train.py``: K3 ``level_histogram``,
    K4 ``best_splits``, K5 ``leaf_values``) against their plain versions on
    the card, for n = 1, 7,809 and 65,536 rows, F = 30, 167, 300 and 326
-   features and levels 0, 5 and 9, with zero-weight rows, constant features (exact
-   ties), column masks, oblivious mode and min_child masking: K3 within one
-   f32 rounding of the exact (float64) sum and bit-identical over two runs,
-   K4 equal to the plain version but at counted near ties (their largest
-   score gap is K4's max_abs_err), K5 within 1e-6 relative; then each timed
-   at the training path's shapes (n = 7,809 and 65,536, F = 30, every level
-   of depth 6) and the transfer path's (n = 7,809, F = 326, levels 0, 5 and
-   9; K4 also in oblivious mode) beside its plain version, its bound and,
-   for K3, ``torch.bincount``;
+   features (and F = 1) and levels 0, 5 and 9, with zero-weight rows,
+   constant features (exact ties), column masks, oblivious mode and
+   min_child masking, then matrices whose features have 1, 2, 3 and 64
+   occupied bins with skewed node sizes, every row in one node of level 9,
+   and rows that all weigh 0: K3 bit-equal to its fixed-point plain version
+   with and without ``n_bins``, within one f32 rounding of the exact
+   (float64) sum and bit-identical over two runs, a wrong ``n_bins``
+   refused; K4 equal to the plain version but at counted near ties (their
+   largest score gap is K4's max_abs_err), also with the best feature
+   masked out and with no valid split in the level; K5 within 1e-6
+   relative; then each timed at the training path's shapes (n = 7,809 and
+   65,536, F = 30, every level of depth 6) and the transfer path's
+   (n = 7,809, F = 326, levels 0, 5 and 9; K4 also in oblivious mode) beside
+   its plain version, its bound and, for K3, ``index_add_`` (the one
+   PyTorch call for the same function) and ``torch.bincount`` twice;
 6. training: ``ScreeningModel.train`` on ``cuda`` at full width over the
    7,809-molecule labelled set (``testing.labelled_training_set``), with
    every trainer kernel's launch count (300 trees × 6 levels); a second fit
@@ -60,9 +66,11 @@ before its last line):
 8. the transfer path: first a ``GBDTClassifier(subsample=1)`` fit of 30
    trees on ``cuda`` over the aux molecules' 326 features, audited node by
    node along its own splits against the plain arithmetic as in phase 6,
+   the same for an oblivious fit of 30 trees (a level's summed gains),
    its margins through the forest kernel against the plain version, and
-   K3 and K4 timed on its own binned rows (MACCS bits fill two bins a
-   feature) at levels 0, 5 and 9;
+   K3 (bit-equal to its fixed-point plain version there too) and K4 timed
+   on its own binned rows (MACCS bits fill two bins a feature) at levels 0,
+   5 and 9;
    then ``transfer_features`` on ``cuda`` at full width (all
    four models, 400/400/300 trees, k = 25, holdout 0.1) with the labelled
    set as the aux data and the 1,058 molecules as the regression set: the
@@ -182,6 +190,20 @@ def level_case(n, n_feat, level, seed, device):
     return [torch.from_numpy(a).to(device) for a in (xb, pos, g, h)]
 
 
+def index_add_call(xb, pos, g, h, nodes):
+    """One ``index_add_`` that computes K3's function, its keys and values
+    made beforehand (the call ``level_histogram_reference`` ends in)."""
+    import torch
+
+    n, n_feat = xb.shape
+    keys = (pos.long()[:, None] * (n_feat * 64)
+            + torch.arange(n_feat, device=xb.device)[None, :] * 64
+            + xb.long()).reshape(-1)
+    vals = torch.stack([g, h], dim=1)[:, None, :].expand(n, n_feat, 2).reshape(-1, 2)
+    return lambda: torch.zeros((nodes * n_feat * 64, 2), device=xb.device
+                               ).index_add_(0, keys, vals)
+
+
 def split_mismatches(tr, hist, mask, min_child, oblivious, got, want):
     """Nodes where the kernel's split differs from the plain version's; each
     must be a near tie (the two candidates' scores within 1e-6 of the
@@ -211,6 +233,69 @@ def split_mismatches(tr, hist, mask, min_child, oblivious, got, want):
                                  f"{[int(t[node]) for t in want]}")
         worst = max(worst, abs(float(a - b)))
     return int(differ.sum()), worst
+
+
+def hold_level(tr, label, xb, pos, g, h, n_bins, nodes, rng, held):
+    """K3 and K4 on one level's inputs against their plain versions.
+    K3: bit-equal to the fixed-point plain version with and without
+    ``n_bins``, two runs bit-identical, within one f32 rounding of the
+    float64 sum. K4 on K3's histogram: per node and oblivious, with column
+    masks and min_child, with the plain version's best feature masked out,
+    and with a min_child no bin reaches; equal to the plain version but at
+    near ties, which ``split_mismatches`` counts."""
+    import torch
+
+    n, n_feat = xb.shape
+    bounds = tr.gradient_bounds(g, h)
+    hist = tr.level_histogram(xb, pos, g, h, nodes)
+    again = tr.level_histogram(xb, pos, g, h, nodes, bounds)
+    with_bins = tr.level_histogram(xb, pos, g, h, nodes, bounds, n_bins)
+    fixed = tr.level_histogram_fixed_reference(xb, pos, g, h, nodes, bounds)
+    torch.cuda.synchronize()
+    if not torch.equal(hist, again):
+        raise AssertionError(f"level_histogram {label}: two runs differ")
+    if not (torch.equal(hist, fixed) and torch.equal(with_bins, fixed)):
+        raise AssertionError(
+            f"level_histogram {label}: differs from its fixed-point plain version "
+            f"in {int((hist != fixed).sum())} bins, with n_bins in "
+            f"{int((with_bins != fixed).sum())}")
+    del again, with_bins, fixed
+    exact = tr.level_histogram_reference(xb, pos, g.double(), h.double(), nodes)
+    plain = tr.level_histogram_reference(xb, pos, g, h, nodes)
+    vmax = max(float(g.abs().max()), float(h.abs().max()))
+    err = (hist.double() - exact).abs()
+    if bool((err > 2.4e-7 * exact.abs() + 1e-9 * n * vmax).any()):
+        raise AssertionError(f"level_histogram {label}: max |err| "
+                             f"{float(err.max()):.3g}")
+    held["k3_cases"] += 1
+    held["k3_err"] = max(held["k3_err"], float(err.max()))
+    held["k3_err_plain"] = max(held["k3_err_plain"], float((hist - plain).abs().max()))
+    del exact, plain, err
+
+    def hold_splits(mask, min_child, obl):
+        got = tr.best_splits(hist, mask, 1.0, min_child, obl)
+        want = tr.best_splits_reference(hist, mask, 1.0, min_child, obl)
+        near, worst = split_mismatches(tr, hist, mask, min_child, obl, got, want)
+        held["k4_near"] += near
+        held["k4_err"] = max(held["k4_err"], worst)
+        held["k4_calls"] += 1
+        return want
+
+    every = torch.ones(n_feat, dtype=torch.bool, device=xb.device)
+    for share, obl, min_child in ((1.0, False, 1.0), (0.5, False, 1.0),
+                                  (1.0, False, 4.0), (1.0, True, 1.0),
+                                  (0.5, True, 4.0)):
+        mask = torch.from_numpy(rng.random(n_feat) < share)
+        mask[-1] = True
+        want = hold_splits(mask.to(xb.device), min_child, obl)
+        if share == 1.0 and min_child == 1.0 and n_feat > 1:
+            without_best = every.clone()        # the level's (or node 0's) winner
+            without_best[int(want[0][0])] = False
+            hold_splits(without_best, min_child, obl)
+    for obl in (False, True):                   # no bin holds this much
+        want = hold_splits(every, 1e9, obl)
+        if bool(want[2].any()):
+            raise AssertionError(f"best_splits {label}: a split at min_child 1e9")
 
 
 def similarity_phase(cuda, card, aux_raw, reg_raw):
@@ -426,6 +511,25 @@ def wide_fit_audit(card, aux, aux_raw):
             audit.near_ties > 0.01 * n_nodes or audit.max_leaf_diff > 1e-4:
         raise AssertionError(f"GBDTClassifier(cuda) at F={WIDE_F} along its own "
                              f"splits: {audit}")
+    t0 = time.time()
+    obl_fit = GBDTClassifier(n_estimators=AUDIT_TREES, oblivious=True,
+                             learning_rate=cfg.learning_rate, max_depth=cfg.depth,
+                             subsample=1.0, seed=cfg.seed, device="cuda"
+                             ).fit(aux_x, labels)
+    obl_fit_s = time.time() - t0
+    t0 = time.time()
+    obl_audit = compare_gbdt_fits(aux_x, labels, None, obl_fit.ensemble_.to_state(),
+                                  task="cls", lam=1.0, min_child=1.0,
+                                  learning_rate=cfg.learning_rate,
+                                  base_score=obl_fit.ensemble_.base_score,
+                                  tol=1e-5, oblivious=True)
+    obl_audit_s = time.time() - t0
+    if not obl_audit.ok or obl_audit.trees_compared != AUDIT_TREES or \
+            obl_audit.equal + obl_audit.equivalent + obl_audit.near_ties != n_nodes or \
+            obl_audit.equal < 0.99 * n_nodes or \
+            obl_audit.near_ties > 0.01 * n_nodes or obl_audit.max_leaf_diff > 1e-4:
+        raise AssertionError(f"oblivious GBDTClassifier(cuda) at F={WIDE_F} along "
+                             f"its own splits: {obl_audit}")
     x = torch.from_numpy(aux_x).to("cuda")
     got = raw_predict(ens, x)
     want = dense_predict_reference(ens.feat, ens.thr, ens.leaf, x, ens.depth,
@@ -444,6 +548,9 @@ def wide_fit_audit(card, aux, aux_raw):
     p0 = torch.sigmoid(torch.full_like(y, float(ens.base_score)))
     g, h = p0 - y, torch.clamp(p0 * (1 - p0), min=1e-6)
     bounds = tr.gradient_bounds(g, h)
+    n_bins = torch.from_numpy(fit.mapper_.bin_counts()).to("cuda")
+    tr.check_bin_counts(n_bins, xb)
+    few_bins = int((n_bins <= 4).sum())
     rf = RandomForestClassifier(n_estimators=2, max_depth=cfg.rf_depth,
                                 seed=cfg.seed, device="cuda").fit(aux_x, labels)
     every = torch.ones(WIDE_F, dtype=torch.bool, device="cuda")
@@ -457,11 +564,23 @@ def wide_fit_audit(card, aux, aux_raw):
             pos = 2 * pos + (x[rows, trees.feat[0, node].long()]
                              > trees.thr[0, node]).long()
         pos, nodes = pos.int(), 1 << level
-        hist = tr.level_histogram(xb, pos, g, h, nodes, bounds)
+        hist = tr.level_histogram(xb, pos, g, h, nodes, bounds, n_bins,
+                                  bins_checked=True)
+        fixed = tr.level_histogram_fixed_reference(xb, pos, g, h, nodes, bounds)
+        if not (torch.equal(hist, fixed) and torch.equal(
+                tr.level_histogram(xb, pos, g, h, nodes, bounds), fixed)):
+            raise AssertionError(f"level_histogram on the fit's rows, level {level}: "
+                                 f"not its fixed-point plain version")
+        del fixed
+        index_add = index_add_call(xb, pos, g, h, nodes)
         fitted[level] = {
-            "k3": device_ms(lambda: tr.level_histogram(xb, pos, g, h, nodes, bounds)),
+            "k3": device_ms(lambda: tr.level_histogram(
+                xb, pos, g, h, nodes, bounds, n_bins, bins_checked=True)),
+            "k3_no_bins": device_ms(lambda: tr.level_histogram(
+                xb, pos, g, h, nodes, bounds)),
             "k3_plain": device_ms(lambda: tr.level_histogram_reference(
                 xb, pos, g, h, nodes)),
+            "k3_library": device_ms(index_add),
             "k3_bound_ms": level_histogram_bound(len(labels), WIDE_F, nodes)["bound_ms"],
             "k4": device_ms(lambda: tr.best_splits(hist, every, 1.0, 1.0, False)),
             "k4_plain": device_ms(lambda: tr.best_splits_reference(
@@ -478,8 +597,11 @@ def wide_fit_audit(card, aux, aux_raw):
 
     print(f"[8 wide fit] on the fit's own binned rows, levels {WIDE_LEVELS} "
           f"(occupied nodes {[fitted[lv]['occupied_nodes'] for lv in WIDE_LEVELS]}; "
-          f"ms): level_histogram {over_levels('k3')}, plain "
-          f"{over_levels('k3_plain')}, bound {over_levels('k3_bound_ms')}; "
+          f"{few_bins} of {WIDE_F} features have at most 4 bins; ms): "
+          f"level_histogram {over_levels('k3')} (bit-equal to its fixed-point "
+          f"plain version), without n_bins {over_levels('k3_no_bins')}, plain "
+          f"{over_levels('k3_plain')}, index_add_ {over_levels('k3_library')}, "
+          f"bound {over_levels('k3_bound_ms')}; "
           f"best_splits {over_levels('k4')}, plain {over_levels('k4_plain')}, "
           f"oblivious {over_levels('k4_oblivious')}, plain "
           f"{over_levels('k4_oblivious_plain')}, bound "
@@ -490,13 +612,22 @@ def wide_fit_audit(card, aux, aux_raw):
           f"{n_nodes} nodes equal to the plain best split, {audit.equivalent} "
           f"equivalent, {audit.near_ties} near ties (limit 1%), max |dleaf| "
           f"{audit.max_leaf_diff:.3g} (limit 1e-4), replayed on the CPU in "
-          f"{audit_s:.1f} s | its margins, forest kernel against plain: max "
+          f"{audit_s:.1f} s | the same fit oblivious: {obl_fit_s:.3f} s; "
+          f"{obl_audit.equal} of {n_nodes} nodes carry the level's best summed "
+          f"gain, {obl_audit.equivalent} equivalent, {obl_audit.near_ties} near "
+          f"ties (limit 1%), max |dleaf| {obl_audit.max_leaf_diff:.3g}, replayed "
+          f"in {obl_audit_s:.1f} s | its margins, forest kernel against plain: max "
           f"|err| {forest_err:.3g} (atol 2e-5) | on {card}", flush=True)
     return {"forest_err": forest_err, "fitted": fitted,
             "audit": {"trees": AUDIT_TREES, "nodes": n_nodes, "equal": audit.equal,
                       "equivalent": audit.equivalent,
                       "near_ties": audit.near_ties,
-                      "max_leaf_diff": audit.max_leaf_diff}}
+                      "max_leaf_diff": audit.max_leaf_diff},
+            "audit_oblivious": {"trees": AUDIT_TREES, "nodes": n_nodes,
+                                "equal": obl_audit.equal,
+                                "equivalent": obl_audit.equivalent,
+                                "near_ties": obl_audit.near_ties,
+                                "max_leaf_diff": obl_audit.max_leaf_diff}}
 
 
 def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
@@ -619,7 +750,7 @@ def main() -> int:
     from bbbp_tpu_torch.pipelines.screen import ScreeningModel, screen
     from bbbp_tpu_torch.testing import (N_TREES, compare_gbdt_fits,
                                         full_width_screening_state,
-                                        labelled_training_set)
+                                        labelled_training_set, mixed_level_case)
     from bbbp_tpu_torch.timing import (best_splits_bound, device_ms, event_ms,
                                        forest_bound, leaf_values_bound,
                                        level_histogram_bound, nvidia_smi,
@@ -804,46 +935,17 @@ def main() -> int:
 
     # -- phase 5: the trainer's kernels against their plain versions --------
     t5 = time.time()
-    k3_err = k3_err_plain = k4_err = k5_err = 0.0
-    k4_calls = k4_near = k3_cases = 0
-    feats = (30, 167, 300, WIDE_F)
+    k5_err = 0.0
+    held = {"k3_err": 0.0, "k3_err_plain": 0.0, "k4_err": 0.0, "k4_calls": 0,
+            "k4_near": 0, "k3_cases": 0}
+    feats = (1, 30, 167, 300, WIDE_F)
     for n in (1, 7809, 65536):
         for n_feat in feats:
             for level in (0, 5, 9):
-                nodes = 1 << level
-                k3_cases += 1
                 xb, pos, g, h = level_case(n, n_feat, level, n + n_feat + level,
                                            cuda)
-                hist = tr.level_histogram(xb, pos, g, h, nodes)
-                again = tr.level_histogram(xb, pos, g, h, nodes)
-                exact = tr.level_histogram_reference(xb, pos, g.double(),
-                                                     h.double(), nodes)
-                plain = tr.level_histogram_reference(xb, pos, g, h, nodes)
-                torch.cuda.synchronize()
-                if not torch.equal(hist, again):
-                    raise AssertionError(f"level_histogram n={n} F={n_feat} "
-                                         f"level {level}: two runs differ")
-                vmax = max(float(g.abs().max()), float(h.abs().max()))
-                err = (hist.double() - exact).abs()
-                if bool((err > 2.4e-7 * exact.abs() + 1e-9 * n * vmax).any()):
-                    raise AssertionError(f"level_histogram n={n} F={n_feat} "
-                                         f"level {level}: max |err| "
-                                         f"{float(err.max()):.3g}")
-                k3_err = max(k3_err, float(err.max()))
-                k3_err_plain = max(k3_err_plain, float((hist - plain).abs().max()))
-                for share, obl, min_child in ((1.0, False, 1.0), (0.5, False, 1.0),
-                                              (1.0, False, 4.0), (1.0, True, 1.0),
-                                              (0.5, True, 4.0)):
-                    mask = torch.from_numpy(rng.random(n_feat) < share)
-                    mask[-1] = True
-                    mask = mask.to(cuda)
-                    got = tr.best_splits(hist, mask, 1.0, min_child, obl)
-                    want = tr.best_splits_reference(hist, mask, 1.0, min_child, obl)
-                    near, err = split_mismatches(tr, hist, mask, min_child, obl,
-                                                 got, want)
-                    k4_near += near
-                    k4_err = max(k4_err, err)
-                    k4_calls += 1
+                hold_level(tr, f"n={n} F={n_feat} level {level}", xb, pos, g, h,
+                           (xb.amax(0) + 1).to(torch.uint8), 1 << level, rng, held)
         for n_leaves in (64, 1024):
             _, pos, g, h = level_case(n, 1, 0, n + n_leaves, cuda)
             pos = torch.randint(0, n_leaves, (n,), dtype=torch.int32, device=cuda)
@@ -866,6 +968,31 @@ def main() -> int:
                                      f"{float(pred_err.max()):.3g}")
             k5_err = max(k5_err, float(leaf_err.max()), float(pred_err.max()))
 
+    # features of 1, 2, 3 and 64 occupied bins in one matrix, skewed nodes;
+    # every row in one node of level 9; rows that all weigh 0 (or nearly all)
+    mixed = [(n, n_feat, level, False, 0.2) for n, n_feat in
+             ((7809, WIDE_F), (7809, TRAIN_F), (65536, 167)) for level in (0, 5, 9)]
+    mixed += [(7809, WIDE_F, 9, True, 0.2), (65536, TRAIN_F, 9, True, 0.0),
+              (7809, WIDE_F, 5, False, 1.0), (7809, TRAIN_F, 9, False, 0.97)]
+    for n, n_feat, level, one_node, zero_share in mixed:
+        *arrays, counts = mixed_level_case(n + n_feat + level, n, n_feat, level,
+                                           one_node, zero_share)
+        xb, pos, g, h, n_bins = (torch.from_numpy(a).to(cuda)
+                                 for a in (*arrays, counts))
+        hold_level(tr, f"mixed bins n={n} F={n_feat} level {level} one_node="
+                   f"{one_node} zero share {zero_share}", xb, pos, g, h, n_bins,
+                   1 << level, rng, held)
+    low = n_bins.clone()
+    low[2] = 1                                  # feature 2 fills 64 bins
+    try:
+        tr.level_histogram(xb, pos, g, h, 1 << level, None, low)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("level_histogram took an n_bins below an occupied bin")
+    k3_err, k3_err_plain, k4_err = held["k3_err"], held["k3_err_plain"], held["k4_err"]
+    k4_calls, k4_near, k3_cases = held["k4_calls"], held["k4_near"], held["k3_cases"]
+
     timed = {}
     shapes = [(n, TRAIN_F, tuple(range(TRAIN_DEPTH))) for n in TRAIN_ROWS]
     shapes.append((TRAIN_ROWS[0], WIDE_F, WIDE_LEVELS))
@@ -875,7 +1002,11 @@ def main() -> int:
             nodes = 1 << level
             xb, pos, g, h = level_case(n, n_feat, level, level, cuda)
             bounds = tr.gradient_bounds(g, h)      # once a tree in a fit
-            hist = tr.level_histogram(xb, pos, g, h, nodes, bounds)
+            n_bins = (xb.amax(0) + 1).to(torch.uint8)       # as is a fit's n_bins
+            tr.check_bin_counts(n_bins, xb)
+            hist = tr.level_histogram(xb, pos, g, h, nodes, bounds, n_bins,
+                                      bins_checked=True)
+            index_add = index_add_call(xb, pos, g, h, nodes)
             keys = (pos.long()[:, None] * (n_feat * 64)
                     + torch.arange(n_feat, device=cuda)[None, :] * 64
                     + xb.long()).reshape(-1)
@@ -883,11 +1014,12 @@ def main() -> int:
             wh = h[:, None].expand(n, n_feat).reshape(-1)
             length = nodes * n_feat * 64
             timed[n, n_feat, level] = {
-                "k3": device_ms(lambda: tr.level_histogram(xb, pos, g, h, nodes,
-                                                           bounds)),
+                "k3": device_ms(lambda: tr.level_histogram(
+                    xb, pos, g, h, nodes, bounds, n_bins, bins_checked=True)),
                 "k3_plain": device_ms(lambda: tr.level_histogram_reference(
                     xb, pos, g, h, nodes)),
-                "k3_library": event_ms(lambda: (
+                "k3_library": device_ms(index_add),
+                "k3_bincount": event_ms(lambda: (
                     torch.bincount(keys, weights=wg, minlength=length),
                     torch.bincount(keys, weights=wh, minlength=length))),
                 "k3_bound": level_histogram_bound(n, n_feat, nodes),
@@ -930,10 +1062,13 @@ def main() -> int:
     for n in TRAIN_ROWS:
         print(f"[5 trainer kernels] n={n}, F={TRAIN_F}, levels 0-5 (ms): "
               f"level_histogram {fmt(levels(n, 'k3'))}, plain "
-              f"{fmt(levels(n, 'k3_plain'))}, bincount x2 "
-              f"{fmt(levels(n, 'k3_library'))}, bound "
+              f"{fmt(levels(n, 'k3_plain'))}, index_add_ "
+              f"{fmt(levels(n, 'k3_library'))}, bincount x2 "
+              f"{fmt(levels(n, 'k3_bincount'))}, bound "
               f"{fmt(levels(n, 'k3_bound', 'bound_ms'))}; best_splits "
               f"{fmt(levels(n, 'k4'))}, plain {fmt(levels(n, 'k4_plain'))}, "
+              f"oblivious {fmt(levels(n, 'k4_oblivious'))}, plain "
+              f"{fmt(levels(n, 'k4_oblivious_plain'))}, "
               f"bound {fmt(levels(n, 'k4_bound', 'bound_ms'))}; leaf_values "
               f"(64 leaves) {timed[n, 'k5']['k5']:.4f}, plain "
               f"{timed[n, 'k5']['k5_plain']:.4f}, bound "
@@ -945,7 +1080,8 @@ def main() -> int:
 
     print(f"[5 trainer kernels] n={head}, F={WIDE_F}, levels {WIDE_LEVELS} (ms): "
           f"level_histogram {wide_levels('k3')}, plain {wide_levels('k3_plain')}, "
-          f"bincount x2 {wide_levels('k3_library')}, bound "
+          f"index_add_ {wide_levels('k3_library')}, bincount x2 "
+          f"{wide_levels('k3_bincount')}, bound "
           f"{wide_levels('k3_bound', 'bound_ms')}; best_splits "
           f"{wide_levels('k4')}, plain {wide_levels('k4_plain')}, oblivious "
           f"{wide_levels('k4_oblivious')}, plain "
@@ -954,11 +1090,16 @@ def main() -> int:
           f"{timed[head, 'k5_1024']['k5']:.4f}, plain "
           f"{timed[head, 'k5_1024']['k5_plain']:.4f}, bound "
           f"{timed[head, 'k5_1024']['k5_bound']['bound_ms']:.6f}", flush=True)
-    print(f"[5 trainer kernels] {k3_cases} (n, F, level) cases, F in {feats}: "
-          f"level_histogram max "
+    print(f"[5 trainer kernels] {k3_cases} (n, F, level) cases, F in {feats}, "
+          f"{len(mixed)} of them with features of 1, 2, 3 and 64 occupied bins "
+          f"(skewed nodes, one node holding every row of level 9, all rows of "
+          f"weight 0): level_histogram bit-equal to its fixed-point plain "
+          f"version with and without n_bins, max "
           f"|err| {k3_err:.3g} against the exact sum (limit 2.4e-7 |sum| + "
           f"1e-9 n max|v|), {k3_err_plain:.3g} against the plain f32 sum, "
-          f"two runs bit-identical; best_splits {k4_calls} calls equal to the "
+          f"two runs bit-identical, a low n_bins refused ({refused}); "
+          f"best_splits {k4_calls} calls (per node and oblivious, column masks, "
+          f"the best feature masked out, no valid split) equal to the "
           f"plain version but {k4_near} counted near-tie nodes (max |dscore| "
           f"{k4_err:.3g}); leaf_values "
           f"max |err| {k5_err:.3g} (limit 5e-7 |leaf|, 1e-6 of the margin "
@@ -1128,8 +1269,9 @@ def main() -> int:
     head, last = TRAIN_ROWS[0], TRAIN_DEPTH - 1
     train_kernels = (
         ("forest_level_histogram", "k3", "bbbp_tpu/ops/forest_tpu.py:154",
-         k3_err, "torch.bincount(keys, weights=g) and (keys, weights=h), keys "
-         "precomputed; timed between events, as it synchronises"),
+         k3_err, "torch.zeros(...).index_add_(0, keys, (g, h) values), keys and "
+         "values made beforehand; bincount: torch.bincount(keys, weights=g) "
+         "and (keys, weights=h), timed between events, as it synchronises"),
         ("forest_best_splits", "k4", "bbbp_tpu/ops/forest_tpu.py:125", k4_err,
          None),
         ("forest_leaf_values", "k5", "bbbp_tpu/ops/forest_tpu.py:340", k5_err,
@@ -1164,26 +1306,35 @@ def main() -> int:
                 entry["bound_ms" + suffix] = levels(n, key + "_bound", "bound_ms")
                 if library:
                     entry["library_ms" + suffix] = levels(n, key + "_library")
+                    entry["bincount_ms" + suffix] = levels(n, key + "_bincount")
             # the transfer path's width, at levels WIDE_LEVELS
             entry["levels_f326"] = list(WIDE_LEVELS)
-            fields = ["", "_plain"] + (["_library"] if library else []) + (
+            fields = ["", "_plain"] + (
+                ["_library", "_bincount", "_no_bins"] if library else []) + (
                 ["_oblivious", "_oblivious_plain"] if key == "k4" else [])
             names = {"": "ms", "_plain": "plain_ms", "_library": "library_ms",
+                     "_bincount": "bincount_ms", "_no_bins": "ms_without_n_bins",
                      "_oblivious": "ms_oblivious",
                      "_oblivious_plain": "plain_ms_oblivious"}
             for field in fields:
-                entry[names[field] + "_f326_levels"] = levels(head, key + field,
-                                                              n_feat=WIDE_F)
+                if field != "_no_bins":
+                    entry[names[field] + "_f326_levels"] = levels(
+                        head, key + field, n_feat=WIDE_F)
             entry["bound_ms_f326_levels"] = levels(head, key + "_bound",
                                                    "bound_ms", WIDE_F)
             # the same on the aux molecules' own binned rows
             for field in fields:
-                if field != "_library":
+                if field != "_bincount":
                     entry[names[field] + "_f326_fitted_levels"] = [
                         wide_audit["fitted"][lv][key + field] for lv in WIDE_LEVELS]
         if key == "k4":
             entry["near_tie_nodes"] = k4_near
             entry["audit_f326"] = wide_audit["audit"]
+            entry["audit_f326_oblivious"] = wide_audit["audit_oblivious"]
+            for n in TRAIN_ROWS:
+                suffix = "_levels" if n == head else f"_levels_n{n}"
+                entry["ms_oblivious" + suffix] = levels(n, "k4_oblivious")
+                entry["plain_ms_oblivious" + suffix] = levels(n, "k4_oblivious_plain")
         kernels.append(entry)
     # the similarity kernels: K6 at the transfer path's shape, K7 and K8 at
     # the full gram of the regression set, d = 2048; other shapes beside

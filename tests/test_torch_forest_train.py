@@ -8,7 +8,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from bbbp_tpu_torch.ops import forest_train as tr  # noqa: E402
-from bbbp_tpu_torch.testing import compare_gbdt_fits  # noqa: E402
+from bbbp_tpu_torch.testing import compare_gbdt_fits, mixed_level_case  # noqa: E402
 
 
 # The JAX package is the reference; it is imported by fixtures so that the
@@ -327,6 +327,226 @@ def test_depth_zero_fit_is_the_mean():
     np.testing.assert_allclose(m.predict(x[:5]), np.full(5, y.mean()), atol=1e-5)
 
 
+
+# -- K3's fixed-point arithmetic, in torch -------------------------------------
+
+def _level_tensors(args):
+    return [torch.from_numpy(a) for a in args]
+
+
+FIXED_CASES = [(300, 5, 0), (1000, 16, 3), (200, 300, 1), (64, 30, 5)]
+
+
+@pytest.mark.parametrize("n,n_feat,level", FIXED_CASES)
+def test_fixed_point_histogram_within_stated_error_of_float64_sum(n, n_feat, level):
+    """K3's stated error: one f32 rounding of the exact sum (2.4e-7 |sum|)
+    plus the quantisation of n values at 2^-62 of n max|v| (far below
+    1e-9 n max|v|)."""
+    xb, pos, g, h = _level_tensors(_level_inputs(n + n_feat, n, n_feat, level))
+    nodes = 1 << level
+    got = tr.level_histogram_fixed_reference(xb, pos, g, h, nodes,
+                                             tr.gradient_bounds(g, h))
+    exact = tr.level_histogram_reference(xb, pos, g.double(), h.double(), nodes)
+    assert got.dtype == torch.float32 and got.shape == (nodes, n_feat, 64, 2)
+    vmax = max(float(g.abs().max()), float(h.abs().max()))
+    assert ((got.double() - exact).abs()
+            <= 2.4e-7 * exact.abs() + 1e-9 * n * vmax).all()
+    assert torch.equal(got == 0, exact == 0)        # empty bins read 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fixed_point_histogram_bit_equal_under_row_permutation(seed):
+    """Integer sums do not depend on the order of the rows; the plain f32
+    sum does (which is why the kernel is not held against it bit for bit)."""
+    xb, pos, g, h = _level_tensors(_level_inputs(seed, 4000, 6, 2))
+    bounds = tr.gradient_bounds(g, h)
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(4000))
+    a = tr.level_histogram_fixed_reference(xb, pos, g, h, 4, bounds)
+    b = tr.level_histogram_fixed_reference(xb[perm].contiguous(), pos[perm],
+                                           g[perm], h[perm], 4, bounds)
+    assert torch.equal(a, b)
+    plain = tr.level_histogram_reference(xb, pos, g, h, 4)
+    plain_perm = tr.level_histogram_reference(xb[perm].contiguous(), pos[perm],
+                                              g[perm], h[perm], 4)
+    assert not torch.equal(plain, plain_perm)
+
+
+@pytest.mark.parametrize("n,n_feat,level", FIXED_CASES)
+def test_fixed_point_histogram_equals_jax_scatter(n, n_feat, level, jax, jnp):
+    """Against the scatter engine's segment_sum on the inputs of
+    ``test_level_histogram_reference_equals_jax_scatter``. That test holds
+    the plain version to exact equality because both sum in f32 in row
+    order; the fixed-point sum is exact, so the two differ by the f32 sum's
+    own rounding, at most (k - 1) 2^-24 sum|v| over a bin's k rows, plus one
+    rounding of the result."""
+    xb, pos, g, h = _level_inputs(n + n_feat, n, n_feat, level)
+    nodes = 1 << level
+    keys = (pos[:, None].astype(np.int64) * (n_feat * 64)
+            + np.arange(n_feat)[None, :] * 64 + xb)
+    vals = np.broadcast_to(np.stack([g, h], 1)[:, None, :], (n, n_feat, 2))
+    ref = np.asarray(jax.ops.segment_sum(
+        jnp.asarray(vals.reshape(-1, 2)), jnp.asarray(keys.ravel(), jnp.int32),
+        num_segments=nodes * n_feat * 64)).reshape(nodes, n_feat, 64, 2)
+    t = _level_tensors((xb, pos, g, h))
+    got = tr.level_histogram_fixed_reference(*t, nodes, tr.gradient_bounds(t[2], t[3]))
+    mass = tr.level_histogram_reference(t[0], t[1], t[2].abs().double(),
+                                        t[3].abs().double(), nodes).numpy()
+    rows = tr.level_histogram_reference(t[0], t[1], torch.ones(n).double(),
+                                        torch.ones(n).double(), nodes).numpy()
+    limit = np.maximum(rows - 1, 0) * 2.0 ** -24 * mass + 2.4e-7 * np.abs(ref)
+    assert (np.abs(got.numpy().astype(np.float64) - ref) <= limit).all()
+
+
+def test_fixed_point_scales_are_the_kernels():
+    """2^e with n · bound · 2^e < 2^62 ≤ 2 n · bound · 2^e; 1 for a bound
+    of 0, inf or nan."""
+    bounds = torch.tensor([3.25, 1e-6, 0.0, float("inf"), float("nan"), 2.0 ** -149])
+    for n in (1, 7809, 65536):
+        s = tr.fixed_point_scales(bounds, n)
+        assert s.dtype == torch.float64
+        assert s[2:5].tolist() == [1.0, 1.0, 1.0]
+        for k in (0, 1, 5):
+            top = float(bounds[k].double()) * n * float(s[k])
+            assert 2.0 ** 61 <= top < 2.0 ** 62
+            assert float(torch.log2(s[k])) == round(float(torch.log2(s[k])))
+
+
+# -- occupied bins (n_bins) ------------------------------------------------------
+
+@pytest.mark.parametrize("seed,n,n_feat", [(0, 500, 8), (1, 37, 5), (2, 3000, 3)])
+def test_bin_counts_bound_the_occupied_bins(seed, n, n_feat):
+    """``bin_counts`` is len(edges) + 1, uint8 in [1, 64] (a constant
+    feature has one edge, a 0/1 feature two, and more where a quantile
+    falls between its 0s and 1s); on the fitted rows and on
+    rows outside their range no bin reaches it, and the largest bin of
+    unbounded rows is exactly count - 1."""
+    rng = np.random.default_rng(seed)
+    x = _features(rng, n, n_feat, n_constant=1)
+    x[:, -1] = rng.random(n) < 0.1                   # a 0/1 feature
+    mapper = tr.BinMapper().fit(x)
+    counts = mapper.bin_counts()
+    assert counts.dtype == np.uint8 and counts.shape == (n_feat,)
+    assert counts.tolist() == [len(e) + 1 for e in mapper.edges_]
+    assert counts[0] == 2 and 3 <= counts[-1] <= 6 and counts.max() <= tr.MAX_BINS
+    assert (mapper.transform(x).max(0).astype(int) + 1 <= counts).all()
+    wide = np.concatenate([x, x + 1e6, x - 1e6])
+    assert (mapper.transform(wide).max(0).astype(int) + 1 == counts).all()
+    tr.check_bin_counts(torch.from_numpy(counts), torch.from_numpy(mapper.transform(wide)))
+
+
+def test_level_histogram_rejects_a_wrong_n_bins():
+    xb, pos, g, h = _tensors()
+    good = (xb.amax(0) + 1).to(torch.uint8)
+    want = tr.level_histogram_reference(xb, pos, g, h, 4)
+    assert torch.equal(tr.level_histogram(xb, pos, g, h, 4, None, good), want)
+    assert torch.equal(tr.level_histogram(xb, pos, g, h, 4, None,
+                                          torch.full((7,), 64, dtype=torch.uint8)), want)
+    with pytest.raises(TypeError):
+        tr.level_histogram(xb, pos, g, h, 4, None, good.int())
+    with pytest.raises(TypeError):
+        tr.level_histogram(xb, pos, g, h, 4, None, good[:-1])
+    with pytest.raises(ValueError, match="n_bins is on"):
+        tr.level_histogram(xb, pos, g, h, 4, None, good.to("meta"))
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.level_histogram(xb, pos, g, h, 4, None, good.repeat_interleave(2)[::2])
+    low = good.clone()
+    low[3] -= 1
+    with pytest.raises(ValueError, match=r"n_bins\[3\]"):
+        tr.level_histogram(xb, pos, g, h, 4, None, low)
+    with pytest.raises(ValueError, match=r"n_bins\[3\]"):
+        tr.fit_forest(xb, torch.zeros(7, 64), g, lr=0.1, lam=1.0, min_child=1.0,
+                      subsample=1.0, colsample=1.0, base_score=0.0, seed=0,
+                      task="reg", n_trees=1, depth=2, oblivious=False, rf=False,
+                      n_bins=low)
+    for bad in (0, 65):
+        with pytest.raises(ValueError, match="must lie in"):
+            tr.level_histogram(xb, pos, g, h, 4, None,
+                               torch.full((7,), bad, dtype=torch.uint8))
+    # a caller that has checked says so, and the shape checks stay
+    tr.check_bin_counts(good, xb)
+    assert torch.equal(tr.level_histogram(xb, pos, g, h, 4, None, good,
+                                          bins_checked=True), want)
+    with pytest.raises(TypeError):
+        tr.level_histogram(xb, pos, g, h, 4, None, good[:-1], bins_checked=True)
+
+
+@pytest.mark.parametrize("kind", ["gbdt", "oblivious", "rf"])
+def test_fit_forest_grows_the_same_trees_with_and_without_n_bins(kind):
+    """``n_bins`` only tells K3 where bins are empty: the estimator passes
+    the mapper's counts, ``fit_forest`` without them grows the same trees."""
+    rng = np.random.default_rng(8)
+    x = _features(rng, 600, 9, n_constant=1)
+    x[:, 3] = rng.random(600) < 0.2
+    y = (x[:, 1] + x[:, 3] - x[:, 5] > 0).astype(np.float32)
+    kw = dict(n_estimators=6, max_depth=3, seed=4, device="cpu")
+    model = (tr.RandomForestClassifier(**kw) if kind == "rf" else
+             tr.GBDTClassifier(oblivious=kind == "oblivious", subsample=0.8, **kw))
+    model.fit(x, y)
+    xb = torch.from_numpy(model.mapper_.transform(x))
+    args = dict(lr=model.learning_rate, lam=model.reg_lambda,
+                min_child=model.min_child_weight, subsample=model.subsample,
+                colsample=model.colsample, base_score=model.ensemble_.base_score,
+                seed=4, task="reg" if kind == "rf" else "cls", n_trees=6, depth=3,
+                oblivious=model.oblivious, rf=kind == "rf")
+    edges = torch.from_numpy(model.mapper_.edge_values())
+    n_bins = torch.from_numpy(model.mapper_.bin_counts())
+    assert n_bins[0] == 2 and n_bins[3] <= 4 and n_bins.max() > 4
+    with_bins = tr.fit_forest(xb, edges, torch.from_numpy(y), n_bins=n_bins, **args)
+    without = tr.fit_forest(xb, edges, torch.from_numpy(y), **args)
+    for a, b in zip(with_bins, without):
+        assert torch.equal(a, b)
+    assert torch.equal(with_bins[1], model.ensemble_.feat)
+    assert torch.equal(with_bins[3], model.ensemble_.leaf)
+
+
+@pytest.mark.parametrize("n,n_feat,nodes", [(0, 30, 1), (1, 30, 1), (7809, 30, 32),
+                                            (7809, 326, 512), (65536, 167, 32),
+                                            (1000000, 2048, 4096)])
+def test_histogram_plan_holds_every_layout_of_the_rows(n, n_feat, nodes):
+    """The scratch K3's plan reserves is enough for any split of the rows
+    over the nodes: items when every large node has one row more than a
+    multiple of ``rows_per_item``, slots when as many nodes as can be are
+    larger than ``own_rows``; the regions are 16-byte aligned where the
+    kernel reads 16 bytes, do not overlap, and the accumulator stays small."""
+    plan = tr.histogram_plan(n, n_feat, nodes)
+    r, own = plan["rows_per_item"], plan["own_rows"]
+    assert own >= r >= 256 and plan["tile_feats"] in (8, 16, 32)
+    big = own + 1                                   # smallest node that is cut
+    n_big = min(nodes, n // big)
+    assert plan["acc_slots"] >= n_big and plan["acc_slots"] <= 32
+    rest = n - n_big * big                          # all into one more node
+    worst_items = n_big * -(-big // r) + (nodes - n_big)
+    if rest:
+        worst_items = max(worst_items, (nodes - 1) + -(-n // r))
+    assert plan["max_items"] >= min(worst_items, nodes + n // r)
+    assert plan["plan"] == plan["acc_slots"] * n_feat * 128 and plan["plan"] % 2 == 0
+    assert 2 * (plan["rows"] - plan["plan"] - 4) >= 4 * plan["max_items"] + plan["acc_slots"] + 2
+    assert plan["threads"] in (128, 256)
+    assert 2 * (plan["words"] - plan["rows"]) >= n
+
+
+def test_oblivious_audit_counts_every_node():
+    """``compare_gbdt_fits(oblivious=True)`` replays an oblivious fit along
+    its own splits: every node of a level carries the level's best summed
+    gain, and a level moved to another feature is found."""
+    x, y = _regression(14, n=400, n_feat=6)
+    kw = dict(n_estimators=6, max_depth=3, learning_rate=0.3, subsample=1.0,
+              oblivious=True)
+    fit = tr.GBDTRegressor(device="cpu", **kw).fit(x, y)
+    state = fit.ensemble_.to_state()
+    assert (state["feat"][:, 1] == state["feat"][:, 2]).all()
+    args = dict(task="reg", lam=1.0, min_child=1.0, learning_rate=0.3,
+                base_score=fit.ensemble_.base_score, tol=1e-6, oblivious=True)
+    audit = compare_gbdt_fits(x, y, None, state, **args)
+    assert audit.ok and audit.trees_compared == 6
+    assert audit.equal == 6 * 7 and audit.near_ties == 0
+    bad = {**state, "feat": state["feat"].copy(), "thr": state["thr"].copy()}
+    bad["feat"][2, 1:3] = (bad["feat"][2, 1:3] + 1) % 6
+    bad["thr"][2, 1:3] = np.float32(np.median(x[:, bad["feat"][2, 1]]))
+    assert compare_gbdt_fits(x, y, None, bad, **args).mismatch == (2, 1)
+    assert not compare_gbdt_fits(x, y, None, state, **{**args, "oblivious": False}).ok
+
+
 # -- wrappers --------------------------------------------------------------------
 
 def _tensors(seed=0, n=200, n_feat=7, level=2):
@@ -414,25 +634,44 @@ def test_training_on_cuda_without_a_card_raises(monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_cuda(cuda_device):
-    """K3 against the plain version summed in float64 (|err| ≤ 2.4e-7·|sum|
-    + 1e-9·n·max|v|: one f32 rounding of the exact sum) and bit-identical
-    over two runs, with its bounds taken inside and passed in; K4 equal to the plain version on the kernel's histogram
-    (same arithmetic), oblivious mode and a column mask included; K5 leaves
-    and margins within 1e-5 of the plain version."""
+    """K3 bit-equal to its fixed-point plain version, with and without
+    ``n_bins``, with its bounds taken inside and passed in, bit-identical
+    over two runs, and within one f32 rounding of the float64 sum
+    (|err| ≤ 2.4e-7·|sum| + 1e-9·n·max|v|); three of the cases have
+    features of 1, 2, 3 and 64 occupied bins in one matrix, skewed node
+    sizes, one holds every row in one node of level 9, one has 4,096 nodes
+    and one 70,000 rows in 4 nodes (the sort beyond its register and
+    shared-memory sizes). K4 equal to the
+    plain version on the kernel's histogram (same arithmetic), per node and
+    oblivious (levels 0, 2, 5, 9 and 12), with a column mask; K5 leaves and
+    margins within 1e-5 of the plain version."""
     rng = np.random.default_rng(0)
-    for n, n_feat, level in [(1, 30, 0), (7809, 30, 5), (65536, 167, 5),
-                             (7809, 300, 9)]:
-        xb_np, pos_np, g_np, h_np = _level_inputs(n_feat + level, n, n_feat, level,
-                                                  n_constant=2)
-        xb, pos, g, h = (torch.from_numpy(a).to(cuda_device)
-                         for a in (xb_np, pos_np, g_np, h_np))
-        hist = tr.level_histogram(xb, pos, g, h, 1 << level)
-        again = tr.level_histogram(xb, pos, g, h, 1 << level,
-                                   tr.gradient_bounds(g, h))
-        exact = tr.level_histogram_reference(xb, pos, g.double(), h.double(),
-                                             1 << level)
+    cases = [("uniform", 1, 30, 0), ("uniform", 7809, 30, 5),
+             ("uniform", 65536, 167, 5), ("uniform", 7809, 300, 9),
+             ("mixed", 7809, 326, 5), ("mixed", 7809, 30, 9),
+             ("one_node", 7809, 326, 9),
+             # 4,096 nodes and 10,000 rows: the sort's largest shared-memory use
+             ("uniform", 10000, 3, 12), ("mixed", 70000, 5, 2)]
+    for kind, n, n_feat, level in cases:
+        if kind == "uniform":
+            arrays = _level_inputs(n_feat + level, n, n_feat, level, n_constant=2)
+            counts = arrays[0].max(0) + 1
+        else:
+            *arrays, counts = mixed_level_case(n_feat + level, n, n_feat, level,
+                                               one_node=kind == "one_node")
+        xb, pos, g, h = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+        n_bins = torch.from_numpy(counts.astype(np.uint8)).to(cuda_device)
+        bounds = tr.gradient_bounds(g, h)
+        nodes = 1 << level
+        hist = tr.level_histogram(xb, pos, g, h, nodes)
+        again = tr.level_histogram(xb, pos, g, h, nodes, bounds)
+        with_bins = tr.level_histogram(xb, pos, g, h, nodes, bounds, n_bins)
+        fixed = tr.level_histogram_fixed_reference(xb, pos, g, h, nodes, bounds)
+        exact = tr.level_histogram_reference(xb, pos, g.double(), h.double(), nodes)
         torch.cuda.synchronize()
-        assert torch.equal(hist, again)
+        assert torch.equal(hist, again), (kind, n, n_feat, level)
+        assert torch.equal(hist, fixed), (kind, n, n_feat, level)
+        assert torch.equal(with_bins, fixed), (kind, n, n_feat, level)
         limit = (2.4e-7 * exact.abs()
                  + 1e-9 * n * max(float(g.abs().max()), float(h.abs().max())))
         assert ((hist.double() - exact).abs() <= limit).all()
@@ -440,7 +679,7 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
         for obl in (False, True):
             for got, want in zip(tr.best_splits(hist, mask, 1.0, 1.0, obl),
                                  tr.best_splits_reference(hist, mask, 1.0, 1.0, obl)):
-                assert torch.equal(got, want)
+                assert torch.equal(got, want), (kind, n, n_feat, level, obl)
         leaf_pos = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(cuda_device)
         p_k, p_p = torch.zeros(n, device=cuda_device), torch.zeros(n, device=cuda_device)
         leaf_k = tr.leaf_values(leaf_pos, g, h, 64, 1.0, 0.1, p_k)
@@ -448,3 +687,9 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
         torch.cuda.synchronize()
         assert torch.allclose(leaf_k, leaf_p, rtol=1e-5, atol=1e-5)
         assert torch.allclose(p_k, p_p, rtol=1e-5, atol=1e-5)
+    low = n_bins.clone()
+    low[2] = 1                                  # feature 2 fills 64 bins
+    with pytest.raises(ValueError, match=r"n_bins\[2\]"):
+        tr.level_histogram(xb, pos, g, h, nodes, bounds, low)
+    none = tr.level_histogram(xb[:0], pos[:0], g[:0], h[:0], 4, bounds)
+    assert none.shape == (4, xb.shape[1], 64, 2) and not none.any()

@@ -80,7 +80,8 @@ def profile(table_path: str):
     launches = {c.__name__: c.launches.count for c in counters}
 
     def classify(name):
-        for kernel in ("level_hist_kernel", "hist_finish_kernel",
+        for kernel in ("hist_group_kernel", "level_hist_kernel",
+                       "hist_finish_kernel", "oblivious_pick_kernel",
                        "best_splits", "leaf_sums_kernel", "leaf_apply_kernel"):
             if kernel in name:
                 return kernel

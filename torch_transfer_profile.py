@@ -24,7 +24,8 @@ import sys
 import tempfile
 import time
 
-KERNELS = ("level_hist_kernel", "hist_finish_kernel", "best_splits",
+KERNELS = ("hist_group_kernel", "level_hist_kernel", "hist_finish_kernel",
+           "oblivious_pick_kernel", "best_splits",
            "leaf_sums_kernel", "leaf_apply_kernel", "dense_forest_kernel",
            "tanimoto_topk_kernel", "row_sums_kernel")
 
