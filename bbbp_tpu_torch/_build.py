@@ -187,9 +187,11 @@ def kernels_lib() -> ctypes.CDLL:
     lib.bbbp_forest_leaf_values.restype = _I
     lib.bbbp_forest_leaf_values.argtypes = [
         _P, _I, _P, _P,        # pos [n] int32, g, h [n] f32
-        _I, _F, _F,            # n_leaves, lambda, scale
-        _P, _P,                # bounds [2] f32, scratch acc [2·n_leaves] int64
-        _P, _P, _P,            # leaf [n_leaves] f32, preds [n] f32 (in place), stream
+        _I, _F, _F, _P,        # n_leaves, lambda, scale, bounds [2] f32
+        _P, _P,                # leaf [n_leaves] f32, preds [n] f32 (in place)
+        _P, _P, _P, _F, _I,    # next tree: y, u, w_rows [n] f32 or null, subsample, cls
+        _P, _P, _P,            # next g, h [n] f32, bounds [2] f32
+        _I, _I, _P,            # cluster, threads, stream
     ]
     lib.bbbp_tanimoto_topk.restype = _I
     lib.bbbp_tanimoto_topk.argtypes = [
@@ -197,13 +199,18 @@ def kernels_lib() -> ctypes.CDLL:
         _I, _P, _P,            # k, scratch row sums sq [nq], sr [nr] f32
         _P, _P, _P,            # sim [nq, k] f32, idx [nq, k] int64, stream
     ]
-    for gram in (lib.bbbp_tanimoto_gram, lib.bbbp_minmax_gram):
-        gram.restype = _I
-        gram.argtypes = [
-            _P, _I, _P, _I, _I,    # q [nq, words], r [nr, words] uint32
-            _P, _P, _P,            # w f32 or null, scratch sq [nq], sr [nr]
-            _P, _P,                # out [nq, nr] f32, stream
-        ]
+    lib.bbbp_tanimoto_gram.restype = _I
+    lib.bbbp_tanimoto_gram.argtypes = [
+        _P, _I, _P, _I, _I,    # q [nq, words], r [nr, words] uint32
+        _P, _P, _P,            # w f32 or null, scratch sq [nq], sr [nr]
+        _P, _P,                # out [nq, nr] f32, stream
+    ]
+    lib.bbbp_minmax_gram.restype = _I
+    lib.bbbp_minmax_gram.argtypes = [
+        _P, _I, _P, _I, _I,    # q [nq, words], r [nr, words] uint32
+        _P, _P, _P,            # w f32 or null, scratch sq [nq], sr [nr]
+        _P, _I, _P,            # out [nq, nr] f32, split (1, 2, 4, 8), stream
+    ]
     return lib
 
 

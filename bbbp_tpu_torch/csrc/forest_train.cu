@@ -13,7 +13,9 @@
 // K5 bbbp_forest_leaf_values — replaces the leaf sums of _fit_forest_device
 //    (:340-348) with leaf = -G / (H + lambda) and preds += scale * leaf[pos]
 //    (:348-352), the update as one fused multiply-add, which is how the
-//    reference's compiled tree step rounds it.
+//    reference's compiled tree step rounds it; in boosting also the next
+//    tree's g, h (tree_step, :302-319) from the updated margins, and their
+//    (max |g|, max |h|).
 //
 // Determinism. Two fits with one seed must grow the same trees, so K3 and
 // K5 give the same sums on every run: each value is quantised to a 64-bit
@@ -44,7 +46,13 @@
 // 10,752 blocks of ~15 rows each pay a block's start-up for 8 KB of output.
 // K4 reads the histogram once; its work is a chain of dependent f32 adds
 // and two IEEE divisions a bin, and it is bound by the instruction rate, not
-// by bytes. K5 is small: one pass over the rows.
+// by bytes. K5 moves 156 KB at the trainer's 7,809 rows with the next
+// tree's inputs and outputs (0.05 us at the memory rate); it is bound by
+// latency: a launch (~1 us for an empty cluster launch in a CUDA graph), a
+// global load's round trip, one cluster barrier (~1,200-1,700 cycles: the
+// barrier's release is a GPU-wide MEMBAR, and its acquire invalidates L1)
+// and the loads from other blocks' shared memory (torch_leaf_profile.py
+// clocks each phase).
 //
 // K3 design.
 // 1. hist_group_kernel, one block: a counting sort of the rows by node
@@ -60,8 +68,7 @@
 //    one block owns it; a larger node is cut into items of rows_per_item
 //    rows and gets a slot in a small int64 accumulator. The other blocks of
 //    the same launch zero that accumulator and take the two fixed-point
-//    scales and their inverses, once a call (ilogb and ldexp in float64 cost
-//    ~1,300 cycles).
+//    scales and their inverses, once a call.
 // 2. level_hist_kernel, grid (items, feature tiles): a block reads only its
 //    item's rows. A lane keeps one feature of the tile for all its rows.
 //    A feature of at most 4 occupied bins (n_bins, from the bin mapper's
@@ -113,10 +120,48 @@
 // run in node order, the plain version's order. Each block writes its best
 // (gain, index); a second one-block launch takes the first-index maximum of
 // those and writes the level's split to every node.
+//
+// K5 design: one launch, no memset, no global scratch. One thread block
+// cluster of up to 16 blocks of 1,024 threads, a row a thread (8 blocks at
+// the trainer's 7,809 rows), more rows in a loop.
+// 1. All loads of a thread's first row (pos, g, h, the margin and, in
+//    boosting, y, the subsample draw and the weight) and the bounds are
+//    issued first and stay in registers through the barriers to the update.
+// 2. A thread of each block takes both scales from the exponent field of
+//    the float64 n * max (fixed_scale): a few integer operations.
+// 3. A block adds its rows' quantised (g, h) to its own shared table, each
+//    64-bit add as two 32-bit atomics with a carry, as K3 (a 64-bit shared
+//    atomicAdd is a compare-and-swap loop, ATOMS.CAST.SPIN.64).
+// 4. One cluster barrier. Warps copy 32 entries (512 contiguous bytes) of
+//    one block's table at a time into a local stage through distributed
+//    shared memory, and a thread adds a leaf's entries (integers: in any
+//    order, so the sums, leaves and margins are those of the three-launch
+//    form bit for bit). With leaves x blocks <= 2 x threads (64 leaves)
+//    every block takes every leaf itself; with more (1,024 leaves) block b
+//    takes a slice and a second barrier hands the values round.
+// 5. Every row is updated from local shared memory. In boosting the next
+//    (g, h) follow with the plain version's torch ops and roundings: the
+//    sigmoid as 1 / (1 + expf(-x)) (torch's on the card; equal bit for bit
+//    in every case held), the clamp that keeps a NaN, (g * m) * w. The
+//    bounds meet by warp, block and cluster maximum on the float bits
+//    (|v| >= 0, so the integer order is the float order), in an output
+//    that block 0 zeroes before the barrier.
+// 6. A block that has read the others' memory arrives at a second cluster
+//    barrier without a release (a release would wait for its global
+//    stores), and waits there only before it exits.
+// Tried on the card and dropped: one block of 1,024 threads (its 31,000
+// shared atomics at 7,809 rows take longer than the barrier saves), a
+// block reading a leaf's entries with one remote load a lane and a shuffle
+// tree, or each row its leaf from the owner's shared memory (slower than
+// the staged copies), and a cheaper barrier (raw PTX and fence.acq_rel
+// .cluster give the same MEMBAR.ALL.GPU).
 
 #include <cmath>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -140,38 +185,35 @@ constexpr int kSplitFeats = (kSplitThreads / 32) * kGroupFeats;    // a block
 constexpr int kOblFeats = 4;                // features a block, oblivious
 constexpr int kOblRun = 32;                 // nodes a run
 constexpr int kOblThreads = kOblFeats * kBins;
+constexpr int kLeafThreads = 1024;
+constexpr int kLeafMaxCluster = 16;         // non-portable above 8
 
 typedef unsigned long long u64;
 
 // ---- fixed point ------------------------------------------------------------
 
-// 2^e with n * max * 2^e < 2^62
+// 2^e with n * max * 2^e < 2^62, 1 for no rows or a max of 0, inf or nan.
+// The float64 bound n * max is normal and finite (2^-149 to 2^159), so e is
+// its exponent field + 1 (ilogb's value + 1) and 2^(62 - e) is built from
+// the fields (ldexp's value): a few integer operations, where ilogb and
+// ldexp are subroutines of ~1,300 cycles.
 __device__ __forceinline__ double fixed_scale(float m, int n) {
-  if (!(m > 0.f) || !isfinite(m)) return 1.0;
-  // bound < 2^(ilogb(bound) + 1); bound >= 2^-149, so 2^(62 - e) is finite
-  const int e = ilogb(static_cast<double>(m) * static_cast<double>(n)) + 1;
-  return ldexp(1.0, 62 - e);
+  if (!(m > 0.f) || !isfinite(m) || n <= 0) return 1.0;
+  const double bound = static_cast<double>(m) * static_cast<double>(n);
+  const int e = static_cast<int>((__double_as_longlong(bound) >> 52) & 0x7ff) - 1022;
+  return __longlong_as_double(static_cast<long long>(1023 + 62 - e) << 52);
 }
 
 __device__ __forceinline__ long long quantise(float v, double scale) {
   return llrint(static_cast<double>(v) * scale);
 }
 
-__device__ __forceinline__ float dequantise(long long q, double scale) {
-  return static_cast<float>(static_cast<double>(q) / scale);
-}
-
-// dequantise(q, scale) with inverse = 1 / scale. The scale is a power of
-// two, so is its inverse, and q * inverse is the same float64 as q / scale
-// (both exact, and normal: |q| >= 1, scale <= 2^211); the division it saves
-// is a subroutine of float64 operations for every occupied bin.
+// A fixed-point sum q back in f32: q / scale as q * inverse, inverse =
+// 1 / scale. The scale is a power of two, so is its inverse, and the two
+// give the same float64 (both exact, and normal: |q| >= 1, scale <= 2^211);
+// the division it saves is a subroutine of float64 operations.
 __device__ __forceinline__ float bin_value(long long q, double inverse) {
   return static_cast<float>(static_cast<double>(q) * inverse);
-}
-
-int blocks_for(int n, int threads) {
-  const int b = (n + threads - 1) / threads;
-  return b < 1 ? 1 : (b > 1024 ? 1024 : b);
 }
 
 // ---- K3 ---------------------------------------------------------------------
@@ -294,9 +336,8 @@ hist_group_kernel(const int* __restrict__ pos, int n,
                   ulonglong2* __restrict__ acc, size_t acc_pairs) {
   if (blockIdx.x > 0) {                     // the zeroing blocks
     if (blockIdx.x == 1 && threadIdx.x < 2) {
-      // once a call, for the other kernels, and off this kernel's one long
-      // block: ilogb and ldexp in float64 take ~1,300 cycles
-      const double scale = n > 0 ? fixed_scale(bounds[threadIdx.x], n) : 1.0;
+      // once a call, for the other kernels, off this kernel's one long block
+      const double scale = fixed_scale(bounds[threadIdx.x], n);
       scales[threadIdx.x] = scale;
       scales[2 + threadIdx.x] = 1.0 / scale;
     }
@@ -800,52 +841,180 @@ __global__ void oblivious_pick_kernel(const float* __restrict__ cand_gain,
 
 // ---- K5 ---------------------------------------------------------------------
 
-__global__ void leaf_sums_kernel(const int* __restrict__ pos, int n,
-                                 const float* __restrict__ g,
-                                 const float* __restrict__ h, int n_leaves,
-                                 const float* __restrict__ bounds,
-                                 u64* __restrict__ acc) {
-  extern __shared__ u64 sums[];             // [leaf][g, h]
-  for (int i = threadIdx.x; i < 2 * n_leaves; i += blockDim.x) sums[i] = 0;
-  __syncthreads();
-  const double sg = fixed_scale(bounds[0], n);
-  const double sh = fixed_scale(bounds[1], n);
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += gridDim.x * blockDim.x) {
-    const int p = pos[r];
-    if (p < 0 || p >= n_leaves) continue;
-    const long long qg = quantise(g[r], sg), qh = quantise(h[r], sh);
-    if (qg) atomicAdd(sums + 2 * p, static_cast<u64>(qg));
-    if (qh) atomicAdd(sums + 2 * p + 1, static_cast<u64>(qh));
+// The next boosted tree's inputs and outputs (y null: there is none).
+struct NextTree {
+  const float* y;
+  const float* u;                           // the tree's subsample draw
+  const float* w;                           // row weights
+  float subsample;
+  int cls;
+  float* g;
+  float* h;
+  unsigned* bounds;                         // (max |g|, max |h|) as float bits
+};
+
+// The next tree's (g, h) of a row from its updated margin, with the torch
+// ops of the plain version: sigmoid as 1 / (1 + exp(-x)), the clamp that
+// keeps a NaN, the subsample mask and the weight multiplied in that order.
+__device__ __forceinline__ void next_gradient(float pred, float y, float u, float w,
+                                              const NextTree& next, float* go,
+                                              float* ho) {
+  float gv, hv;
+  if (next.cls) {
+    const float p = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-pred)));
+    gv = __fsub_rn(p, y);
+    const float v = __fmul_rn(p, __fsub_rn(1.0f, p));
+    hv = isnan(v) ? v : fmaxf(v, 1e-6f);
+  } else {
+    gv = __fsub_rn(pred, y);
+    hv = 1.0f;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * n_leaves; i += blockDim.x)
-    if (sums[i]) atomicAdd(acc + i, sums[i]);
+  const float m = u < next.subsample ? 1.0f : 0.0f;
+  *go = __fmul_rn(__fmul_rn(gv, m), w);
+  *ho = __fmul_rn(__fmul_rn(hv, m), w);
 }
 
-__global__ void leaf_apply_kernel(const int* __restrict__ pos, int n,
-                                  int n_leaves, float lam, float scale,
-                                  const long long* __restrict__ acc,
-                                  const float* __restrict__ bounds,
-                                  float* __restrict__ leaf,
-                                  float* __restrict__ preds) {
-  extern __shared__ float s_leaf[];
-  const double sg = fixed_scale(bounds[0], n);
-  const double sh = fixed_scale(bounds[1], n);
-  for (int i = threadIdx.x; i < n_leaves; i += blockDim.x) {
-    const float gs = dequantise(acc[2 * i], sg);
-    const float hs = dequantise(acc[2 * i + 1], sh);
-    const float v = __fdiv_rn(-gs, __fadd_rn(hs, lam));
-    s_leaf[i] = v;
-    if (blockIdx.x == 0) leaf[i] = v;
+// Arrives at the cluster barrier without ordering memory: for a block that
+// has only finished reading other blocks' shared memory (the reads are
+// complete: their values are used), so that they may exit once all have
+// arrived. A release here waits for this block's stores to global memory.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One row's inputs, loaded together.
+struct LeafRow {
+  int p;
+  float g, h, pred, y, u, w;
+};
+
+template <bool kNext>
+__device__ __forceinline__ LeafRow load_leaf_row(int r, int n, const int* pos,
+                                                 const float* g, const float* h,
+                                                 const float* preds,
+                                                 const NextTree& next) {
+  LeafRow row{-1, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (r >= n) return row;
+  row.p = pos[r];
+  row.g = g[r];
+  row.h = h[r];
+  row.pred = preds[r];
+  if (kNext) {
+    row.y = next.y[r];
+    row.u = next.u[r];
+    row.w = next.w[r];
+  }
+  return row;
+}
+
+// K5: one cluster of 1 to 16 blocks, a row a thread (see K5 design).
+template <bool kNext>
+__global__ void __launch_bounds__(kLeafThreads, 1)
+leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__ g,
+                   const float* __restrict__ h, int n_leaves, float lam,
+                   float scale, const float* __restrict__ bounds,
+                   float* __restrict__ leaf, float* __restrict__ preds,
+                   NextTree next) {
+  extern __shared__ __align__(16) unsigned char leaf_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  const bool every = n_leaves * blocks <= 2 * static_cast<int>(blockDim.x);
+  const int per = every ? n_leaves : (n_leaves + blocks - 1) / blocks;
+  ulonglong2* sums = reinterpret_cast<ulonglong2*>(leaf_smem);  // [leaf] (g, h)
+  ulonglong2* stage = sums + n_leaves;                           // [block][per]
+  float* values = reinterpret_cast<float*>(stage + blocks * per);   // [leaf]
+  __shared__ double s_scale[4];             // g, h, then their inverses
+  __shared__ unsigned s_max[2];
+  const int stride = blocks * blockDim.x;
+  const int r0 = rank * blockDim.x + threadIdx.x;
+  // every load of the first row (at the trainer's sizes, every row) and
+  // the bounds are in flight together, through the start-up and barriers
+  const float bound = threadIdx.x < 2 ? bounds[threadIdx.x] : 0.f;
+  const LeafRow first = load_leaf_row<kNext>(r0, n, pos, g, h, preds, next);
+  for (int i = threadIdx.x; i < n_leaves; i += blockDim.x)
+    sums[i] = make_ulonglong2(0, 0);
+  if (threadIdx.x < 2) {
+    const double sc = fixed_scale(bound, n);
+    s_scale[threadIdx.x] = sc;
+    s_scale[2 + threadIdx.x] = 1.0 / sc;   // a power of two: exact
+    s_max[threadIdx.x] = 0;
+    if (kNext && rank == 0) atomicExch(next.bounds + threadIdx.x, 0u);
   }
   __syncthreads();
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += gridDim.x * blockDim.x) {
-    const int p = pos[r];
-    if (p >= 0 && p < n_leaves)   // one fused multiply-add, as the reference
-      preds[r] = __fmaf_rn(scale, s_leaf[p], preds[r]);
+  const double sg = s_scale[0], sh = s_scale[1];
+  for (int r = r0; r < n; r += stride) {    // this block's rows, its own table
+    const LeafRow row = r == r0 ? first
+                                : load_leaf_row<false>(r, n, pos, g, h, preds, next);
+    if (row.p < 0 || row.p >= n_leaves) continue;
+    shared_add64(&sums[row.p].x, quantise(row.g, sg));
+    shared_add64(&sums[row.p].y, quantise(row.h, sh));
   }
+  cluster.sync();
+
+  const int own0 = every ? 0 : rank * per;
+  const int owned = min(n_leaves, own0 + per) - own0;
+  for (int t = threadIdx.x; t < blocks * per; t += blockDim.x) {
+    const int b = t / per, li = t - b * per;
+    if (li < owned) stage[t] = *cluster.map_shared_rank(sums + own0 + li, b);
+  }
+  __syncthreads();
+  for (int li = threadIdx.x; li < owned; li += blockDim.x) {
+    u64 gs = 0, hs = 0;
+    for (int b = 0; b < blocks; ++b) {
+      gs += stage[b * per + li].x;
+      hs += stage[b * per + li].y;
+    }
+    const float gl = bin_value(static_cast<long long>(gs), s_scale[2]);
+    const float hl = bin_value(static_cast<long long>(hs), s_scale[3]);
+    const float v = __fdiv_rn(-gl, __fadd_rn(hl, lam));
+    values[own0 + li] = v;
+    if (!every || rank == 0) leaf[own0 + li] = v;
+  }
+  if (!every) {
+    cluster.sync();
+    for (int i = threadIdx.x; i < n_leaves; i += blockDim.x) {
+      const int owner = i / per;
+      if (owner != rank) values[i] = *cluster.map_shared_rank(values + i, owner);
+    }
+  }
+  cluster_arrive_relaxed();                 // no more reads of other blocks
+  __syncthreads();
+
+  unsigned max_g = 0, max_h = 0;
+  for (int r = r0; r < n; r += stride) {
+    const LeafRow row = r == r0 ? first
+                                : load_leaf_row<kNext>(r, n, pos, g, h, preds, next);
+    float pred = row.pred;
+    if (row.p >= 0 && row.p < n_leaves) {   // one fused multiply-add, as the reference
+      pred = __fmaf_rn(scale, values[row.p], pred);
+      preds[r] = pred;
+    }
+    if (kNext) {
+      float gn, hn;
+      next_gradient(pred, row.y, row.u, row.w, next, &gn, &hn);
+      next.g[r] = gn;
+      next.h[r] = hn;
+      // |v| >= 0: the integer order of the bits is the float order
+      max_g = max(max_g, __float_as_uint(fabsf(gn)));
+      max_h = max(max_h, __float_as_uint(fabsf(hn)));
+    }
+  }
+  if (kNext) {
+    max_g = __reduce_max_sync(0xffffffffu, max_g);
+    max_h = __reduce_max_sync(0xffffffffu, max_h);
+    if ((threadIdx.x & 31) == 0) {
+      atomicMax(s_max, max_g);
+      atomicMax(s_max + 1, max_h);
+    }
+    __syncthreads();
+    if (threadIdx.x < 2) atomicMax(next.bounds + threadIdx.x, s_max[threadIdx.x]);
+  }
+  cluster_wait();                           // others may still read this block
 }
 
 // Raises a kernel's dynamic shared-memory limit to the most it is launched
@@ -860,7 +1029,8 @@ cudaError_t shared_limit(const void* kernel, int* raised_to, int bytes) {
 
 int sort_smem_raised = 0;
 int oblivious_smem_raised = 0;
-int leaf_smem_raised = 0;
+int leaf_smem_raised[2] = {0, 0};
+bool leaf_wide_clusters[2] = {false, false};
 
 }  // namespace
 
@@ -962,30 +1132,62 @@ extern "C" int bbbp_forest_best_splits(const void* hist, int n_nodes, int F,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5. The leaves of one tree and the margin update; with y, also the next
+// tree's (g, h) and bounds. One launch: `cluster` blocks of `threads` in one
+// thread block cluster (at most 16).
 extern "C" int bbbp_forest_leaf_values(const void* pos, int n, const void* g,
                                        const void* h, int n_leaves, float lam,
                                        float scale, const void* bounds,
-                                       void* acc, void* leaf, void* preds,
-                                       void* stream) {
-  if (n < 0 || n_leaves <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(acc, 0, 2 * n_leaves * sizeof(u64), s);
+                                       void* leaf, void* preds, const void* y,
+                                       const void* u, const void* w_rows,
+                                       float subsample, int cls, void* g_next,
+                                       void* h_next, void* bounds_next,
+                                       int cluster, int threads, void* stream) {
+  if (n < 0 || n_leaves <= 0 || cluster < 1 || cluster > kLeafMaxCluster ||
+      threads < 32 || threads > kLeafThreads || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool with_next = y != nullptr;
+  const NextTree next{static_cast<const float*>(y), static_cast<const float*>(u),
+                      static_cast<const float*>(w_rows), subsample, cls,
+                      static_cast<float*>(g_next), static_cast<float*>(h_next),
+                      static_cast<unsigned*>(bounds_next)};
+  const void* kernel = with_next
+                           ? reinterpret_cast<const void*>(leaf_values_kernel<true>)
+                           : reinterpret_cast<const void*>(leaf_values_kernel<false>);
+  const int per = n_leaves * cluster <= 2 * threads ? n_leaves
+                                                    : (n_leaves + cluster - 1) / cluster;
+  const int smem = (n_leaves + cluster * per) * static_cast<int>(sizeof(ulonglong2)) +
+                   n_leaves * static_cast<int>(sizeof(float));
+  cudaError_t err = shared_limit(kernel, &leaf_smem_raised[with_next], smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int* pp = static_cast<const int*>(pos);
-  const float* mb = static_cast<const float*>(bounds);
-  const int blocks = blocks_for(n, 256) < 264 ? blocks_for(n, 256) : 264;
-  if (n > 0) {
-    const float* gp = static_cast<const float*>(g);
-    const float* hp = static_cast<const float*>(h);
-    const int smem = 2 * n_leaves * static_cast<int>(sizeof(u64));
-    err = shared_limit(reinterpret_cast<const void*>(leaf_sums_kernel),
-                       &leaf_smem_raised, smem);
+  if (cluster > 8 && !leaf_wide_clusters[with_next]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
-    leaf_sums_kernel<<<blocks, 256, smem, s>>>(pp, n, gp, hp, n_leaves, mb,
-                                               static_cast<u64*>(acc));
+    leaf_wide_clusters[with_next] = true;
   }
-  leaf_apply_kernel<<<blocks, 256, n_leaves * sizeof(float), s>>>(
-      pp, n, n_leaves, lam, scale, static_cast<const long long*>(acc), mb,
-      static_cast<float*>(leaf), static_cast<float*>(preds));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int* pp = static_cast<const int*>(pos);
+  const float* gp = static_cast<const float*>(g);
+  const float* hp = static_cast<const float*>(h);
+  const float* bp = static_cast<const float*>(bounds);
+  float* lp = static_cast<float*>(leaf);
+  float* predp = static_cast<float*>(preds);
+  err = with_next
+            ? cudaLaunchKernelEx(&cfg, leaf_values_kernel<true>, pp, n, gp, hp,
+                                 n_leaves, lam, scale, bp, lp, predp, next)
+            : cudaLaunchKernelEx(&cfg, leaf_values_kernel<false>, pp, n, gp, hp,
+                                 n_leaves, lam, scale, bp, lp, predp, next);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,10 +19,12 @@ CUDA tensor and its plain PyTorch version on a CPU tensor:
   the ``min_child`` and column masks, oblivious mode, and the first-index
   argmax per node;
 - ``leaf_values`` (K5): the leaf sums, ``leaf = -G / (H + lambda)`` and
-  ``preds += scale * leaf[pos]``.
+  ``preds += scale * leaf[pos]``; in boosting, the next tree's gradients
+  and their bounds from the updated margins, in the same launch.
 
-Routing, gradients and the random draws stay torch ops on the fit's device,
-and nothing is copied to the host inside the tree loop. The random streams
+Routing, the first tree's gradients, the random forest's weights and the
+random draws stay torch ops on the fit's device, and nothing is copied to
+the host inside the tree loop. The random streams
 come from a ``torch.Generator`` seeded from ``seed``; they differ from
 ``jax.random``, so subsampled and random-forest fits match the JAX package
 only statistically, while ``subsample=1, colsample=1`` boosting grows the
@@ -36,7 +38,7 @@ serves both.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -209,25 +211,67 @@ def best_splits_reference(hist: torch.Tensor, col_mask: torch.Tensor,
     return feat, b, has_split
 
 
+def _add_leaves(preds: torch.Tensor, leaf: torch.Tensor, idx: torch.Tensor,
+                scale: float) -> None:
+    """``preds = fma(scale, leaf[idx], preds)`` in place, taken in float64,
+    where the f32 product is exact, and rounded once more to f32: the fused
+    result except when the float64 sum lands exactly halfway between two
+    f32 values."""
+    scale32 = float(np.float32(scale))
+    preds.copy_(preds.double().add_(leaf[idx].double(), alpha=scale32))
+
+
 def leaf_values_reference(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                           n_leaves: int, lam: float, scale: float,
                           preds: torch.Tensor) -> torch.Tensor:
     """Leaf sums in row order, ``leaf = -G / (H + lam)``, and
     ``preds = fma(scale, leaf[pos], preds)`` in place. Returns ``leaf``
-    [n_leaves].
-
-    The update is one fused multiply-add, as the reference's compiled tree
-    step rounds it (XLA contracts ``preds + lr * leaf[pos]``); it is taken
-    in float64, where the f32 product is exact, and rounded once more to
-    f32, which equals the fused result except when the float64 sum lands
-    exactly halfway between two f32 values."""
+    [n_leaves]. The update is one fused multiply-add, as the reference's
+    compiled tree step rounds it (XLA contracts ``preds + lr * leaf[pos]``)."""
     idx = pos.long()
     gs = torch.zeros(n_leaves, dtype=g.dtype, device=g.device).index_add_(0, idx, g)
     hs = torch.zeros(n_leaves, dtype=h.dtype, device=h.device).index_add_(0, idx, h)
     leaf = -gs / (hs + lam)
-    scale32 = float(np.float32(scale))
-    preds.copy_(preds.double().add_(leaf[idx].double(), alpha=scale32))
+    _add_leaves(preds, leaf, idx, scale)
     return leaf
+
+
+def leaf_values_fixed_reference(pos: torch.Tensor, g: torch.Tensor,
+                                h: torch.Tensor, n_leaves: int, lam: float,
+                                scale: float, preds: torch.Tensor,
+                                bounds: torch.Tensor) -> torch.Tensor:
+    """K5's arithmetic in torch, for tests: the leaf sums in 64-bit fixed
+    point at ``fixed_point_scales(bounds, n)`` as in
+    ``level_histogram_fixed_reference``, then the leaves and the margin
+    update of ``leaf_values_reference``. The kernel returns these bits."""
+    scales = fixed_point_scales(bounds, pos.shape[0])
+    q = torch.round(torch.stack([g, h], dim=1).double() * scales).to(torch.int64)
+    idx = pos.long()
+    sums = torch.zeros((n_leaves, 2), dtype=torch.int64, device=g.device)
+    gs, hs = (sums.index_add_(0, idx, q).double() / scales).float().unbind(1)
+    leaf = -gs / (hs + lam)
+    _add_leaves(preds, leaf, idx, scale)
+    return leaf
+
+
+def next_gradients_reference(preds: torch.Tensor, y: torch.Tensor,
+                             u: torch.Tensor, subsample: float,
+                             w_rows: torch.Tensor, task: str
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A boosted tree's (g, h, bounds) from the margins, as the reference's
+    tree step takes them (``forest_tpu.py:309-319``): ``reg`` g = preds − y,
+    h = 1; ``cls`` g = p − y, h = max(p·(1 − p), 1e-6) with p = sigmoid(preds);
+    both times the subsample mask ``u < subsample`` and ``w_rows``, as
+    (g·m)·w. ``bounds`` is ``gradient_bounds(g, h)``. K5 computes the same
+    for the next tree after its margin update."""
+    if task == "reg":
+        g, h = preds - y, torch.ones_like(y)
+    else:
+        p = torch.sigmoid(preds)
+        g, h = p - y, torch.clamp(p * (1 - p), min=1e-6)
+    m = (u < subsample).float()
+    g, h = g * m * w_rows, h * m * w_rows
+    return g, h, gradient_bounds(g, h)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +292,8 @@ def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
 def gradient_bounds(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """f32 [2] (max |g|, max |h|) on the device of ``g``: the range K3 and
     K5 quantise the rows into. g and h do not change within a tree, so a
-    fit takes it once a tree and passes it to every K3 and K5 call."""
+    fit takes it once a tree (K5 takes the next tree's) and passes it to
+    every K3 and K5 call."""
     if g.numel() == 0:
         return torch.zeros(2, dtype=torch.float32, device=g.device)
     return torch.stack((g.abs().amax(), h.abs().amax()))
@@ -421,36 +466,86 @@ def best_splits(hist: torch.Tensor, col_mask: torch.Tensor, lam: float,
     return feat, b, has_split
 
 
+class NextTree(NamedTuple):
+    """The next boosted tree's inputs for ``leaf_values``: the targets, the
+    tree's subsample draw ``u`` (``torch.rand(n)``), the rate, the row
+    weights (each f32 [n]) and the task, ``reg`` or ``cls``."""
+    y: torch.Tensor
+    u: torch.Tensor
+    subsample: float
+    w_rows: torch.Tensor
+    task: str
+
+
+LEAF_THREADS = 1024
+LEAF_MAX_CLUSTER = 16
+
+
+def leaf_plan(n: int) -> int:
+    """Blocks of ``LEAF_THREADS`` in K5's one thread block cluster: a row a
+    thread up to 16,384 rows, then 16 blocks (non-portable above 8; of 8
+    and 16 the faster at 65,536 rows on the H100)."""
+    return min(LEAF_MAX_CLUSTER, max(1, -(-n // LEAF_THREADS)))
+
+
 def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                 n_leaves: int, lam: float, scale: float, preds: torch.Tensor,
-                bounds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bounds: Optional[torch.Tensor] = None,
+                next_tree: Optional[NextTree] = None, *,
+                cluster: Optional[int] = None):
     """K5. pos int32 [n] in [0, n_leaves), g, h f32 [n], preds f32 [n]
     (updated in place, as the reference's scan carry is replaced) →
     leaf f32 [n_leaves]. The kernel sums in 64-bit fixed point, as K3, with
-    the same ``bounds``."""
+    the same ``bounds``.
+
+    With ``next_tree`` it returns (leaf, g, h, bounds) of the next boosted
+    tree, ``next_gradients_reference`` of the updated margins, from the same
+    launch. ``cluster`` overrides ``leaf_plan(n)``, the blocks of the one
+    cluster the kernel runs in (1 to 16)."""
     if pos.dim() != 1:
         raise TypeError(f"pos must be 1-D, got {tuple(pos.shape)}")
     n = pos.shape[0]
-    for name, t, dtype in (("pos", pos, torch.int32), ("g", g, torch.float32),
-                           ("h", h, torch.float32),
-                           ("preds", preds, torch.float32)):
+    rows = [("pos", pos, torch.int32), ("g", g, torch.float32),
+            ("h", h, torch.float32), ("preds", preds, torch.float32)]
+    if next_tree is not None:
+        if next_tree.task not in ("reg", "cls"):
+            raise ValueError(f"task must be 'reg' or 'cls', got {next_tree.task!r}")
+        rows += [(name, getattr(next_tree, name), torch.float32)
+                 for name in ("y", "u", "w_rows")]
+    for name, t, dtype in rows:
         _check_rows(name, t, dtype, n, pos.device)
     if not 1 <= n_leaves <= 1 << MAX_DEPTH:
         raise ValueError(f"n_leaves must be in [1, {1 << MAX_DEPTH}], got {n_leaves}")
+    cluster = leaf_plan(n) if cluster is None else cluster
+    if not 1 <= cluster <= LEAF_MAX_CLUSTER:
+        raise ValueError(f"cluster must be in [1, {LEAF_MAX_CLUSTER}], got {cluster}")
     if not _kernel_device(pos, "forest_leaf_values"):
-        return leaf_values_reference(pos, g, h, n_leaves, lam, scale, preds)
+        leaf = leaf_values_reference(pos, g, h, n_leaves, lam, scale, preds)
+        if next_tree is None:
+            return leaf
+        return (leaf, *next_gradients_reference(preds, *next_tree))
     bounds = _check_bounds(bounds, g, h)
-    leaf = torch.empty(n_leaves, dtype=torch.float32, device=pos.device)
-    acc = torch.empty(2 * n_leaves, dtype=torch.int64, device=pos.device)
-    with torch.cuda.device(pos.device):
+    dev = pos.device
+    leaf = torch.empty(n_leaves, dtype=torch.float32, device=dev)
+    nxt = None
+    if next_tree is not None:
+        nxt = (torch.empty(n, dtype=torch.float32, device=dev),
+               torch.empty(n, dtype=torch.float32, device=dev),
+               torch.empty(2, dtype=torch.float32, device=dev))
+    with torch.cuda.device(dev):
         rc = kernels_lib().bbbp_forest_leaf_values(
             pos.data_ptr(), n, g.data_ptr(), h.data_ptr(), n_leaves,
-            float(lam), float(scale), bounds.data_ptr(), acc.data_ptr(),
-            leaf.data_ptr(), preds.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            float(lam), float(scale), bounds.data_ptr(), leaf.data_ptr(),
+            preds.data_ptr(),
+            *((None, None, None, 1.0, 0) if next_tree is None else
+              (next_tree.y.data_ptr(), next_tree.u.data_ptr(),
+               next_tree.w_rows.data_ptr(), float(next_tree.subsample),
+               int(next_tree.task == "cls"))),
+            *((None, None, None) if nxt is None else (t.data_ptr() for t in nxt)),
+            cluster, LEAF_THREADS, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_leaf_values")
     leaf_values.launches.add()
-    return leaf
+    return leaf if nxt is None else (leaf, *nxt)
 
 
 level_histogram.launches = LaunchCounter()
@@ -512,22 +607,20 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
     feat_ids = torch.arange(n_feat, device=dev)
     scale = 1.0 if rf else float(lr)
 
+    def draw() -> torch.Tensor:                # a boosted tree's subsample draw
+        return torch.rand(n, generator=gen, device=dev)
+
+    if not rf and n_trees:                      # later trees' come from K5
+        g, h, bounds = next_gradients_reference(preds, y, draw(), subsample,
+                                                w_rows, task)
     for t in range(n_trees):
         if rf:
             w = torch.poisson(torch.ones(n, device=dev), generator=gen) * w_rows
             g, h = -y * w, w
-        else:
-            if task == "reg":
-                g, h = preds - y, torch.ones_like(y)
-            else:
-                p = torch.sigmoid(preds)
-                g, h = p - y, torch.clamp(p * (1 - p), min=1e-6)
-            m = (torch.rand(n, generator=gen, device=dev) < subsample).float()
-            g, h = g * m * w_rows, h * m * w_rows
+            bounds = gradient_bounds(g, h)
         col_mask = torch.rand(n_feat, generator=gen, device=dev) < colsample
         # at least one feature: the first drawn, else feature 0
         col_mask = col_mask | (feat_ids == col_mask.to(torch.uint8).argmax())
-        bounds = gradient_bounds(g, h) if dev.type == "cuda" else None
 
         pos = torch.zeros(n, dtype=torch.int32, device=dev)
         for level in range(depth):
@@ -540,7 +633,15 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
             row_f = f_l[pos].long()
             xf = xb.gather(1, row_f[:, None])[:, 0]
             pos = 2 * pos + (xf.int() > b_l[pos]).int()
-        leaves[t] = leaf_values(pos, g, h, n_leaves, lam, scale, preds, bounds)
+        # drawn after this tree's column draw: the generator gives the
+        # draws in the order subsample, columns, tree by tree
+        nxt = (None if rf or t == n_trees - 1 else
+               NextTree(y, draw(), subsample, w_rows, task))
+        out = leaf_values(pos, g, h, n_leaves, lam, scale, preds, bounds, nxt)
+        if nxt is None:
+            leaves[t] = out
+        else:
+            leaves[t], g, h, bounds = out
 
     thrs = edge_vals[feats.long(), bins]
     return preds, feats, thrs, leaves

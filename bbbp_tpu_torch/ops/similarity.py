@@ -145,6 +145,18 @@ def minmax_gram_reference(qc: torch.Tensor, rc: torch.Tensor,
     return _ratio(inter, (q * w[None, :]).sum(1), (r * w[None, :]).sum(1))
 
 
+def minmax_gram_absdiff_reference(qc: torch.Tensor, rc: torch.Tensor
+                                  ) -> torch.Tensor:
+    """``minmax_gram`` without weights by the identity the kernel uses:
+    Σ min(a, b) = (Σa + Σb − Σ|a − b|) / 2. Every sum is an integer below
+    2^24, exact in f32 in any order, so this equals
+    ``minmax_gram_reference`` bit for bit."""
+    q, r = unpack_counts_reference(qc), unpack_counts_reference(rc)
+    sq, sr = q.sum(1), r.sum(1)
+    inter = (sq[:, None] + sr[None, :] - torch.cdist(q, r, p=1)) / 2
+    return _ratio(inter, sq, sr)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers: the kernel on a CUDA tensor, the plain version on the CPU
 # ---------------------------------------------------------------------------
@@ -215,7 +227,7 @@ def tanimoto_topk_packed(qw: torch.Tensor, rw: torch.Tensor, k: int
 
 
 def _gram(name: str, entry: str, q: torch.Tensor, r: torch.Tensor,
-          w: Optional[torch.Tensor]) -> torch.Tensor:
+          w: Optional[torch.Tensor], *extra: int) -> torch.Tensor:
     nq, words = q.shape
     nr = r.shape[0]
     dev = q.device
@@ -228,9 +240,24 @@ def _gram(name: str, entry: str, q: torch.Tensor, r: torch.Tensor,
         rc = getattr(kernels_lib(), entry)(
             q.data_ptr(), nq, r.data_ptr(), nr, words,
             None if w is None else w.data_ptr(), sq.data_ptr(), sr.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), *extra, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, name)
     return out
+
+
+GRAM_STAGE = 16           # K8's 32-bit elements of a row a stage
+
+
+def minmax_split(words: int, weighted: bool) -> int:
+    """Blocks of K8's cluster that share a result tile's words: 8, or fewer
+    where a block would get under two stages (16 words, or 4 weighted).
+    Measured on the H100 at the legs' shapes, 8 was the fastest of 1, 2, 4
+    and 8 at each of them."""
+    stages = -(-(4 * words if weighted else words) // GRAM_STAGE)
+    split = 8
+    while split > 1 and stages < 2 * split:
+        split //= 2
+    return split
 
 
 def tanimoto_gram(qw: torch.Tensor, rw: torch.Tensor,
@@ -251,10 +278,13 @@ def minmax_gram(qc: torch.Tensor, rc: torch.Tensor,
                 w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8. qc [Nq, W], rc [Nr, W] words of four uint8 counts already clipped
     (``pack_counts``) → [Nq, Nr] f32, Σ min(a, b) / Σ max(a, b); ``w`` f32
-    [4·W] weighs each count. Exact without weights, within 1e-5 with."""
+    [4·W] weighs each count. Exact without weights (the kernel takes Σ min
+    as ``minmax_gram_absdiff_reference`` does), within 1e-5 with; the
+    blocks that share a result tile's words are ``minmax_split``'s."""
     if not _check_pair("minmax_gram", qc, rc, w, 4):
         return minmax_gram_reference(qc, rc, w)
-    out = _gram("minmax_gram", "bbbp_minmax_gram", qc, rc, w)
+    out = _gram("minmax_gram", "bbbp_minmax_gram", qc, rc, w,
+                minmax_split(qc.shape[1], w is not None))
     if out.numel():
         minmax_gram.launches.add()
     return out

@@ -111,11 +111,18 @@ def best_splits_bound(n_nodes: int, n_feat: int) -> Dict[str, object]:
                   15 * n_nodes * n_feat * 64)
 
 
-def leaf_values_bound(n: int, n_leaves: int) -> Dict[str, object]:
+def leaf_values_bound(n: int, n_leaves: int,
+                      next_tree: bool = False) -> Dict[str, object]:
     """pos, g and h read once, the margins read and written once, the leaves
     written once; two adds and one fused multiply-add (two operations) per
-    row, an add and a division per leaf."""
-    return _bound(12 * n + 8 * n + 4 * n_leaves, 4 * n + 2 * n_leaves)
+    row, an add and a division per leaf. With ``next_tree`` also y, u and
+    the row weights read once, the next g and h written once with their two
+    maxima, and 14 operations a row (the sigmoid's exp, add and division,
+    p − y, 1 − p, the product, the clamp, the mask's compare, four products,
+    two maxima)."""
+    extra_bytes, extra_ops = (20 * n + 8, 14 * n) if next_tree else (0, 0)
+    return _bound(12 * n + 8 * n + 4 * n_leaves + extra_bytes,
+                  4 * n + 2 * n_leaves + extra_ops)
 
 
 def topk_bound(nq: int, nr: int, words: int, k: int) -> Dict[str, object]:
@@ -137,7 +144,13 @@ def gram_bound(nq: int, nr: int, words: int, values_per_word: int = 32,
     epilogue. ``weighted_terms`` is what a weighted call's data needs
     besides: the number of (pair, set bit of a AND b) terms for bits, or of
     (pair, count) products for counts, one multiply-add (two operations)
-    each."""
+    each.
+
+    The count of a byte-wise minimum as one operation is kept, though on
+    sm_90a ``__vminu4`` is not one instruction: ``cuobjdump -sass`` shows it
+    as about six (three or four LOP3, SHF, PRMT, IMAD.IADD) before the
+    IDP.4A, while ``__vsadu4`` is one instruction (VABSDIFF4.U8.ACC, Σ|a − b|
+    over four bytes with an accumulator), which K8 uses instead."""
     per_word = 3 if values_per_word == 32 else 2
     w_bytes = words * values_per_word * 4 if weighted_terms else 0
     return _bound((nq + nr) * words * 4 + w_bytes + nq * nr * 4,
@@ -166,6 +179,15 @@ def profile_summary(prof, classify: Callable[[str], str]) -> Dict[str, object]:
             busy_us += stop - max(start, end)
             end = stop
     return {"device": by_name, "device_busy_ms": busy_us / 1e3}
+
+
+def host_launch_calls(prof) -> int:
+    """The host's calls that enqueue work on the card in a ``torch.profiler``
+    run: kernel launches (``cudaLaunchKernel`` and its ``Ex`` form, which
+    cluster launches take), memsets and copies."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+               or e.key in ("cudaMemsetAsync", "cudaMemcpyAsync"))
 
 
 def profiler_table(prof, path: str) -> None:

@@ -34,16 +34,22 @@ before its last line):
    (float64) sum and bit-identical over two runs, a wrong ``n_bins``
    refused; K4 equal to the plain version but at counted near ties (their
    largest score gap is K4's max_abs_err), also with the best feature
-   masked out and with no valid split in the level; K5 within 1e-6
-   relative; then each timed at the training path's shapes (n = 7,809 and
-   65,536, F = 30, every level of depth 6) and the transfer path's
-   (n = 7,809, F = 326, levels 0, 5 and 9; K4 also in oblivious mode) beside
-   its plain version, its bound and, for K3, ``index_add_`` (the one
-   PyTorch call for the same function) and ``torch.bincount`` twice;
+   masked out and with no valid split in the level; K5 at n = 1, 7,809
+   and 65,536 with 1, 64 and 1,024 leaves bit-equal to its fixed-point
+   plain version and within 1e-6 relative of the float64 sums, and with
+   the next tree (reg and cls, subsample 1 and 0.8, weights 0 and 1) its
+   g, h and bounds bit-equal to the torch ops; then each timed at the
+   training path's shapes (n = 7,809 and 65,536, F = 30, every level of
+   depth 6; K5 alone, with the next tree's gradients and, at 7,809 rows, as
+   one block) and the transfer path's (n = 7,809, F = 326, levels 0, 5 and
+   9; K4 also in oblivious mode; K5 with 1,024 leaves) beside its plain
+   version, its bound and, for K3, ``index_add_`` (the one PyTorch call for
+   the same function) and ``torch.bincount`` twice;
 6. training: ``ScreeningModel.train`` on ``cuda`` at full width over the
    7,809-molecule labelled set (``testing.labelled_training_set``), with
    every trainer kernel's launch count (300 trees × 6 levels); a second fit
-   with the same seed must grow the same trees; ``GBDTClassifier
+   with the same seed must grow the same trees; the host's launch calls of
+   one fit of its forest under ``torch.profiler``; ``GBDTClassifier
    (subsample=1)`` on the same z on ``cuda`` and ``cpu`` must grow the same
    trees up to equivalent splits and a counted near tie; training accuracy
    above the majority share; and ``screen()`` with the trained model on
@@ -57,9 +63,11 @@ before its last line):
    queries against 7,809 rows, d = 167, k = 25), a regression fold's
    (106 against 952, d = 167 and 2048, k = 10), the full grams (1,058 x
    1,058), Nq = 1, Nr = 1, k = 1, k = Nr, k = 1,024, zero rows, forced
-   ties, IDF weights and counts above the clip. K6's indices equal and its
-   similarities bit-equal, K7 and K8 bit-equal without weights and within
-   1e-5 with; then each timed beside its plain version, its bound and a
+   ties, IDF weights, counts above the clip, and for K8 18 ragged shapes
+   (Nq, Nr in 1 / 33 / 127 / 1,058, 1 / 42 / 512 words). K6's indices equal
+   and its similarities bit-equal, K7 and K8 bit-equal without weights and
+   within 1e-5 with (K8 weighted twice bit-identical); then each timed
+   beside its plain version, its bound and a
    library form (one ``torch.matmul`` on operands already unpacked, with
    the epilogue; for K6 followed by ``torch.topk``, which orders ties
    otherwise);
@@ -167,6 +175,15 @@ def screen_against_cpu(model, ensemble_state, mols, gpu_csv, cpu_csv,
         raise AssertionError(f"cuda vs cpu prefix: rows {mism} differ; near-tie "
                              f"rows {int(near.sum())}")
     return mism, int(near.sum()), worst
+
+
+def ulp_gap(a, b) -> int:
+    """Largest distance of two f32 tensors in units in the last place."""
+    import torch
+
+    if not a.numel():
+        return 0
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
 
 
 def fmt(values):
@@ -298,6 +315,40 @@ def hold_level(tr, label, xb, pos, g, h, n_bins, nodes, rng, held):
             raise AssertionError(f"best_splits {label}: a split at min_child 1e9")
 
 
+def time_leaf_values(tr, pos, g, h, n_leaves, bounds, head):
+    """K5's times on one tree's rows: the leaves alone (as the random forest
+    and a fit's last tree call it) and with the next boosted tree's
+    gradients (every other tree of a boosted fit), each beside its plain
+    version and its bound; with ``head`` also the one-block form (a cluster
+    of one block of 1,024 threads)."""
+    import torch
+
+    from bbbp_tpu_torch.timing import device_ms, leaf_values_bound
+
+    n = pos.shape[0]
+    margins = torch.zeros(n, device=pos.device)
+    y = (torch.rand(n, device=pos.device) < 0.4).float()
+    nxt = tr.NextTree(y, torch.rand(n, device=pos.device), 0.8,
+                      torch.ones(n, device=pos.device), "cls")
+    t = {"k5": device_ms(lambda: tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1,
+                                                margins, bounds)),
+         "k5_plain": device_ms(lambda: tr.leaf_values_reference(
+             pos, g, h, n_leaves, 1.0, 0.1, margins)),
+         "k5_bound": leaf_values_bound(n, n_leaves),
+         "k5_next": device_ms(lambda: tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1,
+                                                     margins, bounds, nxt)),
+         "k5_next_plain": device_ms(lambda: (
+             tr.leaf_values_reference(pos, g, h, n_leaves, 1.0, 0.1, margins),
+             tr.next_gradients_reference(margins, *nxt))),
+         "k5_next_bound": leaf_values_bound(n, n_leaves, next_tree=True)}
+    if head:
+        t["k5_one_block"] = device_ms(lambda: tr.leaf_values(
+            pos, g, h, n_leaves, 1.0, 0.1, margins, bounds, cluster=1))
+        t["k5_next_one_block"] = device_ms(lambda: tr.leaf_values(
+            pos, g, h, n_leaves, 1.0, 0.1, margins, bounds, nxt, cluster=1))
+    return t
+
+
 def similarity_phase(cuda, card, aux_raw, reg_raw):
     """Phase 7. ``aux_raw`` and ``reg_raw`` are (descriptors, MACCS, Morgan
     counts) of the labelled and the regression molecules. Returns the
@@ -378,10 +429,25 @@ def similarity_phase(cuda, card, aux_raw, reg_raw):
     count_cases = [(reg_c, reg_c, w_c, LEVELS), (reg_c[:fold], reg_c[fold:], w_c, LEVELS),
                    (reg_c[:1], reg_c, w_c, LEVELS), (high[0], high[1], w_c, 8),
                    (high[2], high[3], w_c[:high[2].shape[1] * 4].contiguous(), 8)]
+    # ragged shapes: rows that fill no 64-row tile, words that fill no
+    # 16-word stage or are not 16-byte aligned (42 words)
+    ragged = [(nq, nr, words) for nq, nr in ((1, 1), (33, 127), (127, 33),
+                                             (1058, 1), (1, 1058), (127, 1058))
+              for words in (1, 42, 512)]
+    rng7 = np.random.default_rng(7)
+    for nq, nr, words in ragged:
+        q = sm.pack_counts(count_case(nq + words, nq, 4 * words, 20), LEVELS, cuda)
+        r = sm.pack_counts(count_case(nr + 2 * words, nr, 4 * words, 20), LEVELS, cuda)
+        w = torch.from_numpy(rng7.uniform(0.1, 3.0, 4 * words).astype(np.float32)
+                             ).to(cuda)
+        count_cases.append((q, r, w, LEVELS))
     for q, r, w, levels in count_cases:
         held("minmax_gram", sm.minmax_gram, minmax_ref(levels), q, r, None)
         k8_err = max(k8_err, held("minmax_gram (weighted)", sm.minmax_gram,
                                   minmax_ref(levels), q, r, w))
+        if not torch.equal(sm.minmax_gram(q, r, w), sm.minmax_gram(q, r, w)):
+            raise AssertionError(f"minmax_gram (weighted) {tuple(q.shape)} x "
+                                 f"{tuple(r.shape)}: two runs differ")
 
     # -- times: the kernel, its plain version, a library form, the bound
     def floats(words_, d):
@@ -458,8 +524,10 @@ def similarity_phase(cuda, card, aux_raw, reg_raw):
           f"{ {k: f'{a} of {b}' for k, (a, b) in ties.items()} } | tanimoto_gram "
           f"{len(gram_cases)} cases bit-equal without weights, max |err| "
           f"{k7_err:.3g} with IDF weights (limit 1e-5) | minmax_gram "
-          f"{len(count_cases)} cases (counts up to 40, clip 16 and 8) bit-equal "
-          f"without weights, max |err| {k8_err:.3g} with (limit 1e-5) | on {card}",
+          f"{len(count_cases)} cases (counts up to 40, clip 16 and 8; "
+          f"{len(ragged)} ragged: Nq, Nr in 1 / 33 / 127 / 1,058, words in "
+          f"1 / 42 / 512) bit-equal without weights, max |err| {k8_err:.3g} "
+          f"with (limit 1e-5), weighted twice bit-identical | on {card}",
           flush=True)
     for (kernel, shape), t in timed.items():
         print(f"[7 similarity kernels] {kernel} {shape}: {line(t)}", flush=True)
@@ -752,7 +820,7 @@ def main() -> int:
                                         full_width_screening_state,
                                         labelled_training_set, mixed_level_case)
     from bbbp_tpu_torch.timing import (best_splits_bound, device_ms, event_ms,
-                                       forest_bound, leaf_values_bound,
+                                       forest_bound, host_launch_calls,
                                        level_histogram_bound, nvidia_smi,
                                        project_bound)
 
@@ -935,7 +1003,7 @@ def main() -> int:
 
     # -- phase 5: the trainer's kernels against their plain versions --------
     t5 = time.time()
-    k5_err = 0.0
+    k5_err, k5_cases, k5_grad_cases = 0.0, 0, 0
     held = {"k3_err": 0.0, "k3_err_plain": 0.0, "k4_err": 0.0, "k4_calls": 0,
             "k4_near": 0, "k3_cases": 0}
     feats = (1, 30, 167, 300, WIDE_F)
@@ -946,18 +1014,26 @@ def main() -> int:
                                            cuda)
                 hold_level(tr, f"n={n} F={n_feat} level {level}", xb, pos, g, h,
                            (xb.amax(0) + 1).to(torch.uint8), 1 << level, rng, held)
-        for n_leaves in (64, 1024):
-            _, pos, g, h = level_case(n, 1, 0, n + n_leaves, cuda)
+        for n_leaves in (1, 64, 1024):
+            k5_cases += 1
+            _, pos, g, h = level_case(n, 1, 0, n + n_leaves, cuda)   # 20% weigh 0
             pos = torch.randint(0, n_leaves, (n,), dtype=torch.int32, device=cuda)
             start = torch.randn(n, device=cuda)
-            p_k, p_again, p_64 = start.clone(), start.clone(), start.double()
+            bounds = tr.gradient_bounds(g, h)
+            p_k, p_again, p_64, p_fix = (start.clone(), start.clone(),
+                                         start.double(), start.clone())
             leaf_k = tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1, p_k)
             leaf_again = tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1, p_again)
+            leaf_fix = tr.leaf_values_fixed_reference(pos, g, h, n_leaves, 1.0, 0.1,
+                                                      p_fix, bounds)
             leaf_64 = tr.leaf_values_reference(pos, g.double(), h.double(),
                                                n_leaves, 1.0, 0.1, p_64)
             torch.cuda.synchronize()
             if not (torch.equal(leaf_k, leaf_again) and torch.equal(p_k, p_again)):
                 raise AssertionError(f"leaf_values n={n}: two runs differ")
+            if not (torch.equal(leaf_k, leaf_fix) and torch.equal(p_k, p_fix)):
+                raise AssertionError(f"leaf_values n={n} L={n_leaves}: not its "
+                                     f"fixed-point plain version")
             leaf_err = (leaf_k.double() - leaf_64).abs()
             pred_err = (p_k.double() - p_64).abs()
             if bool((leaf_err > 5e-7 * leaf_64.abs() + 1e-9).any()) or bool(
@@ -967,6 +1043,27 @@ def main() -> int:
                                      f"leaf {float(leaf_err.max()):.3g}, margins "
                                      f"{float(pred_err.max()):.3g}")
             k5_err = max(k5_err, float(leaf_err.max()), float(pred_err.max()))
+            # the next tree's gradients from the same launch, against the
+            # torch ops on the same margins, draws and weights (some 0)
+            for task, sub in (("reg", 1.0), ("reg", 0.8), ("cls", 1.0), ("cls", 0.8)):
+                y = (torch.randn(n, device=cuda) if task == "reg"
+                     else (torch.rand(n, device=cuda) < 0.4).float())
+                u = torch.rand(n, device=cuda)
+                w = (torch.rand(n, device=cuda) > 0.2).float()
+                p_n, p_ref = start.clone(), start.clone()
+                got = tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1, p_n, bounds,
+                                     tr.NextTree(y, u, sub, w, task))
+                tr.leaf_values_fixed_reference(pos, g, h, n_leaves, 1.0, 0.1, p_ref,
+                                               bounds)
+                want = tr.next_gradients_reference(p_ref, y, u, sub, w, task)
+                torch.cuda.synchronize()
+                k5_grad_cases += 1
+                if not (torch.equal(got[0], leaf_fix) and torch.equal(p_n, p_ref)
+                        and all(torch.equal(a, b) for a, b in zip(got[1:], want))):
+                    raise AssertionError(
+                        f"leaf_values with the next tree n={n} L={n_leaves} {task} "
+                        f"subsample {sub}: g, h, bounds differ from the torch ops by "
+                        f"{[ulp_gap(a, b) for a, b in zip(got[1:], want)]} ulp")
 
     # features of 1, 2, 3 and 64 occupied bins in one matrix, skewed nodes;
     # every row in one node of level 9; rows that all weigh 0 (or nearly all)
@@ -1036,28 +1133,27 @@ def main() -> int:
             continue
         leaf_pos = torch.randint(0, 1 << TRAIN_DEPTH, (n,), dtype=torch.int32,
                                  device=cuda)
-        margins = torch.zeros(n, device=cuda)
-        timed[n, "k5"] = {
-            "k5": device_ms(lambda: tr.leaf_values(leaf_pos, g, h, 1 << TRAIN_DEPTH,
-                                                   1.0, 0.1, margins, bounds)),
-            "k5_plain": device_ms(lambda: tr.leaf_values_reference(
-                leaf_pos, g, h, 1 << TRAIN_DEPTH, 1.0, 0.1, margins)),
-            "k5_bound": leaf_values_bound(n, 1 << TRAIN_DEPTH)}
+        timed[n, "k5"] = time_leaf_values(tr, leaf_pos, g, h, 1 << TRAIN_DEPTH,
+                                          bounds, head=n == TRAIN_ROWS[0])
     n = TRAIN_ROWS[0]                          # rf: 1,024 leaves
     _, _, g, h = level_case(n, 1, 0, 10, cuda)
     leaf_pos = torch.randint(0, 1024, (n,), dtype=torch.int32, device=cuda)
-    margins, bounds = torch.zeros(n, device=cuda), tr.gradient_bounds(g, h)
-    timed[n, "k5_1024"] = {
-        "k5": device_ms(lambda: tr.leaf_values(leaf_pos, g, h, 1024, 1.0, 0.1,
-                                               margins, bounds)),
-        "k5_plain": device_ms(lambda: tr.leaf_values_reference(
-            leaf_pos, g, h, 1024, 1.0, 0.1, margins)),
-        "k5_bound": leaf_values_bound(n, 1024)}
+    timed[n, "k5_1024"] = time_leaf_values(tr, leaf_pos, g, h, 1024,
+                                           tr.gradient_bounds(g, h), head=True)
 
     def levels(n, key, field=None, n_feat=TRAIN_F):
         return [timed[n, n_feat, lv][key][field] if field
                 else timed[n, n_feat, lv][key]
                 for lv in (range(TRAIN_DEPTH) if n_feat == TRAIN_F else WIDE_LEVELS)]
+
+    def leaf_line(t):
+        one = (f"; one block {t['k5_one_block']:.4f}, with the next tree "
+               f"{t['k5_next_one_block']:.4f}" if "k5_one_block" in t else "")
+        return (f"{t['k5']:.4f}, plain {t['k5_plain']:.4f}, bound "
+                f"{t['k5_bound']['bound_ms']:.6f}; with the next tree's gradients "
+                f"{t['k5_next']:.4f}, plain {t['k5_next_plain']:.4f}, bound "
+                f"{t['k5_next_bound']['bound_ms']:.6f}{one} (the three-operation "
+                f"form: 0.0083, 1,024 leaves 0.0085)")
 
     for n in TRAIN_ROWS:
         print(f"[5 trainer kernels] n={n}, F={TRAIN_F}, levels 0-5 (ms): "
@@ -1070,9 +1166,7 @@ def main() -> int:
               f"oblivious {fmt(levels(n, 'k4_oblivious'))}, plain "
               f"{fmt(levels(n, 'k4_oblivious_plain'))}, "
               f"bound {fmt(levels(n, 'k4_bound', 'bound_ms'))}; leaf_values "
-              f"(64 leaves) {timed[n, 'k5']['k5']:.4f}, plain "
-              f"{timed[n, 'k5']['k5_plain']:.4f}, bound "
-              f"{timed[n, 'k5']['k5_bound']['bound_ms']:.6f}", flush=True)
+              f"(64 leaves) {leaf_line(timed[n, 'k5'])}", flush=True)
     head = TRAIN_ROWS[0]
 
     def wide_levels(key, field=None):
@@ -1087,9 +1181,7 @@ def main() -> int:
           f"{wide_levels('k4_oblivious')}, plain "
           f"{wide_levels('k4_oblivious_plain')}, bound "
           f"{wide_levels('k4_bound', 'bound_ms')}; leaf_values (1,024 leaves) "
-          f"{timed[head, 'k5_1024']['k5']:.4f}, plain "
-          f"{timed[head, 'k5_1024']['k5_plain']:.4f}, bound "
-          f"{timed[head, 'k5_1024']['k5_bound']['bound_ms']:.6f}", flush=True)
+          f"{leaf_line(timed[head, 'k5_1024'])}", flush=True)
     print(f"[5 trainer kernels] {k3_cases} (n, F, level) cases, F in {feats}, "
           f"{len(mixed)} of them with features of 1, 2, 3 and 64 occupied bins "
           f"(skewed nodes, one node holding every row of level 9, all rows of "
@@ -1101,9 +1193,13 @@ def main() -> int:
           f"best_splits {k4_calls} calls (per node and oblivious, column masks, "
           f"the best feature masked out, no valid split) equal to the "
           f"plain version but {k4_near} counted near-tie nodes (max |dscore| "
-          f"{k4_err:.3g}); leaf_values "
-          f"max |err| {k5_err:.3g} (limit 5e-7 |leaf|, 1e-6 of the margin "
-          f"terms), two runs bit-identical; {time.time() - t5:.1f} s on {card}",
+          f"{k4_err:.3g}); leaf_values {k5_cases} cases (n in 1 / 7,809 / "
+          f"65,536, 1 / 64 / 1,024 leaves, 20% of rows of weight 0) bit-equal "
+          f"to its fixed-point plain version, max |err| {k5_err:.3g} against "
+          f"the float64 sums (limit 5e-7 |leaf|, 1e-6 of the margin terms), "
+          f"two runs bit-identical; with the next tree ({k5_grad_cases} cases: "
+          f"reg and cls, subsample 1 and 0.8, weights 0 and 1) g, h and "
+          f"bounds bit-equal to the torch ops; {time.time() - t5:.1f} s on {card}",
           flush=True)
 
     # -- phase 6: training the screening model --------------------------------
@@ -1149,6 +1245,16 @@ def main() -> int:
                              f"the majority share {majority:.4f}")
 
     z_np = z.cpu().numpy()
+    # the host's calls that enqueue device work in one fit of the default
+    # model's forest (torch_train_profile.py's fit)
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        GBDTClassifier(n_estimators=N_TREES, learning_rate=0.1, max_depth=TRAIN_DEPTH,
+                       subsample=0.8, seed=42, device="cuda").fit(z_np, labels)
+        torch.cuda.synchronize()
+    fit_calls = host_launch_calls(prof)
+    del prof
     kw = dict(n_estimators=N_TREES, learning_rate=0.1, max_depth=TRAIN_DEPTH,
               subsample=1.0, seed=42)
     torch.cuda.synchronize()
@@ -1194,7 +1300,10 @@ def main() -> int:
           f"(Morgan 2048, PCA 30, {N_TREES} trees of depth {TRAIN_DEPTH}, "
           f"subsample 0.8): {train_s:.3f} s wall | launches {train_launches} | "
           f"a second fit grew the same trees (scaler and PCA identical: "
-          f"{same_projection}) | training accuracy {train_acc:.4f}, majority "
+          f"{same_projection}) | host launch calls of its forest fit "
+          f"{fit_calls} (39,028 with the gradients as torch ops and K5 as three "
+          f"operations, torch_train_profile.py) | training "
+          f"accuracy {train_acc:.4f}, majority "
           f"share {majority:.4f} | GBDTClassifier(subsample=1) on z: cuda "
           f"{cuda_fit_s:.3f} s, cpu {cpu_fit_s:.3f} s wall; against the cpu "
           f"fit: {cmp.trees_compared} trees equal ({cmp.equal} nodes equal, "
@@ -1297,6 +1406,15 @@ def main() -> int:
             entry["ms_1024_leaves"] = deep["k5"]
             entry["plain_ms_1024_leaves"] = deep["k5_plain"]
             entry["bound_ms_1024_leaves"] = deep["k5_bound"]["bound_ms"]
+            for suffix, tt in (("", t), ("_1024_leaves", deep)):
+                entry["ms_with_next_tree" + suffix] = tt["k5_next"]
+                entry["plain_ms_with_next_tree" + suffix] = tt["k5_next_plain"]
+                entry["bound_ms_with_next_tree" + suffix] = tt["k5_next_bound"]["bound_ms"]
+                entry["ms_one_block" + suffix] = tt["k5_one_block"]
+                entry["ms_one_block_with_next_tree" + suffix] = tt["k5_next_one_block"]
+            entry["earlier_ms"] = {"64_leaves": 0.0083, "1024_leaves": 0.0085}
+            entry["fit_host_launch_calls"] = fit_calls
+            entry["gradient_cases_bit_equal"] = k5_grad_cases
         else:
             entry["shape"] = f"n={head}, F={TRAIN_F}, level {last}"
             for n in TRAIN_ROWS:

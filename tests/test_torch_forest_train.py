@@ -630,6 +630,189 @@ def test_training_on_cuda_without_a_card_raises(monkeypatch):
         tr.GBDTRegressor(n_estimators=2, device="meta").fit(x, y)
 
 
+# -- K5: the leaves and the next tree's gradients -------------------------------
+
+def _gradient_inputs(seed, n=3000):
+    rng = np.random.default_rng(seed)
+    preds = (rng.normal(size=n) * 4).astype(np.float32)
+    y = (rng.random(n) < 0.4).astype(np.float32)
+    u = rng.random(n).astype(np.float32)
+    w = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    w[:n // 10] = 0.0                           # rows of weight 0
+    return preds, y, u, w
+
+
+@pytest.mark.parametrize("task,subsample", [("reg", 0.7), ("reg", 1.0),
+                                            ("cls", 0.7), ("cls", 1.0)])
+def test_next_gradients_reference_equals_jax_tree_step(task, subsample, jax, jnp):
+    """The gradient ops of the reference's tree step (``forest_tpu.py``
+    ``tree_step``: sigmoid, g, h, the subsample mask, (g·m)·w) on the same
+    draws: bit-equal for ``reg``; for ``cls`` within 2.4e-7 in g and 6e-8 in
+    h (two f32 ulps at 1 and at 0.5: XLA's logistic and torch's sigmoid
+    differ by an ulp). ``bounds`` is (max |g|, max |h|)."""
+    preds, y, u, w = _gradient_inputs(7)
+    if task == "reg":
+        y = np.random.default_rng(8).normal(size=y.shape).astype(np.float32)
+    g, h, bounds = tr.next_gradients_reference(
+        torch.from_numpy(preds), torch.from_numpy(y), torch.from_numpy(u),
+        subsample, torch.from_numpy(w), task)
+    pj, yj = jnp.asarray(preds), jnp.asarray(y)
+    if task == "reg":
+        gj, hj = pj - yj, jnp.ones_like(yj)
+    else:
+        p = jax.nn.sigmoid(pj)
+        gj, hj = p - yj, jnp.maximum(p * (1 - p), 1e-6)
+    m = (jnp.asarray(u) < subsample).astype(jnp.float32)
+    gj, hj = np.asarray(gj * m * jnp.asarray(w)), np.asarray(hj * m * jnp.asarray(w))
+    if task == "reg":
+        assert np.array_equal(g.numpy(), gj) and np.array_equal(h.numpy(), hj)
+    else:
+        np.testing.assert_allclose(g.numpy(), gj, rtol=0, atol=2.4e-7)
+        np.testing.assert_allclose(h.numpy(), hj, rtol=0, atol=6e-8)
+    assert bounds.tolist() == [float(g.abs().max()), float(h.abs().max())]
+    assert (g[:300] == 0).all() and (h[:300] == 0).all()
+    if subsample < 1:
+        assert bool(((torch.from_numpy(u) >= subsample) <= (h == 0)).all())
+
+
+@pytest.mark.parametrize("task", ["reg", "cls"])
+def test_leaf_values_with_the_next_tree_on_cpu(task):
+    """On CPU tensors the wrapper returns the plain version's leaves and
+    margins and ``next_gradients_reference`` of the updated margins, and
+    counts no launch; without the next tree it returns the leaves alone."""
+    xb, pos, g, h = _tensors(seed=3)
+    preds, y, u, w = (torch.from_numpy(a) for a in _gradient_inputs(4, 200))
+    before = _counts()
+    p1, p2 = preds.clone(), preds.clone()
+    leaf, gn, hn, bounds = tr.leaf_values(
+        pos, g, h, 4, 1.0, 0.1, p1, None, tr.NextTree(y, u, 0.8, w, task))
+    assert torch.equal(leaf, tr.leaf_values_reference(pos, g, h, 4, 1.0, 0.1, p2))
+    assert torch.equal(p1, p2) and not torch.equal(p1, preds)
+    for got, want in zip((gn, hn, bounds),
+                         tr.next_gradients_reference(p2, y, u, 0.8, w, task)):
+        assert torch.equal(got, want)
+    p3 = preds.clone()
+    assert torch.equal(tr.leaf_values(pos, g, h, 4, 1.0, 0.1, p3), leaf)
+    assert torch.equal(p3, p1) and _counts() == before
+
+
+def _fit_forest_before(xb, edge_vals, y, *, lr, lam, min_child, subsample,
+                       colsample, base_score, seed, task, n_trees, depth,
+                       oblivious, rf):
+    """The tree loop as it was before K5 took the gradients: every draw and
+    every gradient op a tree, in that order, on the plain versions."""
+    n, n_feat = xb.shape
+    n_internal, n_leaves = (1 << depth) - 1, 1 << depth
+    w_rows = torch.ones(n)
+    preds = torch.full((n,), float(base_score), dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(int(seed))
+    feats = torch.zeros((n_trees, n_internal), dtype=torch.int32)
+    bins = torch.zeros((n_trees, n_internal), dtype=torch.int64)
+    leaves = torch.empty((n_trees, n_leaves), dtype=torch.float32)
+    feat_ids = torch.arange(n_feat)
+    for t in range(n_trees):
+        if rf:
+            w = torch.poisson(torch.ones(n), generator=gen) * w_rows
+            g, h = -y * w, w
+        else:
+            if task == "reg":
+                g, h = preds - y, torch.ones_like(y)
+            else:
+                p = torch.sigmoid(preds)
+                g, h = p - y, torch.clamp(p * (1 - p), min=1e-6)
+            m = (torch.rand(n, generator=gen) < subsample).float()
+            g, h = g * m * w_rows, h * m * w_rows
+        col_mask = torch.rand(n_feat, generator=gen) < colsample
+        col_mask = col_mask | (feat_ids == col_mask.to(torch.uint8).argmax())
+        pos = torch.zeros(n, dtype=torch.int32)
+        for level in range(depth):
+            nodes, off = 1 << level, (1 << level) - 1
+            hist = tr.level_histogram_reference(xb, pos, g, h, nodes)
+            f_l, b_l, _ = tr.best_splits_reference(hist, col_mask, lam, min_child,
+                                                   oblivious)
+            feats[t, off:off + nodes] = f_l
+            bins[t, off:off + nodes] = b_l
+            xf = xb.gather(1, f_l[pos].long()[:, None])[:, 0]
+            pos = 2 * pos + (xf.int() > b_l[pos]).int()
+        leaves[t] = tr.leaf_values_reference(pos, g, h, n_leaves, lam,
+                                             1.0 if rf else lr, preds)
+    return preds, feats, edge_vals[feats.long(), bins], leaves
+
+
+@pytest.mark.parametrize("task,colsample,rf", [("reg", 1.0, False),
+                                               ("cls", 0.6, False),
+                                               ("reg", 0.5, True)])
+def test_fit_forest_draws_as_the_loop_before(task, colsample, rf):
+    """With the next tree's gradients taken in K5's call, ``fit_forest``
+    on the CPU still draws the generator's numbers in the old order
+    (subsample, columns, tree by tree) and grows the same trees, bit for
+    bit, at a subsample of 0.8."""
+    x, y = _regression(17, n=400, n_feat=7)
+    if task == "cls":
+        y = (y > np.median(y)).astype(np.float32)
+    mapper = tr.BinMapper().fit(x)
+    xb = torch.from_numpy(mapper.transform(x))
+    edges = torch.from_numpy(mapper.edge_values())
+    args = dict(lr=0.3, lam=1.0, min_child=1.0, subsample=0.8,
+                colsample=colsample, base_score=float(y.mean()), seed=9,
+                task=task, n_trees=12, depth=3, oblivious=False, rf=rf)
+    before = _fit_forest_before(xb, edges, torch.from_numpy(y), **args)
+    now = tr.fit_forest(xb, edges, torch.from_numpy(y), **args)
+    for a, b in zip(now, before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed,n,n_leaves", [(0, 3000, 64), (1, 500, 1024),
+                                             (2, 1, 1)])
+def test_fixed_point_leaf_values_within_stated_error(seed, n, n_leaves):
+    """K5's arithmetic in torch: the leaves within one f32 rounding of the
+    leaf of the float64 sums (5e-7 |leaf| + 1e-9), the same under any order
+    of the rows, and the margins moved by ``scale`` times them."""
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(rng.integers(0, n_leaves, n).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.05, 0.3, n).astype(np.float32))
+    g[::5], h[::5] = 0.0, 0.0
+    start = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    bounds = tr.gradient_bounds(g, h)
+    p_fix, p_64 = start.clone(), start.double()
+    leaf = tr.leaf_values_fixed_reference(pos, g, h, n_leaves, 1.0, 0.1, p_fix,
+                                          bounds)
+    exact = tr.leaf_values_reference(pos, g.double(), h.double(), n_leaves, 1.0,
+                                     0.1, p_64)
+    assert leaf.dtype == torch.float32 and leaf.shape == (n_leaves,)
+    assert ((leaf.double() - exact).abs() <= 5e-7 * exact.abs() + 1e-9).all()
+    assert ((p_fix.double() - p_64).abs()
+            <= 1e-6 * (p_64.abs() + exact[pos.long()].abs()) + 1e-9).all()
+    perm = torch.from_numpy(rng.permutation(n))
+    p_perm = start[perm].clone()
+    again = tr.leaf_values_fixed_reference(pos[perm], g[perm], h[perm], n_leaves,
+                                           1.0, 0.1, p_perm, bounds)
+    assert torch.equal(again, leaf) and torch.equal(p_perm, p_fix[perm])
+
+
+def test_leaf_plan_and_next_tree_checks():
+    """A row a thread up to 16,384 rows, at most 16 blocks; the wrapper
+    refuses a wrong task, wrong next-tree rows and a cluster above 16."""
+    assert [tr.leaf_plan(n) for n in (0, 1, 1024, 1025, 7809, 16384, 65536)] == \
+        [1, 1, 1, 2, 8, 16, 16]
+    xb, pos, g, h = _tensors()
+    y, u, w = torch.zeros(200), torch.zeros(200), torch.ones(200)
+    preds = torch.zeros(200)
+    with pytest.raises(ValueError, match="task"):
+        tr.leaf_values(pos, g, h, 4, 1.0, 0.1, preds, None,
+                       tr.NextTree(y, u, 0.8, w, "rank"))
+    with pytest.raises(TypeError):
+        tr.leaf_values(pos, g, h, 4, 1.0, 0.1, preds, None,
+                       tr.NextTree(y.double(), u, 0.8, w, "reg"))
+    with pytest.raises(TypeError):
+        tr.leaf_values(pos, g, h, 4, 1.0, 0.1, preds, None,
+                       tr.NextTree(y, u[:-1], 0.8, w, "reg"))
+    with pytest.raises(ValueError, match="cluster"):
+        tr.leaf_values(pos, g, h, 4, 1.0, 0.1, preds, cluster=17)
+
+
 # -- the kernels on the card ---------------------------------------------------
 
 @pytest.mark.cuda
@@ -644,7 +827,9 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
     shared-memory sizes). K4 equal to the
     plain version on the kernel's histogram (same arithmetic), per node and
     oblivious (levels 0, 2, 5, 9 and 12), with a column mask; K5 leaves and
-    margins within 1e-5 of the plain version."""
+    margins within 1e-5 of the plain version, bit-equal to its fixed-point
+    plain version at 1 to 65,536 rows and 1 to 1,024 leaves, and the next
+    tree's gradients bit-equal to the torch ops."""
     rng = np.random.default_rng(0)
     cases = [("uniform", 1, 30, 0), ("uniform", 7809, 30, 5),
              ("uniform", 65536, 167, 5), ("uniform", 7809, 300, 9),
@@ -693,3 +878,33 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
         tr.level_histogram(xb, pos, g, h, nodes, bounds, low)
     none = tr.level_histogram(xb[:0], pos[:0], g[:0], h[:0], 4, bounds)
     assert none.shape == (4, xb.shape[1], 64, 2) and not none.any()
+    # K5 at 1 / 7,809 / 65,536 rows and 1 / 64 / 1,024 leaves, 20% of the
+    # rows of weight 0: bit-equal to its fixed-point plain version, the
+    # same with the next tree, whose g, h and bounds equal the torch ops
+    for n in (1, 7809, 65536):
+        for n_leaves in (1, 64, 1024):
+            _, _, g, h = (torch.from_numpy(a).to(cuda_device)
+                          for a in _level_inputs(n + n_leaves, n, 1, 0))
+            pos = torch.from_numpy(rng.integers(0, n_leaves, n).astype(np.int32)
+                                   ).to(cuda_device)
+            start = torch.from_numpy(rng.normal(size=n).astype(np.float32)
+                                     ).to(cuda_device)
+            bounds = tr.gradient_bounds(g, h)
+            p_k, p_f = start.clone(), start.clone()
+            leaf_k = tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1, p_k, bounds)
+            leaf_f = tr.leaf_values_fixed_reference(pos, g, h, n_leaves, 1.0, 0.1,
+                                                    p_f, bounds)
+            assert torch.equal(leaf_k, leaf_f) and torch.equal(p_k, p_f), (n, n_leaves)
+            for task, sub in (("reg", 1.0), ("cls", 0.8)):
+                y = torch.from_numpy((rng.random(n) < 0.4).astype(np.float32)
+                                     ).to(cuda_device)
+                u = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda_device)
+                w = torch.from_numpy((rng.random(n) > 0.2).astype(np.float32)
+                                     ).to(cuda_device)
+                p_n = start.clone()
+                got = tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1, p_n, bounds,
+                                     tr.NextTree(y, u, sub, w, task))
+                want = tr.next_gradients_reference(p_f, y, u, sub, w, task)
+                assert torch.equal(got[0], leaf_f) and torch.equal(p_n, p_f)
+                for a, b in zip(got[1:], want):
+                    assert torch.equal(a, b), (n, n_leaves, task, sub)

@@ -140,6 +140,33 @@ def test_minmax_matrix_bit_equal_and_weighted_close(d, levels, high, jnp, jsim):
     np.testing.assert_allclose(got_w.numpy(), want_w, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("levels", [8, 16])
+@pytest.mark.parametrize("d", [4, 168, 2048])
+def test_minmax_absdiff_identity_bit_equal_to_reference(levels, d):
+    """The kernel's form, Σ min = (Σa + Σb − Σ|a − b|) / 2, in torch, equals
+    the level decomposition bit for bit on counts clipped at ``levels``
+    (all integer sums below 2^24), with a zero row on each side."""
+    q = count_case(d + levels, 29, d, levels + 9)
+    r = count_case(d + 2 * levels, 41, d, levels + 9)
+    q[3], r[5] = 0, 0
+    qc, rc = tsim.pack_counts(q, levels), tsim.pack_counts(r, levels)
+    got = tsim.minmax_gram_absdiff_reference(qc, rc)
+    assert torch.equal(got, tsim.minmax_gram_reference(qc, rc, levels=levels))
+    assert got[3].abs().max() == 0 and got[:, 5].abs().max() == 0
+
+
+@pytest.mark.parametrize("words,weighted,split", [
+    (512, False, 8), (512, True, 8), (42, False, 1), (42, True, 4), (64, False, 2),
+    (1, False, 1), (1, True, 1), (8, True, 1), (16, True, 2)])
+def test_minmax_split_gives_each_block_two_stages(words, weighted, split):
+    """K8's cluster size along the words: 8, halved until each block of
+    the cluster gets two stages of 16 elements or more."""
+    assert tsim.minmax_split(words, weighted) == split
+    stages = -(-(4 * words if weighted else words) // tsim.GRAM_STAGE)
+    assert split == 1 or stages >= 2 * split
+    assert split == 8 or stages < 4 * split
+
+
 def test_minmax_identical_rows_above_the_clip_are_similarity_one():
     a = torch.tensor([[40.0, 1.0]])
     assert abs(float(tsim.minmax_matrix(a, a, 8, device="cpu")[0, 0]) - 1.0) < 1e-6
@@ -376,7 +403,10 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
     """K6, K7 and K8 against their plain versions on the card: the top-k
     indices equal and similarities bit-equal (ties, zero rows, k = 1, k = Nr,
     Nq = 1, Nr above one candidate buffer), the unweighted grams bit-equal,
-    the weighted ones within 1e-5; each call adds one launch."""
+    the weighted ones within 1e-5; each call adds one launch. K8 also at
+    ragged shapes (Nq, Nr in 1 / 33 / 127 / 1,058, 1 / 42 / 512 words,
+    counts clipped at 16 and at 255) and at widths its plan gives clusters
+    of 1, 2, 4 and 8 blocks, weighted twice bit-identical."""
     rng = np.random.default_rng(9)
     for nq, nr, d, k in ((60, 400, 167, 25), (1, 5000, 167, 64), (33, 40, 40, 40),
                          (17, 1, 30, 1), (50, 3000, 2048, 10)):
@@ -402,3 +432,23 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
         torch.testing.assert_close(tsim.minmax_gram(qc, rc, wc),
                                    tsim.minmax_gram_reference(qc, rc, wc, 16),
                                    rtol=0, atol=1e-5)
+    # K8 at ragged shapes: rows that fill no tile, words that fill no stage,
+    # rows that are not 16-byte aligned (42 words), counts to the byte's top
+    for nq, nr, words in ((1, 1, 1), (33, 127, 42), (127, 33, 512),
+                          (1058, 1, 42), (1, 1058, 512), (127, 1058, 1),
+                          (65, 64, 64), (100, 70, 16)):      # clusters of 2
+        for levels in (16, 255):
+            qc = tsim.pack_counts(count_case(nq + words, nq, 4 * words, 300),
+                                  levels, cuda_device)
+            rc = tsim.pack_counts(count_case(nr + words, nr, 4 * words, 300),
+                                  levels, cuda_device)
+            wc = torch.from_numpy(rng.uniform(0.1, 3.0, 4 * words).astype(np.float32)
+                                  ).to(cuda_device)
+            assert torch.equal(tsim.minmax_gram(qc, rc),
+                               tsim.minmax_gram_reference(qc, rc, levels=levels))
+            got_w = tsim.minmax_gram(qc, rc, wc)
+            assert torch.equal(got_w, tsim.minmax_gram(qc, rc, wc))
+            if levels == 16:    # the plain version's 255 weighted level sums
+                torch.testing.assert_close(   # round by more than 1e-5
+                    got_w, tsim.minmax_gram_reference(qc, rc, wc, levels),
+                    rtol=0, atol=1e-5)

@@ -35,7 +35,8 @@ def profile(table_path: str):
     from bbbp_tpu_torch.ops.scaler import StandardScaler
     from bbbp_tpu_torch.pipelines.screen import ScreeningModel
     from bbbp_tpu_torch.testing import labelled_training_set
-    from bbbp_tpu_torch.timing import profile_summary, profiler_table
+    from bbbp_tpu_torch.timing import (host_launch_calls, profile_summary,
+                                       profiler_table)
 
     smiles, labels = labelled_training_set()
     ScreeningModel.train(smiles[:512], labels[:512], device="cuda")  # warm-up
@@ -82,16 +83,14 @@ def profile(table_path: str):
     def classify(name):
         for kernel in ("hist_group_kernel", "level_hist_kernel",
                        "hist_finish_kernel", "oblivious_pick_kernel",
-                       "best_splits", "leaf_sums_kernel", "leaf_apply_kernel"):
+                       "best_splits", "leaf_values_kernel"):
             if kernel in name:
                 return kernel
         return "Memset" if "Memset" in name else "torch ops"
 
     summary = profile_summary(prof, classify)
     profiler_table(prof, table_path)
-    host_launches = sum(e.count for e in prof.key_averages()
-                        if e.key in ("cudaLaunchKernel", "cudaMemsetAsync",
-                                     "cudaMemcpyAsync"))
+    host_launches = host_launch_calls(prof)
     return {"molecules": len(smiles), "positive_share": float(np.mean(labels)),
             "stages": stages, "fit_wall_s_profiled": wall,
             "trainer_launches": launches, **summary,

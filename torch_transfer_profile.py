@@ -26,7 +26,7 @@ import time
 
 KERNELS = ("hist_group_kernel", "level_hist_kernel", "hist_finish_kernel",
            "oblivious_pick_kernel", "best_splits",
-           "leaf_sums_kernel", "leaf_apply_kernel", "dense_forest_kernel",
+           "leaf_values_kernel", "dense_forest_kernel",
            "tanimoto_topk_kernel", "row_sums_kernel")
 
 
@@ -34,8 +34,10 @@ def classify(name: str) -> str:
     for kernel in KERNELS:
         if kernel in name:
             return kernel
+    if "minmax_gram_kernel" in name:
+        return "minmax_gram_kernel"
     if "gram_kernel" in name:
-        return "minmax gram_kernel" if "CountOp" in name else "tanimoto gram_kernel"
+        return "tanimoto gram_kernel"
     return "Memset" if "Memset" in name else "torch ops"
 
 
@@ -46,7 +48,8 @@ def profile(out_stem: str):
 
     from bbbp_tpu_torch.testing import (labelled_training_set,
                                         regression_legs, regression_molecules)
-    from bbbp_tpu_torch.timing import profile_summary, profiler_table
+    from bbbp_tpu_torch.timing import (host_launch_calls, profile_summary,
+                                       profiler_table)
     from bbbp_tpu_torch.train import transfer as tf
 
     aux = labelled_training_set()
@@ -63,9 +66,7 @@ def profile(out_stem: str):
             wall = time.perf_counter() - t0
         summary = profile_summary(prof, classify)
         profiler_table(prof, f"{out_stem}_{name}_table.txt")
-        calls = sum(e.count for e in prof.key_averages()
-                    if e.key in ("cudaLaunchKernel", "cudaMemsetAsync",
-                                 "cudaMemcpyAsync"))
+        calls = host_launch_calls(prof)
         return {"wall_s_profiled": wall, **summary,
                 "busy_share": summary["device_busy_ms"] / 1e3 / wall,
                 "host_launch_calls": calls}
