@@ -49,9 +49,10 @@
 // by bytes. K5 moves 156 KB at the trainer's 7,809 rows with the next
 // tree's inputs and outputs (0.05 us at the memory rate); it is bound by
 // latency: a launch (~1 us for an empty cluster launch in a CUDA graph), a
-// global load's round trip, one cluster barrier (~1,200-1,700 cycles: the
-// barrier's release is a GPU-wide MEMBAR, and its acquire invalidates L1)
-// and the loads from other blocks' shared memory (torch_leaf_profile.py
+// global load's round trip, the shared atomics of a block's rows, the
+// exchange between the blocks (a cluster barrier costs ~1,200-1,700 cycles:
+// its release is a GPU-wide MEMBAR, and its acquire invalidates L1) and a
+// leaf's chain of conversions and an IEEE division (torch_leaf_profile.py
 // clocks each phase).
 //
 // K3 design.
@@ -132,29 +133,35 @@
 // 3. A block adds its rows' quantised (g, h) to its own shared table, each
 //    64-bit add as two 32-bit atomics with a carry, as K3 (a 64-bit shared
 //    atomicAdd is a compare-and-swap loop, ATOMS.CAST.SPIN.64).
-// 4. One cluster barrier. Warps copy 32 entries (512 contiguous bytes) of
-//    one block's table at a time into a local stage through distributed
-//    shared memory, and a thread adds a leaf's entries (integers: in any
-//    order, so the sums, leaves and margins are those of the three-launch
-//    form bit for bit). With leaves x blocks <= 2 x threads (64 leaves)
-//    every block takes every leaf itself; with more (1,024 leaves) block b
-//    takes a slice and a second barrier hands the values round.
+// 4. The tables meet. With few leaves (leaves x blocks <= 2 x threads: 64
+//    leaves) every block pushes its table to every other block with
+//    st.async, 16 bytes a thread, counted on the receiver's transaction
+//    barrier (mbarrier), and each block takes every leaf itself from its
+//    stage once its barrier has counted all the bytes: no cluster-wide
+//    barrier after the start (where each block arrives, relaxed, once its
+//    mbarrier is initialised, and waits before its first push), and a
+//    block need not wait for the others to exit. With more leaves (1,024)
+//    a cluster barrier, warps copying 512 contiguous bytes of one block's
+//    table at a time into a local stage, block b taking the leaves [b *
+//    per, (b + 1) * per), and a second barrier to hand the values round.
+//    The entries are integers, added in any order, so the sums, leaves and
+//    margins are those of the three-launch form bit for bit.
 // 5. Every row is updated from local shared memory. In boosting the next
 //    (g, h) follow with the plain version's torch ops and roundings: the
 //    sigmoid as 1 / (1 + expf(-x)) (torch's on the card; equal bit for bit
 //    in every case held), the clamp that keeps a NaN, (g * m) * w. The
 //    bounds meet by warp, block and cluster maximum on the float bits
 //    (|v| >= 0, so the integer order is the float order), in an output
-//    that block 0 zeroes before the barrier.
-// 6. A block that has read the others' memory arrives at a second cluster
-//    barrier without a release (a release would wait for its global
-//    stores), and waits there only before it exits.
+//    that block 0 zeroes before its pushes.
+// 6. In the barrier form a block that has read the others' memory arrives
+//    at a second cluster barrier without a release (a release would wait
+//    for its global stores), and waits there only before it exits.
 // Tried on the card and dropped: one block of 1,024 threads (its 31,000
-// shared atomics at 7,809 rows take longer than the barrier saves), a
-// block reading a leaf's entries with one remote load a lane and a shuffle
-// tree, or each row its leaf from the owner's shared memory (slower than
-// the staged copies), and a cheaper barrier (raw PTX and fence.acq_rel
-// .cluster give the same MEMBAR.ALL.GPU).
+// shared atomics at 7,809 rows take longer than a barrier), loads of a
+// leaf's entries by a group of lanes and a shuffle tree, each row reading
+// its leaf from the owner's shared memory, and a cheaper barrier (raw PTX
+// and fence.acq_rel.cluster give the same MEMBAR.ALL.GPU); the pushes beat
+// the barrier and the copies at 64 to 256 leaves.
 
 #include <cmath>
 #include <cooperative_groups.h>
@@ -874,10 +881,11 @@ __device__ __forceinline__ void next_gradient(float pred, float y, float u, floa
   *ho = __fmul_rn(__fmul_rn(hv, m), w);
 }
 
-// Arrives at the cluster barrier without ordering memory: for a block that
+// Arrives at the cluster barrier without ordering memory (a release here
+// would wait for this block's stores to global memory): for a block that
 // has only finished reading other blocks' shared memory (the reads are
-// complete: their values are used), so that they may exit once all have
-// arrived. A release here waits for this block's stores to global memory.
+// complete: their values are used), or whose transaction barrier's
+// initialisation fence.mbarrier_init has already released.
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
@@ -911,6 +919,46 @@ __device__ __forceinline__ LeafRow load_leaf_row(int r, int n, const int* pos,
   return row;
 }
 
+
+// Pushes between the blocks of a cluster: st.async writes 16 bytes into
+// another block's shared memory and counts them on that block's
+// transaction barrier (mbarrier), which its threads wait on; no cluster
+// barrier and no loads from other blocks.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned cluster_addr(unsigned local, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void st_async16(unsigned remote, ulonglong2 v, unsigned remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b64 [%0], {%1, %2}, [%3];\n" ::"r"(remote),
+      "l"(v.x), "l"(v.y), "r"(remote_bar)
+      : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // K5: one cluster of 1 to 16 blocks, a row a thread (see K5 design).
 template <bool kNext>
 __global__ void __launch_bounds__(kLeafThreads, 1)
@@ -930,6 +978,15 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
   float* values = reinterpret_cast<float*>(stage + blocks * per);   // [leaf]
   __shared__ double s_scale[4];             // g, h, then their inverses
   __shared__ unsigned s_max[2];
+  __shared__ __align__(8) unsigned long long s_bar;
+  const bool push = every && blocks > 1;
+  if (push) {
+    if (threadIdx.x == 0) {
+      mbar_init(smem_u32(&s_bar), 1);
+      fence_mbar_init();
+    }
+    cluster_arrive_relaxed();               // this block's barrier is ready
+  }
   const int stride = blocks * blockDim.x;
   const int r0 = rank * blockDim.x + threadIdx.x;
   // every load of the first row (at the trainer's sizes, every row) and
@@ -954,13 +1011,29 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
     shared_add64(&sums[row.p].x, quantise(row.g, sg));
     shared_add64(&sums[row.p].y, quantise(row.h, sh));
   }
-  cluster.sync();
-
   const int own0 = every ? 0 : rank * per;
   const int owned = min(n_leaves, own0 + per) - own0;
-  for (int t = threadIdx.x; t < blocks * per; t += blockDim.x) {
-    const int b = t / per, li = t - b * per;
-    if (li < owned) stage[t] = *cluster.map_shared_rank(sums + own0 + li, b);
+  if (push) {
+    __syncthreads();                        // this block's table is complete
+    cluster_wait();                         // every block's barrier is ready
+    const unsigned bar = smem_u32(&s_bar);
+    if (threadIdx.x == 0)
+      mbar_expect_tx(bar, static_cast<unsigned>((blocks - 1) * n_leaves * sizeof(ulonglong2)));
+    for (int t = threadIdx.x; t < (blocks - 1) * n_leaves; t += blockDim.x) {
+      const int dst = (rank + 1 + t / n_leaves) % blocks, li = t % n_leaves;
+      st_async16(cluster_addr(smem_u32(stage + rank * n_leaves + li), dst), sums[li],
+                 cluster_addr(bar, dst));
+    }
+    for (int li = threadIdx.x; li < n_leaves; li += blockDim.x)
+      stage[rank * n_leaves + li] = sums[li];
+    for (unsigned spins = 0; !mbar_try_wait(bar, 0); ++spins)
+      if (spins > (1u << 26)) __trap();     // a lost push faults, not hangs
+  } else {
+    cluster.sync();
+    for (int t = threadIdx.x; t < blocks * per; t += blockDim.x) {
+      const int b = t / per, li = t - b * per;
+      if (li < owned) stage[t] = *cluster.map_shared_rank(sums + own0 + li, b);
+    }
   }
   __syncthreads();
   for (int li = threadIdx.x; li < owned; li += blockDim.x) {
@@ -982,7 +1055,7 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
       if (owner != rank) values[i] = *cluster.map_shared_rank(values + i, owner);
     }
   }
-  cluster_arrive_relaxed();                 // no more reads of other blocks
+  if (!push) cluster_arrive_relaxed();      // no more reads of other blocks
   __syncthreads();
 
   unsigned max_g = 0, max_h = 0;
@@ -1014,7 +1087,7 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
     __syncthreads();
     if (threadIdx.x < 2) atomicMax(next.bounds + threadIdx.x, s_max[threadIdx.x]);
   }
-  cluster_wait();                           // others may still read this block
+  if (!push) cluster_wait();                // others may still read this block
 }
 
 // Raises a kernel's dynamic shared-memory limit to the most it is launched

@@ -7,8 +7,8 @@ on one CUDA card.
 Builds a copy of ``bbbp_tpu_torch/csrc/forest_train.cu`` in which thread 0
 of every block of K5's cluster reads ``clock64()`` at each of the kernel's
 phase boundaries (into ``bbbp_tpu_torch/_build/``), and runs it at the
-trainer's 7,809 rows (64 and 1,024 leaves, with and without the next tree's
-gradients, 8 blocks) and at 65,536 rows (16 blocks). Prints, for each case,
+trainer's 7,809 rows (64, 256 and 1,024 leaves, with and without the next
+tree's gradients, 8 blocks) and at 65,536 rows (16 blocks). Prints, for each case,
 the device ms of a call (CUDA-graph timing, the stamps included), the
 cycles of each phase in block 0 and the largest over the blocks, and the
 device ms of an empty launch of a cluster of the same shape. Writes the
@@ -24,28 +24,37 @@ import os
 import subprocess
 import sys
 
-# (anchor in leaf_values_kernel, where the stamp goes, the phase it ends)
+# (anchor in leaf_values_kernel, where the stamp goes, the phase it ends);
+# the stamps of the form a call does not take stay 0 and are left out
 STAMPS = (
     ("  const int r0 = rank * blockDim.x + threadIdx.x;\n", "after", None),
     ("  const double sg = s_scale[0], sh = s_scale[1];\n", "before",
      "start: loads issued, table zeroed, scales"),
-    ("  cluster.sync();\n", "before", "own rows into the block's table"),
-    ("  const int own0 = every ? 0 : rank * per;\n", "before", "cluster barrier"),
+    ("  const int own0 = every ? 0 : rank * per;\n", "before",
+     "own rows into the block's table"),
+    ("    const unsigned bar = smem_u32(&s_bar);\n", "before",
+     "block barrier, the cluster's mbarriers ready"),
+    ("    for (unsigned spins = 0;", "before", "pushes issued"),
+    ("  } else {\n    cluster.sync();\n", "before", "incoming tables counted"),
+    ("    for (int t = threadIdx.x; t < blocks * per; t += blockDim.x) {\n", "before",
+     "cluster barrier"),
     ("  __syncthreads();\n  for (int li = threadIdx.x; li < owned;", "before",
      "tables copied into the stage"),
     ("  for (int li = threadIdx.x; li < owned;", "before", "block barrier"),
     ("  if (!every) {\n    cluster.sync();", "before", "leaf values"),
-    ("  cluster_arrive_relaxed();", "before",
-     "second cluster barrier and the owners' values (many leaves)"),
-    ("  unsigned max_g = 0, max_h = 0;\n", "before", "arrive, block barrier"),
-    ("  cluster_wait();                           // others", "before",
-     "update, next gradients, bounds"),
+    ("  if (!push) cluster_arrive_relaxed();", "before",
+     "second cluster barrier and the owners' values"),
+    ("  unsigned max_g = 0, max_h = 0;\n", "before", "block barrier"),
+    ("  if (!push) cluster_wait();", "before", "update, next gradients, bounds"),
 )
-CASES = ((7809, 64, False, 8), (7809, 64, True, 8), (7809, 1024, False, 8),
-         (7809, 1024, True, 8), (65536, 64, True, 16))
+CASES = ((7809, 64, False, 8), (7809, 64, True, 8), (7809, 256, True, 8),
+         (7809, 1024, False, 8), (7809, 1024, True, 8), (65536, 64, True, 16))
 
 
 def stamp(k: int) -> str:
+    if k == 0:                  # the first also clears the block's other stamps
+        return ("  if (threadIdx.x == 0) {\n    for (int k = 1; k < 16; ++k) "
+                "g_leaf_clock[rank][k] = 0;\n    g_leaf_clock[rank][0] = clock64();\n  }\n")
     return f"  if (threadIdx.x == 0) g_leaf_clock[rank][{k}] = clock64();\n"
 
 
@@ -155,9 +164,16 @@ def profile():
         torch.cuda.synchronize()
         clocks = (ctypes.c_longlong * 256)()
         lib.leaf_clocks(clocks)
+        names = [name for _, _, name in STAMPS[1:]] + ["wait to exit"]
         phases = []
-        for k, (_, _, name) in enumerate(STAMPS[1:] + (("", "", "wait to exit"),)):
-            spans = [clocks[b * 16 + k + 1] - clocks[b * 16 + k] for b in range(cluster)]
+        for k, name in enumerate(names, start=1):
+            if clocks[k] == 0:                  # a step of the other form
+                continue
+            spans = []
+            for b in range(cluster):
+                row = clocks[b * 16:b * 16 + 16]
+                prev = max(j for j in range(k) if row[j] != 0)
+                spans.append(row[k] - row[prev])
             phases.append({"phase": name, "block0": spans[0], "max": max(spans)})
         results.append({
             "n": n, "leaves": n_leaves, "next_tree": with_next, "blocks": cluster,
