@@ -191,7 +191,7 @@ def kernels_lib() -> ctypes.CDLL:
         _P, _P,                # leaf [n_leaves] f32, preds [n] f32 (in place)
         _P, _P, _P, _F, _I,    # next tree: y, u, w_rows [n] f32 or null, subsample, cls
         _P, _P, _P,            # next g, h [n] f32, bounds [2] f32
-        _I, _I, _P,            # cluster, threads, stream
+        _I, _P,                # cluster (blocks of 1,024 threads), stream
     ]
     lib.bbbp_tanimoto_topk.restype = _I
     lib.bbbp_tanimoto_topk.argtypes = [

@@ -49,11 +49,10 @@
 // by bytes. K5 moves 156 KB at the trainer's 7,809 rows with the next
 // tree's inputs and outputs (0.05 us at the memory rate); it is bound by
 // latency: a launch (~1 us for an empty cluster launch in a CUDA graph), a
-// global load's round trip, the shared atomics of a block's rows, the
-// exchange between the blocks (a cluster barrier costs ~1,200-1,700 cycles:
-// its release is a GPU-wide MEMBAR, and its acquire invalidates L1) and a
-// leaf's chain of conversions and an IEEE division (torch_leaf_profile.py
-// clocks each phase).
+// global load's round trip, one cluster barrier (~1,200-1,700 cycles: the
+// barrier's release is a GPU-wide MEMBAR, and its acquire invalidates L1)
+// and the loads from other blocks' shared memory (torch_leaf_profile.py
+// builds K5 with its phase clocks, below, and reads them).
 //
 // K3 design.
 // 1. hist_group_kernel, one block: a counting sort of the rows by node
@@ -133,35 +132,32 @@
 // 3. A block adds its rows' quantised (g, h) to its own shared table, each
 //    64-bit add as two 32-bit atomics with a carry, as K3 (a 64-bit shared
 //    atomicAdd is a compare-and-swap loop, ATOMS.CAST.SPIN.64).
-// 4. The tables meet. With few leaves (leaves x blocks <= 2 x threads: 64
-//    leaves) every block pushes its table to every other block with
-//    st.async, 16 bytes a thread, counted on the receiver's transaction
-//    barrier (mbarrier), and each block takes every leaf itself from its
-//    stage once its barrier has counted all the bytes: no cluster-wide
-//    barrier after the start (where each block arrives, relaxed, once its
-//    mbarrier is initialised, and waits before its first push), and a
-//    block need not wait for the others to exit. With more leaves (1,024)
-//    a cluster barrier, warps copying 512 contiguous bytes of one block's
-//    table at a time into a local stage, block b taking the leaves [b *
-//    per, (b + 1) * per), and a second barrier to hand the values round.
-//    The entries are integers, added in any order, so the sums, leaves and
-//    margins are those of the three-launch form bit for bit.
+// 4. One cluster barrier. Warps copy 32 entries (512 contiguous bytes) of
+//    one block's table at a time into a local stage through distributed
+//    shared memory, and a thread adds a leaf's entries (integers: in any
+//    order, so the sums, leaves and margins are those of the three-launch
+//    form bit for bit). With leaves x blocks <= 2 x threads (64 leaves)
+//    every block takes every leaf itself; with more (1,024 leaves) block b
+//    takes a slice and a second barrier hands the values round.
 // 5. Every row is updated from local shared memory. In boosting the next
 //    (g, h) follow with the plain version's torch ops and roundings: the
 //    sigmoid as 1 / (1 + expf(-x)) (torch's on the card; equal bit for bit
 //    in every case held), the clamp that keeps a NaN, (g * m) * w. The
 //    bounds meet by warp, block and cluster maximum on the float bits
 //    (|v| >= 0, so the integer order is the float order), in an output
-//    that block 0 zeroes before its pushes.
-// 6. In the barrier form a block that has read the others' memory arrives
-//    at a second cluster barrier without a release (a release would wait
-//    for its global stores), and waits there only before it exits.
+//    that block 0 zeroes before the barrier.
+// 6. A block that has read the others' memory arrives at a second cluster
+//    barrier without a release (a release would wait for its global
+//    stores), and waits there only before it exits.
 // Tried on the card and dropped: one block of 1,024 threads (its 31,000
-// shared atomics at 7,809 rows take longer than a barrier), loads of a
-// leaf's entries by a group of lanes and a shuffle tree, each row reading
-// its leaf from the owner's shared memory, and a cheaper barrier (raw PTX
-// and fence.acq_rel.cluster give the same MEMBAR.ALL.GPU); the pushes beat
-// the barrier and the copies at 64 to 256 leaves.
+// shared atomics at 7,809 rows take longer than the barrier saves), a
+// block reading a leaf's entries with one remote load a lane and a shuffle
+// tree, or each row its leaf from the owner's shared memory (slower than
+// the staged copies), a cheaper barrier (raw PTX and fence.acq_rel
+// .cluster give the same MEMBAR.ALL.GPU), and every block pushing its table
+// into the others' shared memory with st.async, counted on each receiver's
+// transaction barrier (under half a microsecond less at 64 leaves, for a
+// second exchange path of raw PTX with its own ordering argument).
 
 #include <cmath>
 #include <cooperative_groups.h>
@@ -196,6 +192,21 @@ constexpr int kLeafThreads = 1024;
 constexpr int kLeafMaxCluster = 16;         // non-portable above 8
 
 typedef unsigned long long u64;
+
+}  // namespace
+
+// K5's phase clocks, compiled in only with -DBBBP_LEAF_CLOCKS (see
+// torch_leaf_profile.py): thread 0 of each block stamps clock64() at the
+// end of each step, [block][step].
+#ifdef BBBP_LEAF_CLOCKS
+__device__ long long g_leaf_clock[16][16];
+#define LEAF_CLOCK(k) \
+  do { if (threadIdx.x == 0) g_leaf_clock[rank][k] = clock64(); } while (0)
+#else
+#define LEAF_CLOCK(k) do {} while (0)
+#endif
+
+namespace {
 
 // ---- fixed point ------------------------------------------------------------
 
@@ -881,11 +892,10 @@ __device__ __forceinline__ void next_gradient(float pred, float y, float u, floa
   *ho = __fmul_rn(__fmul_rn(hv, m), w);
 }
 
-// Arrives at the cluster barrier without ordering memory (a release here
-// would wait for this block's stores to global memory): for a block that
+// Arrives at the cluster barrier without ordering memory: for a block that
 // has only finished reading other blocks' shared memory (the reads are
-// complete: their values are used), or whose transaction barrier's
-// initialisation fence.mbarrier_init has already released.
+// complete: their values are used), so that they may exit once all have
+// arrived. A release here waits for this block's stores to global memory.
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
@@ -919,46 +929,6 @@ __device__ __forceinline__ LeafRow load_leaf_row(int r, int n, const int* pos,
   return row;
 }
 
-
-// Pushes between the blocks of a cluster: st.async writes 16 bytes into
-// another block's shared memory and counts them on that block's
-// transaction barrier (mbarrier), which its threads wait on; no cluster
-// barrier and no loads from other blocks.
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ unsigned cluster_addr(unsigned local, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(local), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void st_async16(unsigned remote, ulonglong2 v, unsigned remote_bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b64 [%0], {%1, %2}, [%3];\n" ::"r"(remote),
-      "l"(v.x), "l"(v.y), "r"(remote_bar)
-      : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
-  unsigned done;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
 // K5: one cluster of 1 to 16 blocks, a row a thread (see K5 design).
 template <bool kNext>
 __global__ void __launch_bounds__(kLeafThreads, 1)
@@ -978,17 +948,9 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
   float* values = reinterpret_cast<float*>(stage + blocks * per);   // [leaf]
   __shared__ double s_scale[4];             // g, h, then their inverses
   __shared__ unsigned s_max[2];
-  __shared__ __align__(8) unsigned long long s_bar;
-  const bool push = every && blocks > 1;
-  if (push) {
-    if (threadIdx.x == 0) {
-      mbar_init(smem_u32(&s_bar), 1);
-      fence_mbar_init();
-    }
-    cluster_arrive_relaxed();               // this block's barrier is ready
-  }
   const int stride = blocks * blockDim.x;
   const int r0 = rank * blockDim.x + threadIdx.x;
+  LEAF_CLOCK(0);
   // every load of the first row (at the trainer's sizes, every row) and
   // the bounds are in flight together, through the start-up and barriers
   const float bound = threadIdx.x < 2 ? bounds[threadIdx.x] : 0.f;
@@ -1003,6 +965,7 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
     if (kNext && rank == 0) atomicExch(next.bounds + threadIdx.x, 0u);
   }
   __syncthreads();
+  LEAF_CLOCK(1);                            // loads issued, table zeroed, scales
   const double sg = s_scale[0], sh = s_scale[1];
   for (int r = r0; r < n; r += stride) {    // this block's rows, its own table
     const LeafRow row = r == r0 ? first
@@ -1011,31 +974,19 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
     shared_add64(&sums[row.p].x, quantise(row.g, sg));
     shared_add64(&sums[row.p].y, quantise(row.h, sh));
   }
+  LEAF_CLOCK(2);                            // own rows into the block's table
+  cluster.sync();
+  LEAF_CLOCK(3);                            // cluster barrier
+
   const int own0 = every ? 0 : rank * per;
   const int owned = min(n_leaves, own0 + per) - own0;
-  if (push) {
-    __syncthreads();                        // this block's table is complete
-    cluster_wait();                         // every block's barrier is ready
-    const unsigned bar = smem_u32(&s_bar);
-    if (threadIdx.x == 0)
-      mbar_expect_tx(bar, static_cast<unsigned>((blocks - 1) * n_leaves * sizeof(ulonglong2)));
-    for (int t = threadIdx.x; t < (blocks - 1) * n_leaves; t += blockDim.x) {
-      const int dst = (rank + 1 + t / n_leaves) % blocks, li = t % n_leaves;
-      st_async16(cluster_addr(smem_u32(stage + rank * n_leaves + li), dst), sums[li],
-                 cluster_addr(bar, dst));
-    }
-    for (int li = threadIdx.x; li < n_leaves; li += blockDim.x)
-      stage[rank * n_leaves + li] = sums[li];
-    for (unsigned spins = 0; !mbar_try_wait(bar, 0); ++spins)
-      if (spins > (1u << 26)) __trap();     // a lost push faults, not hangs
-  } else {
-    cluster.sync();
-    for (int t = threadIdx.x; t < blocks * per; t += blockDim.x) {
-      const int b = t / per, li = t - b * per;
-      if (li < owned) stage[t] = *cluster.map_shared_rank(sums + own0 + li, b);
-    }
+  for (int t = threadIdx.x; t < blocks * per; t += blockDim.x) {
+    const int b = t / per, li = t - b * per;
+    if (li < owned) stage[t] = *cluster.map_shared_rank(sums + own0 + li, b);
   }
+  LEAF_CLOCK(4);                            // tables copied into the stage
   __syncthreads();
+  LEAF_CLOCK(5);                            // block barrier
   for (int li = threadIdx.x; li < owned; li += blockDim.x) {
     u64 gs = 0, hs = 0;
     for (int b = 0; b < blocks; ++b) {
@@ -1048,6 +999,7 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
     values[own0 + li] = v;
     if (!every || rank == 0) leaf[own0 + li] = v;
   }
+  LEAF_CLOCK(6);                            // leaf values
   if (!every) {
     cluster.sync();
     for (int i = threadIdx.x; i < n_leaves; i += blockDim.x) {
@@ -1055,8 +1007,10 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
       if (owner != rank) values[i] = *cluster.map_shared_rank(values + i, owner);
     }
   }
-  if (!push) cluster_arrive_relaxed();      // no more reads of other blocks
+  LEAF_CLOCK(7);                            // second barrier, owners' values
+  cluster_arrive_relaxed();                 // no more reads of other blocks
   __syncthreads();
+  LEAF_CLOCK(8);                            // arrive, block barrier
 
   unsigned max_g = 0, max_h = 0;
   for (int r = r0; r < n; r += stride) {
@@ -1087,7 +1041,9 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
     __syncthreads();
     if (threadIdx.x < 2) atomicMax(next.bounds + threadIdx.x, s_max[threadIdx.x]);
   }
-  if (!push) cluster_wait();                // others may still read this block
+  LEAF_CLOCK(9);                            // update, next gradients, bounds
+  cluster_wait();                           // others may still read this block
+  LEAF_CLOCK(10);                           // wait to exit
 }
 
 // Raises a kernel's dynamic shared-memory limit to the most it is launched
@@ -1206,8 +1162,8 @@ extern "C" int bbbp_forest_best_splits(const void* hist, int n_nodes, int F,
 }
 
 // K5. The leaves of one tree and the margin update; with y, also the next
-// tree's (g, h) and bounds. One launch: `cluster` blocks of `threads` in one
-// thread block cluster (at most 16).
+// tree's (g, h) and bounds. One launch: `cluster` blocks of kLeafThreads in
+// one thread block cluster (at most 16).
 extern "C" int bbbp_forest_leaf_values(const void* pos, int n, const void* g,
                                        const void* h, int n_leaves, float lam,
                                        float scale, const void* bounds,
@@ -1215,9 +1171,8 @@ extern "C" int bbbp_forest_leaf_values(const void* pos, int n, const void* g,
                                        const void* u, const void* w_rows,
                                        float subsample, int cls, void* g_next,
                                        void* h_next, void* bounds_next,
-                                       int cluster, int threads, void* stream) {
-  if (n < 0 || n_leaves <= 0 || cluster < 1 || cluster > kLeafMaxCluster ||
-      threads < 32 || threads > kLeafThreads || threads % 32)
+                                       int cluster, void* stream) {
+  if (n < 0 || n_leaves <= 0 || cluster < 1 || cluster > kLeafMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool with_next = y != nullptr;
   const NextTree next{static_cast<const float*>(y), static_cast<const float*>(u),
@@ -1227,8 +1182,9 @@ extern "C" int bbbp_forest_leaf_values(const void* pos, int n, const void* g,
   const void* kernel = with_next
                            ? reinterpret_cast<const void*>(leaf_values_kernel<true>)
                            : reinterpret_cast<const void*>(leaf_values_kernel<false>);
-  const int per = n_leaves * cluster <= 2 * threads ? n_leaves
-                                                    : (n_leaves + cluster - 1) / cluster;
+  const int per = n_leaves * cluster <= 2 * kLeafThreads
+                      ? n_leaves
+                      : (n_leaves + cluster - 1) / cluster;
   const int smem = (n_leaves + cluster * per) * static_cast<int>(sizeof(ulonglong2)) +
                    n_leaves * static_cast<int>(sizeof(float));
   cudaError_t err = shared_limit(kernel, &leaf_smem_raised[with_next], smem);
@@ -1240,7 +1196,7 @@ extern "C" int bbbp_forest_leaf_values(const void* pos, int n, const void* g,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(threads);
+  cfg.blockDim = dim3(kLeafThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];

@@ -477,7 +477,7 @@ class NextTree(NamedTuple):
     task: str
 
 
-LEAF_THREADS = 1024
+LEAF_THREADS = 1024                     # kLeafThreads of csrc/forest_train.cu
 LEAF_MAX_CLUSTER = 16
 
 
@@ -491,8 +491,7 @@ def leaf_plan(n: int) -> int:
 def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                 n_leaves: int, lam: float, scale: float, preds: torch.Tensor,
                 bounds: Optional[torch.Tensor] = None,
-                next_tree: Optional[NextTree] = None, *,
-                cluster: Optional[int] = None):
+                next_tree: Optional[NextTree] = None):
     """K5. pos int32 [n] in [0, n_leaves), g, h f32 [n], preds f32 [n]
     (updated in place, as the reference's scan carry is replaced) →
     leaf f32 [n_leaves]. The kernel sums in 64-bit fixed point, as K3, with
@@ -500,8 +499,7 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
 
     With ``next_tree`` it returns (leaf, g, h, bounds) of the next boosted
     tree, ``next_gradients_reference`` of the updated margins, from the same
-    launch. ``cluster`` overrides ``leaf_plan(n)``, the blocks of the one
-    cluster the kernel runs in (1 to 16)."""
+    launch. The kernel runs in one cluster of ``leaf_plan(n)`` blocks."""
     if pos.dim() != 1:
         raise TypeError(f"pos must be 1-D, got {tuple(pos.shape)}")
     n = pos.shape[0]
@@ -516,9 +514,6 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         _check_rows(name, t, dtype, n, pos.device)
     if not 1 <= n_leaves <= 1 << MAX_DEPTH:
         raise ValueError(f"n_leaves must be in [1, {1 << MAX_DEPTH}], got {n_leaves}")
-    cluster = leaf_plan(n) if cluster is None else cluster
-    if not 1 <= cluster <= LEAF_MAX_CLUSTER:
-        raise ValueError(f"cluster must be in [1, {LEAF_MAX_CLUSTER}], got {cluster}")
     if not _kernel_device(pos, "forest_leaf_values"):
         leaf = leaf_values_reference(pos, g, h, n_leaves, lam, scale, preds)
         if next_tree is None:
@@ -542,7 +537,7 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                next_tree.w_rows.data_ptr(), float(next_tree.subsample),
                int(next_tree.task == "cls"))),
             *((None, None, None) if nxt is None else (t.data_ptr() for t in nxt)),
-            cluster, LEAF_THREADS, torch.cuda.current_stream().cuda_stream)
+            leaf_plan(n), torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_leaf_values")
     leaf_values.launches.add()
     return leaf if nxt is None else (leaf, *nxt)

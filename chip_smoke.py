@@ -40,8 +40,8 @@ before its last line):
    the next tree (reg and cls, subsample 1 and 0.8, weights 0 and 1) its
    g, h and bounds bit-equal to the torch ops; then each timed at the
    training path's shapes (n = 7,809 and 65,536, F = 30, every level of
-   depth 6; K5 alone, with the next tree's gradients and, at 7,809 rows, as
-   one block) and the transfer path's (n = 7,809, F = 326, levels 0, 5 and
+   depth 6; K5 alone and with the next tree's gradients) and the transfer
+   path's (n = 7,809, F = 326, levels 0, 5 and
    9; K4 also in oblivious mode; K5 with 1,024 leaves) beside its plain
    version, its bound and, for K3, ``index_add_`` (the one PyTorch call for
    the same function) and ``torch.bincount`` twice;
@@ -315,12 +315,11 @@ def hold_level(tr, label, xb, pos, g, h, n_bins, nodes, rng, held):
             raise AssertionError(f"best_splits {label}: a split at min_child 1e9")
 
 
-def time_leaf_values(tr, pos, g, h, n_leaves, bounds, head):
+def time_leaf_values(tr, pos, g, h, n_leaves, bounds):
     """K5's times on one tree's rows: the leaves alone (as the random forest
     and a fit's last tree call it) and with the next boosted tree's
     gradients (every other tree of a boosted fit), each beside its plain
-    version and its bound; with ``head`` also the one-block form (a cluster
-    of one block of 1,024 threads)."""
+    version and its bound."""
     import torch
 
     from bbbp_tpu_torch.timing import device_ms, leaf_values_bound
@@ -330,23 +329,17 @@ def time_leaf_values(tr, pos, g, h, n_leaves, bounds, head):
     y = (torch.rand(n, device=pos.device) < 0.4).float()
     nxt = tr.NextTree(y, torch.rand(n, device=pos.device), 0.8,
                       torch.ones(n, device=pos.device), "cls")
-    t = {"k5": device_ms(lambda: tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1,
-                                                margins, bounds)),
-         "k5_plain": device_ms(lambda: tr.leaf_values_reference(
-             pos, g, h, n_leaves, 1.0, 0.1, margins)),
-         "k5_bound": leaf_values_bound(n, n_leaves),
-         "k5_next": device_ms(lambda: tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1,
-                                                     margins, bounds, nxt)),
-         "k5_next_plain": device_ms(lambda: (
-             tr.leaf_values_reference(pos, g, h, n_leaves, 1.0, 0.1, margins),
-             tr.next_gradients_reference(margins, *nxt))),
-         "k5_next_bound": leaf_values_bound(n, n_leaves, next_tree=True)}
-    if head:
-        t["k5_one_block"] = device_ms(lambda: tr.leaf_values(
-            pos, g, h, n_leaves, 1.0, 0.1, margins, bounds, cluster=1))
-        t["k5_next_one_block"] = device_ms(lambda: tr.leaf_values(
-            pos, g, h, n_leaves, 1.0, 0.1, margins, bounds, nxt, cluster=1))
-    return t
+    return {"k5": device_ms(lambda: tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1,
+                                                   margins, bounds)),
+            "k5_plain": device_ms(lambda: tr.leaf_values_reference(
+                pos, g, h, n_leaves, 1.0, 0.1, margins)),
+            "k5_bound": leaf_values_bound(n, n_leaves),
+            "k5_next": device_ms(lambda: tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1,
+                                                        margins, bounds, nxt)),
+            "k5_next_plain": device_ms(lambda: (
+                tr.leaf_values_reference(pos, g, h, n_leaves, 1.0, 0.1, margins),
+                tr.next_gradients_reference(margins, *nxt))),
+            "k5_next_bound": leaf_values_bound(n, n_leaves, next_tree=True)}
 
 
 def similarity_phase(cuda, card, aux_raw, reg_raw):
@@ -1134,12 +1127,12 @@ def main() -> int:
         leaf_pos = torch.randint(0, 1 << TRAIN_DEPTH, (n,), dtype=torch.int32,
                                  device=cuda)
         timed[n, "k5"] = time_leaf_values(tr, leaf_pos, g, h, 1 << TRAIN_DEPTH,
-                                          bounds, head=n == TRAIN_ROWS[0])
+                                          bounds)
     n = TRAIN_ROWS[0]                          # rf: 1,024 leaves
     _, _, g, h = level_case(n, 1, 0, 10, cuda)
     leaf_pos = torch.randint(0, 1024, (n,), dtype=torch.int32, device=cuda)
     timed[n, "k5_1024"] = time_leaf_values(tr, leaf_pos, g, h, 1024,
-                                           tr.gradient_bounds(g, h), head=True)
+                                           tr.gradient_bounds(g, h))
 
     def levels(n, key, field=None, n_feat=TRAIN_F):
         return [timed[n, n_feat, lv][key][field] if field
@@ -1147,13 +1140,10 @@ def main() -> int:
                 for lv in (range(TRAIN_DEPTH) if n_feat == TRAIN_F else WIDE_LEVELS)]
 
     def leaf_line(t):
-        one = (f"; one block {t['k5_one_block']:.4f}, with the next tree "
-               f"{t['k5_next_one_block']:.4f}" if "k5_one_block" in t else "")
         return (f"{t['k5']:.4f}, plain {t['k5_plain']:.4f}, bound "
                 f"{t['k5_bound']['bound_ms']:.6f}; with the next tree's gradients "
                 f"{t['k5_next']:.4f}, plain {t['k5_next_plain']:.4f}, bound "
-                f"{t['k5_next_bound']['bound_ms']:.6f}{one} (the three-operation "
-                f"form: 0.0083, 1,024 leaves 0.0085)")
+                f"{t['k5_next_bound']['bound_ms']:.6f}")
 
     for n in TRAIN_ROWS:
         print(f"[5 trainer kernels] n={n}, F={TRAIN_F}, levels 0-5 (ms): "
@@ -1301,8 +1291,7 @@ def main() -> int:
           f"subsample 0.8): {train_s:.3f} s wall | launches {train_launches} | "
           f"a second fit grew the same trees (scaler and PCA identical: "
           f"{same_projection}) | host launch calls of its forest fit "
-          f"{fit_calls} (39,028 with the gradients as torch ops and K5 as three "
-          f"operations, torch_train_profile.py) | training "
+          f"{fit_calls} | training "
           f"accuracy {train_acc:.4f}, majority "
           f"share {majority:.4f} | GBDTClassifier(subsample=1) on z: cuda "
           f"{cuda_fit_s:.3f} s, cpu {cpu_fit_s:.3f} s wall; against the cpu "
@@ -1410,9 +1399,6 @@ def main() -> int:
                 entry["ms_with_next_tree" + suffix] = tt["k5_next"]
                 entry["plain_ms_with_next_tree" + suffix] = tt["k5_next_plain"]
                 entry["bound_ms_with_next_tree" + suffix] = tt["k5_next_bound"]["bound_ms"]
-                entry["ms_one_block" + suffix] = tt["k5_one_block"]
-                entry["ms_one_block_with_next_tree" + suffix] = tt["k5_next_one_block"]
-            entry["earlier_ms"] = {"64_leaves": 0.0083, "1024_leaves": 0.0085}
             entry["fit_host_launch_calls"] = fit_calls
             entry["gradient_cases_bit_equal"] = k5_grad_cases
         else:

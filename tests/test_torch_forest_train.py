@@ -794,7 +794,8 @@ def test_fixed_point_leaf_values_within_stated_error(seed, n, n_leaves):
 
 def test_leaf_plan_and_next_tree_checks():
     """A row a thread up to 16,384 rows, at most 16 blocks; the wrapper
-    refuses a wrong task, wrong next-tree rows and a cluster above 16."""
+    refuses a wrong task, wrong next-tree rows and a leaf count outside
+    [1, 2^MAX_DEPTH]."""
     assert [tr.leaf_plan(n) for n in (0, 1, 1024, 1025, 7809, 16384, 65536)] == \
         [1, 1, 1, 2, 8, 16, 16]
     xb, pos, g, h = _tensors()
@@ -809,8 +810,9 @@ def test_leaf_plan_and_next_tree_checks():
     with pytest.raises(TypeError):
         tr.leaf_values(pos, g, h, 4, 1.0, 0.1, preds, None,
                        tr.NextTree(y, u[:-1], 0.8, w, "reg"))
-    with pytest.raises(ValueError, match="cluster"):
-        tr.leaf_values(pos, g, h, 4, 1.0, 0.1, preds, cluster=17)
+    for n_leaves in (0, (1 << tr.MAX_DEPTH) + 1):
+        with pytest.raises(ValueError, match="n_leaves"):
+            tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1, preds)
 
 
 # -- the kernels on the card ---------------------------------------------------

@@ -4,15 +4,15 @@ on one CUDA card.
 
     python3 torch_leaf_profile.py [--out FILE]
 
-Builds a copy of ``bbbp_tpu_torch/csrc/forest_train.cu`` in which thread 0
-of every block of K5's cluster reads ``clock64()`` at each of the kernel's
-phase boundaries (into ``bbbp_tpu_torch/_build/``), and runs it at the
-trainer's 7,809 rows (64, 256 and 1,024 leaves, with and without the next
-tree's gradients, 8 blocks) and at 65,536 rows (16 blocks). Prints, for each case,
-the device ms of a call (CUDA-graph timing, the stamps included), the
-cycles of each phase in block 0 and the largest over the blocks, and the
-device ms of an empty launch of a cluster of the same shape. Writes the
-same JSON to ``--out``.
+Builds ``bbbp_tpu_torch/csrc/forest_train.cu`` with ``BBBP_LEAF_CLOCKS`` defined
+(into ``bbbp_tpu_torch/_build/``), so that thread 0 of every block of K5's
+cluster reads ``clock64()`` at the end of each of the kernel's steps, and
+runs it at the trainer's 7,809 rows (64, 256 and 1,024 leaves, with and
+without the next tree's gradients, 8 blocks) and at 65,536 rows (16
+blocks). Prints, for each case, the device ms of a call (CUDA-graph timing,
+the stamps included), the cycles of each phase in block 0 and the largest
+over the blocks, and the device ms of an empty launch of a cluster of the
+same shape. Writes the same JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -24,63 +24,27 @@ import os
 import subprocess
 import sys
 
-# (anchor in leaf_values_kernel, where the stamp goes, the phase it ends);
-# the stamps of the form a call does not take stay 0 and are left out
-STAMPS = (
-    ("  const int r0 = rank * blockDim.x + threadIdx.x;\n", "after", None),
-    ("  const double sg = s_scale[0], sh = s_scale[1];\n", "before",
-     "start: loads issued, table zeroed, scales"),
-    ("  const int own0 = every ? 0 : rank * per;\n", "before",
-     "own rows into the block's table"),
-    ("    const unsigned bar = smem_u32(&s_bar);\n", "before",
-     "block barrier, the cluster's mbarriers ready"),
-    ("    for (unsigned spins = 0;", "before", "pushes issued"),
-    ("  } else {\n    cluster.sync();\n", "before", "incoming tables counted"),
-    ("    for (int t = threadIdx.x; t < blocks * per; t += blockDim.x) {\n", "before",
-     "cluster barrier"),
-    ("  __syncthreads();\n  for (int li = threadIdx.x; li < owned;", "before",
-     "tables copied into the stage"),
-    ("  for (int li = threadIdx.x; li < owned;", "before", "block barrier"),
-    ("  if (!every) {\n    cluster.sync();", "before", "leaf values"),
-    ("  if (!push) cluster_arrive_relaxed();", "before",
-     "second cluster barrier and the owners' values"),
-    ("  unsigned max_g = 0, max_h = 0;\n", "before", "block barrier"),
-    ("  if (!push) cluster_wait();", "before", "update, next gradients, bounds"),
-)
+# the steps LEAF_CLOCK(1..10) of leaf_values_kernel end, in order
+PHASES = ("start: loads issued, table zeroed, scales",
+          "own rows into the block's table", "cluster barrier",
+          "tables copied into the stage", "block barrier", "leaf values",
+          "second cluster barrier and the owners' values (many leaves)",
+          "arrive, block barrier", "update, next gradients, bounds",
+          "wait to exit")
 CASES = ((7809, 64, False, 8), (7809, 64, True, 8), (7809, 256, True, 8),
          (7809, 1024, False, 8), (7809, 1024, True, 8), (65536, 64, True, 16))
 
-
-def stamp(k: int) -> str:
-    if k == 0:                  # the first also clears the block's other stamps
-        return ("  if (threadIdx.x == 0) {\n    for (int k = 1; k < 16; ++k) "
-                "g_leaf_clock[rank][k] = 0;\n    g_leaf_clock[rank][0] = clock64();\n  }\n")
-    return f"  if (threadIdx.x == 0) g_leaf_clock[rank][{k}] = clock64();\n"
-
-
-def instrumented_source(src: str) -> str:
-    """forest_train.cu with the stamps in K5 and two C entry points more:
-    ``leaf_clocks`` (copies the stamps out) and ``empty_cluster``."""
-    head = src.index("leaf_values_kernel(const int* __restrict__ pos")
-    end = src.index("\n}\n", head)
-    body = src[head:end]
-    for k, (anchor, where, _) in enumerate(STAMPS):
-        if anchor not in body:
-            raise RuntimeError(f"K5 changed: no anchor {anchor!r}")
-        body = body.replace(anchor, anchor + stamp(k) if where == "after"
-                            else stamp(k) + anchor, 1)
-    body += "\n" + stamp(len(STAMPS))
-    src = src[:head] + body + src[end:]
-    src = src.replace("namespace {\n",
-                      "__device__ long long g_leaf_clock[16][16];\nnamespace {\n", 1)
-    return src + r'''
-extern "C" int leaf_clocks(void* host) {
+# forest_train.cu with its clocks, and two C entry points more: leaf_clocks
+# (copies the stamps out) and empty_cluster
+WRAPPER = r'''#define BBBP_LEAF_CLOCKS
+#include "{source}"
+extern "C" int leaf_clocks(void* host) {{
   return static_cast<int>(cudaMemcpyFromSymbol(host, g_leaf_clock,
                                                sizeof(g_leaf_clock)));
-}
-__global__ void empty_kernel(int* p) { if (p != nullptr) p[threadIdx.x] = 0; }
-extern "C" int empty_cluster(int cluster, int threads, void* stream) {
-  cudaLaunchConfig_t cfg = {};
+}}
+__global__ void empty_kernel(int* p) {{ if (p != nullptr) p[threadIdx.x] = 0; }}
+extern "C" int empty_cluster(int cluster, int threads, void* stream) {{
+  cudaLaunchConfig_t cfg = {{}};
   cfg.gridDim = dim3(cluster);
   cfg.blockDim = dim3(threads);
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -94,19 +58,19 @@ extern "C" int empty_cluster(int cluster, int threads, void* stream) {
   if (cluster > 8)
     cudaFuncSetAttribute(empty_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return static_cast<int>(cudaLaunchKernelEx(&cfg, empty_kernel, (int*)nullptr));
-}
+}}
 '''
 
 
 def build():
     from bbbp_tpu_torch import _build
 
-    src = open(os.path.join(_build.CSRC_DIR, "forest_train.cu")).read()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     cu = os.path.join(_build.BUILD_DIR, "leaf_profile.cu")
     so = os.path.join(_build.BUILD_DIR, "leaf_profile.so")
     with open(cu, "w") as f:
-        f.write(instrumented_source(src))
+        f.write(WRAPPER.format(source=os.path.abspath(
+            os.path.join(_build.CSRC_DIR, "forest_train.cu"))))
     subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS + [cu, "-o", so], check=True)
     lib = ctypes.CDLL(so)
     lib.bbbp_forest_leaf_values.restype = ctypes.c_int
@@ -155,7 +119,7 @@ def profile():
                 pos.data_ptr(), n, g.data_ptr(), h.data_ptr(), n_leaves, 1.0, 0.1,
                 bounds.data_ptr(), leaf.data_ptr(), preds.data_ptr(), *nxt,
                 *((t.data_ptr() for t in outs) if with_next else (None, None, None)),
-                cluster, tr.LEAF_THREADS, stream())
+                cluster, stream())
             if rc:
                 raise RuntimeError(f"forest_leaf_values: cudaError {rc}")
 
@@ -164,16 +128,9 @@ def profile():
         torch.cuda.synchronize()
         clocks = (ctypes.c_longlong * 256)()
         lib.leaf_clocks(clocks)
-        names = [name for _, _, name in STAMPS[1:]] + ["wait to exit"]
         phases = []
-        for k, name in enumerate(names, start=1):
-            if clocks[k] == 0:                  # a step of the other form
-                continue
-            spans = []
-            for b in range(cluster):
-                row = clocks[b * 16:b * 16 + 16]
-                prev = max(j for j in range(k) if row[j] != 0)
-                spans.append(row[k] - row[prev])
+        for k, name in enumerate(PHASES, start=1):
+            spans = [clocks[b * 16 + k] - clocks[b * 16 + k - 1] for b in range(cluster)]
             phases.append({"phase": name, "block0": spans[0], "max": max(spans)})
         results.append({
             "n": n, "leaves": n_leaves, "next_tree": with_next, "blocks": cluster,
