@@ -104,8 +104,10 @@ device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import csv
+import ctypes
 import json
 import os
+import signal
 import sys
 import tempfile
 import time
@@ -791,7 +793,82 @@ def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
     return launched, leg_launches
 
 
+def own_children() -> list:
+    """PIDs of this process's children, zombies included, from ``/proc``."""
+    me, pids = str(os.getpid()), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # "pid (comm) state ppid ...": comm may hold spaces and parentheses
+        if stat[stat.rindex(")") + 2:].split()[1] == me:
+            pids.append(int(entry))
+    return pids
+
+
+def command_line(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+    except OSError:
+        return "?"
+
+
+def stop_children() -> None:
+    """Stop and reap every process this run started that is still alive.
+
+    The featurizer's spawned pool leaves multiprocessing's resource tracker
+    running until the interpreter exits, so it is stopped first, the way
+    the interpreter would. Any other child is sent SIGTERM, then SIGKILL
+    after 5 s. ``main`` makes this process the subreaper of its
+    descendants, so a grandchild whose parent has exited is found here
+    too. What was stopped goes to stderr."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    if tracker._pid is not None:
+        print(f"chip_smoke: stopping multiprocessing's resource tracker "
+              f"(pid {tracker._pid})", file=sys.stderr, flush=True)
+        tracker._stop()
+    for sig, grace in ((signal.SIGTERM, 5.0), (signal.SIGKILL, 30.0)):
+        pids = own_children()
+        if not pids:
+            return
+        print(f"chip_smoke: sending {sig.name} to "
+              f"{[(pid, command_line(pid)) for pid in pids]}",
+              file=sys.stderr, flush=True)
+        for pid in pids:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.time() + grace
+        while pids and time.time() < deadline:
+            for pid in list(pids):
+                try:
+                    done, _ = os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    done = pid
+                if done:
+                    pids.remove(pid)
+            time.sleep(0.05)
+
+
 def main() -> int:
+    # PR_SET_CHILD_SUBREAPER: orphaned descendants become this process's
+    # children, so that stop_children() finds them
+    ctypes.CDLL(None).prctl(36, 1, 0, 0, 0)
+    try:
+        return run()
+    finally:
+        stop_children()
+
+
+def run() -> int:
     import torch
 
     if not torch.cuda.is_available():

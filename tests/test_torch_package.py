@@ -77,3 +77,27 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
         proc = _py("chip_smoke.py", cwd=cwd, CUDA_VISIBLE_DEVICES="")
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+_LEAVE_CHILDREN = """
+import ctypes, subprocess, sys, time
+from multiprocessing import resource_tracker
+import chip_smoke
+ctypes.CDLL(None).prctl(36, 1, 0, 0, 0)      # as chip_smoke.main() does
+resource_tracker.ensure_running()            # as the featurizer's pool leaves it
+subprocess.run(["sh", "-c", "sleep 60 & exit 0"])   # an orphaned grandchild
+subprocess.Popen(["sleep", "60"])
+time.sleep(0.2)
+before = len(chip_smoke.own_children())
+chip_smoke.stop_children()
+print(before, len(chip_smoke.own_children()))
+"""
+
+
+@pytest.mark.skipif(not sys.platform.startswith("linux"), reason="reads /proc")
+def test_chip_smoke_stops_every_process_it_started():
+    """The smoke run reaps the resource tracker, its children and orphaned
+    grandchildren before it exits."""
+    proc = _py("-c", _LEAVE_CHILDREN)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["3", "0"]
