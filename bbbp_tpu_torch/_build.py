@@ -196,14 +196,14 @@ def kernels_lib() -> ctypes.CDLL:
     lib.bbbp_tanimoto_topk.restype = _I
     lib.bbbp_tanimoto_topk.argtypes = [
         _P, _I, _P, _I, _I,    # q [nq, words], r [nr, words] packed bits
-        _I, _P, _P,            # k, scratch row sums sq [nq], sr [nr] f32
+        _I, _I, _I,            # k, split, rows (topk_plan)
         _P, _P, _P,            # sim [nq, k] f32, idx [nq, k] int64, stream
     ]
     lib.bbbp_tanimoto_gram.restype = _I
     lib.bbbp_tanimoto_gram.argtypes = [
         _P, _I, _P, _I, _I,    # q [nq, words], r [nr, words] uint32
-        _P, _P, _P,            # w f32 or null, scratch sq [nq], sr [nr]
-        _P, _P,                # out [nq, nr] f32, stream
+        _P, _P, _P,            # w f32 or null, scratch sq [nq], sr [nr] (weighted)
+        _P, _I, _P,            # out [nq, nr] f32, split (tanimoto_split), stream
     ]
     lib.bbbp_minmax_gram.restype = _I
     lib.bbbp_minmax_gram.argtypes = [

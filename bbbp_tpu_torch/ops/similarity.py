@@ -35,10 +35,14 @@ from bbbp_tpu_torch.ops.bitops import (PACKED_DTYPES, pack_bits_tensor,
                                        unpack_bits_reference)
 from bbbp_tpu_torch.ops.forest_train import resolve_device
 
-MAX_TOPK_K = 1024         # the top-k kernel's candidate buffer
-MAX_WORDS = 2048          # the top-k kernel keeps a query in shared memory
+MAX_TOPK_K = 1024         # the top-k kernel's lists: 32 rows of 32 keys
+MAX_WORDS = 2048          # the top-k kernel's widest row
 MAX_LEVELS = 255          # counts travel as bytes
 MAX_GRAM_ROWS = 65535 * 32
+TILE_R = 128              # K6 and K7: reference rows of a tile
+SLAB_WORDS = 16           # K6 and K7: words of a row a stage
+TOPK_Q = 8                # K6: queries a block, one a warp
+TOPK_BLOCKS = 512         # K6: blocks a launch, about four an SM
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +196,45 @@ def _check_pair(name: str, q: torch.Tensor, r: torch.Tensor,
     return True
 
 
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def topk_plan(nq: int, nr: int, k: int) -> Tuple[int, int]:
+    """K6's launch plan (split, rows): a warp keeps a query's 32·``rows``
+    best keys in its registers, the power of two that holds k; a cluster of
+    ``split`` blocks shares the references, 8 halved while a block would get
+    no whole chunk of ``TILE_R`` or the launch would pass ``TOPK_BLOCKS``
+    blocks. Measured on the H100 at the transfer shape (133 blocks of
+    queries) 2 was the fastest of 1, 2, 4 and 8, at the folds' (14) 8. The
+    words of a row do not enter: they only lengthen the tile loop."""
+    rows = _pow2_at_least(-(-k // 32))
+    chunks = -(-nr // TILE_R)
+    tiles = -(-nq // TOPK_Q)
+    split = 8
+    while split > 1 and (chunks < split or tiles * split > TOPK_BLOCKS):
+        split //= 2
+    return split, rows
+
+
+def tanimoto_split(words: int) -> int:
+    """Blocks of K7's cluster that share a tile's slabs of ``SLAB_WORDS``
+    words: 8, halved until each block gets two slabs or more (1 at MACCS's
+    6 words, 2 at Morgan's 64, 8 from 256)."""
+    slabs = -(-words // SLAB_WORDS)
+    split = 8
+    while split > 1 and slabs < 2 * split:
+        split //= 2
+    return split
+
+
 def tanimoto_topk_packed(qw: torch.Tensor, rw: torch.Tensor, k: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6. qw [Nq, W], rw [Nr, W] packed bits (pad bits zero) → (sim [Nq, k]
     f32, idx [Nq, k] int64): the k largest Tanimoto similarities a query in
     descending order, the lower index first among equal ones. 1 ≤ k ≤ Nr.
     The kernel takes k ≤ 1,024 and W ≤ 2,048 and raises beyond; Nr is not
-    bounded."""
+    bounded. One launch, planned by ``topk_plan``."""
     on_cuda = _check_pair("tanimoto_topk", qw, rw, None, 32)
     nq, words = qw.shape
     nr = rw.shape[0]
@@ -214,33 +250,33 @@ def tanimoto_topk_packed(qw: torch.Tensor, rw: torch.Tensor, k: int
     idx = torch.empty((nq, k), dtype=torch.int64, device=dev)
     if nq == 0:
         return sim, idx
-    sq = torch.empty(nq, dtype=torch.float32, device=dev)
-    sr = torch.empty(nr, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = kernels_lib().bbbp_tanimoto_topk(
-            qw.data_ptr(), nq, rw.data_ptr(), nr, words, k, sq.data_ptr(),
-            sr.data_ptr(), sim.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            qw.data_ptr(), nq, rw.data_ptr(), nr, words, k, *topk_plan(nq, nr, k),
+            sim.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "tanimoto_topk")
     tanimoto_topk_packed.launches.add()
     return sim, idx
 
 
 def _gram(name: str, entry: str, q: torch.Tensor, r: torch.Tensor,
-          w: Optional[torch.Tensor], *extra: int) -> torch.Tensor:
+          w: Optional[torch.Tensor], split: int, row_sums: bool) -> torch.Tensor:
+    """One call of a gram kernel; ``row_sums``: it takes scratch for them."""
     nq, words = q.shape
     nr = r.shape[0]
     dev = q.device
     out = torch.empty((nq, nr), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    sq = torch.empty(nq, dtype=torch.float32, device=dev)
-    sr = torch.empty(nr, dtype=torch.float32, device=dev)
+    sq = torch.empty(nq, dtype=torch.float32, device=dev) if row_sums else None
+    sr = torch.empty(nr, dtype=torch.float32, device=dev) if row_sums else None
     with torch.cuda.device(dev):
         rc = getattr(kernels_lib(), entry)(
             q.data_ptr(), nq, r.data_ptr(), nr, words,
-            None if w is None else w.data_ptr(), sq.data_ptr(), sr.data_ptr(),
-            out.data_ptr(), *extra, torch.cuda.current_stream().cuda_stream)
+            None if w is None else w.data_ptr(),
+            None if sq is None else sq.data_ptr(),
+            None if sr is None else sr.data_ptr(),
+            out.data_ptr(), split, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, name)
     return out
 
@@ -264,11 +300,14 @@ def tanimoto_gram(qw: torch.Tensor, rw: torch.Tensor,
                   w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7. qw [Nq, W], rw [Nr, W] packed bits → [Nq, Nr] f32 Tanimoto
     similarities; ``w`` f32 [32·W] weighs each bit (zero on pad bits).
-    Exact without weights; with them the kernel adds in ascending bit order
-    and agrees with the plain version's matmul within 1e-5."""
+    Exact without weights (one launch, a cluster of ``tanimoto_split``
+    blocks); with them the kernel adds in ascending bit order after two row
+    sum launches, and agrees with the plain version's matmul within 1e-5."""
     if not _check_pair("tanimoto_gram", qw, rw, w, 32):
         return tanimoto_gram_reference(qw, rw, w)
-    out = _gram("tanimoto_gram", "bbbp_tanimoto_gram", qw, rw, w)
+    weighted = w is not None
+    out = _gram("tanimoto_gram", "bbbp_tanimoto_gram", qw, rw, w,
+                1 if weighted else tanimoto_split(qw.shape[1]), weighted)
     if out.numel():
         tanimoto_gram.launches.add()
     return out
@@ -284,7 +323,7 @@ def minmax_gram(qc: torch.Tensor, rc: torch.Tensor,
     if not _check_pair("minmax_gram", qc, rc, w, 4):
         return minmax_gram_reference(qc, rc, w)
     out = _gram("minmax_gram", "bbbp_minmax_gram", qc, rc, w,
-                minmax_split(qc.shape[1], w is not None))
+                minmax_split(qc.shape[1], w is not None), True)
     if out.numel():
         minmax_gram.launches.add()
     return out
@@ -302,13 +341,21 @@ minmax_gram.launches = LaunchCounter()
 Device = Union[str, torch.device]
 
 
+ROW_BITS = 128             # packed rows are padded to 16 bytes
+
+
 def packed_bits(x, device: Device) -> torch.Tensor:
     """Fingerprints (array or tensor; anything > 0 is a set bit) → packed
-    words on ``device``. The bits cross to the device as bytes and are
-    packed there."""
+    words on ``device``, rows padded with zero bits to a multiple of
+    ``ROW_BITS`` (MACCS's 167 bits to 8 words), so that K6 and K7 stage them
+    in 16-byte copies. The bits cross to the device as bytes and are packed
+    there."""
     bits = x > 0 if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.asarray(x) > 0)
-    return pack_bits_tensor(bits.to(device))
+    bits = bits.to(device)
+    if bits.dim() == 2 and bits.shape[1] % ROW_BITS:
+        bits = torch.nn.functional.pad(bits, (0, -bits.shape[1] % ROW_BITS))
+    return pack_bits_tensor(bits)
 
 
 def tanimoto_topk(q, r, k: int, device: Device = "cuda"

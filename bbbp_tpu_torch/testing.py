@@ -10,7 +10,8 @@ their real shapes and to compare two forests.
   implementations that sum in different orders;
 - ``tanimoto_tie_case`` and ``count_case``: fingerprints with many equal
   rows (ties at the k-th place of a top-k search) and zero rows, and count
-  vectors above the clip;
+  vectors above the clip; ``tanimoto_equal_f32_case``: 65,536-bit rows whose
+  distinct Tanimoto fractions round to one f32 at the k-th place;
 - ``regression_molecules``: molecules and a target at B3DB regression's
   size, made from a seed;
 - ``regression_legs``: the regression stack's three chemistry-kernel legs,
@@ -317,6 +318,60 @@ def tanimoto_tie_case(seed: int, nq: int, nr: int, d: int
     if nq > 4:
         q[[0, nq - 1]] = 0.0
     return q, r
+
+
+EQUAL_F32_BITS = 2048 * 32        # the widest row the top-k kernel takes
+EQUAL_F32_K = 25
+
+
+def equal_f32_fractions(group: int, seed: int = 0
+                        ) -> List[Tuple[int, int]]:
+    """``group`` distinct fractions inter/union (unions 50,000-55,999, near
+    0.6) that one f32 division rounds to one value, in ascending exact
+    order. Found with numpy: every (inter, union) with inter within 3 of
+    0.6·union, grouped by ``np.float32(inter) / np.float32(union)`` (an f32
+    division, rounded to nearest as the kernel's); the ``seed``-th group
+    of at least ``group`` distinct reduced fractions."""
+    bins: dict = {}
+    for u in range(50000, 56000):
+        centre = round(0.6 * u)
+        for i in range(centre - 3, centre + 4):
+            g = int(np.gcd(i, u))
+            bins.setdefault(float(np.float32(i) / np.float32(u)), {})[
+                (i // g, u // g)] = (i, u)
+    full = [v for _, v in sorted(bins.items()) if len(v) >= group]
+    fracs = list(full[seed % len(full)].values())[:group]
+    return sorted(fracs, key=lambda f: f[0] / f[1])
+
+
+def tanimoto_equal_f32_case(seed: int = 0, nr: int = 300, group: int = 10
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """uint8 0/1 (queries [3, 65,536], references [nr, 65,536]) at the top-k
+    kernel's widest rows. Queries 0 and 1 hold 40,000 bits; for them 20
+    references lie above 0.7, a group of ``group`` references have distinct
+    fractions that round to one f32 (``equal_f32_fractions``), and the rest
+    lie near 0.3. The group sits at the k-th place for k = 25 and its exact
+    fractions rise with the index, so an order by exact fraction would keep
+    other indices than the order of the f32 key (similarity, then the lower
+    index). Query 2 is random. Columns are permuted from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n_bits, p = EQUAL_F32_BITS, 40000
+    pairs = [(36000 + t, 50000) for t in range(20)]
+    fracs = equal_f32_fractions(group, seed)
+    rest = nr - 20 - group
+    pairs += [(15000 + t, 50000) for t in range(rest)]
+    slots = np.sort(rng.choice(np.arange(20, nr), group, replace=False))
+    others = np.setdiff1d(np.arange(20, nr), slots)
+    r = np.zeros((nr, n_bits), np.uint8)
+    for j, (i, u) in zip(np.concatenate([rng.permutation(20), slots, others]),
+                         pairs[:20] + fracs + pairs[20:]):
+        r[j, :i] = 1                      # i bits shared with queries 0 and 1
+        r[j, p:u] = 1                     # so that the union is u
+    q = np.zeros((3, n_bits), np.uint8)
+    q[:2, :p] = 1
+    q[2] = rng.random(n_bits) < 0.3
+    cols = rng.permutation(n_bits)
+    return q[:, cols], r[:, cols]
 
 
 def count_case(seed: int, n: int, d: int, high: int = 6) -> np.ndarray:

@@ -14,6 +14,14 @@ from typing import Callable, Dict
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# Issue rates measured by torch_rate_profile.py on an NVIDIA H100 80GB HBM3
+# at 700.00 W (one block of 1,024 threads an SM, clock64 cycles and CUDA
+# events): POPC 15.87 a clock an SM, LOP3 61.83, and the b1 tensor-core
+# product mma.m16n8k256.b1.and.popc (BMMA.168256.AND.POPC in the SASS) 0.666
+# a clock an SM, i.e. 21,837 bit pairs ANDed and counted.
+POPC_PER_S = 4.173e12
+INT32_OPS_PER_S = 1.628e13
+BMMA_BIT_PAIRS_PER_S = 5.229e15
 
 
 def nvidia_smi() -> str:
@@ -50,12 +58,21 @@ def device_ms(fn: Callable[[], object], calls: int = 10,
     return start.elapsed_time(end) / (calls * replays)
 
 
-def _bound(n_bytes: float, ops: float) -> Dict[str, object]:
+def _bound(n_bytes: float, ops: float, ops_ms: float = None) -> Dict[str, object]:
+    """``ops_ms``: the operations' least time where they are not all f32
+    operations (default: ``ops`` at the f32 rate)."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_OPS_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3 if ops_ms is None else ops_ms
     return {"bytes": int(n_bytes), "ops": int(ops),
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _intersections_ms(word_pairs: float) -> float:
+    """Least time of ``word_pairs`` 32-bit ANDs and popcounts: on the faster
+    of POPC (one a word pair) and the b1 tensor-core product (32 bit pairs a
+    word pair), at their measured rates."""
+    return min(word_pairs / POPC_PER_S, 32 * word_pairs / BMMA_BIT_PAIRS_PER_S) * 1e3
 
 
 def forest_bound(n: int, n_feat: int, n_trees: int, depth: int) -> Dict[str, object]:
@@ -127,34 +144,71 @@ def leaf_values_bound(n: int, n_leaves: int,
 
 def topk_bound(nq: int, nr: int, words: int, k: int) -> Dict[str, object]:
     """The packed queries and references read once, (sim f32, idx int64)
-    [nq, k] written once; per pair three integer operations a word (AND,
-    popcount, add) and five for the epilogue (add, subtract, max, division,
-    one compare of the selection). The table of peaks has no integer rate;
-    the f32 rate stands in for it."""
+    [nq, k] written once. The intersections and the row popcounts, (nq·nr +
+    nq + nr)·words word pairs, on the faster unit (``_intersections_ms``:
+    the b1 product, 43x POPC); five f32-rate operations a pair for the
+    epilogue and the selection (add, subtract, max, the threshold's
+    multiply-add and compare), at the same time on the ALUs: the bound is
+    the busier of the two."""
+    pairs = nq * nr
+    alu_ms = 5 * pairs / F32_OPS_PER_S * 1e3
+    inter_ms = _intersections_ms((pairs + nq + nr) * words)
     return _bound((nq + nr) * words * 4 + nq * k * 12,
-                  nq * nr * (3 * words + 5))
+                  (pairs + nq + nr) * words + 5 * pairs, max(alu_ms, inter_ms))
 
 
 def gram_bound(nq: int, nr: int, words: int, values_per_word: int = 32,
                weighted_terms: int = 0) -> Dict[str, object]:
     """Both packed operands (and the weights, where given) read once, the f32
-    [nq, nr] result written once. Per pair and word: AND, popcount and add
-    for 32 bits (three integer operations), or a byte-wise minimum and a dot
-    product with ones for four counts (two); four more a pair for the
-    epilogue. ``weighted_terms`` is what a weighted call's data needs
-    besides: the number of (pair, set bit of a AND b) terms for bits, or of
-    (pair, count) products for counts, one multiply-add (two operations)
-    each.
+    [nq, nr] result written once; four f32-rate operations a pair for the
+    epilogue.
 
-    The count of a byte-wise minimum as one operation is kept, though on
-    sm_90a ``__vminu4`` is not one instruction: ``cuobjdump -sass`` shows it
-    as about six (three or four LOP3, SHF, PRMT, IMAD.IADD) before the
-    IDP.4A, while ``__vsadu4`` is one instruction (VABSDIFF4.U8.ACC, Σ|a − b|
-    over four bytes with an accumulator), which K8 uses instead."""
-    per_word = 3 if values_per_word == 32 else 2
+    Bits without weights: the intersections and row popcounts, (nq·nr + nq
+    + nr)·words word pairs, on the faster unit (``_intersections_ms``), the
+    epilogue on the ALUs at the same time. Bits with weights
+    (``weighted_terms``: the (pair, set bit of a AND b) terms, one f32
+    multiply-add, two operations, each): the b1 product cannot weigh, so an
+    AND a word pair at the integer rate beside the terms and the epilogue
+    at the f32 rate.
+
+    Counts (K8: four a word; ``weighted_terms`` the (pair, count)
+    products): a byte-wise minimum and a dot product with ones a word pair
+    (two operations) at the f32 rate. The minimum is counted
+    as one operation, though on sm_90a ``__vminu4`` is about six
+    instructions (LOP3, SHF, PRMT, IMAD.IADD before the IDP.4A, by
+    ``cuobjdump -sass``), while ``__vsadu4`` (VABSDIFF4.U8.ACC) is one,
+    which K8 uses instead."""
+    pairs = nq * nr
     w_bytes = words * values_per_word * 4 if weighted_terms else 0
+    n_bytes = (nq + nr) * words * 4 + w_bytes + pairs * 4
+    if values_per_word != 32:
+        return _bound(n_bytes, pairs * (2 * words + 4) + 2 * weighted_terms)
+    alu_ms = (4 * pairs + 2 * weighted_terms) / F32_OPS_PER_S * 1e3
+    if weighted_terms:
+        and_ms = pairs * words / INT32_OPS_PER_S * 1e3
+        return _bound(n_bytes, pairs * (words + 4) + 2 * weighted_terms,
+                      max(alu_ms, and_ms))
+    inter_ms = _intersections_ms((pairs + nq + nr) * words)
+    return _bound(n_bytes, (pairs + nq + nr) * words + 4 * pairs,
+                  max(alu_ms, inter_ms))
+
+
+def topk_bound_old(nq: int, nr: int, words: int, k: int) -> Dict[str, object]:
+    """K6's former bound, kept beside ``topk_bound`` so that both yardsticks
+    can be read: per pair three integer operations a word
+    (AND, popcount, add) and five for the epilogue, all at the f32 rate."""
+    return _bound((nq + nr) * words * 4 + nq * k * 12,
+                  nq * nr * (3 * words + 5))
+
+
+def gram_bound_old(nq: int, nr: int, words: int,
+                   weighted_terms: int = 0) -> Dict[str, object]:
+    """K7's former bound, kept beside ``gram_bound`` so that both yardsticks
+    can be read: three integer operations a pair and word, four
+    for the epilogue and two a weighted term, all at the f32 rate."""
+    w_bytes = words * 32 * 4 if weighted_terms else 0
     return _bound((nq + nr) * words * 4 + w_bytes + nq * nr * 4,
-                  nq * nr * (per_word * words + 4) + 2 * weighted_terms)
+                  nq * nr * (3 * words + 4) + 2 * weighted_terms)
 
 
 def profile_summary(prof, classify: Callable[[str], str]) -> Dict[str, object]:

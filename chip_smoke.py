@@ -63,11 +63,16 @@ before its last line):
    queries against 7,809 rows, d = 167, k = 25), a regression fold's
    (106 against 952, d = 167 and 2048, k = 10), the full grams (1,058 x
    1,058), Nq = 1, Nr = 1, k = 1, k = Nr, k = 1,024, zero rows, forced
-   ties, IDF weights, counts above the clip, and for K8 18 ragged shapes
-   (Nq, Nr in 1 / 33 / 127 / 1,058, 1 / 42 / 512 words). K6's indices equal
-   and its similarities bit-equal, K7 and K8 bit-equal without weights and
-   within 1e-5 with (K8 weighted twice bit-identical); then each timed
-   beside its plain version, its bound and a
+   ties, distinct fractions equal in f32 at the k-th place (65,536 bits),
+   k = 1 / 25 / 1,024 with Nr no multiple of a chunk, rows of 6 words that
+   are not 16-byte aligned (``packed_bits`` pads to 4 words), IDF weights, counts
+   above the clip, for K7 36 ragged shapes (Nq, Nr in 1 / 33 / 127 / 1,058,
+   1 / 6 / 7 / 42 / 64 / 2,048 words) and for K8 18 (1 / 42 / 512 words).
+   K6's indices equal and its similarities bit-equal, K7 and K8 bit-equal
+   without weights and within 1e-5 with (weighted twice bit-identical); the
+   host's launch calls of one profiled call (K6 and unweighted K7: one);
+   then each timed beside its plain version, its bound (and for K6 and K7
+   the former count's), and a
    library form (one ``torch.matmul`` on operands already unpacked, with
    the epilogue; for K6 followed by ``torch.topk``, which orders ties
    otherwise);
@@ -350,9 +355,14 @@ def similarity_phase(cuda, card, aux_raw, reg_raw):
     kernels' errors, times and bounds."""
     import torch
 
+    from torch.profiler import ProfilerActivity, profile
+
     from bbbp_tpu_torch.ops import similarity as sm
-    from bbbp_tpu_torch.testing import count_case, tanimoto_tie_case
-    from bbbp_tpu_torch.timing import device_ms, gram_bound, topk_bound
+    from bbbp_tpu_torch.ops.bitops import pack_bits
+    from bbbp_tpu_torch.testing import (EQUAL_F32_K, count_case,
+                                        tanimoto_equal_f32_case, tanimoto_tie_case)
+    from bbbp_tpu_torch.timing import (device_ms, gram_bound, gram_bound_old,
+                                       host_launch_calls, topk_bound, topk_bound_old)
 
     aux_m, reg_m = sm.packed_bits(aux_raw[1], cuda), sm.packed_bits(reg_raw[1], cuda)
     reg_b = sm.packed_bits(reg_raw[2], cuda)              # Morgan bits, 64 words
@@ -380,6 +390,17 @@ def similarity_phase(cuda, card, aux_raw, reg_raw):
                   ("k=Nr=40", small_q, small_r, 40),
                   ("forced ties", tie_q, tie_r, 25),
                   ("k=1024", reg_m[:9], aux_m, 1024)]
+    # distinct fractions that round to one f32 at the k-th place (65,536
+    # bits); k = 1, 25, 1,024 with Nr no multiple of a chunk or a split
+    eq_q, eq_r = (sm.packed_bits(a, cuda) for a in tanimoto_equal_f32_case(0))
+    topk_cases.append(("equal f32 d=65536", eq_q, eq_r, EQUAL_F32_K))
+    for k, nr in ((1, 1031), (25, 7813), (1024, 3001)):
+        q, r = (sm.packed_bits(a, cuda) for a in tanimoto_tie_case(k + nr, 37, nr, 167))
+        topk_cases.append((f"k={k} Nr={nr}", q, r, k))
+    # rows of 6 words, not 16-byte aligned, as a caller may pass them
+    q, r = (torch.from_numpy(pack_bits(a).view(np.int32)).to(cuda)
+            for a in tanimoto_tie_case(9, 37, 7813, 167))
+    topk_cases.append(("6-word rows k=25 Nr=7813", q, r, 25))
     ties = {}
     k6_err = 0.0
     for name, q, r, k in topk_cases:
@@ -413,6 +434,36 @@ def similarity_phase(cuda, card, aux_raw, reg_raw):
         held("tanimoto_gram", sm.tanimoto_gram, sm.tanimoto_gram_reference, q, r, None)
         k7_err = max(k7_err, held("tanimoto_gram (weighted)", sm.tanimoto_gram,
                                   sm.tanimoto_gram_reference, q, r, w))
+        if not torch.equal(sm.tanimoto_gram(q, r, w), sm.tanimoto_gram(q, r, w)):
+            raise AssertionError(f"tanimoto_gram (weighted) {tuple(q.shape)} x "
+                                 f"{tuple(r.shape)}: two runs differ")
+    # unweighted at ragged shapes: rows that fill no tile, slabs padded with
+    # zeros (1, 6, 7 words), rows not 16-byte aligned, clusters of 1, 2, 8
+    k7_ragged = [(nq, nr, words) for nq, nr in ((1, 1), (33, 127), (127, 33),
+                                                (1058, 1), (1, 1058), (127, 1058))
+                 for words in (1, 6, 7, 42, 64, 2048)]
+    rng_k7 = np.random.default_rng(17)
+    for nq, nr, words in k7_ragged:
+        q, r = (torch.from_numpy(pack_bits(rng_k7.random((n, 32 * words)) < 0.3
+                                           ).view(np.int32)).to(cuda) for n in (nq, nr))
+        q[0] = 0
+        held("tanimoto_gram", sm.tanimoto_gram, sm.tanimoto_gram_reference, q, r, None)
+
+    def launch_calls(fn):
+        """The host's launch calls of one call of ``fn``, from the profiler."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return host_launch_calls(prof)
+
+    calls = {"tanimoto_topk": launch_calls(lambda: sm.tanimoto_topk_packed(reg_m, aux_m, 25)),
+             "tanimoto_gram": launch_calls(lambda: sm.tanimoto_gram(reg_b, reg_b)),
+             "tanimoto_gram_weighted": launch_calls(lambda: sm.tanimoto_gram(reg_b, reg_b, w_b))}
+    if calls["tanimoto_topk"] != 1 or calls["tanimoto_gram"] != 1:
+        raise AssertionError(f"host launch calls a call {calls}: K6 and unweighted K7 "
+                             f"must be one launch")
 
     def minmax_ref(levels):
         return lambda q, r, w: sm.minmax_gram_reference(q, r, w, levels)
@@ -466,20 +517,32 @@ def similarity_phase(cuda, card, aux_raw, reg_raw):
             "plain_ms": device_ms(lambda: sm.tanimoto_topk_reference(q, r, k)),
             "library_ms": device_ms(lambda: library_tanimoto(qf, rf, k)),
             "bound": topk_bound(q.shape[0], r.shape[0], q.shape[1], k),
+            "bound_old": topk_bound_old(q.shape[0], r.shape[0], q.shape[1], k),
             "shape": f"Nq={q.shape[0]}, Nr={r.shape[0]}, d={qf.shape[1]}, k={k}"}
-    k7_shapes = {"gram_d2048": (reg_b, reg_bf, w_b), "gram_d167": (reg_m, reg_mf, w_m)}
-    for name, (q, qf, w) in k7_shapes.items():
-        set_terms = int((qf @ qf.T).sum().item())
+    # the full grams (weighted too), then a fold's fit (952²) and prediction
+    # (106 x 952) grams
+    k7_shapes = {"gram_d2048": (reg_b, reg_b, reg_bf, reg_bf, w_b),
+                 "gram_d167": (reg_m, reg_m, reg_mf, reg_mf, w_m),
+                 "fold_fit_d2048": (reg_b[fold:], reg_b[fold:], reg_bf[fold:], reg_bf[fold:], None),
+                 "fold_predict_d2048": (reg_b[:fold], reg_b[fold:], reg_bf[:fold], reg_bf[fold:], None),
+                 "fold_fit_d167": (reg_m[fold:], reg_m[fold:], reg_mf[fold:], reg_mf[fold:], None),
+                 "fold_predict_d167": (reg_m[:fold], reg_m[fold:], reg_mf[:fold], reg_mf[fold:], None)}
+    for name, (q, r, qf, rf, w) in k7_shapes.items():
+        nq, nr = q.shape[0], r.shape[0]
         timed["k7", name] = {
-            "ms": device_ms(lambda: sm.tanimoto_gram(q, q)),
-            "plain_ms": device_ms(lambda: sm.tanimoto_gram_reference(q, q)),
-            "library_ms": device_ms(lambda: library_tanimoto(qf, qf)),
-            "bound": gram_bound(n, n, q.shape[1]),
-            "ms_weighted": device_ms(lambda: sm.tanimoto_gram(q, q, w)),
-            "plain_ms_weighted": device_ms(
-                lambda: sm.tanimoto_gram_reference(q, q, w)),
-            "bound_weighted": gram_bound(n, n, q.shape[1], 32, set_terms),
-            "shape": f"Nq=Nr={n}, d={qf.shape[1]}"}
+            "ms": device_ms(lambda: sm.tanimoto_gram(q, r)),
+            "plain_ms": device_ms(lambda: sm.tanimoto_gram_reference(q, r)),
+            "library_ms": device_ms(lambda: library_tanimoto(qf, rf)),
+            "bound": gram_bound(nq, nr, q.shape[1]),
+            "bound_old": gram_bound_old(nq, nr, q.shape[1]),
+            "shape": f"Nq={nq}, Nr={nr}, d={qf.shape[1]}"}
+        if w is not None:
+            set_terms = int((qf @ rf.T).sum().item())
+            timed["k7", name].update({
+                "ms_weighted": device_ms(lambda: sm.tanimoto_gram(q, r, w)),
+                "plain_ms_weighted": device_ms(
+                    lambda: sm.tanimoto_gram_reference(q, r, w)),
+                "bound_weighted": gram_bound(nq, nr, q.shape[1], 32, set_terms)})
     counts_f = sm.unpack_counts_reference(reg_c)
     level_rows = torch.cat([(counts_f >= t).float() for t in range(1, LEVELS + 1)],
                            dim=1)                       # [n, 16 * 2048]
@@ -509,6 +572,8 @@ def similarity_phase(cuda, card, aux_raw, reg_raw):
         return (f"{t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
                 f"library {t['library_ms']:.4f}, bound {t['bound']['bound_ms']:.5f} "
                 f"({t['bound']['bound_by']})" + (
+                    f", former bound {t['bound_old']['bound_ms']:.5f}"
+                    if "bound_old" in t else "") + (
                     f"; weighted kernel {t['ms_weighted']:.4f}, plain "
                     f"{t['plain_ms_weighted']:.4f}, bound "
                     f"{t['bound_weighted']['bound_ms']:.5f}" if "ms_weighted" in t else ""))
@@ -518,7 +583,10 @@ def similarity_phase(cuda, card, aux_raw, reg_raw):
           f"bit-equal; queries with ties at the k-th place "
           f"{ {k: f'{a} of {b}' for k, (a, b) in ties.items()} } | tanimoto_gram "
           f"{len(gram_cases)} cases bit-equal without weights, max |err| "
-          f"{k7_err:.3g} with IDF weights (limit 1e-5) | minmax_gram "
+          f"{k7_err:.3g} with IDF weights (limit 1e-5), weighted twice "
+          f"bit-identical; {len(k7_ragged)} ragged unweighted (Nq, Nr in 1 / 33 / "
+          f"127 / 1,058, words in 1 / 6 / 7 / 42 / 64 / 2,048) bit-equal | host "
+          f"launch calls a call {calls} | minmax_gram "
           f"{len(count_cases)} cases (counts up to 40, clip 16 and 8; "
           f"{len(ragged)} ragged: Nq, Nr in 1 / 33 / 127 / 1,058, words in "
           f"1 / 42 / 512) bit-equal without weights, max |err| {k8_err:.3g} "
@@ -526,7 +594,8 @@ def similarity_phase(cuda, card, aux_raw, reg_raw):
           flush=True)
     for (kernel, shape), t in timed.items():
         print(f"[7 similarity kernels] {kernel} {shape}: {line(t)}", flush=True)
-    return {"k6_err": k6_err, "k7_err": k7_err, "k8_err": k8_err, "timed": timed}
+    return {"k6_err": k6_err, "k7_err": k7_err, "k8_err": k8_err, "timed": timed,
+            "launch_calls": calls}
 
 
 def r2(y, pred):
@@ -1542,6 +1611,11 @@ def run() -> int:
                  "bound_share": t["bound"]["bound_ms"] / t["ms"],
                  "library_ms": t["library_ms"], "library_call": library,
                  "shape": t["shape"]}
+        if key in ("k6", "k7"):
+            entry["host_launch_calls_a_call"] = p7["launch_calls"][name]
+        if key == "k7":
+            entry["host_launch_calls_a_weighted_call"] = \
+                p7["launch_calls"]["tanimoto_gram_weighted"]
         for (k, shape), other in p7["timed"].items():
             if k != key:
                 continue
@@ -1552,6 +1626,8 @@ def run() -> int:
                     entry[field + suffix] = other[field]
             if suffix:
                 entry["bound_ms" + suffix] = other["bound"]["bound_ms"]
+            if "bound_old" in other:
+                entry["bound_ms_old" + suffix] = other["bound_old"]["bound_ms"]
             if "bound_weighted" in other:
                 entry["bound_ms_weighted" + suffix] = other["bound_weighted"]["bound_ms"]
         kernels.append(entry)

@@ -14,7 +14,8 @@ torch = pytest.importorskip("torch")
 
 from bbbp_tpu_torch.ops import bitops as tbit  # noqa: E402
 from bbbp_tpu_torch.ops import similarity as tsim  # noqa: E402
-from bbbp_tpu_torch.testing import count_case, tanimoto_tie_case  # noqa: E402
+from bbbp_tpu_torch.testing import (EQUAL_F32_K, count_case,  # noqa: E402
+                                    tanimoto_equal_f32_case, tanimoto_tie_case)
 
 RIDGE_TOL = dict(rtol=2e-3, atol=2e-3)
 
@@ -36,6 +37,12 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _packed_unpadded(dense, device):
+    """Packed words of 0/1 rows, ceil(d / 32) a row, as the kernels take
+    them from any caller (``packed_bits`` pads rows to 4 words)."""
+    return torch.from_numpy(tbit.pack_bits(dense).view(np.int32)).to(device)
 
 
 def _bits(rng, n, d, density=0.3):
@@ -165,6 +172,63 @@ def test_minmax_split_gives_each_block_two_stages(words, weighted, split):
     stages = -(-(4 * words if weighted else words) // tsim.GRAM_STAGE)
     assert split == 1 or stages >= 2 * split
     assert split == 8 or stages < 4 * split
+
+
+@pytest.mark.parametrize("words,split", [(1, 1), (6, 1), (7, 1), (42, 1), (64, 2),
+                                         (128, 4), (255, 8), (2048, 8)])
+def test_tanimoto_split_gives_each_block_two_slabs(words, split):
+    """K7's cluster size along the words: 8, halved until each block of the
+    cluster gets two slabs of 16 words or more."""
+    assert tsim.tanimoto_split(words) == split
+    slabs = -(-words // tsim.SLAB_WORDS)
+    assert split == 1 or slabs >= 2 * split
+    assert split == 8 or slabs < 4 * split
+
+
+@pytest.mark.parametrize("nq,nr,k,plan", [
+    (1, 1, 1, (1, 1)), (1, 7809, 1, (8, 1)), (106, 952, 10, (8, 1)),
+    (1058, 7809, 25, (2, 1)), (1058, 255, 25, (2, 1)), (9, 7809, 33, (8, 2)),
+    (60, 400, 64, (4, 2)), (9, 1024, 1024, (8, 32)), (9, 1031, 1024, (8, 32)),
+    (5000, 10 ** 6, 1024, (1, 32)), (4097, 7809, 513, (1, 32))])
+@pytest.mark.parametrize("words", [1, 2048])
+def test_topk_plan_fits_the_kernel(nq, nr, k, plan, words):
+    """K6's plan at the contract's edges (k 1 and 1,024, the widest and
+    narrowest rows): the warp's list holds k in the fewest rows of 32, each
+    block of the cluster gets a chunk of references, the launch stays
+    within its block count, and the split is the largest that does. The
+    words of a row do not enter the plan."""
+    split, rows = got = tsim.topk_plan(nq, nr, k)
+    assert got == plan
+    chunks = -(-nr // tsim.TILE_R)
+    tiles = -(-nq // tsim.TOPK_Q)
+    assert rows & (rows - 1) == 0 and 32 * rows >= k and (rows == 1 or 16 * rows < k)
+    assert split in (1, 2, 4, 8)
+    assert split == 1 or (chunks >= split and tiles * split <= tsim.TOPK_BLOCKS)
+    assert split == 8 or chunks < 2 * split or tiles * 2 * split > tsim.TOPK_BLOCKS
+    assert words <= tsim.MAX_WORDS and k <= tsim.MAX_TOPK_K
+
+
+def test_tanimoto_topk_orders_equal_f32_fractions_by_index(jnp, jsim):
+    """At 65,536 bits distinct fractions round to one f32: the case puts
+    ten of them at the k-th place, their exact order against their index
+    order. The port's top-k equals JAX's (f32 similarity, then the lower
+    index), which keeps other indices than an order by exact fraction."""
+    q, r = tanimoto_equal_f32_case(0)
+    k = EQUAL_F32_K
+    inter = q.astype(np.float64) @ r.T.astype(np.float64)
+    union = q.sum(1)[:, None] + r.sum(1)[None, :] - inter
+    sims = (inter.astype(np.float32) / union.astype(np.float32))[0]
+    kth = np.sort(sims)[::-1][k - 1]
+    tied = np.flatnonzero(sims == kth)
+    assert len({inter[0, j] / union[0, j] for j in tied}) == len(tied) == 10
+    exact = sorted(range(r.shape[0]), key=lambda j: (-inter[0, j] / union[0, j], j))[:k]
+    want_sim, want_idx = (np.asarray(a) for a in jsim.tanimoto_topk(
+        jnp.asarray(q, jnp.float32), jnp.asarray(r, jnp.float32), k))
+    sim, idx = tsim.tanimoto_topk(q, r, k, device="cpu")
+    assert np.array_equal(idx.numpy(), want_idx)
+    assert np.array_equal(sim.numpy(), want_sim)
+    assert sorted(idx[0].tolist()) != sorted(exact)
+    assert (sim[0] == kth).sum() == 5 and idx[0, -1] == tied[4]
 
 
 def test_minmax_identical_rows_above_the_clip_are_similarity_one():
@@ -402,8 +466,10 @@ def test_functions_default_to_cuda_and_raise_without_a_card(fn, monkeypatch):
 def test_kernels_match_plain_versions_on_cuda(cuda_device):
     """K6, K7 and K8 against their plain versions on the card: the top-k
     indices equal and similarities bit-equal (ties, zero rows, k = 1, k = Nr,
-    Nq = 1, Nr above one candidate buffer), the unweighted grams bit-equal,
-    the weighted ones within 1e-5; each call adds one launch. K8 also at
+    Nq = 1, Nr above one candidate buffer, distinct fractions equal in f32
+    at 65,536 bits, k = 1,024), the unweighted grams bit-equal (also at 36
+    ragged shapes), the weighted ones within 1e-5; each call adds one
+    launch. K8 also at
     ragged shapes (Nq, Nr in 1 / 33 / 127 / 1,058, 1 / 42 / 512 words,
     counts clipped at 16 and at 255) and at widths its plan gives clusters
     of 1, 2, 4 and 8 blocks, weighted twice bit-identical."""
@@ -432,6 +498,32 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
         torch.testing.assert_close(tsim.minmax_gram(qc, rc, wc),
                                    tsim.minmax_gram_reference(qc, rc, wc, 16),
                                    rtol=0, atol=1e-5)
+    # K7 without weights at ragged shapes: rows that fill no tile, slabs
+    # padded with zeros (1, 6, 7 words), rows not 16-byte aligned (6, 7,
+    # 42), clusters of 1, 2 and 8 blocks (tanimoto_split)
+    for nq, nr in ((1, 1), (33, 127), (127, 33), (1058, 1), (1, 1058), (127, 1058)):
+        for words in (1, 6, 7, 42, 64, 2048):
+            q = (rng.random((nq, 32 * words)) < 0.3).astype(np.float32)
+            r = (rng.random((nr, 32 * words)) < 0.3).astype(np.float32)
+            q[0] = 0.0
+            qw, rw = (_packed_unpadded(a, cuda_device) for a in (q, r))
+            before = tsim.tanimoto_gram.launches.count
+            got = tsim.tanimoto_gram(qw, rw)
+            assert tsim.tanimoto_gram.launches.count == before + 1
+            assert torch.equal(got, tsim.tanimoto_gram_reference(qw, rw)), (nq, nr, words)
+    # K6 where distinct fractions round to one f32 at the k-th place, and at
+    # k = 1, 25, 1,024 with Nr no multiple of a chunk or a split
+    q, r = tanimoto_equal_f32_case(0)
+    cases = [(q, r, EQUAL_F32_K)]
+    for k, nr in ((1, 1031), (25, 7813), (1024, 1031), (1024, 3001)):
+        q, r = tanimoto_tie_case(k + nr, 37, nr, 167)
+        cases.append((q, r, k))
+    for i, (q, r, k) in enumerate(cases):       # the last one with 6-word rows
+        pack = _packed_unpadded if i == len(cases) - 1 else tsim.packed_bits
+        qw, rw = (pack(a, cuda_device) for a in (q, r))
+        sim, idx = tsim.tanimoto_topk_packed(qw, rw, k)
+        want_sim, want_idx = tsim.tanimoto_topk_reference(qw, rw, k)
+        assert torch.equal(idx, want_idx) and torch.equal(sim, want_sim), (k, r.shape)
     # K8 at ragged shapes: rows that fill no tile, words that fill no stage,
     # rows that are not 16-byte aligned (42 words), counts to the byte's top
     for nq, nr, words in ((1, 1, 1), (33, 127, 42), (127, 33, 512),
