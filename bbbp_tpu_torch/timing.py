@@ -146,7 +146,8 @@ def topk_bound(nq: int, nr: int, words: int, k: int) -> Dict[str, object]:
     """The packed queries and references read once, (sim f32, idx int64)
     [nq, k] written once. The intersections and the row popcounts, (nq·nr +
     nq + nr)·words word pairs, on the faster unit (``_intersections_ms``:
-    the b1 product, 43x POPC); five f32-rate operations a pair for the
+    on an NVIDIA H100 80GB HBM3 at 700.00 W, POPC 15.87 a clock an SM and
+    the b1 product 21,837 bit pairs, 43x); five f32-rate operations a pair for the
     epilogue and the selection (add, subtract, max, the threshold's
     multiply-add and compare), at the same time on the ALUs: the bound is
     the busier of the two."""
@@ -164,8 +165,10 @@ def gram_bound(nq: int, nr: int, words: int, values_per_word: int = 32,
     epilogue.
 
     Bits without weights: the intersections and row popcounts, (nq·nr + nq
-    + nr)·words word pairs, on the faster unit (``_intersections_ms``), the
-    epilogue on the ALUs at the same time. Bits with weights
+    + nr)·words word pairs, on the faster unit (``_intersections_ms``: on an
+    NVIDIA H100 80GB HBM3 at 700.00 W, POPC 15.87 a clock an SM and the b1
+    product 21,837 bit pairs, 43x), the epilogue on the ALUs at the same
+    time. Bits with weights
     (``weighted_terms``: the (pair, set bit of a AND b) terms, one f32
     multiply-add, two operations, each): the b1 product cannot weigh, so an
     AND a word pair at the integer rate beside the terms and the epilogue
