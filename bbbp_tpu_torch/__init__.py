@@ -1,6 +1,8 @@
 """PyTorch / CUDA port of ``bbbp_tpu``'s virtual-screening path, of the
-training of its screening model, of the cross-task transfer features and of
-the regression stack's chemistry-kernel estimators.
+training of its screening model, of the cross-task transfer features, of
+the regression stack's chemistry-kernel estimators and of its flagship
+Transformer+CNN regressor with the fold-batched K-fold trainer
+(``models/``, ``train/loop.py``; no kernel of their own).
 
 The port runs on one NVIDIA Hopper card (``sm_90a``). Its device kernels
 are CUDA C++ under ``csrc/``, built with ``nvcc`` at first use

@@ -245,7 +245,7 @@ def compute_descriptors(mol: Mol) -> np.ndarray:
     halogens = sum(1 for a in heavy if a.z in (9, 17, 35, 53))
     hetero = sum(1 for a in heavy if a.z not in (1, 6))
     # Wiener proxy on up-to-60 heavy atoms (O(n^2) BFS)
-    from bbbp_tpu_torch.chem.graph import graph_distances
+    from bbbp_tpu_torch.chem.depict import graph_distances
 
     if n <= 80:
         d = graph_distances(mol)

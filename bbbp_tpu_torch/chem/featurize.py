@@ -1,10 +1,12 @@
-"""Batch featurization: SMILES lists → fingerprint and descriptor matrices.
+"""Batch featurization: SMILES lists → fingerprint and descriptor matrices
+and image tensors.
 
-Counterpart of ``fingerprints()`` in ``bbbp_tpu/chem/featurize.py``. The
-``morgan``, ``rdkit`` and ``maccs`` kinds come from the C++ featurizer
-(``native/bindings.py``), the other kinds from the Python code in a process
-pool. Invalid SMILES are quarantined: a zero row and a reported index.
-``descriptors()`` runs ``descriptors.descriptor_matrix`` over the same pool.
+Counterpart of ``fingerprints()`` and ``images()`` in
+``bbbp_tpu/chem/featurize.py``. The ``morgan``, ``rdkit`` and ``maccs``
+kinds come from the C++ featurizer (``native/bindings.py``), the other
+kinds from the Python code in a process pool. Invalid SMILES are quarantined: a zero row and a reported index.
+``descriptors()`` runs ``descriptors.descriptor_matrix`` and ``images()``
+runs ``depict.depict`` over the same pool.
 This module imports numpy only, so a pool process starts quickly.
 
 The pool's processes are spawned, not forked: the caller may hold a CUDA
@@ -70,6 +72,21 @@ def _featurize_chunk(args) -> Tuple[np.ndarray, List[int]]:
     return out, bad
 
 
+def _depict_chunk(args) -> Tuple[np.ndarray, List[int]]:
+    smiles_chunk, size = args
+    from bbbp_tpu_torch.chem.depict import depict
+
+    out = np.zeros((len(smiles_chunk), size, size, 3), dtype=np.float32)
+    bad: List[int] = []
+    for i, s in enumerate(smiles_chunk):
+        img = depict(s, size=size)
+        if img is None:
+            bad.append(i)
+        else:
+            out[i] = img
+    return out, bad
+
+
 @dataclass
 class FeaturizeResult:
     features: np.ndarray
@@ -98,10 +115,10 @@ def pool_map(fn, jobs, workers: Optional[int]) -> List:
         return list(ex.map(fn, jobs))
 
 
-def _chunked(smiles: List[str], payload: tuple):
+def _chunked(smiles: List[str], payload: tuple, least: int = 64):
     """(jobs, offsets): ``smiles`` cut into at most 128 chunks of at least
-    64, each with ``payload`` appended."""
-    chunk = max(64, (len(smiles) + 127) // 128)
+    ``least``, each with ``payload`` appended."""
+    chunk = max(least, (len(smiles) + 127) // 128)
     offsets = list(range(0, len(smiles), chunk))
     return [(smiles[o : o + chunk],) + payload for o in offsets], offsets
 
@@ -149,3 +166,14 @@ def fingerprints(smiles: Sequence[str], kind: str = "morgan", n_bits: int = 2048
         return FeaturizeResult(feats, np.asarray(bad, dtype=np.int64))
     jobs, offsets = _chunked(smiles, (kind, n_bits, radius))
     return _gather(pool_map(_featurize_chunk, jobs, workers), offsets)
+
+
+def images(smiles: Sequence[str], size: int = 128,
+           workers: Optional[int] = None) -> FeaturizeResult:
+    """Render a SMILES batch → [N, size, size, 3] float32 images (white
+    background, a zero image for an invalid SMILES) + quarantined indices."""
+    smiles = list(smiles)
+    if not smiles:
+        return FeaturizeResult(np.zeros((0, size, size, 3), dtype=np.float32))
+    jobs, offsets = _chunked(smiles, (size,), least=16)
+    return _gather(pool_map(_depict_chunk, jobs, workers), offsets)

@@ -237,7 +237,7 @@ def _pair_atom_code(mol: Mol, i: int) -> int:
 
 
 def atom_pair_bits(mol: Mol, n_bits: int = 2048, max_dist: int = 30) -> Set[int]:
-    from bbbp_tpu_torch.chem.graph import graph_distances
+    from bbbp_tpu_torch.chem.depict import graph_distances
 
     n = mol.num_atoms
     if n < 2:

@@ -15,13 +15,15 @@ their real shapes and to compare two forests.
 - ``regression_molecules``: molecules and a target at B3DB regression's
   size, made from a seed;
 - ``regression_legs``: the regression stack's three chemistry-kernel legs,
-  driven fold by fold as ``bbbp_tpu/train/regression.py`` drives them.
+  driven fold by fold as ``bbbp_tpu/train/regression.py`` drives them;
+- ``regression_nn_inputs``: the regressor's (fingerprint, image, target)
+  inputs of those molecules, preprocessed as the JAX package does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -448,3 +450,41 @@ def regression_legs(desc: np.ndarray, maccs: np.ndarray, counts: np.ndarray,
     out["gram_ckrr"] = estimators.ChemKernelRidge(
         0.06, weights=quarter, bit_weights=idf, **on).full_gram(maccs, counts, desc)
     return out
+
+
+def regression_nn_inputs(n: int = B3DB_REGRESSION_SIZE, seed: int = 1,
+                         size: int = 128, workers: Optional[int] = None,
+                         seconds: Optional[Dict[str, float]] = None
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(nn_fp [n, 198] f32, img [n, size, size, 3] f32, y [n]) of
+    ``regression_molecules(n, seed)``, as ``bbbp_tpu/pipelines/preprocess.py``
+    makes the regressor's inputs with its defaults (MACCS, enriched): the
+    MACCS bits and the flat images standardized column by column together
+    (``StandardScaler`` over [fp | image], ``preprocess.py:133-146``), the 31
+    descriptors standardized apart, nn_fp = [MACCS | descriptors]. Molecules
+    that do not parse or render are dropped. The outlier filter and the
+    logBB floor are left out (the target is synthetic). ``seconds``, if
+    given, gets the wall time of ``images`` under ``"images"`` and the
+    count of molecules it could not render under ``"images_bad"``."""
+    import time
+
+    from bbbp_tpu_torch.chem.featurize import descriptors, images
+    from bbbp_tpu_torch.native.bindings import fingerprints
+    from bbbp_tpu_torch.ops.scaler import StandardScaler
+
+    smiles, y = regression_molecules(n, seed)
+    fp, fp_bad = fingerprints(smiles, "maccs")
+    t0 = time.perf_counter()
+    img_res = images(smiles, size=size, workers=workers)
+    if seconds is not None:
+        seconds["images"] = time.perf_counter() - t0
+        seconds["images_bad"] = len(img_res.bad_indices)
+    ok = img_res.ok_mask
+    ok[np.asarray(fp_bad, np.int64)] = False
+    fp, img, y = fp[ok], img_res.features[ok].reshape(int(ok.sum()), -1), y[ok]
+    desc = descriptors([s for s, m in zip(smiles, ok) if m], workers=workers).features
+    joint = StandardScaler().fit_transform(np.concatenate([fp, img], axis=1))
+    desc_n = StandardScaler().fit_transform(desc)
+    nn_fp = torch.cat([joint[:, :fp.shape[1]], desc_n], dim=1).numpy()
+    img_n = joint[:, fp.shape[1]:].reshape(-1, size, size, 3).numpy()
+    return nn_fp, img_n, y

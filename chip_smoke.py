@@ -96,6 +96,27 @@ before its last line):
    ``full_gram``s), ``cuda`` against ``cpu``: kNN within 1e-5, ridge within
    2e-3 (two f32 Cholesky solves), grams within 1e-5.
 
+9. the regressor (``models/transformer_cnn.py``, ``train/loop.py``; no
+   kernel of its own, the JAX package's model is flax layers): ``images()``
+   of the 1,058 regression molecules (seconds, bad count) and
+   ``testing.regression_nn_inputs`` (MACCS + 31 descriptors, 198 wide,
+   images 128 x 128 x 3); ``MultiModalRegressor(n_layers=4)`` forward on
+   ``cuda`` against ``cpu`` from the same parameters for the three fusions
+   x ``fp_tokens`` 1 and 4, and Morgan 2048 through ``fp_in_proj``, f32
+   (TF32 off, cuDNN's too) within 1e-4 and bf16 within 2e-2, and
+   ``entry()``'s forward; one f32 AdamW step of 10 folds (dropout 0)
+   ``cuda`` against ``cpu``: loss within 1e-5 relative, each parameter's
+   gradient within 1e-2 of its norm (a ReLU input within rounding of 0
+   turns a gradient term on or off), the parameters within 1e-6 where an
+   element's gradient is ten times its difference and at least 1e-6 (so
+   no rounding can turn the step) and within two steps elsewhere; one epoch timed and profiled
+   (device busy share, host launch calls a step, the top kernels by device
+   time); then ``train_cv`` at ``RegressionTrainConfig``'s defaults (10
+   folds, 50 epochs, batch 32, lr 3e-4, snapshots from epoch 30, one seed
+   replica; epochs cut, and the cut printed, if 50 would take over 60 s):
+   wall seconds, ms an epoch, steps/s, peak device memory and the OOF R²,
+   which must be above 0.3.
+
 Then one JSON line for the kernels (each with its time and its plain
 version's, its bound from ``bbbp_tpu_torch/timing.py`` and a library
 yardstick where one PyTorch call computes the same function; the
@@ -135,6 +156,22 @@ REG_FOLDS = 10
 FOLD_ROWS = 106                   # a tenth of B3DB regression's 1,058 rows
 AUC_FLOOR = 0.6
 LEVELS = 16
+REG_EPOCH_BUDGET_S = 60.0         # phase 9: train_cv's 50 epochs are cut to
+                                  # fit this where they would not
+FWD_ROWS = 16                     # rows of phase 9's forward checks
+# phase 9's forward, card against CPU: f32 with TF32 off; bf16 rounds at
+# other places (bf16 against f32 on the CPU differs by up to 6.3e-3 on
+# outputs of ~0.2 at this width)
+FWD_TOL = {"f32": 1e-4, "bf16": 2e-2}
+# phase 9's f32 training step, card against CPU. A ReLU whose input is
+# within rounding of 0 passes its gradient on one side and not on the
+# other, so a gradient element can differ by a whole term (0.5% of the
+# head's first bias' largest gradient on an H100): gradients are held in
+# norm, a parameter's against its own. Adam's first step, lr·g/(|g| +
+# 1e-8), turns where such a difference outweighs g: at most 2 lr apart (1%
+# more for the decay)
+STEP_GRAD_TOL = 1e-2
+STEP_TURNED = 2.02
 
 
 def read_csv(path: str):
@@ -862,6 +899,193 @@ def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
     return launched, leg_launches
 
 
+
+def regressor_phase(card):
+    """Phase 9: the flagship regressor and its fold-batched ``train_cv``
+    on the card at ``RegressionTrainConfig``'s defaults."""
+    import torch
+
+    from bbbp_tpu_torch.entry import entry
+    from bbbp_tpu_torch.models import MultiModalRegressor
+    from bbbp_tpu_torch.models.transformer_cnn import FUSIONS
+    from bbbp_tpu_torch.native.bindings import fingerprints
+    from bbbp_tpu_torch.testing import regression_molecules, regression_nn_inputs
+    from bbbp_tpu_torch.timing import host_launch_calls, profile_summary
+    from bbbp_tpu_torch.train.loop import AdamW, FoldTrainer, train_cv
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    # regression.py's defaults: RegressionTrainConfig, PreprocessConfig
+    image_size = 128
+    cfg = dict(n_layers=4, fusion="multihead", fp_tokens=1, image_size=image_size)
+    folds, epochs, batch, lr, seed, snapshot_from = 10, 50, 32, 3e-4, 42, 30
+
+    seconds = {}
+    t0 = time.time()
+    nn_fp, img, y = regression_nn_inputs(seconds=seconds)
+    print(f"[9 images] images() of {len(y)} regression molecules at "
+          f"{image_size}x{image_size}x3 (Python featurizer over "
+          f"{os.cpu_count()} cores): {seconds['images']:.3f} s, "
+          f"{seconds['images_bad']} bad; the inputs in all (MACCS, 31 "
+          f"descriptors, standardized): {time.time() - t0:.3f} s -> nn_fp "
+          f"{nn_fp.shape}, img {img.shape}", flush=True)
+    if seconds["images_bad"] or not (np.isfinite(nn_fp).all() and np.isfinite(img).all()):
+        raise AssertionError("the regression inputs have bad rows")
+
+    # -- forward: the card against the CPU, the same parameters -------------
+    rows = np.random.default_rng(9).choice(len(y), FWD_ROWS, replace=False)
+    smiles, _ = regression_molecules()
+    morgan, _ = fingerprints([smiles[i] for i in rows], "morgan", 2048)
+    cases = [(dict(fusion=f, fp_tokens=t), nn_fp[rows])
+             for f in FUSIONS for t in (1, 4)]
+    cases.append((dict(fusion="multihead", fp_tokens=1, max_fp_width=512), morgan))
+    fwd_err = {"f32": 0.0, "bf16": 0.0}
+    for i, (case, fp) in enumerate(cases):
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            model = MultiModalRegressor(fp_dim=fp.shape[1], n_layers=4,
+                                        image_size=image_size, dtype=dtype,
+                                        generator=torch.Generator().manual_seed(i),
+                                        **case)
+            x = (torch.from_numpy(fp), torch.from_numpy(img[rows]))
+            with torch.no_grad():
+                want = model(*x)
+                got = model.to(dev)(*(a.to(dev) for a in x)).cpu()
+            err = float((got - want).abs().max())
+            if not (torch.isfinite(got).all() and err <= FWD_TOL[name]):
+                raise AssertionError(f"regressor forward {case} {name} on {dev}: "
+                                     f"max |err| {err:.3g} (limit {FWD_TOL[name]})")
+            fwd_err[name] = max(fwd_err[name], err)
+    forward, (model, fp1, img1) = entry()
+    got = forward(model, fp1, img1).cpu()
+    ref = MultiModalRegressor(fp_dim=167, n_layers=4)
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want = forward(ref, fp1.cpu(), img1.cpu())
+    entry_err = float((got - want).abs().max())
+    if got.shape != (8,) or entry_err > FWD_TOL["bf16"]:
+        raise AssertionError(f"entry() forward {tuple(got.shape)}, max |err| "
+                             f"{entry_err:.3g}")
+    print(f"[9 forward] MultiModalRegressor(n_layers=4) {dev} against cpu, "
+          f"{FWD_ROWS} rows, fusions {FUSIONS} x fp_tokens 1/4 at fp_dim "
+          f"{nn_fp.shape[1]}, and Morgan 2048 through fp_in_proj (max_fp_width "
+          f"512): max |err| f32 {fwd_err['f32']:.3g} (limit {FWD_TOL['f32']}, "
+          f"TF32 off), bf16 {fwd_err['bf16']:.3g} (limit {FWD_TOL['bf16']}); "
+          f"entry() bf16 {entry_err:.3g} | on {card}", flush=True)
+
+    # -- one f32 training step of 10 folds: the card against the CPU --------
+    step_cfg = dict(fp_dim=nn_fp.shape[1], dropout=0.0, dtype=torch.float32,
+                    folds=folds, **cfg)
+    idx = torch.from_numpy(np.random.default_rng(10).integers(
+        0, len(y), (folds, batch)))
+    results = []
+    for d in (cpu, dev):
+        model = MultiModalRegressor(generator=torch.Generator().manual_seed(11),
+                                    **step_cfg).to(d)
+        names = [name for name, _ in model.named_parameters()]
+        params = list(model.parameters())
+        opt = AdamW(params, lr, 1e-5)
+        fp_b = torch.from_numpy(nn_fp)[idx].to(d)
+        img_b = torch.from_numpy(img)[idx].to(d, torch.bfloat16)
+        loss = ((model(fp_b, img_b, train=True) - torch.from_numpy(y)[idx].to(d))
+                ** 2).mean(dim=1)
+        grads = torch.autograd.grad(loss.sum(), params)
+        opt.step(grads)
+        results.append((loss.detach().cpu(), [g.cpu() for g in grads],
+                        [p.detach().cpu() for p in params]))
+        del model, params, opt, grads
+    (loss0, g0, p0), (loss1, g1, p1) = results
+    loss_err = float(((loss1 - loss0).abs() / loss0.abs()).max())
+    grad_err, worst, p_err, p_err_all, turned = 0.0, "", 0.0, 0.0, 0
+    for name, a0, a1, q0, q1 in zip(names, g0, g1, p0, p1):
+        dg = (a1 - a0).abs()
+        rel = float(dg.norm() / a0.norm())
+        if rel > grad_err:
+            grad_err, worst = rel, name
+        # where an element's gradient is ten times its difference and 100
+        # times Adam's eps, its step lr·g/(|g| + eps) moves by at most
+        # lr·eps/(10 |g|) = 3e-7: the parameters agree there
+        diff = (q1 - q0).abs()
+        steady = (dg <= 0.1 * a0.abs()) & (a0.abs() >= 1e-6)
+        p_err = max(p_err, float(torch.where(steady, diff, 0.0).max()))
+        p_err_all = max(p_err_all, float(diff.max()))
+        turned += int((~steady).sum())
+    n_params = sum(q.numel() for q in p0)
+    if (loss_err > 1e-5 or grad_err > STEP_GRAD_TOL or p_err > 1e-6
+            or p_err_all > STEP_TURNED * lr):
+        raise AssertionError(
+            f"training step {dev} vs cpu: loss rel {loss_err:.3g}, gradient "
+            f"{grad_err:.3g} in norm ({worst}), parameters {p_err:.3g} where "
+            f"|dg| <= |g| / 10 and |g| >= 1e-6, {p_err_all:.3g} anywhere")
+    print(f"[9 step] one f32 AdamW step of {folds} folds x {batch} rows "
+          f"(dropout 0, {n_params // folds:,} parameters a fold), {dev} against "
+          f"cpu from the same parameters: loss rel err {loss_err:.3g} (limit "
+          f"1e-5); gradients {grad_err:.3g} apart relative to their "
+          f"parameter's gradient in norm at most (limit {STEP_GRAD_TOL:g}; "
+          f"{worst}); parameters {p_err:.3g} apart where an element's gradient "
+          f"is ten times its difference and at least 1e-6 (limit 1e-6), "
+          f"{p_err_all:.3g} anywhere (limit {STEP_TURNED:g} lr; {turned:,} of "
+          f"{n_params:,} elements outside) | on {card}", flush=True)
+    del results, p0, p1, g0, g1
+
+    # -- one epoch, profiled; its time sets the run's epochs ----------------
+    model = MultiModalRegressor(fp_dim=nn_fp.shape[1], **cfg)
+    n_train = len(y) - len(y) // folds
+    steps = n_train // batch
+    perms = np.stack([np.random.default_rng(12 + k).permutation(len(y))[
+        :steps * batch] for k in range(folds)]).reshape(folds, steps, batch)
+    trainer = FoldTrainer(model, (nn_fp, img), y, folds, dev, seed, lr=lr)
+    trainer.train_epoch(perms)                          # warm: cuDNN's plans
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.train_epoch(perms)
+    torch.cuda.synchronize()
+    epoch_s = time.time() - t0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.train_epoch(perms)
+        torch.cuda.synchronize()
+        prof_wall = time.time() - t0
+    del trainer
+    summary = profile_summary(prof, lambda name: name)
+    calls = host_launch_calls(prof)
+    top = sorted(summary["device"].items(), key=lambda kv: -kv[1]["ms"])[:8]
+    busy = summary["device_busy_ms"]
+    print(f"[9 epoch] one epoch ({steps} steps of {folds} x {batch}): "
+          f"{epoch_s * 1e3:.1f} ms unprofiled; profiled {prof_wall * 1e3:.1f} ms "
+          f"wall, device busy {busy:.1f} ms ({busy / 1e3 / prof_wall:.1%} of "
+          f"the profiled wall, {busy / 1e3 / epoch_s:.1%} of the unprofiled), "
+          f"{calls} host launch calls ({calls / steps:.0f} a step) | top device "
+          f"ms: { {k[:60]: round(v['ms'], 2) for k, v in top} } | on {card}",
+          flush=True)
+
+    # -- train_cv at RegressionTrainConfig's defaults ------------------------
+    run_epochs = min(epochs, max(1, int(REG_EPOCH_BUDGET_S / epoch_s)))
+    if run_epochs < epochs:
+        print(f"[9 train_cv] {epochs} epochs would take ~{epochs * epoch_s:.0f} s; "
+              f"cut to {run_epochs}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = train_cv(model, (nn_fp, img), y, n_folds=folds, epochs=run_epochs,
+                   batch_size=batch, lr=lr, seed=seed, split_seed=seed,
+                   snapshot_from=snapshot_from, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    r2_oof = r2(y, res.oof_pred)
+    if not (np.isfinite(res.oof_pred).all() and res.oof_pred.shape == y.shape
+            and r2_oof > 0.3):
+        raise AssertionError(f"train_cv OOF R^2 {r2_oof:.4f} (must be above 0.3)")
+    print(f"[9 train_cv] MultiModalRegressor(fp_dim={nn_fp.shape[1]}, n_layers=4, "
+          f"multihead, bf16) x {folds} folds on {dev}, {run_epochs} epochs of "
+          f"{steps} steps, batch {batch}, lr {lr:g}, snapshots from epoch "
+          f"{snapshot_from}: {wall:.3f} s wall, {wall / run_epochs * 1e3:.1f} ms "
+          f"an epoch, {run_epochs * steps / wall:.1f} steps/s, peak memory "
+          f"{peak / 2**30:.3f} GiB, OOF R^2 {r2_oof:.4f} (floor 0.3), last epoch's "
+          f"loss a fold {fmt(res.train_losses[:, run_epochs - 1])} "
+          f"| on {card}", flush=True)
+
+
 def own_children() -> list:
     """PIDs of this process's children, zombies included, from ``/proc``."""
     me, pids = str(os.getpid()), []
@@ -966,6 +1190,7 @@ def run() -> int:
     cuda = torch.device("cuda")
     card = nvidia_smi()
     tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # phase 9's f32 convolutions
     t0 = time.time()
     _build.kernels_lib()
     t_kernels = time.time() - t0
@@ -973,7 +1198,8 @@ def run() -> int:
     _build.chem_lib()
     t_chem = time.time() - t0
     print(f"[1 env] card: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | allow_tf32={tf32} | build s: kernels "
+          f"{torch.version.cuda} | allow_tf32={tf32}, cudnn "
+          f"{torch.backends.cudnn.allow_tf32} | build s: kernels "
           f"{t_kernels:.1f}, chem {t_chem:.1f}", flush=True)
     if tf32:
         raise AssertionError("torch.backends.cuda.matmul.allow_tf32 must be False")
@@ -1479,6 +1705,9 @@ def run() -> int:
         wide_audit = wide_fit_audit(card, (smiles, labels), aux_raw)
         transfer_launches, leg_launches = transfer_phase(
             card, counters, (smiles, labels), (reg_smiles, reg_y), reg_raw, cache)
+
+    # -- phase 9: the regressor and train_cv ---------------------------------
+    regressor_phase(card)
 
     kernels = [
         {"name": "packed_project", "route": "cuda",

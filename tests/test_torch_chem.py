@@ -17,7 +17,7 @@ from bbbp_tpu.data.zinc import synthetic_smiles  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = ("mol", "kekulize", "smiles", "writer", "standardize",
-          "structural_keys", "fingerprints", "crippen", "descriptors")
+          "structural_keys", "fingerprints", "crippen", "descriptors", "depict")
 # the inline molecules of tests/test_transfer.py, salts and charged forms,
 # and three strings that do not parse
 INLINE = ["CCO", "CCN", "CCC", "CCCC", "CCOC", "CC(=O)O", "c1ccccc1",
@@ -127,3 +127,37 @@ def test_empty_batch_and_unknown_kind():
     assert tfeat.FP_KINDS == jfeat.FP_KINDS and tfeat.FP_SIZES == jfeat.FP_SIZES
     with pytest.raises(ValueError):
         tfeat.fingerprints(["CCO"], "ecfp9")
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_images_equal_jax_package(workers, molecules):
+    """``images()`` of 50 molecules (with ``workers`` 2 through the spawned
+    pool, chunks of 16), two invalid SMILES among them: the JAX package's
+    renderings bit for bit, zero images and the same bad indices."""
+    batch = molecules[:48] + ["CCO"] + [INVALID[2]]
+    want = jfeat.images(batch, workers=1)
+    got = tfeat.images(batch, workers=workers)
+    assert got.features.dtype == np.float32
+    assert got.features.shape == (50, 128, 128, 3)
+    assert np.array_equal(got.features, want.features)
+    assert list(got.bad_indices) == list(want.bad_indices) == [3, 49]
+    assert not got.features[[3, 49]].any()
+    assert (got.features[0] < 1).any() and got.features[0].max() == 1.0
+    assert tfeat.images([], size=16).features.shape == (0, 16, 16, 3)
+
+
+def test_depict_equals_jax_package(molecules):
+    """``depict`` at another size, from SMILES and from a parsed molecule,
+    and the graph distances every copied module takes from it."""
+    from bbbp_tpu.chem.depict import depict as want_fn, graph_distances as want_gd
+    from bbbp_tpu_torch.chem.depict import depict, graph_distances
+    from bbbp_tpu_torch.chem.smiles import MolFromSmiles
+
+    for s in molecules[:12] + INLINE[-6:]:
+        mol = MolFromSmiles(s)
+        if mol is None:
+            assert depict(s, size=48) is None and want_fn(s, size=48) is None
+            continue
+        assert np.array_equal(depict(s, size=48), want_fn(s, size=48))
+        assert np.array_equal(depict(mol, size=48), want_fn(s, size=48))
+        assert np.array_equal(graph_distances(mol), want_gd(mol))
