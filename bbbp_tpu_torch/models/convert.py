@@ -3,12 +3,13 @@
 A flax ``params`` tree, as nested dicts of numpy arrays (what
 ``jax.device_get`` of the JAX package's params gives, or a pickle of it),
 becomes the parameters of a port model of the same configuration
-(``models/transformer_cnn.py``): flax's ``[in, out]`` dense kernels and
-their names carry over as they are, HWIO convolution kernels turn to OIHW,
-attention's ``DenseGeneral`` leaves reshape, and the four heads of
-``MultiHeadAttentionFusion`` go side by side (each module's
-``flax_layout`` says how). Given K trees, fold k takes tree k; given one,
-every fold takes it.
+(``models/transformer_cnn.py``). The port's parameters carry flax's names
+(``enc0.ff1.kernel`` is the leaf ``enc0/ff1/kernel``) and, but for the
+cases of ``_LAYOUTS``, the shape of one fold of them: dense kernels stay
+``[in, out]``. ``_LAYOUTS`` is the one place that knows where the two
+differ: HWIO convolution kernels turn to OIHW, attention's ``DenseGeneral``
+leaves reshape, and the four heads of ``MultiHeadAttentionFusion`` lie side
+by side. Given K trees, fold k takes tree k; given one, every fold takes it.
 
 ``params_from_flax`` refuses a tree with a missing or an extra leaf, or a
 leaf of another shape. ``matching_params`` takes what matches and leaves
@@ -17,13 +18,19 @@ the rest, as ``train_cv``'s ``warm_start`` does in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple, Union
+import re
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 Tree = Mapping[str, object]
+Shape = Tuple[int, ...]
+# (flax leaf paths, the shape of each, how they make one fold of the
+# parameter)
+Leaves = Tuple[Tuple[str, ...], Tuple[Shape, ...],
+               Callable[[List[np.ndarray]], np.ndarray]]
 
 
 def flatten_tree(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -38,17 +45,79 @@ def flatten_tree(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _conv(model: nn.Module, m: re.Match, shape: Shape) -> Leaves:
+    """flax ``Conv``'s HWIO kernel; the port's is OIHW."""
+    o, c, kh, kw = shape
+    return ((m["path"],), ((kh, kw, c, o),),
+            lambda a: a[0].transpose(3, 2, 0, 1))
+
+
+def _attention(model: nn.Module, m: re.Match, shape: Shape) -> Leaves:
+    """flax ``MultiHeadDotProductAttention``'s ``DenseGeneral`` leaves:
+    query / key / value kernels [in, heads, head_dim] and biases [heads,
+    head_dim], the out kernel [heads, head_dim, out]; the port's are the
+    dense layers of the same numbers."""
+    h = model.get_submodule(m["module"]).n_heads
+    if m["proj"] == "out.kernel":
+        flax = (h, shape[0] // h, shape[1])
+    else:
+        flax = shape[:-1] + (h, shape[-1] // h)
+    return (m["path"],), (flax,), lambda a: a[0].reshape(shape)
+
+
+def _heads(model: nn.Module, m: re.Match, shape: Shape) -> Leaves:
+    """``MultiHeadAttentionFusion``'s heads, each its own flax ``Dense``
+    (``score{h}_1``, ``score{h}_2``, ``value{h}``), side by side in one
+    parameter: the first score layers' and the values' kernels and biases
+    concatenated on their last axis, the second score layers' [64, 1]
+    kernels stacked to [heads, 64]."""
+    h = model.get_submodule(m["module"]).num_heads
+    layer, leaf = m["layer"], m["leaf"]
+    name = layer.replace("_", "{}_") if "_" in layer else layer + "{}"
+    prefix = m["module"].replace(".", "/")
+    paths = tuple(f"{prefix}/{name.format(i)}/{leaf}" for i in range(h))
+    if (layer, leaf) == ("score_2", "kernel"):
+        return (paths, ((shape[1], 1),) * h,
+                lambda a: np.stack([x[:, 0] for x in a]))
+    return (paths, (shape[:-1] + (shape[-1] // h,),) * h,
+            lambda a: np.concatenate(a, axis=-1))
+
+
+# The port's parameters whose flax leaves are not one leaf of their own
+# path and per-fold shape: a pattern of the port's name → its leaves.
+_LAYOUTS = (
+    (r"(?P<path>(.*\.)?Conv_\d+\.kernel)", _conv),
+    (r"(?P<path>(?P<module>.*MultiHeadDotProductAttention_0)"
+     r"\.(?P<proj>(query|key|value)\.(kernel|bias)|out\.kernel))", _attention),
+    (r"(?P<module>(.*\.)?MultiHeadAttentionFusion_0)"
+     r"\.(?P<layer>score_1|score_2|value)_(?P<leaf>kernel|bias)", _heads),
+)
+
+
 def _layouts(model: nn.Module):
     """(port name, flax leaf paths, combine) for every parameter of
-    ``model``."""
-    for mod_name, module in model.named_modules():
-        layout = getattr(module, "flax_layout", None)
-        if layout is None:
-            continue
-        prefix = mod_name.replace(".", "/")
-        for pname, (paths, combine) in layout().items():
-            name = f"{mod_name}.{pname}" if mod_name else pname
-            yield name, tuple(f"{prefix}/{p}" if prefix else p for p in paths), combine
+    ``model``; combine checks each leaf's shape."""
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape[1:])
+        leaves: Leaves = ((name,), (shape,), lambda a: a[0])
+        for pattern, rule in _LAYOUTS:
+            m = re.fullmatch(pattern, name)
+            if m:
+                leaves = rule(model, m, shape)
+                break
+        paths, shapes, combine = leaves
+        yield (name, tuple(path.replace(".", "/") for path in paths),
+               _checked(shapes, combine))
+
+
+def _checked(shapes: Tuple[Shape, ...], combine):
+    def run(arrays: List[np.ndarray]) -> np.ndarray:
+        for a, want in zip(arrays, shapes):
+            if tuple(a.shape) != want:
+                raise ValueError(f"flax leaf of shape {tuple(a.shape)}, "
+                                 f"expected {want}")
+        return combine(arrays)
+    return run
 
 
 def _folds_of(model: nn.Module, trees) -> List[Dict[str, np.ndarray]]:

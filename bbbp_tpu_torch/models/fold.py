@@ -21,17 +21,12 @@ Numerics follow flax as the JAX package's models call it:
 - Initializers are flax's: kernels lecun-normal (a normal of std
   sqrt(1/fan_in) / .8796 truncated at two std), biases 0, LayerNorm scale 1
   and bias 0.
-
-Every module here that owns parameters answers ``flax_layout()``: for each
-of its parameters, the leaves of its flax subtree that hold one fold of it
-and how they combine (``models/convert.py`` reads it).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,8 +35,6 @@ LN_EPS = 1e-6
 # std of a standard normal truncated to [-2, 2] (jax.nn.initializers'
 # variance_scaling constant)
 TRUNC_STD = .87962566103423978
-
-Layout = Dict[str, Tuple[Tuple[str, ...], Callable[[List[np.ndarray]], np.ndarray]]]
 
 
 def lecun_normal(shape: Sequence[int], fan_in: int, device=None,
@@ -85,61 +78,28 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
                                                    device=x.device))
 
 
-class FoldModule(nn.Module):
-    """A module whose parameters carry a leading fold axis. By default a
-    parameter is the flax leaf of its own name, of shape
-    ``flax_shapes[name]`` (default: the parameter's per-fold shape), read
-    into the per-fold shape."""
-
-    folds: int
-    flax_shapes: Dict[str, Tuple[int, ...]] = {}
-
-    def flax_layout(self) -> Layout:
-        out: Layout = {}
-        for name, p in self.named_parameters(recurse=False):
-            want = tuple(self.flax_shapes.get(name, p.shape[1:]))
-            out[name] = ((name,), _reshaped(want, tuple(p.shape[1:])))
-        return out
-
-
-def _reshaped(want: Tuple[int, ...], shape: Tuple[int, ...]):
-    def combine(leaves: List[np.ndarray]) -> np.ndarray:
-        (a,) = leaves
-        if tuple(a.shape) != want:
-            raise ValueError(f"flax leaf of shape {tuple(a.shape)}, "
-                             f"expected {want}")
-        return a.reshape(shape)
-    return combine
-
-
-class Dense(FoldModule):
+class Dense(nn.Module):
     """flax ``nn.Dense`` on the fold axis: ``kernel`` [K, in, out] (flax's
-    [in, out] a fold), ``bias`` [K, out]. ``flax_kernel`` / ``flax_bias``:
-    the flax leaves' shapes where they are not [in, out] / [out] (a
-    ``DenseGeneral`` of attention, whose leaves reshape to these)."""
+    [in, out] a fold), ``bias`` [K, out]."""
 
     def __init__(self, folds: int, d_in: int, d_out: int, dtype: torch.dtype,
-                 device=None, generator=None,
-                 flax_kernel: Optional[Tuple[int, ...]] = None,
-                 flax_bias: Optional[Tuple[int, ...]] = None):
+                 device=None, generator=None):
         super().__init__()
-        self.folds, self.dtype = folds, dtype
+        self.dtype = dtype
         self.kernel = nn.Parameter(lecun_normal((folds, d_in, d_out), d_in,
                                                 device, generator))
         self.bias = nn.Parameter(torch.zeros(folds, d_out, device=device))
-        self.flax_shapes = {"kernel": flax_kernel or (d_in, d_out),
-                            "bias": flax_bias or (d_out,)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.kernel, self.bias, self.dtype)
 
 
-class LayerNorm(FoldModule):
+class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` on the fold axis: ``scale``, ``bias`` [K, d]."""
 
     def __init__(self, folds: int, d: int, dtype: torch.dtype, device=None):
         super().__init__()
-        self.folds, self.dtype = folds, dtype
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(folds, d, device=device))
         self.bias = nn.Parameter(torch.zeros(folds, d, device=device))
 
@@ -147,7 +107,7 @@ class LayerNorm(FoldModule):
         return layer_norm(x, self.scale, self.bias, self.dtype)
 
 
-class Conv3x3(FoldModule):
+class Conv3x3(nn.Module):
     """flax ``nn.Conv(c_out, (3, 3), padding="SAME")`` on the fold axis:
     ``kernel`` [K, O, C, 3, 3] (torch's OIHW; flax keeps HWIO), ``bias``
     [K, O]. It maps K inputs [B, C, H, W] (in ``channels_last`` memory,
@@ -159,17 +119,10 @@ class Conv3x3(FoldModule):
     def __init__(self, folds: int, c_in: int, c_out: int, dtype: torch.dtype,
                  device=None, generator=None):
         super().__init__()
-        self.folds, self.dtype = folds, dtype
+        self.dtype = dtype
         self.kernel = nn.Parameter(lecun_normal((folds, c_out, c_in, 3, 3),
                                                 9 * c_in, device, generator))
         self.bias = nn.Parameter(torch.zeros(folds, c_out, device=device))
-
-    def flax_layout(self) -> Layout:
-        k, o, c = self.kernel.shape[:3]
-        hwio = _reshaped((3, 3, c, o), (3, 3, c, o))
-        return {"kernel": (("kernel",),
-                           lambda a: hwio(a).transpose(3, 2, 0, 1)),
-                "bias": (("bias",), _reshaped((o,), (o,)))}
 
     def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         kernel, bias = self.kernel.to(self.dtype), self.bias.to(self.dtype)

@@ -11,22 +11,20 @@ counterparts of ``bbbp_tpu/models/fusion.py`` on the fold axis
 Computation in ``dtype`` (bf16 by default) with f32 parameters, as the flax
 modules. ``MultiHeadAttentionFusion`` keeps its heads' parameters side by
 side in one tensor each (one product for the four first score layers, one
-for the four values); ``flax_layout`` reads them from the flax leaves
-``score{h}_1``, ``score{h}_2`` and ``value{h}``.
+for the four values).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
-from bbbp_tpu_torch.models.fold import Dense, FoldModule, Layout, dense, lecun_normal
+from bbbp_tpu_torch.models.fold import Dense, dense, lecun_normal
 
 SCORE_DIM = 64
 
 
-class MultiHeadAttentionFusion(FoldModule):
+class MultiHeadAttentionFusion(nn.Module):
     """heads × (Linear→tanh→Linear→scalar) over the concat embedding;
     softmax over heads; output = Σ_h w_h · (V_h @ concat)."""
 
@@ -34,7 +32,7 @@ class MultiHeadAttentionFusion(FoldModule):
                  out_dim: int = 256, dtype: torch.dtype = torch.bfloat16,
                  device=None, generator=None):
         super().__init__()
-        self.folds, self.dtype = folds, dtype
+        self.dtype = dtype
         self.num_heads, self.out_dim = num_heads, out_dim
         h = num_heads
         self.score_1_kernel = nn.Parameter(lecun_normal(
@@ -49,23 +47,6 @@ class MultiHeadAttentionFusion(FoldModule):
         self.value_bias = nn.Parameter(torch.zeros(folds, h * out_dim,
                                                    device=device))
 
-    def flax_layout(self) -> Layout:
-        heads = range(self.num_heads)
-
-        def side_by_side(leaf):
-            return (tuple(f"{leaf.format(h)}" for h in heads),
-                    lambda a: np.concatenate(a, axis=-1))
-
-        return {
-            "score_1_kernel": side_by_side("score{}_1/kernel"),
-            "score_1_bias": side_by_side("score{}_1/bias"),
-            "score_2_kernel": (tuple(f"score{h}_2/kernel" for h in heads),
-                               lambda a: np.stack([x[:, 0] for x in a])),
-            "score_2_bias": side_by_side("score{}_2/bias"),
-            "value_kernel": side_by_side("value{}/kernel"),
-            "value_bias": side_by_side("value{}/bias"),
-        }
-
     def forward(self, fp_emb: torch.Tensor, img_emb: torch.Tensor) -> torch.Tensor:
         dt, h = self.dtype, self.num_heads
         x = torch.cat([fp_emb, img_emb], dim=-1).to(dt)
@@ -79,14 +60,14 @@ class MultiHeadAttentionFusion(FoldModule):
         return torch.einsum("kbh,kbhd->kbd", w, v)
 
 
-class AttentionFusion(FoldModule):
+class AttentionFusion(nn.Module):
     """Single additive gate: x · sigmoid(W2·tanh(W1·x)). flax names the
     outer layer ``Dense_0`` (it is built first) and the inner ``Dense_1``."""
 
     def __init__(self, folds: int, d_in: int, dtype: torch.dtype = torch.bfloat16,
                  device=None, generator=None):
         super().__init__()
-        self.folds, self.dtype = folds, dtype
+        self.dtype = dtype
         self.Dense_0 = Dense(folds, 64, d_in, dtype, device, generator)
         self.Dense_1 = Dense(folds, d_in, 64, dtype, device, generator)
 
@@ -96,7 +77,7 @@ class AttentionFusion(FoldModule):
         return x * torch.sigmoid(g)
 
 
-class MultiModalAttentionFusion(FoldModule):
+class MultiModalAttentionFusion(nn.Module):
     """Per-modality scalar attention + cross projection: softmax([a_fp,
     a_img]) weights each modality; a cross-modal projection of the concat is
     appended → concat(fp_w·fp, img_w·img, cross)."""
@@ -105,7 +86,7 @@ class MultiModalAttentionFusion(FoldModule):
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  generator=None):
         super().__init__()
-        self.folds, self.dtype = folds, dtype
+        self.dtype = dtype
         self.attn_fp = Dense(folds, emb_dim, 1, dtype, device, generator)
         self.attn_img = Dense(folds, emb_dim, 1, dtype, device, generator)
         self.cross = Dense(folds, 2 * emb_dim, cross_dim, dtype, device, generator)

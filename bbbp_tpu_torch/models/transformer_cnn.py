@@ -33,8 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bbbp_tpu_torch.models.fold import (Dense, FoldModule, LayerNorm, Conv3x3,
-                                        dropout)
+from bbbp_tpu_torch.models.fold import Conv3x3, Dense, LayerNorm, dropout
 from bbbp_tpu_torch.models.fusion import (AttentionFusion,
                                           MultiHeadAttentionFusion,
                                           MultiModalAttentionFusion)
@@ -71,19 +70,16 @@ class MultiHeadDotProductAttention(nn.Module):
     1/√head_dim, softmax over keys, dropout on the weights (one mask for the
     batch and heads of a fold, flax's ``broadcast_dropout``), then ``out``.
     Its flax leaves are ``DenseGeneral``s ([in, heads, head_dim] and
-    [heads, head_dim, out]); here they are dense layers of the same numbers."""
+    [heads, head_dim, out]); here they are dense layers of the same numbers
+    (``models/convert.py`` reshapes them)."""
 
     def __init__(self, folds: int, d_model: int, n_heads: int, dropout: float,
                  dtype: torch.dtype, device=None, generator=None):
         super().__init__()
         self.n_heads, self.rate, self.dtype = n_heads, dropout, dtype
-        hd = d_model // n_heads
-        for name in ("query", "key", "value"):
+        for name in ("query", "key", "value", "out"):
             setattr(self, name, Dense(folds, d_model, d_model, dtype, device,
-                                      generator, flax_kernel=(d_model, n_heads, hd),
-                                      flax_bias=(n_heads, hd)))
-        self.out = Dense(folds, d_model, d_model, dtype, device, generator,
-                         flax_kernel=(n_heads, hd, d_model))
+                                      generator))
 
     def forward(self, x, train: bool, generator=None):
         k, b, t, d = x.shape
@@ -150,7 +146,7 @@ class ImageCNN(nn.Module):
         return torch.relu(self.Dense_0(x))
 
 
-class MultiModalRegressor(FoldModule):
+class MultiModalRegressor(nn.Module):
     """Flagship multimodal model with selectable fusion ('multihead' |
     'gate' | 'crossmodal'), K = ``folds`` independent copies.
 

@@ -453,10 +453,9 @@ def regression_legs(desc: np.ndarray, maccs: np.ndarray, counts: np.ndarray,
 
 
 def regression_nn_inputs(n: int = B3DB_REGRESSION_SIZE, seed: int = 1,
-                         size: int = 128, workers: Optional[int] = None,
                          seconds: Optional[Dict[str, float]] = None
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(nn_fp [n, 198] f32, img [n, size, size, 3] f32, y [n]) of
+    """(nn_fp [n, 198] f32, img [n, 128, 128, 3] f32, y [n]) of
     ``regression_molecules(n, seed)``, as ``bbbp_tpu/pipelines/preprocess.py``
     makes the regressor's inputs with its defaults (MACCS, enriched): the
     MACCS bits and the flat images standardized column by column together
@@ -475,16 +474,17 @@ def regression_nn_inputs(n: int = B3DB_REGRESSION_SIZE, seed: int = 1,
     smiles, y = regression_molecules(n, seed)
     fp, fp_bad = fingerprints(smiles, "maccs")
     t0 = time.perf_counter()
-    img_res = images(smiles, size=size, workers=workers)
+    img_res = images(smiles)
     if seconds is not None:
         seconds["images"] = time.perf_counter() - t0
         seconds["images_bad"] = len(img_res.bad_indices)
     ok = img_res.ok_mask
     ok[np.asarray(fp_bad, np.int64)] = False
-    fp, img, y = fp[ok], img_res.features[ok].reshape(int(ok.sum()), -1), y[ok]
-    desc = descriptors([s for s, m in zip(smiles, ok) if m], workers=workers).features
-    joint = StandardScaler().fit_transform(np.concatenate([fp, img], axis=1))
+    fp, img, y = fp[ok], img_res.features[ok], y[ok]
+    desc = descriptors([s for s, m in zip(smiles, ok) if m]).features
+    joint = StandardScaler().fit_transform(
+        np.concatenate([fp, img.reshape(len(img), -1)], axis=1))
     desc_n = StandardScaler().fit_transform(desc)
     nn_fp = torch.cat([joint[:, :fp.shape[1]], desc_n], dim=1).numpy()
-    img_n = joint[:, fp.shape[1]:].reshape(-1, size, size, 3).numpy()
+    img_n = joint[:, fp.shape[1]:].reshape(img.shape).numpy()
     return nn_fp, img_n, y

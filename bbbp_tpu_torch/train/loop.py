@@ -226,12 +226,10 @@ class FoldTrainer:
         return (total / idx.shape[1]).cpu().numpy()
 
     @torch.no_grad()
-    def predict_all(self, chunk: int = 0) -> torch.Tensor:
-        """Every fold's predictions of every row, [K, N], in chunks (by
-        default ``max(32, 4096 // K)`` rows, so that K × chunk stays near
-        constant)."""
-        if chunk <= 0:
-            chunk = max(32, 4096 // self.k)
+    def predict_all(self) -> torch.Tensor:
+        """Every fold's predictions of every row, [K, N], in chunks of
+        ``max(32, 4096 // K)`` rows, so that K × chunk stays near constant."""
+        chunk = max(32, 4096 // self.k)
         outs = []
         for start in range(0, self.n, chunk):
             rows = tuple(a[start:start + chunk].expand(self.k, -1, *a.shape[1:])
