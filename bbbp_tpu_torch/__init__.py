@@ -1,8 +1,11 @@
 """PyTorch / CUDA port of ``bbbp_tpu``'s virtual-screening path, of the
 training of its screening model, of the cross-task transfer features, of
-the regression stack's chemistry-kernel estimators and of its flagship
+the regression stack's chemistry-kernel estimators, of its flagship
 Transformer+CNN regressor with the fold-batched K-fold trainer
-(``models/``, ``train/loop.py``; no kernel of their own).
+(``models/``, ``train/loop.py``; no kernel of their own), and of the
+classification ensemble with its searches and the A1 baseline
+(``ops/{metrics,linear,resample}.py``, ``train/{search,batched_search,
+classification,baseline}.py``; its forests run the trainer's kernels).
 
 The port runs on one NVIDIA Hopper card (``sm_90a``). Its device kernels
 are CUDA C++ under ``csrc/``, built with ``nvcc`` at first use

@@ -14,6 +14,8 @@ by side. Given K trees, fold k takes tree k; given one, every fold takes it.
 ``params_from_flax`` refuses a tree with a missing or an extra leaf, or a
 leaf of another shape. ``matching_params`` takes what matches and leaves
 the rest, as ``train_cv``'s ``warm_start`` does in the JAX package.
+``mlp_from_jax`` carries the JAX package's small MLP (``ops/linear.py``)
+across.
 """
 
 from __future__ import annotations
@@ -189,3 +191,23 @@ def load_flax(model: nn.Module, trees: Union[Tree, Sequence[Tree]]) -> nn.Module
         for name, p in model.named_parameters():
             p.copy_(params[name])
     return model
+
+
+def mlp_from_jax(params: Sequence[Tuple[object, object]]
+                 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The JAX package's MLP parameters (``bbbp_tpu/ops/linear.py``: a list
+    of (w [in, out], b [out]) pairs, from ``_init_mlp`` or a trained
+    ``params_``) → the port's (``ops/linear.py``), f32 CPU tensors of the
+    same layout."""
+    out = []
+    for w, b in params:
+        w, b = np.asarray(w, np.float32), np.asarray(b, np.float32)
+        if w.ndim != 2 or b.shape != (w.shape[1],):
+            raise ValueError(f"an MLP layer is (w [in, out], b [out]), got "
+                             f"{w.shape} and {b.shape}")
+        out.append((torch.from_numpy(w.copy()), torch.from_numpy(b.copy())))
+    for (w0, _), (w1, _) in zip(out, out[1:]):
+        if w0.shape[1] != w1.shape[0]:
+            raise ValueError(f"layers of {tuple(w0.shape)} and {tuple(w1.shape)} "
+                             f"do not chain")
+    return out

@@ -17,7 +17,9 @@ their real shapes and to compare two forests.
 - ``regression_legs``: the regression stack's three chemistry-kernel legs,
   driven fold by fold as ``bbbp_tpu/train/regression.py`` drives them;
 - ``regression_nn_inputs``: the regressor's (fingerprint, image, target)
-  inputs of those molecules, preprocessed as the JAX package does.
+  inputs of those molecules, preprocessed as the JAX package does;
+- ``classification_inputs``: the MACCS features and labels of
+  ``labelled_training_set``, the classification ensemble's input.
 """
 
 from __future__ import annotations
@@ -121,6 +123,20 @@ def labelled_training_set(n: int = B3DB_CLASSIFICATION_SIZE, seed: int = 0
     score = x.astype(np.float64) @ w + 0.5 * rng.random(n)
     cut = np.quantile(score, 1 - POSITIVE_SHARE)
     return smiles, (score > cut).astype(np.int32)
+
+
+def classification_inputs(n: int = B3DB_CLASSIFICATION_SIZE, seed: int = 0
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """(MACCS [n, 167] f32, labels [n] int32) of ``labelled_training_set``:
+    ``run_classification``'s ``x`` and ``y`` at B3DB classification's size
+    (B3DB is not in the repository)."""
+    from bbbp_tpu_torch.native.bindings import fingerprints
+
+    smiles, labels = labelled_training_set(n, seed)
+    x, bad = fingerprints(smiles, "maccs")
+    if bad:
+        raise ValueError(f"labelled set holds invalid SMILES {bad[:5]}")
+    return x, labels
 
 
 @dataclass

@@ -116,7 +116,32 @@ before its last line):
    folds, 50 epochs, batch 32, lr 3e-4, snapshots from epoch 30, one seed
    replica; epochs cut, and the cut printed, if 50 would take over 60 s):
    wall seconds, ms an epoch, steps/s, peak device memory and the OOF R²,
-   which must be above 0.3.
+   which must be above 0.3;
+10. the classification ensemble (``train/classification.py``; no kernel of
+   its own, its forests run K3, K4, K5 and the forest kernel) over
+   ``testing.classification_inputs()`` (the MACCS rows of the 7,809
+   labelled molecules), scaled and projected to 30 columns on ``cuda``:
+   ``smote_tomek`` on ``cuda`` against ``cpu`` (SMOTE's and Tomek's
+   neighbours equal but at near ties, at most 1% of rows, counted); each
+   non-forest model of ``default_zoo`` fit on the resampled training rows,
+   ``cuda`` against ``cpu`` (kNN and NB exact, logreg 1e-4, svc 1e-3, the
+   MLP 1e-3 at 200 Adam steps, labels equal but within that of 0.5; the
+   zoo's 800-step MLP, whose runs part with the steps, by test accuracy
+   within 1% and ROC AUC within 0.01);
+   ``batched_random_search`` of logreg, svc, bnb, knn and mlp at 50 trials
+   + the default over 5 folds, ``cuda`` against ``cpu`` (the same best
+   trial, CV scores within two validation rows; the MLP's at 200 steps
+   within 1% of them, its ``cpu`` side cut to the default + 2 trials; the
+   card also runs all 51 at 800 steps, timed); then
+   ``run_classification(tune=False)`` on ``cuda`` at full width with every
+   launch counter set to 0 just before and read just after (the forest
+   kernel's, K3's, K4's and K5's must move): the 12-row report, wall
+   seconds by stage, peak memory, and voting's ROC AUC within 0.03 of the
+   JAX package's on the CPU over the same rows (``classification_reference.py``,
+   a learning check); then ``tune_zoo`` of the five forest families on
+   ``cuda``, cut to the default + 1 trial × 5 folds (seconds a fit), one
+   fold fit profiled (device busy share, host launch calls) and one MLP
+   lane group profiled (host launch calls a step).
 
 Then one JSON line for the kernels (each with its time and its plain
 version's, its bound from ``bbbp_tpu_torch/timing.py`` and a library
@@ -174,6 +199,42 @@ FWD_TOL = {"f32": 1e-4, "bf16": 2e-2}
 # most 2 lr apart (1% more for the decay)
 STEP_GRAD_TOL = 1e-2
 STEP_TURNED = 2.02
+
+# phase 10: the classification ensemble. Card against CPU on the same
+# numpy rows: SMOTE's and Tomek's neighbours may differ only at near ties
+# (two distances within 1e-5 relative among the first kk + 1), at most 1%
+# of rows; the estimators within the CPU tests' tolerances
+# (tests/test_torch_linear.py); a batched search's CV scores within two
+# validation rows and the same best trial. Not so the MLP: where a
+# gradient is near 0, Adam's step turns on its last bits, so two correct
+# runs part, the sooner the more rows and the larger the learning rate
+# (tests/test_torch_linear.py: 1.8e-7 after 200 steps on 300 rows; on an
+# H100, card against CPU at 8,162 rows: 6.7e-5 after 200 steps, 0.077
+# after the zoo's 800; a search trial at lr 3.5e-3 40.6 validation rows
+# apart after 200 steps, 255 after 800). The MLP is held at 200 steps
+# within 1e-3, and by what it learned at 800: test accuracy within 1% and
+# ROC AUC within 0.01; its search at 200 steps within 1% of the
+# validation rows, with the same best trial
+CLS_NEAR_TIE_RTOL = 1e-5
+CLS_NEAR_TIE_SHARE = 0.01
+CLS_PROBA_TOL = {"knn": 0.0, "logreg": 1e-4, "svc": 1e-3, "bnb": 0.0,
+                 "mlp": 1e-3}
+CLS_MLP_EXACT_STEPS = 200
+CLS_MLP_ACC_TOL, CLS_MLP_AUC_TOL = 0.01, 0.01
+CLS_ROWS_TOL = 2
+CLS_MLP_SEARCH_TOL = 0.01         # of the validation rows
+CLS_SEARCH_TRIALS = 50            # + the default trial, 5 folds
+CLS_MLP_CPU_TRIALS = 2            # the MLP search on the CPU: default + 2
+                                  # at 200 steps (51 at 800 take many
+                                  # minutes there); the card runs all 51
+                                  # at 800 as well, timed
+CLS_FOREST_TRIALS = 1             # phase 10's tune_zoo of the forests:
+                                  # default + 1 sampled trial (of 50)
+# a learning check, not a target: the JAX package's run_classification
+# (tune=False) on the CPU over the same rows gives voting a ROC AUC of
+# CLS_JAX_VOTING_AUC; the port's must come within 0.03 of it
+CLS_JAX_VOTING_AUC = 0.8907
+CLS_AUC_MARGIN = 0.03
 
 
 def read_csv(path: str):
@@ -1088,6 +1149,281 @@ def regressor_phase(card):
           f"| on {card}", flush=True)
 
 
+def _near_tie_rows(d: np.ndarray, places: int) -> np.ndarray:
+    """Rows of a distance matrix whose ``places`` + 1 smallest entries hold
+    two distinct values within CLS_NEAR_TIE_RTOL relative."""
+    srt = np.sort(np.partition(d, places, axis=1)[:, :places + 1], axis=1)
+    step = np.diff(srt, axis=1)
+    return ((step > 0) & (step <= CLS_NEAR_TIE_RTOL * np.maximum(srt[:, 1:], 1e-30))
+            ).any(axis=1)
+
+
+def _neighbour_swaps(rows: np.ndarray, kk: int, cuda) -> dict:
+    """SMOTE's (kk > 0) or Tomek's (kk = 0) neighbours of ``rows`` on the
+    card against the CPU, compared distance for distance on the CPU's
+    distances: rows that differ, and how many of them are not near ties."""
+    from bbbp_tpu_torch.ops import resample as rs
+
+    d = rs._self_dists(rows, "cpu").numpy()
+    ids = np.arange(len(rows))[:, None]
+    if kk:
+        on_card, on_cpu = (rs.smote_neighbors(rows, kk, dev) for dev in (cuda, "cpu"))
+        differ = (np.sort(d[ids, on_card], 1) != np.sort(d[ids, on_cpu], 1)).any(1)
+    else:
+        on_card, on_cpu = (rs.tomek_nearest(rows, dev) for dev in (cuda, "cpu"))
+        differ = d[ids[:, 0], on_card] != d[ids[:, 0], on_cpu]
+    near = _near_tie_rows(d, max(kk, 1))
+    return {"rows": len(rows), "differ": int(differ.sum()),
+            "not_near_ties": int((differ & ~near).sum()),
+            "near_tie_rows": int(near.sum())}
+
+
+def classification_phase(card, counters) -> dict:
+    """Phase 10: the classification ensemble (``train/classification.py``)
+    over ``testing.classification_inputs()``. Returns the launches of the
+    kernels in ``run_classification``."""
+    import torch
+
+    from bbbp_tpu_torch.ops import resample as rs
+    from bbbp_tpu_torch.ops.similarity import f32_matmul
+    from bbbp_tpu_torch.testing import classification_inputs
+    from bbbp_tpu_torch.timing import host_launch_calls, profile_summary
+    from bbbp_tpu_torch.train import batched_search as bs
+    from bbbp_tpu_torch.train import classification as cl
+
+    cuda = torch.device("cuda")
+    problems = []
+    t10 = time.time()
+    t0 = time.time()
+    x, y = classification_inputs()
+    t_in = time.time() - t0
+    cfg = cl.ClassificationTrainConfig(tune=False)
+    t0 = time.time()
+    with f32_matmul():
+        z = cl._project(cl._fit_basis(x, cfg.pca_dim, cuda), x, cuda)
+    print(f"[10 inputs] classification_inputs(): {x.shape[0]} molecules, MACCS "
+          f"{x.shape[1]}, {y.mean():.3f} positive, {t_in:.2f} s; scaler + "
+          f"PCA({cfg.pca_dim}) on cuda: {time.time() - t0:.2f} s", flush=True)
+
+    # -- SMOTE-Tomek, card against CPU ---------------------------------------
+    t0 = time.time()
+    xs_g, ys_g = rs.smote_tomek(z, y, seed=cfg.seed, device=cuda)
+    tomek_g = time.time() - t0
+    t0 = time.time()
+    xs_c, ys_c = rs.smote_tomek(z, y, seed=cfg.seed, device="cpu")
+    tomek_c = time.time() - t0
+    t0 = time.time()
+    counts = np.bincount(y)
+    minority = z[y == int(np.argmin(counts))]
+    smote_swaps = _neighbour_swaps(minority, 5, cuda)
+    xs_smote, _ = rs.smote(z, y, seed=cfg.seed, device="cpu")
+    tomek_swaps = _neighbour_swaps(xs_smote, 0, cuda)
+    same_out = xs_g.shape == xs_c.shape and np.array_equal(xs_g, xs_c) \
+        and np.array_equal(ys_g, ys_c)
+    rows_differ = (int((xs_g != xs_c).any(1).sum()) if xs_g.shape == xs_c.shape
+                   else abs(len(xs_g) - len(xs_c)))
+    for name, sw in (("SMOTE", smote_swaps), ("Tomek", tomek_swaps)):
+        if sw["not_near_ties"] or sw["differ"] > CLS_NEAR_TIE_SHARE * sw["rows"]:
+            problems.append(f"{name} neighbours card vs cpu: {sw}")
+    if (smote_swaps["differ"] + tomek_swaps["differ"] == 0) != same_out or \
+            rows_differ > CLS_NEAR_TIE_SHARE * len(xs_c):
+        problems.append(f"smote_tomek card vs cpu: {rows_differ} rows differ")
+    print(f"[10 smote_tomek] {len(z)} -> {len(xs_g)} rows (cpu {len(xs_c)}); "
+          f"cuda {tomek_g:.2f} s, cpu {tomek_c:.2f} s; card vs cpu: output "
+          f"{'bit-equal' if same_out else f'{rows_differ} rows differ'}; "
+          f"SMOTE neighbours (kk 5) {smote_swaps}, Tomek nearest "
+          f"{tomek_swaps} (limit: near ties only, {CLS_NEAR_TIE_SHARE:.0%} of rows; "
+          f"the neighbour comparison {time.time() - t0:.1f} s)", flush=True)
+
+    # the reference protocol's split of the resampled rows
+    perm = np.random.default_rng(cfg.seed).permutation(len(ys_c))
+    n_test = int(len(ys_c) * cfg.test_size)
+    te, tr = perm[:n_test], perm[n_test:]
+    x_tr, y_tr, x_te, y_te = xs_c[tr], ys_c[tr], xs_c[te], ys_c[te]
+
+    # -- the non-forest estimators of default_zoo, card against CPU ----------
+    from bbbp_tpu_torch.ops import metrics as mt
+    from bbbp_tpu_torch.ops.linear import MLPClassifier
+
+    zoo_g, zoo_c = cl.default_zoo(cfg.seed, cuda), cl.default_zoo(cfg.seed, "cpu")
+    for zoo, dev in ((zoo_g, cuda), (zoo_c, "cpu")):
+        zoo["mlp_200"] = lambda dev=dev: MLPClassifier(
+            hidden=(128,), n_steps=CLS_MLP_EXACT_STEPS, seed=cfg.seed, device=dev)
+    est = {}
+    for m in ("knn", "logreg", "svc", "bnb", "mlp_200", "mlp"):
+        tol = CLS_PROBA_TOL[m.split("_")[0]]
+        t0 = time.time()
+        pg = zoo_g[m]().fit(x_tr, y_tr).predict_proba(x_te)[:, 1]
+        t_g = time.time() - t0
+        t0 = time.time()
+        pc = zoo_c[m]().fit(x_tr, y_tr).predict_proba(x_te)[:, 1]
+        t_c = time.time() - t0
+        err = float(np.abs(pg - pc).max())
+        flips = int((((pg > 0.5) != (pc > 0.5)) & (np.abs(pc - 0.5) > tol)).sum())
+        est[m] = {"max_abs_err": err, "cuda_s": round(t_g, 3), "cpu_s": round(t_c, 3)}
+        if m == "mlp":                       # 800 steps: held by what it learned
+            d_acc = abs(float(mt.accuracy(y_te, pg > 0.5))
+                        - float(mt.accuracy(y_te, pc > 0.5)))
+            d_auc = abs(float(mt.roc_auc(y_te, pg)) - float(mt.roc_auc(y_te, pc)))
+            est[m].update(labels_turned=int(((pg > 0.5) != (pc > 0.5)).sum()),
+                          d_accuracy=round(d_acc, 5), d_roc_auc=round(d_auc, 5))
+            if d_acc > CLS_MLP_ACC_TOL or d_auc > CLS_MLP_AUC_TOL:
+                problems.append(f"mlp card vs cpu: accuracy {d_acc:.4f}, ROC AUC "
+                                f"{d_auc:.4f} apart")
+        elif err > tol or flips:
+            problems.append(f"{m} card vs cpu: max |dp| {err:.3g} (limit {tol}), "
+                            f"{flips} labels turned away from 0.5")
+    print(f"[10 estimators] default_zoo's non-forest models (and its MLP at "
+          f"{CLS_MLP_EXACT_STEPS} steps) fit on {len(y_tr)} rows, predicting "
+          f"{len(y_te)}, cuda vs cpu: {est} (limits {CLS_PROBA_TOL}; the "
+          f"800-step MLP: accuracy within {CLS_MLP_ACC_TOL}, ROC AUC within "
+          f"{CLS_MLP_AUC_TOL})", flush=True)
+
+    # -- batched searches, card against CPU ----------------------------------
+    searched = {}
+    n_rows = len(y_tr)
+    t_s = time.time()
+    for m in ("logreg", "svc", "bnb", "knn", "mlp"):
+        n_cpu = CLS_MLP_CPU_TRIALS if m == "mlp" else CLS_SEARCH_TRIALS
+        space, default = cl.SEARCH_SPACES[m], cl.DEFAULT_TRIALS[m]
+        if m == "mlp":
+            space = {**space, "n_steps": CLS_MLP_EXACT_STEPS}
+            default = {**default, "n_steps": CLS_MLP_EXACT_STEPS}
+        kw = dict(n_iter=n_cpu, cv=cfg.search_folds, seed=cfg.seed,
+                  extra_trials=[default])
+        t0 = time.time()
+        rg = bs.batched_random_search(m, x_tr, y_tr, space, device=cuda, **kw)
+        t_g = time.time() - t0
+        t0 = time.time()
+        rc = bs.batched_random_search(m, x_tr, y_tr, space, device="cpu", **kw)
+        t_c = time.time() - t0
+        diff = max(abs(a[k] - b[k]) for a, b in zip(rg.trials, rc.trials)
+                   for k in ("mean_accuracy", "mean_precision", "mean_f1"))
+        searched[m] = {"trials": len(rg.trials), "cuda_s": round(t_g, 3),
+                       "cpu_s": round(t_c, 3), "best": rg.best_params,
+                       "best_acc": round(rg.best_score, 5),
+                       "max_diff_rows": round(diff * n_rows, 2)}
+        limit = (CLS_MLP_SEARCH_TOL * n_rows if m == "mlp" else CLS_ROWS_TOL) + 1e-6
+        if rg.best_params != rc.best_params or diff * n_rows > limit:
+            problems.append(f"{m} search card vs cpu: best {rg.best_params} vs "
+                            f"{rc.best_params}, max score diff {diff * n_rows:.2f} rows")
+        if m == "mlp":              # all 51 trials at 800 steps on the card, timed
+            t0 = time.time()
+            full = bs.batched_random_search(
+                m, x_tr, y_tr, cl.SEARCH_SPACES[m], device=cuda,
+                **{**kw, "n_iter": CLS_SEARCH_TRIALS,
+                   "extra_trials": [cl.DEFAULT_TRIALS[m]]})
+            searched[m]["cuda_s_51_trials"] = round(time.time() - t0, 3)
+            searched[m]["best_of_51"] = full.best_params
+    print(f"[10 searches] batched_random_search, {cfg.search_folds} folds over "
+          f"{n_rows} rows, {CLS_SEARCH_TRIALS} + default trials (the MLP's "
+          f"cpu comparison {CLS_MLP_CPU_TRIALS} + default at "
+          f"{CLS_MLP_EXACT_STEPS} steps), cuda vs cpu: "
+          f"{searched} (limit: the same best trial, {CLS_ROWS_TOL} validation rows; "
+          f"the MLP's {CLS_MLP_SEARCH_TOL:.0%} of them) | {time.time() - t_s:.1f} s",
+          flush=True)
+
+    # -- run_classification(tune=False) on cuda at full width ----------------
+    for c in counters.values():
+        c.launches.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = cl.run_classification(cfg, x, y, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: c.launches.count for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("dense_forest_predict", "forest_level_histogram",
+                 "forest_best_splits", "forest_leaf_values"):
+        if not launches[name]:
+            problems.append(f"run_classification launched no {name}")
+    for m, r in res.report.items():
+        print(f"[10 report] {m:9s} " + " ".join(
+            f"{k} {v:.4f}" for k, v in r.items()), flush=True)
+    auc = res.report["voting"]["roc_auc"]
+    floor = (None if CLS_JAX_VOTING_AUC is None
+             else CLS_JAX_VOTING_AUC - CLS_AUC_MARGIN)
+    if floor is not None and not auc >= floor:
+        problems.append(f"voting ROC AUC {auc:.4f} below {floor:.4f}")
+    print(f"[10 run] run_classification(tune=False) on cuda over {len(y)} "
+          f"molecules: {wall:.3f} s wall | by stage "
+          f"{ {k: round(v, 3) for k, v in res.stage_s.items()} } | peak "
+          f"allocated {peak:.3f} GiB | launches {launches} | voting ROC AUC "
+          f"{auc:.4f} (JAX package on the CPU: {CLS_JAX_VOTING_AUC}, floor "
+          f"{floor}) | on {card}", flush=True)
+
+    # -- the forest families' search, cut to the default + 1 trial -----------
+    rng = np.random.default_rng(cfg.seed)
+    perm = rng.permutation(len(ys_g))
+    n_test = int(len(ys_g) * cfg.test_size)
+    g_tr = perm[n_test:]
+    fx, fy = xs_g[g_tr], ys_g[g_tr]
+    tcfg = cl.ClassificationTrainConfig(n_search_iter_forest=CLS_FOREST_TRIALS)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, trials, walls = cl.tune_zoo(fx, fy, bs.FOREST_FAMILIES, tcfg,
+                                   verbose=False, device=cuda)
+    tune_s = time.time() - t0
+    fits = {m: (len(trials[m]) * tcfg.search_folds) for m in walls}
+    per_fit = {m: round(walls[m] / fits[m], 3) for m in walls}
+    best = {m: max(t["mean_accuracy"] for t in trials[m]) for m in trials}
+    # one fold fit of xgb's default trial, profiled
+    folds = bs.stratified_kfold_indices(fy, tcfg.search_folds, cfg.seed)
+    prep = bs._forest_prep(fx, fy, folds, cuda)
+    p = cl.DEFAULT_TRIALS["xgb"]
+    p0 = float(np.clip(fy.mean(), 1e-6, 1 - 1e-6))
+
+    def fold_fit():
+        out = bs.fit_forest(
+            prep["xb"], prep["edge_vals"], prep["y"], lr=p["learning_rate"],
+            lam=p["reg_lambda"], min_child=1.0, subsample=p["subsample"],
+            colsample=p["colsample"], base_score=float(np.log(p0 / (1 - p0))),
+            seed=0, task="cls", n_trees=p["n_estimators"], depth=p["max_depth"],
+            oblivious=False, rf=False, row_w=prep["w_kn"][0], n_bins=prep["n_bins"])
+        torch.cuda.synchronize()
+        return out
+
+    fold_fit()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fold_fit()
+        fit_wall = time.time() - t0
+    fit_busy = profile_summary(prof, lambda name: name)["device_busy_ms"]
+    fit_calls = host_launch_calls(prof)
+    del prof
+    # one MLP lane group (the default trial x 5 folds), profiled
+    mlp_trial = [cl.DEFAULT_TRIALS["mlp"]]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        bs._score_param_sets("mlp", x_tr, y_tr, mlp_trial, cfg.search_folds,
+                             cfg.seed, False, cuda)
+        torch.cuda.synchronize()
+        mlp_wall = time.time() - t0
+    mlp_calls = host_launch_calls(prof)
+    mlp_busy = profile_summary(prof, lambda name: name)["device_busy_ms"]
+    del prof
+    steps = mlp_trial[0]["n_steps"]
+    print(f"[10 forest search] tune_zoo(n_search_iter_forest="
+          f"{CLS_FOREST_TRIALS}) on cuda, {bs.FOREST_FAMILIES}: {tune_s:.3f} s "
+          f"| s a fit {per_fit} | best CV accuracy "
+          f"{ {m: round(v, 4) for m, v in best.items()} } | one fold fit of "
+          f"xgb's default (300 x depth 6) profiled: {fit_wall:.3f} s wall, "
+          f"device busy {fit_busy:.1f} ms ({fit_busy / 1e3 / fit_wall:.1%}), "
+          f"{fit_calls} host launch calls | one MLP lane group (1 trial x "
+          f"{cfg.search_folds} folds, {steps} steps) profiled: {mlp_wall:.3f} s, "
+          f"busy {mlp_busy:.1f} ms ({mlp_busy / 1e3 / mlp_wall:.1%}), {mlp_calls} "
+          f"host launch calls ({mlp_calls / steps:.1f} a step) | phase 10 "
+          f"{time.time() - t10:.1f} s on {card}", flush=True)
+    if problems:
+        raise AssertionError("phase 10: " + " | ".join(problems))
+    return launches
+
+
 def own_children() -> list:
     """PIDs of this process's children, zombies included, from ``/proc``."""
     me, pids = str(os.getpid()), []
@@ -1711,6 +2047,9 @@ def run() -> int:
     # -- phase 9: the regressor and train_cv ---------------------------------
     regressor_phase(card)
 
+    # -- phase 10: the classification ensemble ------------------------------
+    cls_launches = classification_phase(card, counters)
+
     kernels = [
         {"name": "packed_project", "route": "cuda",
          "source": "bbbp_tpu_torch/csrc/packed_project.cu",
@@ -1730,6 +2069,7 @@ def run() -> int:
          "replaces": "bbbp_tpu/ops/forest_tpu.py:85",
          "launches": launches["dense_forest_predict"],
          "launches_transfer": transfer_launches["dense_forest_predict"],
+         "launches_classification": cls_launches["dense_forest_predict"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"],
@@ -1757,6 +2097,7 @@ def run() -> int:
                  "source": "bbbp_tpu_torch/csrc/forest_train.cu",
                  "replaces": replaces, "launches": train_launches[name],
                  "launches_transfer": transfer_launches[name],
+                 "launches_classification": cls_launches[name],
                  "max_abs_err": err, "ms": t[key], "plain_ms": t[key + "_plain"],
                  "bound_ms": t[key + "_bound"]["bound_ms"],
                  "bound_by": t[key + "_bound"]["bound_by"],

@@ -51,6 +51,23 @@ def test_sources_import_neither_jax_nor_bbbp_tpu():
         assert not pattern.search(f.read())
 
 
+@pytest.mark.parametrize("module", [
+    "ops.metrics", "ops.linear", "ops.resample", "train.search",
+    "train.batched_search", "train.learning_curve", "train.classification",
+    "train.baseline", "reporting", "reporting.metrics_io",
+    "chem.graph_features"])
+def test_import_checks_reach_the_classification_slice(module):
+    """The two checks above walk every module of the package: each module of
+    the classification slice is among those they import and read."""
+    import pkgutil
+
+    import bbbp_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(bbbp_tpu_torch.__path__,
+                                                   "bbbp_tpu_torch.")}
+    assert f"bbbp_tpu_torch.{module}" in names
+
+
 @pytest.mark.parametrize("seed", [0, 3, 42])
 def test_synthetic_smiles_equal_to_jax_package(seed):
     from bbbp_tpu.data.zinc import synthetic_smiles as jax_version
