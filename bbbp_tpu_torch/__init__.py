@@ -5,7 +5,10 @@ Transformer+CNN regressor with the fold-batched K-fold trainer
 (``models/``, ``train/loop.py``; no kernel of their own), and of the
 classification ensemble with its searches and the A1 baseline
 (``ops/{metrics,linear,resample}.py``, ``train/{search,batched_search,
-classification,baseline}.py``; its forests run the trainer's kernels).
+classification,baseline}.py``; its forests run the trainer's kernels), and
+of the logBB regression stack (``pipelines/preprocess.py``,
+``models/gnn.py``, ``train/regression.py``; its forests and kernel legs run
+the trainer's and the similarity kernels).
 
 The port runs on one NVIDIA Hopper card (``sm_90a``). Its device kernels
 are CUDA C++ under ``csrc/``, built with ``nvcc`` at first use

@@ -1,6 +1,7 @@
 """The port's models: the flagship Transformer+CNN regressor and its fusion
-heads, with parameters on a leading fold axis (``fold.py``), and a loader of
-flax parameter trees (``convert.py``)."""
+heads and the graph regressors (``gnn.py``), with parameters on a leading
+fold axis (``fold.py``), and a loader of flax parameter trees
+(``convert.py``)."""
 
 from bbbp_tpu_torch.models.fusion import (AttentionFusion,
                                           MultiHeadAttentionFusion,

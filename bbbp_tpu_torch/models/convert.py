@@ -3,13 +3,15 @@
 A flax ``params`` tree, as nested dicts of numpy arrays (what
 ``jax.device_get`` of the JAX package's params gives, or a pickle of it),
 becomes the parameters of a port model of the same configuration
-(``models/transformer_cnn.py``). The port's parameters carry flax's names
-(``enc0.ff1.kernel`` is the leaf ``enc0/ff1/kernel``) and, but for the
-cases of ``_LAYOUTS``, the shape of one fold of them: dense kernels stay
-``[in, out]``. ``_LAYOUTS`` is the one place that knows where the two
-differ: HWIO convolution kernels turn to OIHW, attention's ``DenseGeneral``
-leaves reshape, and the four heads of ``MultiHeadAttentionFusion`` lie side
-by side. Given K trees, fold k takes tree k; given one, every fold takes it.
+(``models/transformer_cnn.py``, ``models/gnn.py``). The port's parameters
+carry flax's names (``enc0.ff1.kernel`` is the leaf ``enc0/ff1/kernel``)
+and, but for the cases of ``_LAYOUTS``, the shape of one fold of them:
+dense kernels stay ``[in, out]``. ``_LAYOUTS`` is the one place that knows
+where the two differ: HWIO convolution kernels turn to OIHW, attention's
+``DenseGeneral`` leaves reshape, the four heads of
+``MultiHeadAttentionFusion`` lie side by side, and so do the MPNN's
+bond-type message layers. Given K trees, fold k takes tree k; given one,
+every fold takes it.
 
 ``params_from_flax`` refuses a tree with a missing or an extra leaf, or a
 leaf of another shape. ``matching_params`` takes what matches and leaves
@@ -85,6 +87,18 @@ def _heads(model: nn.Module, m: re.Match, shape: Shape) -> Leaves:
             lambda a: np.concatenate(a, axis=-1))
 
 
+def _messages(model: nn.Module, m: re.Match, shape: Shape) -> Leaves:
+    """``MPNNRegressor``'s bond-type message layers of one message-passing
+    layer, each its own flax ``Dense`` (``Dense_{1 + i(T+1) + t}``, t < T),
+    side by side in one kernel [H, T·H] and one bias [T·H]."""
+    mpnn = model.get_submodule(m["module"].rstrip("."))
+    first, t = mpnn.message_dense(int(m["layer"])), mpnn.n_types
+    prefix = m["module"].replace(".", "/")
+    paths = tuple(f"{prefix}Dense_{first + j}/{m['leaf']}" for j in range(t))
+    return (paths, (shape[:-1] + (shape[-1] // t,),) * t,
+            lambda a: np.concatenate(a, axis=-1))
+
+
 # The port's parameters whose flax leaves are not one leaf of their own
 # path and per-fold shape: a pattern of the port's name → its leaves.
 _LAYOUTS = (
@@ -93,6 +107,8 @@ _LAYOUTS = (
      r"\.(?P<proj>(query|key|value)\.(kernel|bias)|out\.kernel))", _attention),
     (r"(?P<module>(.*\.)?MultiHeadAttentionFusion_0)"
      r"\.(?P<layer>score_1|score_2|value)_(?P<leaf>kernel|bias)", _heads),
+    (r"(?P<module>(.*\.)?)messages_(?P<layer>\d+)_(?P<leaf>kernel|bias)",
+     _messages),
 )
 
 

@@ -1,3 +1,3 @@
-"""Ports of the ``bbbp_tpu.ops`` modules on the screening, training and
-classification paths; the kernels' wrappers live in ``bitops``, ``forest``,
+"""Ports of the ``bbbp_tpu.ops`` modules on the screening, training,
+classification and regression paths; the kernels' wrappers live in ``bitops``, ``forest``,
 ``forest_train`` and ``similarity``."""

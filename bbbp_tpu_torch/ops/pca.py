@@ -65,3 +65,17 @@ class PCA:
 
     def inverse_transform(self, z) -> torch.Tensor:
         return torch.as_tensor(z, dtype=torch.float32) @ self.components_ + self.mean_
+
+
+def pca_per_batch(x, n_components: int, batch_size: int = 100) -> torch.Tensor:
+    """Compat mode: PCA re-fit per consecutive batch of rows (reference
+    quirk, Descriptors/multi_input_data_preprocess_maccs_opt_IsolationForest_fixed_2.py:103-114),
+    on the device of ``x``; a batch of fewer rows than ``n_components``
+    leaves its last columns 0."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    out = torch.zeros((len(x), n_components), dtype=torch.float32, device=x.device)
+    for start in range(0, len(x), batch_size):
+        blk = x[start:start + batch_size]
+        k = min(n_components, blk.shape[0], blk.shape[1])
+        out[start:start + batch_size, :k] = PCA(k).fit_transform(blk)
+    return out

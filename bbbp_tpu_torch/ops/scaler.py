@@ -32,3 +32,15 @@ class StandardScaler:
 
     def inverse_transform(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32) * self.scale_ + self.mean_
+
+
+def standardize_per_batch(x, batch_size: int = 100) -> torch.Tensor:
+    """Compat mode: an independent fit per consecutive batch of rows
+    (reference quirk, Descriptors/..._fixed_1.py:86-103), on the device of
+    ``x``."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    out = torch.empty_like(x)
+    for start in range(0, len(x), batch_size):
+        out[start:start + batch_size] = StandardScaler().fit_transform(
+            x[start:start + batch_size])
+    return out

@@ -16,8 +16,10 @@ their real shapes and to compare two forests.
   size, made from a seed;
 - ``regression_legs``: the regression stack's three chemistry-kernel legs,
   driven fold by fold as ``bbbp_tpu/train/regression.py`` drives them;
+- ``write_regression_tsv``: molecules and a target as a B3DB regression
+  TSV, which ``run_regression`` and ``preprocess_regression`` read;
 - ``regression_nn_inputs``: the regressor's (fingerprint, image, target)
-  inputs of those molecules, preprocessed as the JAX package does;
+  inputs of those molecules, from ``preprocess_regression``;
 - ``classification_inputs``: the MACCS features and labels of
   ``labelled_training_set``, the classification ensemble's input.
 """
@@ -468,39 +470,47 @@ def regression_legs(desc: np.ndarray, maccs: np.ndarray, counts: np.ndarray,
     return out
 
 
+def write_regression_tsv(path: str, smiles: List[str], y: np.ndarray) -> None:
+    """A B3DB-format regression TSV (``NO.``, ``SMILES``, ``logBB``) that
+    ``data/b3db.py::load_b3db_regression`` reads; each target is written so
+    that it reads back as the same f32."""
+    with open(path, "w") as f:
+        f.write("NO.\tSMILES\tlogBB\n")
+        for i, (s, v) in enumerate(zip(smiles, y)):
+            f.write(f"{i + 1}\t{s}\t{float(np.float32(v))!r}\n")
+
+
 def regression_nn_inputs(n: int = B3DB_REGRESSION_SIZE, seed: int = 1,
                          seconds: Optional[Dict[str, float]] = None
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(nn_fp [n, 198] f32, img [n, 128, 128, 3] f32, y [n]) of
-    ``regression_molecules(n, seed)``, as ``bbbp_tpu/pipelines/preprocess.py``
-    makes the regressor's inputs with its defaults (MACCS, enriched): the
-    MACCS bits and the flat images standardized column by column together
-    (``StandardScaler`` over [fp | image], ``preprocess.py:133-146``), the 31
-    descriptors standardized apart, nn_fp = [MACCS | descriptors]. Molecules
-    that do not parse or render are dropped. The outlier filter and the
-    logBB floor are left out (the target is synthetic). ``seconds``, if
-    given, gets the wall time of ``images`` under ``"images"`` and the
-    count of molecules it could not render under ``"images_bad"``."""
+    ``regression_molecules(n, seed)``: ``pipelines/preprocess.py::
+    preprocess_regression`` on the CPU at its defaults (MACCS, enriched)
+    over a TSV of them, with ``logbb_min=None`` (the target is synthetic),
+    and the regressor's inputs as ``run_regression`` takes them
+    (``nn_fp_features()``: the MACCS bits standardized with the images, the
+    31 descriptors apart). Molecules that do not parse or render are
+    dropped. ``seconds``, if given, gets the wall time of the preprocessing
+    under ``"preprocess"`` and the count of molecules dropped under
+    ``"bad"``."""
+    import os
+    import tempfile
     import time
 
-    from bbbp_tpu_torch.chem.featurize import descriptors, images
-    from bbbp_tpu_torch.native.bindings import fingerprints
-    from bbbp_tpu_torch.ops.scaler import StandardScaler
+    from bbbp_tpu_torch.pipelines.preprocess import (PreprocessConfig,
+                                                     preprocess_regression)
 
     smiles, y = regression_molecules(n, seed)
-    fp, fp_bad = fingerprints(smiles, "maccs")
     t0 = time.perf_counter()
-    img_res = images(smiles)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "B3DB_regression.tsv")
+        write_regression_tsv(path, smiles, y)
+        data = preprocess_regression(PreprocessConfig(logbb_min=None,
+                                                      tsv_path=path),
+                                     device="cpu")
     if seconds is not None:
-        seconds["images"] = time.perf_counter() - t0
-        seconds["images_bad"] = len(img_res.bad_indices)
-    ok = img_res.ok_mask
-    ok[np.asarray(fp_bad, np.int64)] = False
-    fp, img, y = fp[ok], img_res.features[ok], y[ok]
-    desc = descriptors([s for s, m in zip(smiles, ok) if m]).features
-    joint = StandardScaler().fit_transform(
-        np.concatenate([fp, img.reshape(len(img), -1)], axis=1))
-    desc_n = StandardScaler().fit_transform(desc)
-    nn_fp = torch.cat([joint[:, :fp.shape[1]], desc_n], dim=1).numpy()
-    img_n = joint[:, fp.shape[1]:].reshape(img.shape).numpy()
-    return nn_fp, img_n, y
+        seconds["preprocess"] = time.perf_counter() - t0
+        seconds["bad"] = n - len(data.y)
+    side = data.config.image_size
+    return (data.nn_fp_features(),
+            data.img_norm.reshape(len(data.y), side, side, 3), data.y)

@@ -97,10 +97,10 @@ before its last line):
    2e-3 (two f32 Cholesky solves), grams within 1e-5.
 
 9. the regressor (``models/transformer_cnn.py``, ``train/loop.py``; no
-   kernel of its own, the JAX package's model is flax layers): ``images()``
-   of the 1,058 regression molecules (seconds, bad count) and
-   ``testing.regression_nn_inputs`` (MACCS + 31 descriptors, 198 wide,
-   images 128 x 128 x 3); ``MultiModalRegressor(n_layers=4)`` forward on
+   kernel of its own, the JAX package's model is flax layers):
+   ``testing.regression_nn_inputs`` (``preprocess_regression`` on the CPU
+   over the 1,058 regression molecules: MACCS + 31 descriptors, 198 wide,
+   images 128 x 128 x 3; seconds, rows dropped); ``MultiModalRegressor(n_layers=4)`` forward on
    ``cuda`` against ``cpu`` from the same parameters for the three fusions
    x ``fp_tokens`` 1 and 4, and Morgan 2048 through ``fp_in_proj``, f32
    (TF32 off, cuDNN's too) within 1e-4 and bf16 within 2e-2, and
@@ -141,7 +141,30 @@ before its last line):
    a learning check); then ``tune_zoo`` of the five forest families on
    ``cuda``, cut to the default + 1 trial × 5 folds (seconds a fit), one
    fold fit profiled (device busy share, host launch calls) and one MLP
-   lane group profiled (host launch calls a step).
+   lane group profiled (host launch calls a step);
+11. the regression stack (``train/regression.py``; no kernel of its own:
+   its forests run K3, K4, K5 and the forest kernel, its chemistry-kernel
+   legs K6, K7 and K8) over a B3DB-format TSV of the 1,058 regression
+   molecules: ``preprocess_regression``'s transforms on ``cuda`` against
+   ``cpu`` from one featurization (the standardized blocks within 1e-4,
+   the PCA blocks and interactions within 3e-4, each times the larger of 1
+   and the block's largest |value|; the outlier labels equal but near the
+   threshold, at most 1% of rows); the MPNN (hidden 192, 5 layers, 128
+   atoms, 10 folds) forward on ``cuda`` against ``cpu`` (f32 1e-4 with TF32
+   off, bf16 2e-2, with and without the fold axis) and one f32 step (phase
+   9's rule); then ``run_regression(device="cuda")`` at
+   ``RegressionTrainConfig()``'s widths through ``$BBBP_B3DB_DIR`` with
+   its depth cut (``REG_CUTS``, each cut printed) and every launch counter
+   set to 0 just before and read just after (the forest kernel's, K3's,
+   K4's, K5's, K6's, K7's and K8's must move): the report, wall seconds by
+   stage and peak memory; its knn, ridge, tknn, tkrr and ckrr columns
+   against the same estimators on ``cpu`` over its folds (``LEG_TOL``;
+   knn rows at a near tie of the 10th neighbour excepted); K3 and K4 at the
+   tree matrix's width (458 features) on fold 0's binned rows at levels 0,
+   5 and 9, held as phase 5 holds them and timed; and a learning check:
+   the stacked R² within 0.03 of the JAX package's on the CPU over the same
+   rows at the same depth (``regression_reference.py``), the nn and graph
+   legs' OOF R² above 0.3.
 
 Then one JSON line for the kernels (each with its time and its plain
 version's, its bound from ``bbbp_tpu_torch/timing.py`` and a library
@@ -235,6 +258,35 @@ CLS_FOREST_TRIALS = 1             # phase 10's tune_zoo of the forests:
 # CLS_JAX_VOTING_AUC; the port's must come within 0.03 of it
 CLS_JAX_VOTING_AUC = 0.8907
 CLS_AUC_MARGIN = 0.03
+# phase 11: the regression stack. run_regression at RegressionTrainConfig()'s
+# widths, its depth cut (one seed replica of every leg; the NN's 50 epochs
+# cut to 3, snapshots from 2 as 30 of 50; the MPNN's 100 to 12).
+# regression_reference.py runs the JAX package with the same cuts on the
+# CPU, where its bf16 CNN over 10 vmapped folds takes ~30 minutes an epoch:
+# at this depth the reference ran 2.2 hours on 8 cores
+REG_CUTS = dict(nn_seeds=1, graph_seeds=1, tree_seeds=1, epochs=3,
+                snapshot_from=2, graph_epochs=12)
+# every preprocessed block, card against CPU, within a tolerance times the
+# larger of 1 and the block's largest |value|: the standardized blocks 1e-4
+# (column means an ulp apart, over a near-constant pixel column's small
+# std: 3.0e-3 on values up to 32.5 on an NVIDIA H100 80GB HBM3 at 700 W),
+# the PCA blocks and their interactions 3e-4 (two eigensolvers' f32
+# components; fp_pca 1.5e-3 on values up to 15.3), as
+# tests/test_torch_preprocess.py holds the port against the JAX package
+REG_SCALED_TOL, REG_PROJECTED_TOL = 1e-4, 3e-4
+GNN_ROWS = 16                     # molecules of the MPNN's forward checks
+# the deterministic legs' columns, card against CPU: knn 1e-4; tknn, tkrr
+# and ckrr as phase 8 holds them (top-k 1e-5, the ridge solves 2e-3); the
+# ridge leg's f32 Cholesky of X'X + 10 I over 458 features as phase 8's
+# ridge solves (2.9e-4 seen on an NVIDIA H100 80GB HBM3 at 700 W)
+LEG_TOL = {"knn": 1e-4, "ridge": 2e-3, "tknn": 1e-5, "tkrr": 2e-3, "ckrr": 2e-3}
+# a learning check, not a target: the JAX package's run_regression on the
+# CPU over the same rows at the same depth (regression_reference.py) gives
+# the stacked prediction an R^2 of REG_JAX_STACKED_R2; the port's must come
+# within REG_R2_MARGIN of it, and its nn and graph legs above REG_LEG_FLOOR
+REG_JAX_STACKED_R2 = 0.8830
+REG_R2_MARGIN = 0.03
+REG_LEG_FLOOR = 0.3
 
 
 def read_csv(path: str):
@@ -978,20 +1030,19 @@ def regressor_phase(card):
 
     cpu, dev = torch.device("cpu"), torch.device("cuda")
     seconds = {}
-    t0 = time.time()
     nn_fp, img, y = regression_nn_inputs(seconds=seconds)
     # regression.py's defaults: RegressionTrainConfig, PreprocessConfig (the
     # images' side, 128, is the featurizer's)
     image_size = img.shape[1]
     cfg = dict(n_layers=4, fusion="multihead", fp_tokens=1, image_size=image_size)
     folds, epochs, batch, lr, seed, snapshot_from = 10, 50, 32, 3e-4, 42, 30
-    print(f"[9 images] images() of {len(y)} regression molecules at "
-          f"{image_size}x{image_size}x3 (Python featurizer over "
-          f"{os.cpu_count()} cores): {seconds['images']:.3f} s, "
-          f"{seconds['images_bad']} bad; the inputs in all (MACCS, 31 "
-          f"descriptors, standardized): {time.time() - t0:.3f} s -> nn_fp "
-          f"{nn_fp.shape}, img {img.shape}", flush=True)
-    if seconds["images_bad"] or not (np.isfinite(nn_fp).all() and np.isfinite(img).all()):
+    print(f"[9 images] preprocess_regression(device=\"cpu\") of {len(y)} "
+          f"regression molecules (MACCS, 31 descriptors, {image_size}x"
+          f"{image_size}x3 images, aux fingerprints; the Python featurizer over "
+          f"{os.cpu_count()} cores): {seconds['preprocess']:.3f} s, "
+          f"{seconds['bad']} dropped -> nn_fp {nn_fp.shape}, img {img.shape}",
+          flush=True)
+    if seconds["bad"] or not (np.isfinite(nn_fp).all() and np.isfinite(img).all()):
         raise AssertionError("the regression inputs have bad rows")
 
     # -- forward: the card against the CPU, the same parameters -------------
@@ -1422,6 +1473,374 @@ def classification_phase(card, counters) -> dict:
     if problems:
         raise AssertionError("phase 10: " + " | ".join(problems))
     return launches
+
+
+def _block_errors(got, want) -> dict:
+    """Every array block of two ``ProcessedData``: (max |err|, the block's
+    largest |value| on the CPU)."""
+    out = {}
+    for name in ("fp_norm", "img_norm", "desc_norm", "fp_pca", "img_pca",
+                 "aux_fp_pca", "interactions"):
+        a, b = getattr(got, name), getattr(want, name)
+        out[name] = (float(np.abs(a - b).max()), float(np.abs(b).max()))
+    return out
+
+
+def _knn_near_ties(x_tr: np.ndarray, x_te: np.ndarray, k: int) -> np.ndarray:
+    """Test rows whose k-th and (k+1)-th nearest training rows lie within
+    1e-5 (relative) in squared distance: two correct summation orders may
+    pick either."""
+    d = np.sort(((x_te[:, None, :].astype(np.float64) - x_tr[None]) ** 2).sum(-1),
+                axis=1)
+    return np.abs(d[:, k] - d[:, k - 1]) <= 1e-5 * np.abs(d[:, k])
+
+
+def gnn_checks(card, smiles) -> dict:
+    """Phase 11's MPNN at the graph leg's width (hidden 192, 5 layers, 128
+    atoms, 10 folds): the forward on the card against the CPU from the same
+    parameters, f32 (TF32 off) and bf16 as ``train_cv`` feeds it, with and
+    without the fold axis; one f32 training step of 10 folds held as phase
+    9 holds the regressor's."""
+    import torch
+
+    from bbbp_tpu_torch.chem.graph_features import graph_features
+    from bbbp_tpu_torch.models.gnn import MPNNRegressor
+    from bbbp_tpu_torch.ops.similarity import f32_matmul
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    feats, _, adj_t, mask, bad = graph_features(smiles[:GNN_ROWS], max_atoms=128,
+                                                edge_types=True)
+    width = dict(atom_features=feats.shape[-1], hidden=192, n_layers=5)
+    rng = np.random.default_rng(11)
+    idx = rng.integers(0, GNN_ROWS, (REG_FOLDS, 8))
+    err = {"f32": 0.0, "bf16": 0.0}
+    with f32_matmul():
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            model = MPNNRegressor(**width, dtype=dtype, folds=REG_FOLDS,
+                                  generator=torch.Generator().manual_seed(3))
+            x = [torch.from_numpy(a) for a in (feats, adj_t)]
+            x = [a.to(dtype) for a in x] + [torch.from_numpy(mask)]
+            for folded in (False, True):
+                xi = [a[torch.from_numpy(idx)] for a in x] if folded else x
+                with torch.no_grad():
+                    want = model(*xi)
+                    got = model.to(dev)(*(a.to(dev) for a in xi)).cpu()
+                    model.to(cpu)
+                e = float((got.float() - want.float()).abs().max())
+                if not (torch.isfinite(got).all() and e <= FWD_TOL[name]):
+                    raise AssertionError(f"MPNN forward {name} (fold axis "
+                                         f"{folded}) on cuda: max |err| {e:.3g}")
+                err[name] = max(err[name], e)
+        # one f32 step of 10 folds x 32 rows, dropout 0
+        idx = torch.from_numpy(rng.integers(0, GNN_ROWS, (REG_FOLDS, 32)))
+        y = torch.from_numpy(rng.normal(size=GNN_ROWS).astype(np.float32))
+        grads, losses = [], []
+        for d in (cpu, dev):
+            model = MPNNRegressor(**width, dropout=0.0, dtype=torch.float32,
+                                  folds=REG_FOLDS,
+                                  generator=torch.Generator().manual_seed(4)).to(d)
+            params = list(model.parameters())
+            xb = [torch.from_numpy(a)[idx].to(d) for a in (feats, adj_t, mask)]
+            loss = ((model(*xb, train=True) - y[idx].to(d)) ** 2).mean(dim=1)
+            grads.append([g.cpu() for g in torch.autograd.grad(loss.sum(), params)])
+            losses.append(loss.detach().cpu())
+            names = [n for n, _ in model.named_parameters()]
+    loss_err = float(((losses[1] - losses[0]).abs() / losses[0].abs()).max())
+    grad_err, worst = 0.0, ""
+    for name, g0, g1 in zip(names, *grads):
+        rel = float((g1 - g0).abs().max() / g0.abs().max())
+        if rel > grad_err:
+            grad_err, worst = rel, name
+    if loss_err > 1e-5 or grad_err > STEP_GRAD_TOL:
+        raise AssertionError(f"MPNN step on cuda vs cpu: loss rel {loss_err:.3g}, "
+                             f"gradient elements {grad_err:.3g} of their "
+                             f"tensor's largest ({worst})")
+    print(f"[11 mpnn] MPNNRegressor(hidden 192, 5 layers, 128 atoms) x "
+          f"{REG_FOLDS} folds, cuda against cpu from the same parameters on "
+          f"{GNN_ROWS} molecules ({len(bad)} bad): forward max |err| f32 "
+          f"{err['f32']:.3g} (limit {FWD_TOL['f32']}, TF32 off), bf16 "
+          f"{err['bf16']:.3g} (limit {FWD_TOL['bf16']}), with and without the "
+          f"fold axis; one f32 step of {REG_FOLDS} x 32 rows: loss rel err "
+          f"{loss_err:.3g} (limit 1e-5), every gradient element within "
+          f"{grad_err:.3g} of its tensor's largest |g| (limit "
+          f"{STEP_GRAD_TOL:g}; {worst}) | on {card}", flush=True)
+    return {"forward_err": err, "step_grad_err": grad_err}
+
+
+def wide_level_holds(card, data, seed) -> dict:
+    """K3 and K4 at the regression tree matrix's width on fold 0's training
+    rows, binned as the fit bins them: levels 0 and 5 at the nodes of a
+    GBDTRegressor's first tree (depth 6), level 9 at a random forest's
+    (depth 10); held as phase 5 holds them (``hold_level``) and timed
+    beside their plain versions, ``index_add_`` and their bounds."""
+    import torch
+
+    from bbbp_tpu_torch.ops import forest_train as tr
+    from bbbp_tpu_torch.timing import (best_splits_bound, device_ms,
+                                       level_histogram_bound)
+    from bbbp_tpu_torch.train.loop import kfold_indices
+    from bbbp_tpu_torch.train.regression import _tree_features_global
+
+    xt = _tree_features_global(data, device="cuda")
+    folds = kfold_indices(len(data.y), REG_FOLDS, seed)
+    rows = np.concatenate(folds[1:])
+    x, y = xt[rows], data.y[rows]
+    n, n_feat = x.shape
+    gb = tr.GBDTRegressor(n_estimators=1, max_depth=6, subsample=1.0,
+                          seed=seed, device="cuda").fit(x, y)
+    rf = tr.RandomForestRegressor(n_estimators=1, max_depth=10, seed=seed,
+                                  device="cuda").fit(x, y)
+    xd = torch.from_numpy(x).to("cuda")
+    xb = torch.from_numpy(gb.mapper_.transform(x)).to("cuda")
+    n_bins = torch.from_numpy(gb.mapper_.bin_counts()).to("cuda")
+    yd = torch.from_numpy(y).to("cuda")
+    g = torch.full_like(yd, float(gb.ensemble_.base_score)) - yd
+    h = torch.ones_like(yd)
+    bounds = tr.gradient_bounds(g, h)
+    every = torch.ones(n_feat, dtype=torch.bool, device="cuda")
+    held = {"k3_cases": 0, "k3_err": 0.0, "k3_err_plain": 0.0, "k4_near": 0,
+            "k4_err": 0.0, "k4_calls": 0}
+    rng = np.random.default_rng(seed)
+    idx = torch.arange(n, device="cuda")
+    out = {}
+    for level in WIDE_LEVELS:
+        trees = gb.ensemble_ if level < 6 else rf.ensemble_
+        pos = torch.zeros(n, dtype=torch.int64, device="cuda")
+        for lv in range(level):
+            node = (1 << lv) - 1 + pos
+            pos = 2 * pos + (xd[idx, trees.feat[0, node].long()]
+                             > trees.thr[0, node]).long()
+        pos, nodes = pos.int(), 1 << level
+        hold_level(tr, f"F={n_feat} level {level}", xb, pos, g, h, n_bins, nodes,
+                   rng, held)
+        hist = tr.level_histogram(xb, pos, g, h, nodes, bounds, n_bins,
+                                  bins_checked=True)
+        out[level] = {
+            "k3": device_ms(lambda: tr.level_histogram(
+                xb, pos, g, h, nodes, bounds, n_bins, bins_checked=True)),
+            "k3_plain": device_ms(lambda: tr.level_histogram_reference(
+                xb, pos, g, h, nodes)),
+            "k3_library": device_ms(index_add_call(xb, pos, g, h, nodes)),
+            "k3_bound": level_histogram_bound(n, n_feat, nodes)["bound_ms"],
+            "k4": device_ms(lambda: tr.best_splits(hist, every, 1.0, 1.0, False)),
+            "k4_plain": device_ms(lambda: tr.best_splits_reference(
+                hist, every, 1.0, 1.0, False)),
+            "k4_oblivious": device_ms(lambda: tr.best_splits(
+                hist, every, 1.0, 1.0, True)),
+            "k4_oblivious_plain": device_ms(lambda: tr.best_splits_reference(
+                hist, every, 1.0, 1.0, True)),
+            "k4_bound": best_splits_bound(nodes, n_feat)["bound_ms"],
+            "occupied_nodes": int(torch.unique(pos).numel())}
+
+    def over(key):
+        return fmt([out[lv][key] for lv in WIDE_LEVELS])
+
+    print(f"[11 K3/K4] fold 0's {n} training rows x {n_feat} tree features, "
+          f"levels {WIDE_LEVELS} (occupied nodes "
+          f"{[out[lv]['occupied_nodes'] for lv in WIDE_LEVELS]}): K3 in "
+          f"{held['k3_cases']} cases bit-equal to its fixed-point plain version "
+          f"(with and without n_bins), within one f32 rounding of the float64 "
+          f"sums (max |err| {held['k3_err']:.3g}); K4 in {held['k4_calls']} "
+          f"calls equal to the plain version but at {held['k4_near']} near-tie "
+          f"nodes (largest score gap {held['k4_err']:.3g}) | ms: level_histogram "
+          f"{over('k3')}, plain {over('k3_plain')}, index_add_ "
+          f"{over('k3_library')}, bound {over('k3_bound')}; best_splits "
+          f"{over('k4')}, plain {over('k4_plain')}, oblivious "
+          f"{over('k4_oblivious')}, plain {over('k4_oblivious_plain')}, bound "
+          f"{over('k4_bound')} | on {card}", flush=True)
+    return {"n_feat": n_feat, "rows": n, "levels": out, "held": held}
+
+
+def regression_phase(card, counters) -> dict:
+    """Phase 11: the regression stack, ``run_regression`` on the card at
+    ``RegressionTrainConfig()``'s widths over a TSV of the 1,058 regression
+    molecules, with its checks (module doc)."""
+    import dataclasses
+
+    import torch
+
+    from bbbp_tpu_torch.chem.featurize import fingerprints
+    from bbbp_tpu_torch.ops.linear import KNeighborsRegressor, Ridge
+    from bbbp_tpu_torch.ops.outliers import IsolationForest
+    from bbbp_tpu_torch.ops.similarity import (ChemKernelRidge,
+                                               TanimotoKernelRidge,
+                                               TanimotoKNNRegressor)
+    from bbbp_tpu_torch.pipelines.preprocess import (PreprocessConfig,
+                                                     ProcessedData, cache_path,
+                                                     featurize_regression,
+                                                     transform_regression)
+    from bbbp_tpu_torch.testing import regression_molecules, write_regression_tsv
+    from bbbp_tpu_torch.train import regression as rg
+    from bbbp_tpu_torch.train.loop import kfold_indices
+    from bbbp_tpu_torch.train.transfer import raw_transfer_features
+
+    problems = []
+    cfg = rg.RegressionTrainConfig(**REG_CUTS)
+    defaults = rg.RegressionTrainConfig()
+    for key, value in REG_CUTS.items():
+        print(f"[11 cut] {key} {getattr(defaults, key)} -> {value}", flush=True)
+    smiles, y = regression_molecules()
+    # the preprocessing config run_regression builds from cfg
+    pcfg = PreprocessConfig(fp_kind=cfg.fp_kind, image_size=cfg.image_size,
+                            workers=cfg.workers, seed=cfg.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        tsv = os.path.join(tmp, "B3DB_regression.tsv")
+        write_regression_tsv(tsv, smiles, y)
+
+        # -- preprocessing: the card against the CPU, one featurization ------
+        # every row kept, so that the isolation forest refit below sees the
+        # rows the transforms' own fit saw
+        every = dataclasses.replace(pcfg, logbb_min=None)
+        t0 = time.time()
+        feats = featurize_regression(dataclasses.replace(pcfg, tsv_path=tsv))
+        t_feat = time.time() - t0
+        t0 = time.time()
+        on_card = transform_regression(feats, every, "cuda")
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        t0 = time.time()
+        on_cpu = transform_regression(feats, every, "cpu")
+        t_cpu = time.time() - t0
+        blocks = _block_errors(on_card, on_cpu)
+        for name, (e, scale) in blocks.items():
+            tol = REG_SCALED_TOL if name.endswith("_norm") else REG_PROJECTED_TOL
+            if not e <= tol * max(1.0, scale):
+                problems.append(f"preprocess {name}: max |err| {e:.3g} (block "
+                                f"scale {scale:.3g})")
+        pcs = [np.concatenate([d.fp_pca, d.img_pca], axis=1)
+               for d in (on_card, on_cpu)]
+        iso = [IsolationForest(contamination=pcfg.contamination, seed=pcfg.seed
+                               ).fit(p) for p in pcs]
+        scores = [f.score_samples(p) for f, p in zip(iso, pcs)]
+        d_score = float(np.abs(scores[0] - scores[1]).max())
+        near = np.zeros(len(on_cpu.y), bool)
+        for f, s in zip(iso, scores):
+            near |= np.abs(s - f.offset_) <= max(1e-5, d_score)
+        flipped = on_card.outliers != on_cpu.outliers
+        if (flipped & ~near).any() or flipped.sum() > 0.01 * len(flipped):
+            problems.append(f"outlier labels: {int(flipped.sum())} differ, "
+                            f"{int((flipped & ~near).sum())} away from the "
+                            f"threshold")
+        print(f"[11 preprocess] {len(feats.y)} molecules featurized in "
+              f"{t_feat:.3f} s (MACCS, 128x128 images, 31 descriptors, Morgan "
+              f"counts, RDKit bits); transforms on cuda {t_card:.3f} s, on cpu "
+              f"{t_cpu:.3f} s (every row, the logBB floor aside); "
+              f"cuda against cpu, max |err| (block scale): "
+              f"{ {k: f'{e:.3g} ({s:.3g})' for k, (e, s) in blocks.items()} } "
+              f"(limits {REG_SCALED_TOL:g} standardized, {REG_PROJECTED_TOL:g} "
+              f"projected, x max(1, scale)); outlier labels "
+              f"{int(flipped.sum())} differ ({int(near.sum())} rows within "
+              f"{max(1e-5, d_score):.3g} of a threshold; scores max |diff| "
+              f"{d_score:.3g}) | on {card}", flush=True)
+        del feats, on_card, on_cpu
+
+        gnn = gnn_checks(card, smiles)
+
+        # -- run_regression on cuda, through B3DB's TSV --------------------
+        env = {"BBBP_B3DB_DIR": tmp,
+               "BBBP_PREPROCESS_CACHE": os.path.join(tmp, "preprocess"),
+               "BBBP_TRANSFER_CACHE": os.path.join(tmp, "transfer")}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            for c in counters.values():
+                c.launches.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            res = rg.run_regression(cfg, verbose=False, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {name: c.launches.count for name, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            data = ProcessedData.load(cache_path(pcfg, env["BBBP_PREPROCESS_CACHE"]))
+            ck_desc, ck_maccs, ck_counts = raw_transfer_features(data.smiles)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    for name in ("dense_forest_predict", "forest_level_histogram",
+                 "forest_best_splits", "forest_leaf_values", "tanimoto_topk",
+                 "tanimoto_gram", "minmax_gram"):
+        if not launches[name]:
+            problems.append(f"run_regression launched no {name}")
+    for m, r in res.report.items():
+        print(f"[11 report] {m:24s} " + " ".join(
+            f"{k} {v:.4f}" for k, v in r.items()), flush=True)
+    n = len(res.y)
+    print(f"[11 run] run_regression(cuda) over {n} molecules (10 legs, "
+          f"{cfg.n_folds} folds): {wall:.3f} s wall | by stage "
+          f"{ {k: round(v, 3) for k, v in res.stage_s.items()} } | peak "
+          f"allocated {peak:.3f} GiB | launches {launches} | on {card}",
+          flush=True)
+
+    # -- the deterministic legs: the cuda run against the CPU ----------------
+    folds = kfold_indices(n, cfg.n_folds, cfg.seed)
+    xt = rg._tree_features_global(data, device="cpu")
+    bits = (fingerprints(data.smiles, kind=cfg.fp_kind).features > 0
+            ).astype(np.float32)
+    y = data.y
+    want = {leg: np.zeros(n, np.float32) for leg in LEG_TOL}
+    knn_near = np.zeros(n, bool)
+    t0 = time.time()
+    for i, te in enumerate(folds):
+        tr_ = np.concatenate([folds[j] for j in range(len(folds)) if j != i])
+        want["knn"][te] = KNeighborsRegressor(10, device="cpu").fit(
+            xt[tr_], y[tr_]).predict(xt[te])
+        knn_near[te] = _knn_near_ties(xt[tr_], xt[te], 10)
+        want["ridge"][te] = Ridge(10.0, device="cpu").fit(
+            xt[tr_], y[tr_]).predict(xt[te])
+        want["tknn"][te] = TanimotoKNNRegressor(cfg.tknn_k, device="cpu").fit(
+            bits[tr_], y[tr_]).predict(bits[te])
+        want["tkrr"][te] = TanimotoKernelRidge(cfg.tkrr_lam, device="cpu").fit(
+            bits[tr_], y[tr_]).predict(bits[te])
+        want["ckrr"][te] = ChemKernelRidge(
+            cfg.ckrr_lam, weights=tuple(cfg.ckrr_weights), device="cpu").fit(
+            ck_maccs[tr_], ck_counts[tr_], ck_desc[tr_], y[tr_]).predict(
+            ck_maccs[te], ck_counts[te], ck_desc[te])
+    t_legs = time.time() - t0
+    leg_err = {}
+    for leg, tol in LEG_TOL.items():
+        diff = np.abs(res.oof[leg] - want[leg])
+        off = diff > tol
+        if leg == "knn":
+            leg_err["knn_near_tie_rows"] = int((off & knn_near).sum())
+            off &= ~knn_near
+        leg_err[leg] = float(diff.max())
+        if off.any() or leg_err.get("knn_near_tie_rows", 0) > 0.01 * n:
+            problems.append(f"{leg} column against cpu: max |err| "
+                            f"{leg_err[leg]:.3g}, {int(off.sum())} rows beyond "
+                            f"{tol:g}")
+    print(f"[11 legs] the run's knn, ridge, tknn, tkrr and ckrr columns against "
+          f"the same estimators on cpu over its folds ({t_legs:.3f} s): max "
+          f"|err| { {k: (f'{v:.3g}' if isinstance(v, float) else v) for k, v in leg_err.items()} } "
+          f"(limits {LEG_TOL}; knn rows at a near tie of the 10th neighbour "
+          f"excepted, at most 1%) | on {card}", flush=True)
+
+    wide = wide_level_holds(card, data, cfg.seed)
+
+    # -- a learning check, not a target --------------------------------------
+    stacked = res.report["stacked"]["r2"]
+    legs_r2 = {leg: res.report[leg]["r2"] for leg in ("nn", "graph")}
+    for leg, r in legs_r2.items():
+        if not r > REG_LEG_FLOOR:
+            problems.append(f"{leg} OOF R^2 {r:.4f} (floor {REG_LEG_FLOOR})")
+    if REG_JAX_STACKED_R2 is not None and not (
+            abs(stacked - REG_JAX_STACKED_R2) <= REG_R2_MARGIN):
+        problems.append(f"stacked R^2 {stacked:.4f}, the JAX package's "
+                        f"{REG_JAX_STACKED_R2} (margin {REG_R2_MARGIN})")
+    print(f"[11 learning] stacked R^2 {stacked:.4f} (the JAX package on the "
+          f"CPU over the same rows at the same depth: {REG_JAX_STACKED_R2}, "
+          f"margin {REG_R2_MARGIN}; regression_reference.py), nn "
+          f"{legs_r2['nn']:.4f}, graph {legs_r2['graph']:.4f} (floor "
+          f"{REG_LEG_FLOOR}) | on {card}", flush=True)
+    if problems:
+        raise AssertionError("phase 11: " + " | ".join(problems))
+    return {"launches": launches, "wall_s": wall, "stage_s": res.stage_s,
+            "peak_gib": peak, "wide": wide, "gnn": gnn, "legs": leg_err,
+            "blocks": blocks}
 
 
 def own_children() -> list:
@@ -2050,6 +2469,10 @@ def run() -> int:
     # -- phase 10: the classification ensemble ------------------------------
     cls_launches = classification_phase(card, counters)
 
+    # -- phase 11: the regression stack -------------------------------------
+    reg = regression_phase(card, counters)
+    reg_launches = reg["launches"]
+
     kernels = [
         {"name": "packed_project", "route": "cuda",
          "source": "bbbp_tpu_torch/csrc/packed_project.cu",
@@ -2063,13 +2486,15 @@ def run() -> int:
                          "the product alone, not the same function",
          "ms_fingerprints": k1_fp_ms, "plain_ms_fingerprints": k1_fp_plain_ms,
          "bound_ms_fingerprints": k1_fp_bound["bound_ms"],
-         "bound_share_fingerprints": k1_fp_bound["bound_ms"] / k1_fp_ms},
+         "bound_share_fingerprints": k1_fp_bound["bound_ms"] / k1_fp_ms,
+         "launches_regression": reg_launches["packed_project"]},
         {"name": "dense_forest_predict", "route": "cuda",
          "source": "bbbp_tpu_torch/csrc/dense_forest.cu",
          "replaces": "bbbp_tpu/ops/forest_tpu.py:85",
          "launches": launches["dense_forest_predict"],
          "launches_transfer": transfer_launches["dense_forest_predict"],
          "launches_classification": cls_launches["dense_forest_predict"],
+         "launches_regression": reg_launches["dense_forest_predict"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"],
@@ -2098,6 +2523,7 @@ def run() -> int:
                  "replaces": replaces, "launches": train_launches[name],
                  "launches_transfer": transfer_launches[name],
                  "launches_classification": cls_launches[name],
+                 "launches_regression": reg_launches[name],
                  "max_abs_err": err, "ms": t[key], "plain_ms": t[key + "_plain"],
                  "bound_ms": t[key + "_bound"]["bound_ms"],
                  "bound_by": t[key + "_bound"]["bound_by"],
@@ -2149,6 +2575,19 @@ def run() -> int:
                 if field != "_bincount":
                     entry[names[field] + "_f326_fitted_levels"] = [
                         wide_audit["fitted"][lv][key + field] for lv in WIDE_LEVELS]
+        if key != "k5":
+            # the regression tree matrix's width, on one fold's own rows
+            wide = reg["wide"]
+            entry["regression_shape"] = (f"n={wide['rows']}, F={wide['n_feat']}, "
+                                         f"levels {list(WIDE_LEVELS)}")
+            for field in (("", "_plain", "_library", "_bound") if key == "k3"
+                          else ("", "_plain", "_oblivious", "_oblivious_plain",
+                                "_bound")):
+                name_ = {"": "ms", "_plain": "plain_ms", "_library": "library_ms",
+                         "_bound": "bound_ms", "_oblivious": "ms_oblivious",
+                         "_oblivious_plain": "plain_ms_oblivious"}[field]
+                entry[name_ + "_regression_levels"] = [
+                    wide["levels"][lv][key + field] for lv in WIDE_LEVELS]
         if key == "k4":
             entry["near_tie_nodes"] = k4_near
             entry["audit_f326"] = wide_audit["audit"]
@@ -2176,7 +2615,8 @@ def run() -> int:
                  "source": "bbbp_tpu_torch/csrc/similarity.cu",
                  "replaces": replaces,
                  "launches": (transfer_launches if key == "k6" else leg_launches)[name],
-                 "launches_legs": leg_launches[name], "max_abs_err": err,
+                 "launches_legs": leg_launches[name],
+                 "launches_regression": reg_launches[name], "max_abs_err": err,
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound"]["bound_ms"],
                  "bound_by": t["bound"]["bound_by"],
