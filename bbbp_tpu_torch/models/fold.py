@@ -69,13 +69,17 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout(rate)``: identity unless ``train``; each element
-    (of every fold) kept with probability 1 − rate, scaled by its inverse."""
+    (of every fold) kept with probability 1 − rate and divided by 1 − rate
+    rounded to ``x``'s dtype, as flax divides by a weakly typed float (in
+    bf16 by 0.8984375 at rate 0.1: a kept element grows by 1.1130, not
+    1.1111)."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
     mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    scaled = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
 
 
 class Dense(nn.Module):
@@ -128,3 +132,64 @@ class Conv3x3(nn.Module):
         kernel, bias = self.kernel.to(self.dtype), self.bias.to(self.dtype)
         return [F.conv2d(x.to(self.dtype), kernel[f], bias[f], padding=1)
                 for f, x in enumerate(xs)]
+
+
+BN_MOMENTUM, BN_EPS = 0.99, 1e-5
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(use_running_average=not train, dtype=dtype)`` over
+    the last axis, on the fold axis: ``scale``, ``bias`` [K, d] are
+    parameters, the running statistics ``mean``, ``var`` [K, d] buffers
+    (flax's ``batch_stats`` collection), so that no optimizer reaches them.
+
+    With ``train`` each fold normalises over its own rows: the statistics
+    in f32, the variance biased and computed as flax's fast variance,
+    max(0, E[x²] − E[x]²); the running statistics then move by
+    ``ra = 0.99 · ra + 0.01 · stat`` (torch's own update takes the unbiased
+    variance). Without ``train`` the running statistics normalise.
+    Epsilon 1e-5; the affine in f32, the result cast to ``dtype``."""
+
+    def __init__(self, folds: int, d: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(folds, d, device=device))
+        self.bias = nn.Parameter(torch.zeros(folds, d, device=device))
+        self.register_buffer("mean", torch.zeros(folds, d, device=device))
+        self.register_buffer("var", torch.ones(folds, d, device=device))
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """x [K, B, d] → [K, B, d] in ``dtype``."""
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=1)
+            var = torch.clamp((xf * xf).mean(dim=1) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean
+                                + (1.0 - BN_MOMENTUM) * mean.detach())
+                self.var.copy_(BN_MOMENTUM * self.var
+                               + (1.0 - BN_MOMENTUM) * var.detach())
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPS) * self.scale
+        return ((xf - mean.unsqueeze(1)) * mul.unsqueeze(1)
+                + self.bias.unsqueeze(1)).to(self.dtype)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed(n, d, dtype=dtype)`` on the fold axis: ``embedding``
+    [K, n, d] f32, initialised as flax's default (a normal of std
+    sqrt(1/d)); ids [K, ...] look up fold k's table, cast to ``dtype``."""
+
+    def __init__(self, folds: int, n: int, d: int, dtype: torch.dtype,
+                 device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(nn.init.normal_(
+            torch.empty(folds, n, d, device=device), 0.0, (1.0 / d) ** 0.5,
+            generator=generator))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        k = self.embedding.shape[0]
+        fold = torch.arange(k, device=ids.device).view(k, *([1] * (ids.dim() - 1)))
+        return self.embedding[fold, ids.long()].to(self.dtype)

@@ -65,10 +65,14 @@ class DegenerateEncoderLayer(nn.Module):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """flax ``nn.MultiHeadDotProductAttention`` (self-attention, no mask):
-    query, key and value projections to heads × head_dim, queries scaled by
-    1/√head_dim, softmax over keys, dropout on the weights (one mask for the
-    batch and heads of a fold, flax's ``broadcast_dropout``), then ``out``.
+    """flax ``nn.MultiHeadDotProductAttention`` (self-attention): query, key
+    and value projections to heads × head_dim, queries scaled by
+    1/√head_dim, scores where ``mask`` is False set to the compute dtype's
+    most negative finite value (flax's ``finfo(dtype).min``, so a row with
+    every key masked averages them uniformly, where −inf would give NaN),
+    softmax over keys in the compute dtype, dropout on the weights (one
+    mask for the batch and heads of a fold, flax's ``broadcast_dropout``),
+    then ``out``.
     Its flax leaves are ``DenseGeneral``s ([in, heads, head_dim] and
     [heads, head_dim, out]); here they are dense layers of the same numbers
     (``models/convert.py`` reshapes them)."""
@@ -81,7 +85,9 @@ class MultiHeadDotProductAttention(nn.Module):
             setattr(self, name, Dense(folds, d_model, d_model, dtype, device,
                                       generator))
 
-    def forward(self, x, train: bool, generator=None):
+    def forward(self, x, train: bool, generator=None, mask=None):
+        """x [K, B, T, d]; ``mask``: None or bool, broadcastable to
+        [K, B, H, T, T] (True where a query attends to a key)."""
         k, b, t, d = x.shape
         h = self.n_heads
         hd = d // h
@@ -90,12 +96,15 @@ class MultiHeadDotProductAttention(nn.Module):
             return y.view(k, b, t, h, hd).transpose(2, 3)
 
         q = heads(self.query(x)) / torch.tensor(math.sqrt(hd), dtype=self.dtype)
-        w = torch.softmax(q @ heads(self.key(x)).transpose(-1, -2), dim=-1)
+        s = q @ heads(self.key(x)).transpose(-1, -2)
+        if mask is not None:
+            s = torch.where(mask, s, torch.finfo(s.dtype).min)
+        w = torch.softmax(s, dim=-1)
         if train and self.rate > 0.0:
             keep = 1.0 - self.rate
-            mask = torch.rand((k, 1, 1, t, t), device=x.device,
+            kept = torch.rand((k, 1, 1, t, t), device=x.device,
                               generator=generator) < keep
-            w = w * (mask.to(self.dtype) / torch.tensor(keep, dtype=self.dtype))
+            w = w * (kept.to(self.dtype) / torch.tensor(keep, dtype=self.dtype))
         a = (w.to(self.dtype) @ heads(self.value(x))).transpose(2, 3)
         return self.out(a.reshape(k, b, t, d))
 

@@ -18,6 +18,8 @@ their real shapes and to compare two forests.
   driven fold by fold as ``bbbp_tpu/train/regression.py`` drives them;
 - ``write_regression_tsv``: molecules and a target as a B3DB regression
   TSV, which ``run_regression`` and ``preprocess_regression`` read;
+- ``b3db_env``: the loaders' directory and the preprocess and transfer
+  caches pointed into one directory for the length of a ``with`` block;
 - ``regression_nn_inputs``: the regressor's (fingerprint, image, target)
   inputs of those molecules, from ``preprocess_regression``;
 - ``classification_inputs``: the MACCS features and labels of
@@ -26,6 +28,8 @@ their real shapes and to compare two forests.
 
 from __future__ import annotations
 
+import contextlib
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -478,6 +482,41 @@ def write_regression_tsv(path: str, smiles: List[str], y: np.ndarray) -> None:
         f.write("NO.\tSMILES\tlogBB\n")
         for i, (s, v) in enumerate(zip(smiles, y)):
             f.write(f"{i + 1}\t{s}\t{float(np.float32(v))!r}\n")
+
+
+@contextlib.contextmanager
+def b3db_env(directory: str):
+    """``BBBP_B3DB_DIR`` set to ``directory`` and the preprocess and
+    transfer caches (``BBBP_PREPROCESS_CACHE``, ``BBBP_TRANSFER_CACHE``) to
+    its ``preprocess`` and ``transfer`` subdirectories inside the block; the
+    three variables are as they were after it. Yields the mapping."""
+    env = {"BBBP_B3DB_DIR": directory,
+           "BBBP_PREPROCESS_CACHE": os.path.join(directory, "preprocess"),
+           "BBBP_TRANSFER_CACHE": os.path.join(directory, "transfer")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield env
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def write_classification_tsv(path: str, smiles: List[str], labels: np.ndarray
+                             ) -> None:
+    """A B3DB-format classification TSV (``NO.``, ``SMILES``,
+    ``BBB+/BBB-``) that ``data/b3db.py::load_b3db_classification`` reads
+    (and the JAX package's loader): label 1 is written ``BBB+``, 0
+    ``BBB-``. No ``logBB`` or ``Inchi`` column, so the aux set
+    (``train/transfer.py::aux_classification_set``) drops only molecules
+    whose standardized SMILES the regression TSV holds too."""
+    with open(path, "w") as f:
+        f.write("NO.\tSMILES\tBBB+/BBB-\n")
+        for i, (s, v) in enumerate(zip(smiles, labels)):
+            f.write(f"{i + 1}\t{s}\t{'BBB+' if int(v) == 1 else 'BBB-'}\n")
 
 
 def regression_nn_inputs(n: int = B3DB_REGRESSION_SIZE, seed: int = 1,

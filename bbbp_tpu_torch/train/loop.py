@@ -25,13 +25,19 @@ snapshots, early stopping) are the reference's, drawn from numpy's
 masks come from one ``torch.Generator`` seeded with ``seed``, so they are
 not ``jax.random``'s. The reference recomputes the forward in the backward
 (``jax.checkpoint``); the port keeps the activations, which fit the card.
+
+A model with BatchNorm (``models/mlp.py``) keeps its running statistics as
+[K, d] buffers, flax's ``batch_stats``: each fold's move with its own
+batches in the step's forward, outside AdamW's buffer; evaluation reads
+them, early stopping keeps each fold's best beside its best parameters,
+and ``CVResult.batch_stats`` returns them.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,7 +54,7 @@ class CVResult:
     oof_pred: np.ndarray          # [N] out-of-fold predictions
     fold_of: np.ndarray           # [N] fold id per sample
     params: Any                   # {name: [K, ...] tensor} (leading fold axis)
-    batch_stats: Any
+    batch_stats: Any              # {name: [K, d] tensor}: running statistics
     train_losses: np.ndarray      # [K, epochs]
     fold_test_idx: list           # list of K index arrays
     oof_seeds: Optional[np.ndarray] = None   # [n_seeds, N] per-replica OOF
@@ -87,6 +93,25 @@ def cosine_restarts(period: int):
     return factor
 
 
+def warmup_cosine(warmup_steps: int, decay_steps: int):
+    """``optax.warmup_cosine_decay_schedule(0, peak, warmup_steps,
+    decay_steps)`` as a factor of the peak at step t (0-based): a linear
+    rise from 0 over ``warmup_steps``, then a cosine decay to 0 over the
+    remaining ``decay_steps − warmup_steps``, 0 after. Shared by MLM
+    pretraining, aux pretraining and ``BertClassifier``."""
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError(f"decay_steps {decay_steps} must exceed warmup_steps "
+                         f"{warmup_steps}")
+
+    def factor(t: int) -> float:
+        if t < warmup_steps:
+            return t / warmup_steps
+        c = min(t - warmup_steps, span)
+        return 0.5 * (1.0 + math.cos(math.pi * c / span))
+    return factor
+
+
 def _bias_correction(decay: float, count: int) -> float:
     """1 − decay^count as optax computes it: in f32, from decay rounded to
     f32 (1 − f32(0.999) is 0.00099998713, not the 0.001 of the moment's
@@ -103,13 +128,14 @@ class AdamW:
     The parameters move into one f32 buffer ``flat`` [K, P]; each becomes a
     view of its columns, so an update of ``flat`` is an update of the
     model. ``lr`` and ``weight_decay`` are numbers or [K] tensors (one value
-    a fold); ``warm_restart_period`` > 0 scales ``lr`` by
-    ``cosine_restarts`` at each step."""
+    a fold); ``schedule`` (a factor of ``lr`` at step t, counted from 0 as
+    optax counts: ``cosine_restarts``, ``warmup_cosine``) scales ``lr`` at
+    each step. ``weight_decay`` 0 is ``optax.adam``."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter],
                  lr: Union[float, torch.Tensor] = 1e-4,
                  weight_decay: Union[float, torch.Tensor] = 1e-5,
-                 warm_restart_period: int = 0):
+                 schedule: Optional[Callable[[int], float]] = None):
         self.params = list(params)
         k = self.params[0].shape[0]
         dev = self.params[0].device
@@ -130,8 +156,7 @@ class AdamW:
                                    ).expand(k).reshape(k, 1).clone()
 
         self.lr, self.weight_decay = column(lr), column(weight_decay)
-        self.schedule = (cosine_restarts(warm_restart_period)
-                         if warm_restart_period > 0 else None)
+        self.schedule = schedule
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
@@ -156,7 +181,9 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-5,
     Models/multi_input_data_regression_opt.py:109-124). Returns the
     optimizer unbound: call it with the parameters."""
     def bind(params: Sequence[torch.nn.Parameter]) -> AdamW:
-        return AdamW(params, lr, weight_decay, warm_restart_period)
+        return AdamW(params, lr, weight_decay, schedule=(
+            cosine_restarts(warm_restart_period) if warm_restart_period > 0
+            else None))
     return bind
 
 
@@ -247,6 +274,21 @@ class FoldTrainer:
     def state(self) -> Dict[str, torch.Tensor]:
         return {name: p.detach().clone() for name, p in self.net.named_parameters()}
 
+    def stats(self) -> Dict[str, torch.Tensor]:
+        """The running statistics ([K, d] buffers: BatchNorm's ``mean`` and
+        ``var``, flax's ``batch_stats``), copied; {} for a model without."""
+        return {name: b.clone() for name, b in self.net.named_buffers()}
+
+    def keep_stats(self, best: Dict[str, torch.Tensor], keep: torch.Tensor) -> None:
+        """``best[name]`` ← the current statistics in the folds where
+        ``keep`` [K, 1] is True."""
+        for name, b in self.net.named_buffers():
+            best[name].copy_(torch.where(keep, b, best[name]))
+
+    def set_stats(self, stats: Dict[str, torch.Tensor]) -> None:
+        for name, b in self.net.named_buffers():
+            b.copy_(stats[name])
+
 
 def train_cv(
     model,
@@ -283,9 +325,10 @@ def train_cv(
     averages end-of-epoch prediction snapshots from that epoch onward.
 
     ``patience``: each fold carves ``val_frac`` of its own train split as a
-    validation set, keeps its best parameters (improved = val loss < best −
-    1e-5), and training stops when every fold has gone ``patience`` epochs
-    without improving. Final predictions use each fold's best parameters.
+    validation set, keeps its best parameters and running statistics
+    (improved = val loss < best − 1e-5), and training stops when every fold
+    has gone ``patience`` epochs without improving. Final predictions use
+    each fold's best parameters and statistics.
 
     ``fold_affine``: optional tuple of per-input, per-fold (shift [K, ...],
     scale [K, ...]) pairs (entries may be None); applied as (x - shift) *
@@ -352,6 +395,7 @@ def train_cv(
         best_val = np.full(k, np.inf, np.float32)
         since_best = np.zeros(k, np.int32)
         best_flat = trainer.opt.flat.clone()
+        best_stats = trainer.stats()
 
     host_rng = np.random.default_rng(seed)
     losses_hist = np.zeros((k, epochs), dtype=np.float32)
@@ -371,6 +415,7 @@ def train_cv(
             since_best = np.where(improved, 0, since_best + 1)
             keep = torch.as_tensor(improved, device=dev).unsqueeze(1)
             best_flat.copy_(torch.where(keep, trainer.opt.flat, best_flat))
+            trainer.keep_stats(best_stats, keep)
             if np.all(since_best >= patience):
                 if log_every:
                     print(f"early stop at epoch {epoch+1} "
@@ -387,6 +432,7 @@ def train_cv(
     if patience is not None:
         with torch.no_grad():
             trainer.opt.flat.copy_(best_flat)
+            trainer.set_stats(best_stats)
     if snap_count:
         preds_kn = (snap_sum / snap_count).cpu().numpy()
     else:
@@ -401,8 +447,8 @@ def train_cv(
         oof[te] = preds_fn[i, te]
         oof_seeds[:, te] = preds_sn[:, i, te]
         fold_of[te] = i
-    return CVResult(oof, fold_of, trainer.state(), {}, losses_hist, folds,
-                    oof_seeds=oof_seeds)
+    return CVResult(oof, fold_of, trainer.state(), trainer.stats(), losses_hist,
+                    folds, oof_seeds=oof_seeds)
 
 
 def train_multimodal_cv(model, fp, img, y, **kw) -> CVResult:

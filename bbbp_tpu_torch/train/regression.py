@@ -35,12 +35,14 @@ Protocols (SURVEY §2.3 quirks + ADVICE round-1 leakage findings):
   (descriptor scaler, RBF bandwidth, IDF weights) per fold, and the reported
   stacked metric is the cross-fitted one.
 
-Not ported yet, and refused with ``NotImplementedError``: the SMILES-encoder
-leg (``bert_leg``, which needs ``models/bert.py``) and the warm starts from
-aux pretraining (``nn_pretrained``, ``graph_pretrained``, which need
-``train/aux_pretrain.py``). ``out_dir`` gets the metrics CSV and the OOF
-pickle; the figures and the NN checkpoint wait for ``reporting/plots.py``
-and ``utils/checkpoint.py``.
+Options beyond the defaults, as the JAX package has them: the SMILES-encoder
+leg (``bert_leg``: ``models/bert.py::BertRegressor`` through ``train_cv``,
+warm-started from an MLM-pretrained directory of either package,
+``train/bert_pretrain.py``) and the NN and graph legs' warm starts from aux
+pretraining (``nn_pretrained``, ``graph_pretrained``: pickles of
+``train/aux_pretrain.py``, the output layer dropped). ``out_dir`` gets the
+metrics CSV and the OOF pickle; the figures and the NN checkpoint wait for
+``reporting/plots.py`` and ``utils/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ import torch
 
 from bbbp_tpu_torch.chem.featurize import fingerprints
 from bbbp_tpu_torch.chem.graph_features import graph_features
+from bbbp_tpu_torch.models.bert import BertRegressor, SmilesTokenizer, read_pretrained
 from bbbp_tpu_torch.models.gnn import MPNNRegressor
 from bbbp_tpu_torch.models.transformer_cnn import MultiModalRegressor
 from bbbp_tpu_torch.ops import metrics
@@ -76,18 +79,9 @@ from bbbp_tpu_torch.ops.similarity import (ChemKernelRidge, TanimotoKernelRidge,
 from bbbp_tpu_torch.pipelines.preprocess import (PreprocessConfig,
                                                  ProcessedData,
                                                  preprocess_regression)
+from bbbp_tpu_torch.train.aux_pretrain import load_warm_start
 from bbbp_tpu_torch.train.loop import kfold_indices, train_cv
 from bbbp_tpu_torch.train.transfer import raw_transfer_features
-
-NOT_PORTED = {
-    "bert_leg": "the SMILES-encoder leg needs models/bert.py, which comes "
-                "with the BERT and flow slice",
-    "nn_pretrained": "warm starts from aux pretraining need "
-                     "train/aux_pretrain.py, which comes with the next slice",
-    "graph_pretrained": "warm starts from aux pretraining need "
-                        "train/aux_pretrain.py, which comes with the next slice",
-}
-
 
 @dataclass
 class RegressionTrainConfig:
@@ -115,10 +109,13 @@ class RegressionTrainConfig:
     graph_layers: int = 5
     graph_lr: float = 7e-4
     max_atoms: int = 128
-    # supervised aux-classification pretraining (not ported: NOT_PORTED)
+    # supervised aux-classification pretraining (train/aux_pretrain.py):
+    # paths to pretrained-trunk pickles; folds warm-start from the trunk
+    # with the output head dropped (same mechanism as the MLM-pretrained
+    # SMILES leg)
     graph_pretrained: Optional[str] = None
     nn_pretrained: Optional[str] = None
-    # SMILES-encoder leg (not ported: NOT_PORTED)
+    # SMILES-encoder leg (MLM-pretrained transformer, models/bert.py)
     bert_leg: bool = False
     bert_pretrained_dir: Optional[str] = None
     bert_epochs: int = 40
@@ -218,7 +215,8 @@ class RegressionRunResult:
     report: Dict[str, Dict[str, float]]
     wall_time_s: float
     # wall seconds by stage: preprocess, transfer, nn, kernel_features (the
-    # bits and raw features of the kernel legs, the full grams), graph,
+    # bits and raw features of the kernel legs, the full grams), smiles
+    # (the SMILES-encoder leg; 0 without it), graph,
     # tree_features (the tree matrices), trees (rf, gbdt, cat, gbdt_<kind>),
     # shallow (knn, ridge, the transfer calibration), kernels (tknn, tkrr,
     # ckrr), stacking
@@ -388,9 +386,6 @@ def run_regression(cfg: RegressionTrainConfig = RegressionTrainConfig(),
                    device: Union[str, torch.device] = "cuda") -> RegressionRunResult:
     """The regression stack on ``device``. Without ``data`` it preprocesses
     B3DB regression (``$BBBP_B3DB_DIR/B3DB_regression.tsv``) there first."""
-    for name, why in NOT_PORTED.items():
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name}: {why}")
     dev = resolve_device(device)
     with f32_matmul():
         return _run(cfg, data, verbose, dev)
@@ -476,6 +471,12 @@ def _run(cfg: RegressionTrainConfig, data: Optional[ProcessedData],
             return cfg.seed
         return cfg.seed + 7700 * (r % max(1, cfg.split_repeats))
 
+    nn_warm = None
+    if cfg.nn_pretrained:
+        nn_warm, nn_auc = load_warm_start(cfg.nn_pretrained)
+        if verbose:
+            print(f"[regression] NN warm start from {cfg.nn_pretrained} "
+                  f"(aux AUC {nn_auc:.4f})")
     nn_res = None
     oof_acc = None
     # per-seed OOF columns kept for the `meta_perseed` diagnostic (each seed's
@@ -490,6 +491,7 @@ def _run(cfg: RegressionTrainConfig, data: Optional[ProcessedData],
             split_seed=_split_seed(r),
             snapshot_from=None if cfg.patience else cfg.snapshot_from,
             patience=cfg.patience, fold_affine=fold_affine,
+            warm_start=nn_warm,
             log_every=(10 if verbose and r == 0 else 0), device=dev)
         oof_acc = res_r.oof_pred if oof_acc is None else oof_acc + res_r.oof_pred
         seed_cols.setdefault("nn", []).append(np.asarray(res_r.oof_pred))
@@ -502,6 +504,8 @@ def _run(cfg: RegressionTrainConfig, data: Optional[ProcessedData],
     leg_names = ["nn", "rf", "gbdt", "cat"]
     if cfg.graph_leg:
         leg_names.insert(1, "graph")
+    if cfg.bert_leg:
+        leg_names.insert(1, "smiles")
     if cfg.extra_legs:
         leg_names += ["knn", "ridge"]
     if cfg.tanimoto_leg:
@@ -610,6 +614,46 @@ def _run(cfg: RegressionTrainConfig, data: Optional[ProcessedData],
             pickle.dump({"key": ck_key, "state": ck}, f)
         os.replace(tmp, ck_path)
 
+    # ---------------- SMILES-encoder leg (pretrained transformer) ----------
+    if cfg.bert_leg and "smiles" in ck["legs"]:
+        oof["smiles"], seed_cols["smiles"] = ck["legs"]["smiles"]
+        if verbose:
+            print("[regression] SMILES-encoder leg restored from ckpt")
+    elif cfg.bert_leg:
+        warm = None
+        if cfg.bert_pretrained_dir:
+            tok, pcfg, params = read_pretrained(cfg.bert_pretrained_dir)
+            warm = {"enc": params}
+            d_model, b_layers = pcfg["d_model"], pcfg["n_layers"]
+            max_len = pcfg["max_len"]
+        else:
+            tok = SmilesTokenizer(128).fit(data.smiles)
+            d_model, b_layers, max_len = cfg.bert_d_model, cfg.bert_layers, 128
+        ids = tok.encode_batch(data.smiles)
+        bmodel = BertRegressor(vocab_size=tok.vocab_size, n_layers=b_layers,
+                               d_model=d_model, max_len=max_len)
+        if verbose:
+            print(f"[regression] SMILES-encoder leg "
+                  f"(pretrained={'yes' if warm else 'no'})...")
+        b_acc = None
+        for r in range(max(1, cfg.bert_seeds)):
+            b_res = train_cv(
+                bmodel, (ids,), y, n_folds=cfg.n_folds,
+                epochs=cfg.bert_epochs, batch_size=cfg.batch_size,
+                lr=cfg.bert_lr, seed=cfg.seed + 3000 + 1000 * r,
+                split_seed=cfg.seed, warm_start=warm,
+                snapshot_from=None if cfg.patience else max(
+                    1, cfg.bert_epochs - 10),
+                patience=cfg.patience,
+                log_every=(20 if verbose and r == 0 else 0), device=dev)
+            b_acc = b_res.oof_pred if b_acc is None else b_acc + b_res.oof_pred
+            seed_cols.setdefault("smiles", []).append(np.asarray(b_res.oof_pred))
+        oof["smiles"] = b_acc / max(1, cfg.bert_seeds)
+        ck["legs"]["smiles"] = (np.asarray(oof["smiles"]),
+                                list(seed_cols["smiles"]))
+        _ck_save()
+    lap("smiles")
+
     # ---------------- graph leg (edge-featured MPNN) -----------------------
     if cfg.graph_leg and "graph" in ck["legs"]:
         oof["graph"], seed_cols["graph"] = ck["legs"]["graph"]
@@ -622,6 +666,12 @@ def _run(cfg: RegressionTrainConfig, data: Optional[ProcessedData],
             data.smiles, max_atoms=cfg.max_atoms, edge_types=True)
         gmodel = MPNNRegressor(feats.shape[-1], hidden=cfg.graph_hidden,
                                n_layers=cfg.graph_layers)
+        g_warm = None
+        if cfg.graph_pretrained:
+            g_warm, g_auc = load_warm_start(cfg.graph_pretrained)
+            if verbose:
+                print(f"[regression] MPNN warm start from "
+                      f"{cfg.graph_pretrained} (aux AUC {g_auc:.4f})")
         g_acc = None
         for r in range(max(1, cfg.graph_seeds)):
             g_res = train_cv(
@@ -631,7 +681,7 @@ def _run(cfg: RegressionTrainConfig, data: Optional[ProcessedData],
                 seed=cfg.seed + 2000 + 1000 * r, split_seed=_split_seed(r),
                 snapshot_from=None if cfg.patience else max(
                     1, cfg.graph_epochs - 15),
-                patience=cfg.patience,
+                patience=cfg.patience, warm_start=g_warm,
                 log_every=(20 if verbose and r == 0 else 0), device=dev)
             g_acc = g_res.oof_pred if g_acc is None else g_acc + g_res.oof_pred
             seed_cols.setdefault("graph", []).append(np.asarray(g_res.oof_pred))
@@ -673,7 +723,7 @@ def _run(cfg: RegressionTrainConfig, data: Optional[ProcessedData],
     # repeated-CV averaging (config doc): repeat the whole fold loop on extra
     # splits and average the leg columns — honest/compat only
     n_rep = 1 if strict else max(1, cfg.split_repeats)
-    rep_legs = [m for m in leg_names if m not in ("nn", "graph")]
+    rep_legs = [m for m in leg_names if m not in ("nn", "graph", "smiles")]
     rep_acc = {m: np.zeros(n, np.float32) for m in rep_legs}
     n_ts = max(1, cfg.tree_seeds)
     # per-seed forest columns (averaged over repeats) for meta_perseed
@@ -910,9 +960,9 @@ def main():
     ap.add_argument("--patience", type=int, default=None)
     ap.add_argument("--no-graph-leg", action="store_true")
     ap.add_argument("--bert-leg", action="store_true",
-                    help="add the SMILES-encoder leg (not ported: refused)")
+                    help="add the SMILES-encoder leg")
     ap.add_argument("--bert-pretrained", default=None,
-                    help="MLM-pretrained dir (not ported)")
+                    help="MLM-pretrained dir (train.bert_pretrain)")
     ap.add_argument("--tree-seeds", type=int, default=3)
     ap.add_argument("--fp-tree-legs", default="",
                     help="comma-separated fp kinds for extra GBDT legs on "

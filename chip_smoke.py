@@ -164,9 +164,28 @@ before its last line):
    5 and 9, held as phase 5 holds them and timed; and a learning check:
    the stacked R² within 0.03 of the JAX package's on the CPU over the same
    rows at the same depth (``regression_reference.py``), the nn and graph
-   legs' OOF R² above 0.3.
+   legs' OOF R² above 0.3;
+12. every remaining model family, through phase 11's B3DB-format directory
+   and caches with a classification TSV of the labelled set beside them:
+   the BERT encoder (both heads, a PAD row), the dual-branch MLP (eval and
+   train mode, BatchNorm's running statistics) and the flow model on the
+   card against the CPU, and one f32 MLM step on one mask (``FAM_*``); then,
+   with every launch counter set to 0 just before and read just after,
+   MLM pretraining, aux pretraining of the graph and multimodal trunks,
+   ``run_regression`` at phase 11's cuts with the SMILES leg and both warm
+   starts, ``run_weighted_ensemble``, ``search_nn_cv`` over the MLP's
+   learning rate and weight decay (3 trials x 5 folds in one ``train_cv``),
+   ``run_bert`` and ``do_flow_train`` (each cut printed): wall seconds by
+   stage, peak memory, the forest kernel's and K3-K5's launches (they must
+   move), and learning checks against floors stated in the code (MLM loss
+   falls, aux AUC > 0.5, the SMILES leg's R² > 0.2, nn and graph > 0.3, the
+   stacked R² no more than 0.03 below phase 11's, the weighted ensemble's
+   R² > 0.3, BERT's and flow's test accuracy > 0.6 and above the test
+   split's majority share + 0.02, which a constant prediction scores, and
+   their test ROC AUC > 0.6).
 
-Then one JSON line for the kernels (each with its time and its plain
+Then one JSON line for the kernels (each with its launches in phase 12's
+run under ``launches_families``, its time and its plain
 version's, its bound from ``bbbp_tpu_torch/timing.py`` and a library
 yardstick where one PyTorch call computes the same function; the
 projection's ``torch.addmm`` on bits already unpacked is the product alone,
@@ -287,6 +306,40 @@ LEG_TOL = {"knn": 1e-4, "ridge": 2e-3, "tknn": 1e-5, "tkrr": 2e-3, "ckrr": 2e-3}
 REG_JAX_STACKED_R2 = 0.8830
 REG_R2_MARGIN = 0.03
 REG_LEG_FLOOR = 0.3
+# phase 12: every remaining model family. The card against the CPU: the
+# BERT encoder, the dual-branch MLP and the flow model forward at their
+# widths, f32 (TF32 off) within 1e-4 and bf16 within 2e-2 of the larger of
+# 1 and the output's scale (independent bf16 roundings of MLM logits of
+# scale ~3 part by more than 2e-2: tests/test_torch_bert.py); one f32 MLM
+# step on one mask drawn once and moved, held by phase 9's rule but for
+# the attention key biases, whose gradient is 0 but for rounding (held
+# within STEP_GRAD_TOL of the largest |g| of every parameter); BatchNorm's
+# running statistics after a train-mode forward within 1e-5
+FAM_ROWS = 16                     # rows of the forward checks
+FAM_STATS_TOL = 1e-5
+# the flagship path and the other families, each cut printed: MLM
+# pretraining over FAM_CORPUS synthetic_smiles (+ the B3DB TSVs) for 1
+# epoch; both aux pretrainings at AuxPretrainConfig()'s widths for
+# FAM_AUX_EPOCHS; run_regression at phase 11's cuts with the three options,
+# bert_seeds 2 -> 1 and bert_epochs 40 -> 12 (snapshots from epoch 2, as
+# run_regression sets them: max(1, bert_epochs - 10)); the weighted
+# ensemble, the NN search (3 trials x 5 folds, one train_cv of 15
+# replicas), run_bert and do_flow_train at their defaults
+FAM_CORPUS = 20_000
+FAM_MLM_EPOCHS = 1
+FAM_AUX_EPOCHS = {"graph": 5, "multimodal": 1}
+FAM_BERT_CUTS = dict(bert_seeds=1, bert_epochs=12)
+FAM_SEARCH_TRIALS, FAM_SEARCH_FOLDS = 3, 5
+# learning checks, not targets (floors set before the first card run, but
+# for the majority share and the ROC AUC of BERT and flow, added after it:
+# a two-thirds BBB+ split lets a constant prediction pass 0.6)
+FAM_AUC_FLOOR = 0.5               # each aux pretraining's holdout AUC
+FAM_SMILES_FLOOR = 0.2            # the SMILES leg's OOF R^2
+FAM_STACK_MARGIN = 0.03           # stacked R^2 with every leg vs phase 11's
+FAM_WEIGHTED_FLOOR = 0.3          # the weighted ensemble's R^2
+FAM_ACC_FLOOR = 0.6               # BERT's and flow's test accuracy, and
+FAM_ACC_MARGIN = 0.02             # above the test split's majority share
+FAM_CLS_AUC_FLOOR = 0.6           # BERT's and flow's test ROC AUC
 
 
 def read_csv(path: str):
@@ -1495,6 +1548,20 @@ def _knn_near_ties(x_tr: np.ndarray, x_te: np.ndarray, k: int) -> np.ndarray:
     return np.abs(d[:, k] - d[:, k - 1]) <= 1e-5 * np.abs(d[:, k])
 
 
+def _step_grad_errors(names, grads, skip=()):
+    """(largest error over parameters relative to the parameter's largest
+    |g|, its name) of two devices' gradients; parameters in ``skip`` are
+    held relative to the largest |g| of all parameters instead."""
+    top = max(float(g.abs().max()) for g in grads[0])
+    worst, where = 0.0, ""
+    for name, g0, g1 in zip(names, *grads):
+        scale = top if any(k in name for k in skip) else float(g0.abs().max())
+        rel = float((g1 - g0).abs().max()) / max(scale, 1e-30)
+        if rel > worst:
+            worst, where = rel, name
+    return worst, where
+
+
 def gnn_checks(card, smiles) -> dict:
     """Phase 11's MPNN at the graph leg's width (hidden 192, 5 layers, 128
     atoms, 10 folds): the forward on the card against the CPU from the same
@@ -1546,11 +1613,7 @@ def gnn_checks(card, smiles) -> dict:
             losses.append(loss.detach().cpu())
             names = [n for n, _ in model.named_parameters()]
     loss_err = float(((losses[1] - losses[0]).abs() / losses[0].abs()).max())
-    grad_err, worst = 0.0, ""
-    for name, g0, g1 in zip(names, *grads):
-        rel = float((g1 - g0).abs().max() / g0.abs().max())
-        if rel > grad_err:
-            grad_err, worst = rel, name
+    grad_err, worst = _step_grad_errors(names, grads)
     if loss_err > 1e-5 or grad_err > STEP_GRAD_TOL:
         raise AssertionError(f"MPNN step on cuda vs cpu: loss rel {loss_err:.3g}, "
                              f"gradient elements {grad_err:.3g} of their "
@@ -1651,10 +1714,12 @@ def wide_level_holds(card, data, seed) -> dict:
     return {"n_feat": n_feat, "rows": n, "levels": out, "held": held}
 
 
-def regression_phase(card, counters) -> dict:
+def regression_phase(card, counters, tmp) -> dict:
     """Phase 11: the regression stack, ``run_regression`` on the card at
     ``RegressionTrainConfig()``'s widths over a TSV of the 1,058 regression
-    molecules, with its checks (module doc)."""
+    molecules written into ``tmp`` (its B3DB-format directory, which holds
+    the run's preprocess and transfer caches too), with its checks (module
+    doc)."""
     import dataclasses
 
     import torch
@@ -1669,7 +1734,8 @@ def regression_phase(card, counters) -> dict:
                                                      ProcessedData, cache_path,
                                                      featurize_regression,
                                                      transform_regression)
-    from bbbp_tpu_torch.testing import regression_molecules, write_regression_tsv
+    from bbbp_tpu_torch.testing import (b3db_env, regression_molecules,
+                                        write_regression_tsv)
     from bbbp_tpu_torch.train import regression as rg
     from bbbp_tpu_torch.train.loop import kfold_indices
     from bbbp_tpu_torch.train.transfer import raw_transfer_features
@@ -1683,84 +1749,72 @@ def regression_phase(card, counters) -> dict:
     # the preprocessing config run_regression builds from cfg
     pcfg = PreprocessConfig(fp_kind=cfg.fp_kind, image_size=cfg.image_size,
                             workers=cfg.workers, seed=cfg.seed)
-    with tempfile.TemporaryDirectory() as tmp:
-        tsv = os.path.join(tmp, "B3DB_regression.tsv")
-        write_regression_tsv(tsv, smiles, y)
+    tsv = os.path.join(tmp, "B3DB_regression.tsv")
+    write_regression_tsv(tsv, smiles, y)
 
-        # -- preprocessing: the card against the CPU, one featurization ------
-        # every row kept, so that the isolation forest refit below sees the
-        # rows the transforms' own fit saw
-        every = dataclasses.replace(pcfg, logbb_min=None)
-        t0 = time.time()
-        feats = featurize_regression(dataclasses.replace(pcfg, tsv_path=tsv))
-        t_feat = time.time() - t0
-        t0 = time.time()
-        on_card = transform_regression(feats, every, "cuda")
+    # -- preprocessing: the card against the CPU, one featurization ------
+    # every row kept, so that the isolation forest refit below sees the
+    # rows the transforms' own fit saw
+    every = dataclasses.replace(pcfg, logbb_min=None)
+    t0 = time.time()
+    feats = featurize_regression(dataclasses.replace(pcfg, tsv_path=tsv))
+    t_feat = time.time() - t0
+    t0 = time.time()
+    on_card = transform_regression(feats, every, "cuda")
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    on_cpu = transform_regression(feats, every, "cpu")
+    t_cpu = time.time() - t0
+    blocks = _block_errors(on_card, on_cpu)
+    for name, (e, scale) in blocks.items():
+        tol = REG_SCALED_TOL if name.endswith("_norm") else REG_PROJECTED_TOL
+        if not e <= tol * max(1.0, scale):
+            problems.append(f"preprocess {name}: max |err| {e:.3g} (block "
+                            f"scale {scale:.3g})")
+    pcs = [np.concatenate([d.fp_pca, d.img_pca], axis=1)
+           for d in (on_card, on_cpu)]
+    iso = [IsolationForest(contamination=pcfg.contamination, seed=pcfg.seed
+                           ).fit(p) for p in pcs]
+    scores = [f.score_samples(p) for f, p in zip(iso, pcs)]
+    d_score = float(np.abs(scores[0] - scores[1]).max())
+    near = np.zeros(len(on_cpu.y), bool)
+    for f, s in zip(iso, scores):
+        near |= np.abs(s - f.offset_) <= max(1e-5, d_score)
+    flipped = on_card.outliers != on_cpu.outliers
+    if (flipped & ~near).any() or flipped.sum() > 0.01 * len(flipped):
+        problems.append(f"outlier labels: {int(flipped.sum())} differ, "
+                        f"{int((flipped & ~near).sum())} away from the "
+                        f"threshold")
+    print(f"[11 preprocess] {len(feats.y)} molecules featurized in "
+          f"{t_feat:.3f} s (MACCS, 128x128 images, 31 descriptors, Morgan "
+          f"counts, RDKit bits); transforms on cuda {t_card:.3f} s, on cpu "
+          f"{t_cpu:.3f} s (every row, the logBB floor aside); "
+          f"cuda against cpu, max |err| (block scale): "
+          f"{ {k: f'{e:.3g} ({s:.3g})' for k, (e, s) in blocks.items()} } "
+          f"(limits {REG_SCALED_TOL:g} standardized, {REG_PROJECTED_TOL:g} "
+          f"projected, x max(1, scale)); outlier labels "
+          f"{int(flipped.sum())} differ ({int(near.sum())} rows within "
+          f"{max(1e-5, d_score):.3g} of a threshold; scores max |diff| "
+          f"{d_score:.3g}) | on {card}", flush=True)
+    del feats, on_card, on_cpu
+
+    gnn = gnn_checks(card, smiles)
+
+    # -- run_regression on cuda, through B3DB's TSV --------------------
+    with b3db_env(tmp) as env:
+        for c in counters.values():
+            c.launches.reset()
         torch.cuda.synchronize()
-        t_card = time.time() - t0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        on_cpu = transform_regression(feats, every, "cpu")
-        t_cpu = time.time() - t0
-        blocks = _block_errors(on_card, on_cpu)
-        for name, (e, scale) in blocks.items():
-            tol = REG_SCALED_TOL if name.endswith("_norm") else REG_PROJECTED_TOL
-            if not e <= tol * max(1.0, scale):
-                problems.append(f"preprocess {name}: max |err| {e:.3g} (block "
-                                f"scale {scale:.3g})")
-        pcs = [np.concatenate([d.fp_pca, d.img_pca], axis=1)
-               for d in (on_card, on_cpu)]
-        iso = [IsolationForest(contamination=pcfg.contamination, seed=pcfg.seed
-                               ).fit(p) for p in pcs]
-        scores = [f.score_samples(p) for f, p in zip(iso, pcs)]
-        d_score = float(np.abs(scores[0] - scores[1]).max())
-        near = np.zeros(len(on_cpu.y), bool)
-        for f, s in zip(iso, scores):
-            near |= np.abs(s - f.offset_) <= max(1e-5, d_score)
-        flipped = on_card.outliers != on_cpu.outliers
-        if (flipped & ~near).any() or flipped.sum() > 0.01 * len(flipped):
-            problems.append(f"outlier labels: {int(flipped.sum())} differ, "
-                            f"{int((flipped & ~near).sum())} away from the "
-                            f"threshold")
-        print(f"[11 preprocess] {len(feats.y)} molecules featurized in "
-              f"{t_feat:.3f} s (MACCS, 128x128 images, 31 descriptors, Morgan "
-              f"counts, RDKit bits); transforms on cuda {t_card:.3f} s, on cpu "
-              f"{t_cpu:.3f} s (every row, the logBB floor aside); "
-              f"cuda against cpu, max |err| (block scale): "
-              f"{ {k: f'{e:.3g} ({s:.3g})' for k, (e, s) in blocks.items()} } "
-              f"(limits {REG_SCALED_TOL:g} standardized, {REG_PROJECTED_TOL:g} "
-              f"projected, x max(1, scale)); outlier labels "
-              f"{int(flipped.sum())} differ ({int(near.sum())} rows within "
-              f"{max(1e-5, d_score):.3g} of a threshold; scores max |diff| "
-              f"{d_score:.3g}) | on {card}", flush=True)
-        del feats, on_card, on_cpu
-
-        gnn = gnn_checks(card, smiles)
-
-        # -- run_regression on cuda, through B3DB's TSV --------------------
-        env = {"BBBP_B3DB_DIR": tmp,
-               "BBBP_PREPROCESS_CACHE": os.path.join(tmp, "preprocess"),
-               "BBBP_TRANSFER_CACHE": os.path.join(tmp, "transfer")}
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        try:
-            for c in counters.values():
-                c.launches.reset()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            res = rg.run_regression(cfg, verbose=False, device="cuda")
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            launches = {name: c.launches.count for name, c in counters.items()}
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            data = ProcessedData.load(cache_path(pcfg, env["BBBP_PREPROCESS_CACHE"]))
-            ck_desc, ck_maccs, ck_counts = raw_transfer_features(data.smiles)
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+        res = rg.run_regression(cfg, verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {name: c.launches.count for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        data = ProcessedData.load(cache_path(pcfg, env["BBBP_PREPROCESS_CACHE"]))
+        ck_desc, ck_maccs, ck_counts = raw_transfer_features(data.smiles)
     for name in ("dense_forest_predict", "forest_level_histogram",
                  "forest_best_splits", "forest_leaf_values", "tanimoto_topk",
                  "tanimoto_gram", "minmax_gram"):
@@ -1840,7 +1894,265 @@ def regression_phase(card, counters) -> dict:
         raise AssertionError("phase 11: " + " | ".join(problems))
     return {"launches": launches, "wall_s": wall, "stage_s": res.stage_s,
             "peak_gib": peak, "wide": wide, "gnn": gnn, "legs": leg_err,
-            "blocks": blocks}
+            "blocks": blocks, "stacked_r2": stacked}
+
+
+def family_checks(card) -> dict:
+    """Phase 12, step 1: the new families' layers on the card against the
+    CPU from the same parameters (module doc)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bbbp_tpu_torch.data.zinc import synthetic_smiles
+    from bbbp_tpu_torch.models.bert import PAD, BertEncoder, SmilesTokenizer
+    from bbbp_tpu_torch.models.flow import FlowModel
+    from bbbp_tpu_torch.models.mlp import DualBranchMLP
+    from bbbp_tpu_torch.ops.similarity import f32_matmul
+    from bbbp_tpu_torch.train.bert_pretrain import mask_tokens, mlm_loss
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    corpus = synthetic_smiles(400, seed=21)
+    tok = SmilesTokenizer(128).fit(corpus)
+    texts = corpus[:FAM_ROWS - 2] + [".".join(corpus[20:30]), ""]
+    ids = torch.from_numpy(tok.encode_batch(texts))
+    ids[-1] = PAD                                 # a row of PAD alone
+    err, problems = {}, []
+
+    def held(label, want, got, tol):
+        scale = max(1.0, float(want.float().abs().max()))
+        e = float((got.float() - want.float()).abs().max())
+        err[label] = e
+        if not (torch.isfinite(got).all() and e <= tol * scale):
+            problems.append(f"{label}: max |err| {e:.3g} (limit {tol:g} x "
+                            f"{scale:.3g})")
+
+    with f32_matmul(), torch.no_grad():
+        for mlm in (False, True):
+            for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                model = BertEncoder(tok.vocab_size, d_ff=512, mlm=mlm, dtype=dtype,
+                                    folds=2, generator=torch.Generator().manual_seed(5))
+                want = model(ids)
+                got = model.to(dev)(ids.to(dev)).cpu()
+                held(f"bert_{'mlm' if mlm else 'cls'}_{name}", want, got,
+                     FWD_TOL[name])
+    # one f32 MLM step, dropout 0, one mask drawn on the CPU and moved
+    inp, sel = mask_tokens(ids, tok.vocab_size, 0.15, torch.Generator().manual_seed(6))
+    losses, grads = [], []
+    with f32_matmul():
+        for d in (cpu, dev):
+            model = BertEncoder(tok.vocab_size, d_ff=512, mlm=True, dropout=0.0,
+                                dtype=torch.float32,
+                                generator=torch.Generator().manual_seed(7)).to(d)
+            loss = mlm_loss(model, ids.to(d), inp.to(d), sel.to(d))
+            grads.append([g.cpu() for g in torch.autograd.grad(loss, list(
+                model.parameters()))])
+            losses.append(float(loss.detach()))
+            names = [n for n, _ in model.named_parameters()]
+    mlm_loss_err = abs(losses[1] - losses[0]) / abs(losses[0])
+    mlm_grad_err, worst = _step_grad_errors(names, grads, skip=(".key.bias",))
+    if mlm_loss_err > 1e-5 or mlm_grad_err > STEP_GRAD_TOL:
+        problems.append(f"MLM step: loss rel {mlm_loss_err:.3g}, gradient "
+                        f"{mlm_grad_err:.3g} of its tensor's largest ({worst})")
+    # the dual-branch MLP at the weighted ensemble's widths (MACCS 167, a
+    # 128 x 128 x 3 image flat), 2 folds: eval, then train mode, whose
+    # forward moves the running statistics
+    rng = np.random.default_rng(8)
+    fp = torch.from_numpy(rng.normal(size=(2, 32, 167)).astype(np.float32))
+    img = torch.from_numpy(rng.normal(size=(2, 32, 49152)).astype(np.float32))
+    stats_err = 0.0
+    with f32_matmul(), torch.no_grad():
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            model = DualBranchMLP(167, 49152, dropout=0.0, dtype=dtype, folds=2,
+                                  generator=torch.Generator().manual_seed(9))
+            card_model = DualBranchMLP(167, 49152, dropout=0.0, dtype=dtype,
+                                       folds=2, device=dev)
+            card_model.load_state_dict(model.state_dict())
+            for train in (False, True):
+                want = model(fp, img, train=train)
+                got = card_model(fp.to(dev), img.to(dev), train=train).cpu()
+                held(f"mlp_{'train' if train else 'eval'}_{name}", want, got,
+                     FWD_TOL[name])
+            if name == "f32":
+                for (k, a), (_, b) in zip(model.named_buffers(),
+                                          card_model.named_buffers()):
+                    stats_err = max(stats_err, float((a - b.cpu()).abs().max()))
+        x = torch.from_numpy(rng.normal(size=(2, 64, 100)).astype(np.float32))
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            flow = FlowModel(100, folds=2, dtype=dtype,
+                             generator=torch.Generator().manual_seed(10))
+            want = flow(x)
+            held(f"flow_{name}", want, flow.to(dev)(x.to(dev)).cpu(), FWD_TOL[name])
+    if stats_err > FAM_STATS_TOL:
+        problems.append(f"BatchNorm running statistics: max |err| {stats_err:.3g}")
+    print(f"[12 layers] cuda against cpu from the same parameters: max |err| "
+          f"{ {k: f'{v:.3g}' for k, v in err.items()} } (BertEncoder at 4 x 128, "
+          f"vocab {tok.vocab_size}, {FAM_ROWS} rows of 128 tokens with a PAD row "
+          f"and a truncated one, 2 folds, both heads; DualBranchMLP at 167 + "
+          f"49,152 inputs, 2 folds x 32 rows, eval and train mode; FlowModel "
+          f"100 -> 128 x 3, 2 folds x 64 rows; limits f32 {FWD_TOL['f32']}, bf16 {FWD_TOL['bf16']} "
+          f"x max(1, scale), TF32 off); BatchNorm running statistics after a "
+          f"train-mode forward {stats_err:.3g} (limit {FAM_STATS_TOL:g}); one "
+          f"f32 MLM step on one mask: loss rel err {mlm_loss_err:.3g} (limit "
+          f"1e-5), gradients {mlm_grad_err:.3g} of their tensor's largest |g| "
+          f"(limit {STEP_GRAD_TOL:g}; {worst}; the key biases, 0 but for "
+          f"rounding, of the largest |g| of all) | on {card}", flush=True)
+    if problems:
+        raise AssertionError("phase 12 layers: " + " | ".join(problems))
+    return {"forward_err": err, "stats_err": stats_err,
+            "mlm_loss_err": mlm_loss_err, "mlm_grad_err": mlm_grad_err}
+
+
+def families_phase(card, counters, tmp, labelled, phase11_r2) -> dict:
+    """Phase 12: every remaining model family on the card (module doc),
+    through phase 11's B3DB-format directory ``tmp`` and its caches, with a
+    classification TSV of ``labelled`` beside them."""
+    import functools
+
+    import torch
+
+    from bbbp_tpu_torch.models.mlp import DualBranchMLP
+    from bbbp_tpu_torch.pipelines.preprocess import (PreprocessConfig, ProcessedData,
+                                                     cache_path)
+    from bbbp_tpu_torch.testing import b3db_env, write_classification_tsv
+    from bbbp_tpu_torch.train import aux_pretrain as ap
+    from bbbp_tpu_torch.train import bert_pretrain as bp
+    from bbbp_tpu_torch.train import regression as rg
+    from bbbp_tpu_torch.train.bert_pipeline import BertTrainConfig, run_bert
+    from bbbp_tpu_torch.train.flow_pipeline import FlowTrainConfig, do_flow_train
+    from bbbp_tpu_torch.train.nn_search import search_nn_cv
+    from bbbp_tpu_torch.train.weighted_ensemble import (WeightedEnsembleConfig,
+                                                        run_weighted_ensemble)
+
+    checks = family_checks(card)
+    problems, stage_s = [], {}
+    write_classification_tsv(os.path.join(tmp, "B3DB_classification.tsv"), *labelled)
+    mlm = bp.MLMPretrainConfig(corpus_size=FAM_CORPUS, epochs=FAM_MLM_EPOCHS,
+                               out_dir=os.path.join(tmp, "bert_pretrained"))
+    defaults = bp.MLMPretrainConfig()
+    print(f"[12 cut] MLM corpus_size {defaults.corpus_size} -> {FAM_CORPUS}, "
+          f"epochs {defaults.epochs} -> {FAM_MLM_EPOCHS}; aux epochs "
+          f"{ap.AuxPretrainConfig().epochs} -> {FAM_AUX_EPOCHS}; run_regression "
+          f"at phase 11's cuts {REG_CUTS}, bert_seeds "
+          f"{rg.RegressionTrainConfig().bert_seeds} -> "
+          f"{FAM_BERT_CUTS['bert_seeds']}, bert_epochs "
+          f"{rg.RegressionTrainConfig().bert_epochs} -> "
+          f"{FAM_BERT_CUTS['bert_epochs']}", flush=True)
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        stage_s[name] = time.time() - t0
+
+    with b3db_env(tmp) as env:
+        for c in counters.values():
+            c.launches.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_all = t0 = time.time()
+        pre_dir = bp.pretrain(mlm, verbose=False, device="cuda")
+        lap("mlm_pretrain", t0)
+        with open(os.path.join(pre_dir, "config.json")) as f:
+            mlm_cfg = json.load(f)
+        aux, aux_auc = {}, {}
+        for kind, epochs in FAM_AUX_EPOCHS.items():
+            t0 = time.time()
+            aux[kind] = ap.pretrain_aux(ap.AuxPretrainConfig(kind=kind, epochs=epochs),
+                                        verbose=False, device="cuda")
+            lap(f"aux_{kind}", t0)
+            aux_auc[kind] = ap.load_warm_start(aux[kind])[1]
+        cfg = rg.RegressionTrainConfig(
+            **REG_CUTS, **FAM_BERT_CUTS, bert_leg=True, bert_pretrained_dir=pre_dir,
+            graph_pretrained=aux["graph"], nn_pretrained=aux["multimodal"])
+        t0 = time.time()
+        res = rg.run_regression(cfg, verbose=False, device="cuda")
+        lap("run_regression", t0)
+        t0 = time.time()
+        weighted = run_weighted_ensemble(WeightedEnsembleConfig(), verbose=False,
+                                         device="cuda")
+        lap("weighted_ensemble", t0)
+        data = ProcessedData.load(cache_path(PreprocessConfig(
+            fp_kind="maccs", image_size=128, seed=42), env["BBBP_PREPROCESS_CACHE"]))
+        space = {"learning_rate": {"low": 1e-4, "high": 3e-3, "log": True},
+                 "weight_decay": {"low": 1e-6, "high": 1e-3, "log": True}}
+        t0 = time.time()
+        search = search_nn_cv(
+            functools.partial(DualBranchMLP, data.fp_norm.shape[1],
+                              data.img_norm.shape[1]),
+            (data.fp_norm, data.img_norm), data.y, space,
+            n_iter=FAM_SEARCH_TRIALS, n_folds=FAM_SEARCH_FOLDS,
+            max_replicas=FAM_SEARCH_TRIALS * FAM_SEARCH_FOLDS, seed=42,
+            device="cuda")
+        lap("nn_search", t0)
+        t0 = time.time()
+        _, bert_report, _ = run_bert(BertTrainConfig(), verbose=False, device="cuda")
+        lap("run_bert", t0)
+        t0 = time.time()
+        _, flow_report, _ = do_flow_train(FlowTrainConfig(), verbose=False,
+                                          device="cuda")
+        lap("do_flow_train", t0)
+        wall = time.time() - t_all
+        launches = {name: c.launches.count for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("dense_forest_predict", "forest_level_histogram",
+                 "forest_best_splits", "forest_leaf_values"):
+        if not launches[name]:
+            problems.append(f"phase 12 launched no {name}")
+    r2 = {leg: res.report[leg]["r2"] for leg in ("smiles", "nn", "graph", "stacked")}
+    readings = [
+        ("MLM loss falls", mlm_cfg["final_mlm_loss"], mlm_cfg["first_mlm_loss"],
+         lambda v, f: v < f, "below the first step's"),
+        ("aux graph AUC", aux_auc["graph"], FAM_AUC_FLOOR, lambda v, f: v > f, ">"),
+        ("aux multimodal AUC", aux_auc["multimodal"], FAM_AUC_FLOOR,
+         lambda v, f: v > f, ">"),
+        ("smiles OOF R^2", r2["smiles"], FAM_SMILES_FLOOR, lambda v, f: v > f, ">"),
+        ("nn OOF R^2", r2["nn"], REG_LEG_FLOOR, lambda v, f: v > f, ">"),
+        ("graph OOF R^2", r2["graph"], REG_LEG_FLOOR, lambda v, f: v > f, ">"),
+        ("stacked R^2", r2["stacked"], phase11_r2 - FAM_STACK_MARGIN,
+         lambda v, f: v >= f, ">= phase 11's - 0.03:"),
+        ("weighted ensemble R^2", weighted["ensemble"]["r2"], FAM_WEIGHTED_FLOOR,
+         lambda v, f: v > f, ">"),
+    ]
+    # a constant BBB+ scores the test split's majority share (about 2/3,
+    # testing.POSITIVE_SHARE); both pipelines split the same labels (every
+    # molecule of the set parses) with the same seed and test share
+    bert_cfg, flow_cfg = BertTrainConfig(), FlowTrainConfig()
+    assert (bert_cfg.seed, bert_cfg.test_size) == (flow_cfg.seed, flow_cfg.test_size)
+    y_all = np.asarray(labelled[1])
+    te = np.random.default_rng(bert_cfg.seed).permutation(len(y_all))[
+        :int(len(y_all) * bert_cfg.test_size)]
+    majority = max(float(y_all[te].mean()), 1.0 - float(y_all[te].mean()))
+    acc_floor = max(FAM_ACC_FLOOR, majority + FAM_ACC_MARGIN)
+    for label, report in (("BERT", bert_report), ("flow", flow_report)):
+        readings += [
+            (f"{label} test accuracy", report["accuracy"], acc_floor,
+             lambda v, f: v > f, f"> the majority share {majority:.4f} + "
+             f"{FAM_ACC_MARGIN:g}, at least {FAM_ACC_FLOOR:g}:"),
+            (f"{label} test ROC AUC", report["roc_auc"], FAM_CLS_AUC_FLOOR,
+             lambda v, f: v > f, ">")]
+    for label, value, floor, ok, how in readings:
+        if not ok(value, floor):
+            problems.append(f"{label} {value:.4f} (floor {how} {floor:.4f})")
+    for m, r in res.report.items():
+        print(f"[12 report] {m:24s} " + " ".join(
+            f"{k} {v:.4f}" for k, v in r.items()), flush=True)
+    print(f"[12 run] MLM pretraining over {mlm_cfg['corpus_size']} SMILES "
+          f"(vocab {mlm_cfg['vocab_size']}), aux pretraining (graph over the "
+          f"aux set's molecules, multimodal), run_regression(cuda) with the "
+          f"SMILES leg and both warm starts over {len(res.y)} molecules "
+          f"(legs {sorted(res.oof)}), run_weighted_ensemble, search_nn_cv "
+          f"({FAM_SEARCH_TRIALS} trials x {FAM_SEARCH_FOLDS} folds: best "
+          f"{search.best_params}, OOF R^2 {search.best_score:.4f}), run_bert, "
+          f"do_flow_train: {wall:.3f} s wall | by stage "
+          f"{ {k: round(v, 3) for k, v in stage_s.items()} } | run_regression "
+          f"by stage { {k: round(v, 3) for k, v in res.stage_s.items()} } | "
+          f"peak allocated {peak:.3f} GiB | launches {launches} | on {card}",
+          flush=True)
+    print("[12 learning] " + "; ".join(
+        f"{label} {value:.4f} ({how} {floor:.4f})"
+        for label, value, floor, _, how in readings) + f" | on {card}", flush=True)
+    if problems:
+        raise AssertionError("phase 12: " + " | ".join(problems))
+    return {"launches": launches, "wall_s": wall, "stage_s": stage_s,
+            "peak_gib": peak, "checks": checks}
 
 
 def own_children() -> list:
@@ -2469,8 +2781,12 @@ def run() -> int:
     # -- phase 10: the classification ensemble ------------------------------
     cls_launches = classification_phase(card, counters)
 
-    # -- phase 11: the regression stack -------------------------------------
-    reg = regression_phase(card, counters)
+    # -- phases 11 and 12: the regression stack, then every other family ---
+    # through the same B3DB-format directory and caches
+    with tempfile.TemporaryDirectory() as reg_dir:
+        reg = regression_phase(card, counters, reg_dir)
+        fam = families_phase(card, counters, reg_dir, (smiles, labels),
+                             reg["stacked_r2"])
     reg_launches = reg["launches"]
 
     kernels = [
@@ -2643,6 +2959,8 @@ def run() -> int:
             if "bound_weighted" in other:
                 entry["bound_ms_weighted" + suffix] = other["bound_weighted"]["bound_ms"]
         kernels.append(entry)
+    for entry in kernels:
+        entry["launches_families"] = fam["launches"][entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {nvidia_smi()}")
     print(json.dumps({"ok": True, "device": {

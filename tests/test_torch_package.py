@@ -22,7 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(bbbp_tpu_torch.__path__, "bbbp_tp
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "bbbp_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "bbbp_tpu", "flax", "optax",
+                                       "pandas"))
 print(len(names), leaked)
 """
 
@@ -41,7 +42,8 @@ def test_importing_every_module_loads_neither_jax_nor_bbbp_tpu():
 
 
 def test_sources_import_neither_jax_nor_bbbp_tpu():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bbbp_tpu|pandas)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bbbp_tpu|pandas|flax|optax)\b",
+                         re.M)
     for root, _, files in os.walk(PKG):
         for fn in files:
             if fn.endswith(".py"):
@@ -56,7 +58,10 @@ def test_sources_import_neither_jax_nor_bbbp_tpu():
     "train.batched_search", "train.learning_curve", "train.classification",
     "train.baseline", "reporting", "reporting.metrics_io",
     "chem.graph_features", "ops.interactions", "ops.outliers",
-    "pipelines.preprocess", "models.gnn", "train.regression"])
+    "pipelines.preprocess", "models.gnn", "train.regression", "models.bert",
+    "models.mlp", "models.flow", "train.bert_pretrain", "train.aux_pretrain",
+    "train.weighted_ensemble", "train.nn_search", "train.bert_pipeline",
+    "train.flow_pipeline"])
 def test_import_checks_reach_the_classification_slice(module):
     """The two checks above walk every module of the package: each module of
     the classification and regression slices is among those they import and

@@ -64,7 +64,8 @@ def run() -> dict:
     from bbbp_tpu_torch.ops import similarity as sm
     from bbbp_tpu_torch.pipelines.preprocess import (PreprocessConfig,
                                                      ProcessedData, cache_path)
-    from bbbp_tpu_torch.testing import regression_molecules, write_regression_tsv
+    from bbbp_tpu_torch.testing import (b3db_env, regression_molecules,
+                                        write_regression_tsv)
     from bbbp_tpu_torch.train import regression as rg
     from bbbp_tpu_torch.train.loop import FoldTrainer, kfold_indices
 
@@ -77,11 +78,9 @@ def run() -> dict:
     cfg = rg.RegressionTrainConfig()
     smiles, y = regression_molecules()
     out = {"molecules": len(smiles)}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, b3db_env(tmp) as env:
         write_regression_tsv(os.path.join(tmp, "B3DB_regression.tsv"), smiles, y)
-        pre = os.path.join(tmp, "preprocess")
-        os.environ.update({"BBBP_B3DB_DIR": tmp, "BBBP_PREPROCESS_CACHE": pre,
-                           "BBBP_TRANSFER_CACHE": os.path.join(tmp, "transfer")})
+        pre = env["BBBP_PREPROCESS_CACHE"]
         torch.zeros(1, device="cuda")     # the featurizer's pool spawns once CUDA is up
         for c in counters.values():
             c.launches.reset()
