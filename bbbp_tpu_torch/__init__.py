@@ -8,7 +8,11 @@ classification ensemble with its searches and the A1 baseline
 classification,baseline}.py``; its forests run the trainer's kernels), and
 of the logBB regression stack (``pipelines/preprocess.py``,
 ``models/gnn.py``, ``train/regression.py``; its forests and kernel legs run
-the trainer's and the similarity kernels).
+the trainer's and the similarity kernels), of the remaining model families
+(SMILES-BERT, aux pretraining, the dual-branch MLP, the flow classifier),
+and of the reporting and utility modules (``reporting/`` attribution and
+figures, ``utils/`` checkpoints and profiling, ``parallel/`` meshes on
+``torch.distributed`` and prefetch, the CLIs, ``data/curation.py``).
 
 The port runs on one NVIDIA Hopper card (``sm_90a``). Its device kernels
 are CUDA C++ under ``csrc/``, built with ``nvcc`` at first use

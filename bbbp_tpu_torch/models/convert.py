@@ -20,7 +20,9 @@ the rest, as ``train_cv``'s ``warm_start`` does in the JAX package.
 ``stats_from_flax`` loads flax's ``batch_stats`` collection (BatchNorm's
 running statistics, the port's buffers). ``flax_from_params`` and
 ``flax_stats_from_buffers`` are the inverses: one fold of a port model as
-a flax tree, for the artifacts the JAX package reads.
+a flax tree, for the artifacts the JAX package reads (``stack_folds``
+joins the folds' trees on a leading axis, as the JAX package's vmapped
+trees are).
 ``mlp_from_jax`` carries the JAX package's small MLP (``ops/linear.py``)
 across.
 """
@@ -303,6 +305,23 @@ def flax_stats_from_buffers(model: nn.Module, fold: int = 0,
         name.replace(".", "/"): _fold_array(b if stats is None else stats[name],
                                             fold)
         for name, b in model.named_buffers()})
+
+
+def stack_folds(trees: Sequence[Mapping[str, object]]) -> Dict[str, object]:
+    """K trees of one structure as one tree whose leaves carry a leading
+    fold axis, [K, ...] (the layout of the JAX package's vmapped params)."""
+    flats = [flatten_tree(t) for t in trees]
+    return unflatten_tree({path: np.stack([f[path] for f in flats])
+                           for path in flats[0]})
+
+
+def unstack_folds(tree: Mapping[str, object]) -> List[Dict[str, object]]:
+    """``stack_folds``' inverse: a tree whose leaves carry a leading fold
+    axis as K trees, one a fold (what ``load_flax`` takes for K folds)."""
+    flat = flatten_tree(tree)
+    k = len(next(iter(flat.values())))
+    return [unflatten_tree({path: a[i] for path, a in flat.items()})
+            for i in range(k)]
 
 
 def mlp_from_jax(params: Sequence[Tuple[object, object]]

@@ -17,7 +17,8 @@ Numerics follow flax as the JAX package's models call it:
 - Dropout keeps an element where a uniform draw is below 1 − rate and
   scales it by 1 / (1 − rate), as ``flax.linen.Dropout``; the draws come
   from the ``torch.Generator`` the caller passes, so they are not
-  ``jax.random``'s.
+  ``jax.random``'s. A ``FoldBlock`` in its place draws for every fold of a
+  run and keeps one block's (``train_cv`` over a mesh).
 - Initializers are flax's: kernels lecun-normal (a normal of std
   sqrt(1/fan_in) / .8796 truncated at two std), biases 0, LayerNorm scale 1
   and bias 0.
@@ -66,6 +67,38 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return torch.addcmul(bias.view(shape), y, scale.view(shape)).to(dtype)
 
 
+class FoldBlock:
+    """Folds [start, stop) of a run of ``total``: the random draws of a
+    layer are made for every fold from ``generator`` and the block's rows
+    kept (``fold_rand``), so that a process training this block of folds
+    draws what one process training all of them draws for these."""
+
+    def __init__(self, generator: Optional[torch.Generator], total: int,
+                 start: int, stop: int):
+        self.generator, self.total, self.start, self.stop = generator, total, start, stop
+
+
+def fold_rand(shape, device, generator) -> torch.Tensor:
+    """Uniform [0, 1) draws of ``shape`` ([K, ...]) from ``generator``, a
+    ``torch.Generator`` or a ``FoldBlock``."""
+    if isinstance(generator, FoldBlock):
+        full = torch.rand((generator.total, *shape[1:]), device=device,
+                          generator=generator.generator)
+        return full[generator.start:generator.stop]
+    return torch.rand(shape, device=device, generator=generator)
+
+
+def keep_fold_block(net: nn.Module, start: int, stop: int) -> None:
+    """Keep folds [start, stop) of every parameter and buffer of ``net`` (a
+    fold-axis model), and its modules' ``folds`` counts."""
+    with torch.no_grad():
+        for t in list(net.parameters()) + list(net.buffers()):
+            t.data = t.data[start:stop].clone()
+    for m in net.modules():
+        if hasattr(m, "folds"):
+            m.folds = stop - start
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout(rate)``: identity unless ``train``; each element
@@ -76,7 +109,7 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    mask = fold_rand(x.shape, x.device, generator) < keep
     scaled = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))

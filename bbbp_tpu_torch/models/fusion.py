@@ -55,9 +55,12 @@ class MultiHeadAttentionFusion(nn.Module):
         scores = torch.einsum("kbhd,khd->kbh", s, self.score_2_kernel.to(dt))
         scores = scores + self.score_2_bias.to(dt).unsqueeze(1)     # [K, B, H]
         w = torch.softmax(scores, dim=-1).to(dt)
-        v = dense(x, self.value_kernel, self.value_bias, dt)
-        v = v.unflatten(-1, (h, self.out_dim))                      # [K, B, H, D]
+        v = self.values(x).unflatten(-1, (h, self.out_dim))          # [K, B, H, D]
         return torch.einsum("kbh,kbhd->kbd", w, v)
+
+    def values(self, x: torch.Tensor) -> torch.Tensor:
+        """The heads' values side by side, [K, B, H·D]."""
+        return dense(x, self.value_kernel, self.value_bias, self.dtype)
 
 
 class AttentionFusion(nn.Module):

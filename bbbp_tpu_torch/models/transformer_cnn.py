@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bbbp_tpu_torch.models.fold import Conv3x3, Dense, LayerNorm, dropout
+from bbbp_tpu_torch.models.fold import (Conv3x3, Dense, LayerNorm, dropout,
+                                        fold_rand)
 from bbbp_tpu_torch.models.fusion import (AttentionFusion,
                                           MultiHeadAttentionFusion,
                                           MultiModalAttentionFusion)
@@ -102,8 +103,7 @@ class MultiHeadDotProductAttention(nn.Module):
         w = torch.softmax(s, dim=-1)
         if train and self.rate > 0.0:
             keep = 1.0 - self.rate
-            kept = torch.rand((k, 1, 1, t, t), device=x.device,
-                              generator=generator) < keep
+            kept = fold_rand((k, 1, 1, t, t), x.device, generator) < keep
             w = w * (kept.to(self.dtype) / torch.tensor(keep, dtype=self.dtype))
         a = (w.to(self.dtype) @ heads(self.value(x))).transpose(2, 3)
         return self.out(a.reshape(k, b, t, d))

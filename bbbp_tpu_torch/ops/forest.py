@@ -12,6 +12,10 @@ CPU tensor. The TPU's gather-free "route" form is not carried over: it
 exists only because gathers are slow on the TPU. The kernel reads the trees
 as records (``pack_tree_records``), which the ensemble builds once from
 ``feat``/``thr``/``leaf``; those three stay its public fields and the pickle's.
+
+``dense_to_tree_arrays`` turns the layout into explicit trees
+(``_TreeArrays``, the JAX package's host-tree record) for exact TreeSHAP
+(``reporting/attribution.py``).
 """
 
 from __future__ import annotations
@@ -155,3 +159,65 @@ def raw_predict(ens: DenseTreeEnsemble, x: torch.Tensor,
 
 
 raw_predict.launches = LaunchCounter()
+
+
+@dataclass
+class _TreeArrays:
+    """One explicit tree (``bbbp_tpu/ops/forest.py::_TreeArrays``)."""
+
+    feature: np.ndarray    # [nodes] int32, -1 = leaf
+    threshold: np.ndarray  # [nodes] float32 (x <= t goes left)
+    left: np.ndarray       # [nodes] int32
+    right: np.ndarray      # [nodes] int32
+    value: np.ndarray      # [nodes] float32 (valid at leaves)
+    cover: np.ndarray      # [nodes] float32 (sum of hessians; for TreeSHAP)
+
+
+def dense_to_tree_arrays(ens: DenseTreeEnsemble, background: np.ndarray):
+    """Convert the implicit layout to explicit _TreeArrays (for exact
+    TreeSHAP), as ``bbbp_tpu/ops/forest_tpu.py::dense_to_tree_arrays``. Node
+    cover comes from routing a background sample through each tree
+    (interventional-style weighting; the dense layout stores no training
+    hessian mass). Dead branches keep ``thr = +inf`` and go left."""
+    feat = ens.feat.cpu().numpy()
+    thr = ens.thr.cpu().numpy()
+    leaf = ens.leaf.cpu().numpy()
+    T = feat.shape[0]
+    D = ens.depth
+    bg = np.asarray(background, np.float32)
+    trees = []
+    n_internal = (1 << D) - 1
+    n_total = n_internal + (1 << D)
+    for t in range(T):
+        feature = np.full(n_total, -1, np.int32)
+        threshold = np.zeros(n_total, np.float32)
+        left = np.full(n_total, -1, np.int32)
+        right = np.full(n_total, -1, np.int32)
+        value = np.zeros(n_total, np.float32)
+        # implicit flat index: internal node i at level l occupies 2^l-1+pos;
+        # leaves come after all internals
+        feature[:n_internal] = feat[t]
+        threshold[:n_internal] = thr[t]
+        for i in range(n_internal):
+            l = int(np.floor(np.log2(i + 1)))
+            pos = i - ((1 << l) - 1)
+            if l + 1 < D:
+                child_base = (1 << (l + 1)) - 1
+                left[i] = child_base + 2 * pos
+                right[i] = child_base + 2 * pos + 1
+            else:
+                left[i] = n_internal + 2 * pos
+                right[i] = n_internal + 2 * pos + 1
+        value[n_internal:] = leaf[t]
+        # cover by routing the background
+        counts = np.zeros(n_total, np.float64)
+        node = np.zeros(len(bg), np.int64)
+        counts[0] = len(bg)
+        for l in range(D):
+            f = feature[node]
+            go_left = bg[np.arange(len(bg)), np.maximum(f, 0)] <= threshold[node]
+            node = np.where(go_left, left[node], right[node])
+            np.add.at(counts, node, 1)
+        trees.append(_TreeArrays(feature, threshold, left, right, value,
+                                 np.maximum(counts, 1e-6).astype(np.float32)))
+    return trees

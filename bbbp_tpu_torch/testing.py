@@ -23,7 +23,10 @@ their real shapes and to compare two forests.
 - ``regression_nn_inputs``: the regressor's (fingerprint, image, target)
   inputs of those molecules, from ``preprocess_regression``;
 - ``classification_inputs``: the MACCS features and labels of
-  ``labelled_training_set``, the classification ensemble's input.
+  ``labelled_training_set``, the classification ensemble's input;
+- ``mesh_train_cv_rank`` and ``mesh_layout_rank``: one rank of
+  ``train_cv`` over a mesh, and one rank's view of ``make_mesh``, for
+  ``parallel/mesh.py::launch``.
 """
 
 from __future__ import annotations
@@ -553,3 +556,63 @@ def regression_nn_inputs(n: int = B3DB_REGRESSION_SIZE, seed: int = 1,
     side = data.config.image_size
     return (data.nn_fp_features(),
             data.img_norm.reshape(len(data.y), side, side, 3), data.y)
+
+
+def mesh_train_cv_rank(model_kw: dict, inputs, y: np.ndarray, cv_kw: dict,
+                       model_parallel: int = 1):
+    """One rank of ``train_cv(MultiModalRegressor(**model_kw), inputs, y,
+    mesh=make_mesh(model_parallel=...), **cv_kw)`` (the process group is
+    ``launch``'s): the OOF predictions, the losses and the parameters
+    ({name: [K, ...]}), numpy."""
+    from bbbp_tpu_torch.models import MultiModalRegressor
+    from bbbp_tpu_torch.parallel.mesh import make_mesh
+    from bbbp_tpu_torch.train.loop import train_cv
+
+    res = train_cv(MultiModalRegressor(**model_kw), inputs, y,
+                   mesh=make_mesh(model_parallel=model_parallel), **cv_kw)
+    return (res.oof_pred, res.train_losses,
+            {name: t.float().cpu().numpy() for name, t in res.params.items()})
+
+
+def mesh_layout_rank() -> dict:
+    """One rank's view of ``make_mesh()`` and ``make_mesh(model_parallel=2)``
+    (the process group is ``launch``'s): {model_parallel: (axis sizes, the
+    local and global shape of a [16, 4] batch sharded over ``data``)}."""
+    from bbbp_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    out = {}
+    for mp in (1, 2):
+        mesh = make_mesh(model_parallel=mp)
+        x = shard_batch(mesh, np.ones((16, 4), np.float32))
+        out[mp] = ({name: mesh[name].size() for name in mesh.mesh_dim_names},
+                   tuple(x.to_local().shape), tuple(x.shape))
+    return out
+
+
+def mesh_prefetch_rank(n_items: int = 5) -> dict:
+    """One rank of ``prefetch_to_device`` with ``sharding`` on a (data 2,
+    model 2) mesh (the process group is ``launch``'s): every rank feeds the
+    same items, item i a [8, 3] batch of i·100 + its row index and a [4]
+    vector of i. Returns the rank's mesh coordinates, and for each item
+    its batch's local rows under ``batch_sharding`` and its vector's local
+    values under ``replicated``, with their global shapes."""
+    from bbbp_tpu_torch.parallel.mesh import batch_sharding, make_mesh, replicated
+    from bbbp_tpu_torch.parallel.prefetch import prefetch_to_device
+
+    mesh = make_mesh(model_parallel=2)
+
+    def items(sharding):
+        for i in range(n_items):
+            rows = (100.0 * i + np.arange(8, dtype=np.float32))[:, None]
+            yield {"x": np.repeat(rows, 3, axis=1)} if sharding == "batch" else (
+                np.full((4,), float(i), np.float32),)
+
+    got = {}
+    for name, sh in (("batch", batch_sharding(mesh)), ("replicated", replicated(mesh))):
+        got[name] = []
+        for item in prefetch_to_device(items(name), depth=2, device="cpu",
+                                       sharding=sh):
+            t = item["x"] if name == "batch" else item[0]
+            got[name].append((t.to_local().numpy().copy(), tuple(t.shape)))
+    return {"coords": (mesh["data"].get_local_rank(), mesh["model"].get_local_rank()),
+            **got}

@@ -10,9 +10,9 @@ model_maccs.py / model_rdkit.py (fp kind), the Descriptors copies (A3).
 
 The per-model grid runs on the batched (trial × fold) lanes
 (``train/batched_search.py::batched_grid_search``). ``tune=False`` skips it.
-The JAX package's bar chart and learning-curve figures need
-``reporting/plots.py``, which is not ported: the run writes the CSVs and
-the pickles and says that it writes no figures.
+With ``out_dir`` the run writes the JAX package's files: the pickles, the
+CSVs, the learning curves and the bar chart; where matplotlib does not
+import, it says which figures it does not write and writes the rest.
 """
 
 from __future__ import annotations
@@ -138,10 +138,16 @@ def _run(cfg, verbose, dev):
                 print(f"[baseline] grid {name}: cv_f1={res.best_score:.4f} "
                       f"{res.best_params}")
     report: Dict[str, Dict[str, float]] = {}
+    draw = False
     if cfg.out_dir:
+        from bbbp_tpu_torch.reporting import plots
+
         os.makedirs(cfg.out_dir, exist_ok=True)
-        print(f"[baseline] writing no figures to {cfg.out_dir}: "
-              f"reporting/plots.py is not ported")
+        draw = plots.available()
+        if not draw:
+            print(plots.skip_note("baseline", cfg.out_dir, [
+                f"{m}_learning_curve.png" for m in cfg.models if m in zoo
+                and cfg.with_learning_curves] + [f"performance_{cfg.fp_kind}.png"]))
         if best_params:
             with open(os.path.join(cfg.out_dir, "grid_best_params.json"),
                       "w") as f:
@@ -168,6 +174,9 @@ def _run(cfg, verbose, dev):
                 save_learning_scores_csv(
                     os.path.join(cfg.out_dir, f"{name}_learning_scores.csv"),
                     sizes, trs, vas)
+                if draw:
+                    plots.learning_curve_plot(sizes, trs, vas, os.path.join(
+                        cfg.out_dir, f"{name}_learning_curve.png"))
 
     # best model by Acc + AUC + BalancedAcc (reference model.py:440-466)
     def score(r):
@@ -182,6 +191,9 @@ def _run(cfg, verbose, dev):
         write_metrics_csv(os.path.join(cfg.out_dir,
                                        f"model_performance_metrics_{cfg.fp_kind}.csv"),
                           clean)
+        if draw:
+            plots.performance_bar_plot(clean, os.path.join(
+                cfg.out_dir, f"performance_{cfg.fp_kind}.png"))
     if verbose:
         for m, r in report.items():
             if m.startswith("_"):

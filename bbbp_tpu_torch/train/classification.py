@@ -21,10 +21,12 @@ Every base model is the port's (``ops/linear.py``, ``ops/forest_train.py``:
 "dt", "gb", "xgb" and "cat" are ``GBDTClassifier``s, "rf" a
 ``RandomForestClassifier``); the per-model RandomizedSearchCV runs its
 (trial × fold) grid as lanes (``train/batched_search.py``). ``tune=False``
-skips the search and uses the hand-set defaults below. The figures and SHAP
-plots of the JAX package need ``reporting/plots.py`` and
-``reporting/attribution.py``, which are not ported: a run with ``out_dir``
-writes the CSVs and the pickle and says that it writes no figures.
+skips the search and uses the hand-set defaults below. A run with
+``out_dir`` writes the JAX package's files: the CSVs, the figures, TreeSHAP
+of the first forest and kernel SHAP of the first non-tree model
+(``reporting/attribution.py``), and the fitted models' pickle. Where
+matplotlib does not import, it says which figures it does not write and
+writes the rest.
 """
 
 from __future__ import annotations
@@ -416,26 +418,61 @@ def _run(cfg, x, y, verbose, dev) -> ClassificationRunResult:
             print(f"[classification] {m:9s} acc={r['accuracy']:.4f} "
                   f"f1={r['f1']:.4f} mcc={r['mcc']:.4f} auc={r['roc_auc']:.4f}")
     if cfg.out_dir:
-        _write_outputs(cfg, report, search_trials, zoo, names, fitted, x_tr, y_tr)
+        _write_outputs(cfg, report, search_trials, zoo, names, fitted, x_tr, y_tr,
+                       x_te, y_te, test_proba)
         lap("outputs")
     return ClassificationRunResult(report, y_te, test_proba, time.time() - t0,
                                    stage_s)
 
 
-def _write_outputs(cfg, report, search_trials, zoo, names, fitted, x_tr, y_tr):
-    """The metrics CSV, the trial CSVs, the learning-score CSVs and the
-    fitted models' pickle."""
+def _write_outputs(cfg, report, search_trials, zoo, names, fitted, x_tr, y_tr,
+                   x_te, y_te, test_proba):
+    """The files of ``bbbp_tpu/train/classification.py:372-460``: the metrics
+    CSV and bar chart, the trial CSVs and their scatters, the stacking
+    confusion matrix, the learning-score CSVs and curves, TreeSHAP of the
+    first forest (150 test rows) and kernel SHAP of the first non-tree model
+    (60 rows), and the fitted models' pickle. A figure that fails prints its
+    exception; without matplotlib the figures and SHAP plots are skipped in
+    one printed line."""
+    from bbbp_tpu_torch.reporting import plots
     from bbbp_tpu_torch.reporting.metrics_io import (write_metrics_csv,
                                                      write_trials_csv)
 
     d = cfg.out_dir
     os.makedirs(d, exist_ok=True)
-    print(f"[classification] writing no figures to {d}: reporting/plots.py "
-          f"and reporting/attribution.py are not ported")
+    draw = plots.available()
+    forest = next((m for m in ("rf", "gb", "xgb", "cat") if m in fitted), None)
+    other = next((m for m in ("mlp", "knn", "logreg", "svc", "bnb")
+                  if m in fitted), None)
+    if not draw:
+        skipped = [f"performance_{cfg.fp_kind}.png", "confusion_stacking.png"]
+        skipped += [f"hyperparam_search_{m}_*.png" for m in (search_trials or {})]
+        if cfg.with_learning_curves:
+            skipped += [f"{m}_learning_curve.png" for m in names]
+        if forest:
+            skipped += [f"shap_{forest}.png", f"shap_dependence_{forest}.png"]
+        if other:
+            skipped += [f"shap_kernel_{other}.png",
+                        f"shap_kernel_dependence_{other}.png"]
+        print(plots.skip_note("classification", d, skipped))
     write_metrics_csv(os.path.join(
         d, f"model_performance_metrics_{cfg.fp_kind}.csv"), report)
+    if draw:
+        plots.performance_bar_plot(report, os.path.join(
+            d, f"performance_{cfg.fp_kind}.png"))
     for m, tr_rows in (search_trials or {}).items():
         write_trials_csv(os.path.join(d, f"hyperparam_search_{m}.csv"), tr_rows)
+        if draw:
+            try:
+                plots.hyperparam_search_plots(
+                    tr_rows, os.path.join(d, f"hyperparam_search_{m}"))
+            except Exception as e:  # noqa: BLE001 — a figure, not a result
+                print(f"[classification] hyperparameter plots for {m} "
+                      f"FAILED: {e!r}")
+    if draw:
+        plots.confusion_matrix_plot(
+            y_te, (test_proba["stacking"] > 0.5).astype(int),
+            os.path.join(d, "confusion_stacking.png"))
     if cfg.with_learning_curves:
         # one learning curve per (tuned) base model, reference
         # model_opt_20250130.py:589-591
@@ -449,9 +486,44 @@ def _write_outputs(cfg, report, search_trials, zoo, names, fitted, x_tr, y_tr):
                     seed=cfg.seed)
                 save_learning_scores_csv(
                     os.path.join(d, f"{m}_learning_scores.csv"), sizes, trs, vas)
+                if draw:
+                    plots.learning_curve_plot(
+                        sizes, trs, vas, os.path.join(d, f"{m}_learning_curve.png"))
             except Exception as e:  # noqa: BLE001 — curves are artifacts,
                 # not results; disclose instead of silently skipping
                 print(f"[classification] learning curve for {m} FAILED: {e!r}")
+    if draw and forest:
+        from bbbp_tpu_torch.reporting.attribution import forest_shap_values
+
+        try:
+            idx = np.random.default_rng(0).choice(
+                len(x_te), min(150, len(x_te)), replace=False)
+            phi = forest_shap_values(fitted[forest], x_te[idx], max_samples=None)
+            plots.shap_summary_plot(phi, x_te[idx],
+                                    os.path.join(d, f"shap_{forest}.png"))
+            plots.shap_dependence_plot(
+                phi, x_te[idx], int(np.abs(phi).mean(0).argmax()),
+                os.path.join(d, f"shap_dependence_{forest}.png"))
+        except Exception as e:  # noqa: BLE001 — a figure, not a result
+            print(f"[classification] TreeSHAP plots for {forest} FAILED: {e!r}")
+    if draw and other:
+        # KernelSHAP for one non-tree model (reference's KernelExplainer
+        # fallback, model_opt_20250130.py:241-349)
+        from bbbp_tpu_torch.reporting.attribution import kernel_shap
+
+        try:
+            idx = np.random.default_rng(0).choice(
+                len(x_te), min(60, len(x_te)), replace=False)
+            mdl = fitted[other]
+            phi = kernel_shap(lambda a: mdl.predict_proba(a)[:, 1],
+                              x_te[idx], x_tr, n_samples=256)
+            plots.shap_summary_plot(phi, x_te[idx],
+                                    os.path.join(d, f"shap_kernel_{other}.png"))
+            plots.shap_dependence_plot(
+                phi, x_te[idx], int(np.abs(phi).mean(0).argmax()),
+                os.path.join(d, f"shap_kernel_dependence_{other}.png"))
+        except Exception as e:  # noqa: BLE001 — a figure, not a result
+            print(f"[classification] kernel SHAP plots for {other} FAILED: {e!r}")
     with open(os.path.join(d, "fitted_models.pkl"), "wb") as f:
         pickle.dump(fitted, f)
 

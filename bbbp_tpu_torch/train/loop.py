@@ -43,7 +43,9 @@ import numpy as np
 import torch
 
 from bbbp_tpu_torch.models.convert import matching_params
+from bbbp_tpu_torch.models.fold import FoldBlock, keep_fold_block
 from bbbp_tpu_torch.ops.forest_train import resolve_device
+from bbbp_tpu_torch.parallel.mesh import fold_block, gather_folds
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 RESTARTS = 64                        # make_optimizer's cosine cycles
@@ -198,14 +200,17 @@ class FoldTrainer:
     (``type(model)(**model.config, folds=K)``, initialised from ``seed``;
     ``model``'s own parameters are not read), the inputs on the device, and
     the optimizer. ``fold_affine``: per input None or (shift [K, ...],
-    scale [K, ...]) applied as (x − shift) · scale to fold k's rows."""
+    scale [K, ...]) applied as (x − shift) · scale to fold k's rows.
+    ``block`` (start, stop): this trainer keeps folds [start, stop) of the
+    K, drawing their init and dropout as a trainer of all K would."""
 
     def __init__(self, model, inputs: Sequence[np.ndarray], y: np.ndarray, k: int,
                  device: torch.device, seed: int = 42,
                  lr: Union[float, torch.Tensor] = 1e-4,
                  weight_decay: Union[float, torch.Tensor] = 1e-5,
-                 fold_affine=None, warm_start=None):
-        self.k, self.device = k, device
+                 fold_affine=None, warm_start=None, block=None):
+        start, stop = block or (0, k)
+        self.k, self.device = stop - start, device
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.net = type(model)(**model.config, folds=k, device=device,
                                generator=self.generator)
@@ -213,6 +218,17 @@ class FoldTrainer:
             with torch.no_grad():
                 for name, value in matching_params(self.net, warm_start).items():
                     self.net.get_parameter(name).copy_(value)
+        self.draws = self.generator
+        if block is not None:
+            # the K folds' init and dropout draws, this block's rows of them
+            keep_fold_block(self.net, start, stop)
+            self.draws = FoldBlock(self.generator, k, start, stop)
+            lr, weight_decay = (v[start:stop] if isinstance(v, torch.Tensor) else v
+                                for v in (lr, weight_decay))
+            if fold_affine is not None:
+                fold_affine = tuple(None if fa is None else
+                                    tuple(np.asarray(v)[start:stop] for v in fa)
+                                    for fa in fold_affine)
         self.params = list(self.net.parameters())
         self.opt = AdamW(self.params, lr, weight_decay)
         self.inputs = tuple(torch.as_tensor(np.asarray(a)).to(device, _device_dtype(a))
@@ -237,7 +253,7 @@ class FoldTrainer:
         """One update of every fold on its rows ``idx`` [K, B]; the folds'
         losses [K] (on the device)."""
         batch = self._batch(tuple(a[idx] for a in self.inputs))
-        pred = self.net(*batch, train=True, generator=self.generator)
+        pred = self.net(*batch, train=True, generator=self.draws)
         loss = ((pred - self.y[idx]) ** 2).mean(dim=1)
         grads = torch.autograd.grad(loss.sum(), self.params)
         self.opt.step(grads)
@@ -343,11 +359,13 @@ def train_cv(
     ``weight_decay``, each a length-``n_seeds`` (or length-K) float array;
     replica r of fold i is row r·n_folds + i.
 
-    ``mesh``: the reference shards the fold axis over a device mesh; the
-    port trains on one card, and refuses a mesh."""
-    if mesh is not None:
-        raise ValueError("train_cv runs on one card: there is no mesh to shard "
-                         "the folds over")
+    ``mesh`` (``parallel/mesh.py::make_mesh``, this process one rank of it):
+    the K folds shard over its ``data`` axis. Data-rank r trains the
+    contiguous block [r·K/dp, (r+1)·K/dp), drawing its folds' init and
+    dropout as a run of all K does, and the losses, predictions and final
+    parameters are all-gathered, so every rank returns what one process
+    training all K returns. Where K is no multiple of the data axis every
+    rank trains all K, and says so."""
     dev = resolve_device(device)
     n = len(y)
     folds = kfold_indices(n, n_folds, split_seed if split_seed is not None else seed)
@@ -384,14 +402,32 @@ def train_cv(
             None if fa is None else tuple(
                 np.concatenate([np.asarray(v)] * n_seeds, axis=0) for v in fa)
             for fa in fold_affine)
+    block, group = None, None
+    if mesh is not None:
+        block = fold_block(k, mesh)
+        if block is None:
+            print(f"train_cv: {k} folds do not divide the mesh's data axis "
+                  f"({mesh['data'].size()}): every rank trains all {k}")
+        else:
+            group = mesh.get_group("data")
+    start, stop = block or (0, k)
+
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        """[k_local, ...] → [K, ...] over the data axis."""
+        return t if group is None else gather_folds(t, group)
+
+    def gather_np(a: np.ndarray) -> np.ndarray:
+        return gather(torch.as_tensor(a, device=dev)).cpu().numpy()
+
     trainer = FoldTrainer(
         model, inputs, y, k, dev, seed,
         lr=torch.from_numpy(hparams["learning_rate"]),
         weight_decay=torch.from_numpy(hparams["weight_decay"]),
-        fold_affine=fold_affine, warm_start=warm_start)
+        fold_affine=fold_affine, warm_start=warm_start, block=block)
 
     if patience is not None:
-        val_idx_d = torch.as_tensor(val_idx, dtype=torch.int64, device=dev)
+        val_idx_d = torch.as_tensor(val_idx[start:stop], dtype=torch.int64,
+                                    device=dev)
         best_val = np.full(k, np.inf, np.float32)
         since_best = np.zeros(k, np.int32)
         best_flat = trainer.opt.flat.clone()
@@ -399,21 +435,21 @@ def train_cv(
 
     host_rng = np.random.default_rng(seed)
     losses_hist = np.zeros((k, epochs), dtype=np.float32)
-    snap_sum = torch.zeros((k, n), dtype=torch.float32, device=dev)
+    snap_sum = torch.zeros((stop - start, n), dtype=torch.float32, device=dev)
     snap_count = 0
     for epoch in range(epochs):
         perms = np.stack([
             host_rng.permutation(train_idx[i])[: steps * batch_size]
             for i in range(k)
         ]).reshape(k, steps, batch_size)
-        mean_loss = trainer.train_epoch(perms)
+        mean_loss = gather_np(trainer.train_epoch(perms[start:stop]))
         losses_hist[:, epoch] = mean_loss
         if patience is not None:
-            vl = trainer.val_losses(val_idx_d)
+            vl = gather_np(trainer.val_losses(val_idx_d))
             improved = vl < best_val - 1e-5
             best_val = np.where(improved, vl, best_val)
             since_best = np.where(improved, 0, since_best + 1)
-            keep = torch.as_tensor(improved, device=dev).unsqueeze(1)
+            keep = torch.as_tensor(improved[start:stop], device=dev).unsqueeze(1)
             best_flat.copy_(torch.where(keep, trainer.opt.flat, best_flat))
             trainer.keep_stats(best_stats, keep)
             if np.all(since_best >= patience):
@@ -434,9 +470,9 @@ def train_cv(
             trainer.opt.flat.copy_(best_flat)
             trainer.set_stats(best_stats)
     if snap_count:
-        preds_kn = (snap_sum / snap_count).cpu().numpy()
+        preds_kn = gather(snap_sum / snap_count).cpu().numpy()
     else:
-        preds_kn = trainer.predict_all().cpu().numpy()
+        preds_kn = gather(trainer.predict_all()).cpu().numpy()
     # average over seed replicas: replica r of fold i sits at row r*n_folds+i
     preds_sn = preds_kn.reshape(n_seeds, n_folds, n)
     preds_fn = preds_sn.mean(axis=0)                                # [F, N]
@@ -447,8 +483,10 @@ def train_cv(
         oof[te] = preds_fn[i, te]
         oof_seeds[:, te] = preds_sn[:, i, te]
         fold_of[te] = i
-    return CVResult(oof, fold_of, trainer.state(), trainer.stats(), losses_hist,
-                    folds, oof_seeds=oof_seeds)
+    params = {name: gather(t) for name, t in trainer.state().items()}
+    stats = {name: gather(t) for name, t in trainer.stats().items()}
+    return CVResult(oof, fold_of, params, stats, losses_hist, folds,
+                    oof_seeds=oof_seeds)
 
 
 def train_multimodal_cv(model, fp, img, y, **kw) -> CVResult:

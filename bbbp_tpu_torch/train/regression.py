@@ -920,29 +920,54 @@ def _run(cfg: RegressionTrainConfig, data: Optional[ProcessedData],
             print(f"[regression] transfer aux: {transfer.n_aux} molecules, "
                   f"holdout AUC {transfer.holdout_auc}")
     if cfg.out_dir:
-        _write_artifacts(cfg, oof, stacked, y, report, seed_cols=seed_cols)
+        _write_artifacts(cfg, model, nn_res, oof, stacked, y, report,
+                         seed_cols=seed_cols)
     return RegressionRunResult(oof, stacked, y, report, time.time() - t0,
                                stage_s)
 
 
-def _write_artifacts(cfg, oof, stacked, y, report, seed_cols=None):
-    """The metrics CSV and the OOF pickle of the reference's artifact set
-    (SURVEY §2.8 S2). The loss curves, the scatter and distribution plots
-    and the NN checkpoint need ``reporting/plots.py`` and
-    ``utils/checkpoint.py``, which are not ported: the run says so."""
+def _write_artifacts(cfg, model, nn_res, oof, stacked, y, report,
+                     seed_cols=None):
+    """The reference's artifact set (SURVEY §2.8 S2), as
+    ``bbbp_tpu/train/regression.py:889-918`` writes it: metrics CSV, loss
+    curves, pred-vs-actual scatter with metrics in the filename,
+    distribution plot, the OOF pickle and the NN checkpoint: the first seed
+    replica's ``{"params", "batch_stats"}`` in flax's layout with the fold
+    axis (``models/convert.py``), the tree the JAX package saves."""
+    from bbbp_tpu_torch.models.convert import (flax_from_params,
+                                               flax_stats_from_buffers,
+                                               stack_folds)
+    from bbbp_tpu_torch.reporting import plots
     from bbbp_tpu_torch.reporting.metrics_io import write_metrics_csv
+    from bbbp_tpu_torch.utils.checkpoint import save_checkpoint
 
     d = cfg.out_dir
     os.makedirs(d, exist_ok=True)
-    print(f"[regression] writing no figures and no NN checkpoint to {d}: "
-          f"reporting/plots.py and utils/checkpoint.py are not ported")
     write_metrics_csv(os.path.join(d, "regression_metrics.csv"), report)
+    r2, mse = report["stacked"]["r2"], report["stacked"]["mse"]
+    scatter = f"stacked_predict_r2_{r2:.4f}_MSE_{mse:.4f}.png"
+    if plots.available():
+        plots.loss_curve_plot(nn_res.train_losses,
+                              os.path.join(d, "nn_loss_curves.png"))
+        plots.pred_vs_actual_plot(y, stacked, os.path.join(d, scatter),
+                                  r2=r2, mse=mse)
+        plots.distribution_plot(y, stacked,
+                                os.path.join(d, "prediction_distribution.png"))
+    else:
+        print(plots.skip_note("regression", d, [
+            "nn_loss_curves.png", scatter, "prediction_distribution.png"]))
     with open(os.path.join(d, "oof_predictions.pkl"), "wb") as f:
         payload = {"y": y, **oof, "stacked": stacked}
         for k, cols in (seed_cols or {}).items():
             for i, c in enumerate(cols):
                 payload[f"{k}_seed{i}"] = np.asarray(c)
         pickle.dump(payload, f)
+    k = nn_res.train_losses.shape[0]
+    save_checkpoint(os.path.join(d, "nn_checkpoint"), {
+        "params": stack_folds([flax_from_params(model, i, nn_res.params)
+                               for i in range(k)]),
+        "batch_stats": stack_folds([flax_stats_from_buffers(
+            model, i, nn_res.batch_stats) for i in range(k)])})
 
 
 def main():

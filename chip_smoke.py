@@ -184,8 +184,38 @@ before its last line):
    split's majority share + 0.02, which a constant prediction scores, and
    their test ROC AUC > 0.6).
 
+13. reporting and the utilities, through phase 11's directory (every launch
+   counter set to 0 at its start and read at its end): whether matplotlib
+   and PIL import; ``run_classification(tune=False, out_dir)`` at phase 10's
+   widths (rf left out and learning curves off, each cut printed) with its
+   files checked (the figures, TreeSHAP and kernel SHAP plots only where
+   matplotlib imports); TreeSHAP of its boosted forest over 150 rows of
+   phase 10's projection, additivity held against the forest kernel's
+   margin on the card (1e-4 of max(1, |margin|)); its MLP's predictions on
+   the card against the same parameters on the CPU (1e-5, every row kernel
+   SHAP evaluates included) and kernel SHAP of them (its f32 solve's phi is
+   printed, not held: that solve's rounding is ~5e-3; phi solved again in
+   f64 from each device's predictions within 1e-4, efficiency within
+   1e-3); integrated gradients of phase 9's regressor (fold 0 in
+   f32, TF32 off, 4 rows from another molecule's inputs, 64 steps) on the
+   card against the CPU (1e-4 of scale) with its completeness gap held
+   (0.2 of the largest |f(x) - f(b)|, the 256-step gap printed); phase 11's
+   ``nn_checkpoint`` restored onto the card bit-equal; ``prefetch_to_device``
+   onto cuda in order, ``trace`` over one forward and backward (a trace file
+   with device time), ``debug_nans`` raising on a NaN made on the card
+   forward and backward; ``train_cv`` of phase 9's regressor on its inputs
+   (10 folds, 2 epochs) over a 1 x 1 NCCL mesh bit-equal to the run without
+   one; ``dryrun_multichip(4)`` (4 gloo processes on the CPU: one card;
+   ``torch_dryrun_check.py`` runs it on four cards) against one unsharded
+   step on the CPU (bf16 losses within 1e-5 and
+   parameters but for first-step sign flips at a rounding, at most 0.5%; f32
+   within 1e-5); the featurize, analyze and chemspace CLIs (``--device
+   cuda``) over phase 11's TSV, the PCA coordinates against a CPU run within
+   3e-4 of scale.
+
 Then one JSON line for the kernels (each with its launches in phase 12's
-run under ``launches_families``, its time and its plain
+run under ``launches_families`` and in phase 13 under
+``launches_reporting``, its time and its plain
 version's, its bound from ``bbbp_tpu_torch/timing.py`` and a library
 yardstick where one PyTorch call computes the same function; the
 projection's ``torch.addmm`` on bits already unpacked is the product alone,
@@ -340,6 +370,52 @@ FAM_WEIGHTED_FLOOR = 0.3          # the weighted ensemble's R^2
 FAM_ACC_FLOOR = 0.6               # BERT's and flow's test accuracy, and
 FAM_ACC_MARGIN = 0.02             # above the test split's majority share
 FAM_CLS_AUC_FLOOR = 0.6           # BERT's and flow's test ROC AUC
+
+
+# phase 13: reporting and the utilities. run_classification(tune=False,
+# out_dir) at phase 10's widths; rf left out there and learning curves cut
+# (each printed): the pipeline's TreeSHAP goes to the first forest it has,
+# and rf's 200 trees of depth 10 take ~1.2 s a tree of host numpy at 150 rows
+REP_CLS_LEFT_OUT = ("rf",)
+REP_SHAP_FOREST = "gb"            # TreeSHAP additivity: 200 trees of depth 4
+REP_SHAP_ROWS = 150               # as the pipeline takes
+REP_ADDITIVITY_TOL = 1e-4         # x max(1, |margin|), the forest kernel's
+REP_KSHAP_ROWS = 60               # kernel SHAP of the MLP, as the pipeline
+# the MLP's predictions on the card against the CPU (f32, TF32 off), from the
+# same parameters
+REP_PRED_TOL = 1e-5
+# kernel SHAP of the MLP, card against CPU. The JAX package's kernel SHAP
+# (copied bit for bit) solves its normal equations in f32 with the anchors
+# weighted 1e6: that solve's own rounding moves phi by ~5e-3 (phi up to ~0.4,
+# median ~0.03, on a CPU trial over 30 features), and a prediction that moves
+# by 3e-7 moves its phi as much, so its phi, card against CPU, can tell no
+# wrong attribution from rounding and is printed, not held. Held: every
+# prediction the attribution made, card against CPU (REP_PRED_TOL), and phi
+# solved again in f64 from each device's recorded predictions (the same
+# coalitions, replayed): phi within 1e-4 and efficiency within 1e-3 (on that
+# trial 3e-7 of noise in the predictions moved f64 phi by 4e-8, 1e-4 of noise
+# by 1.4e-5; efficiency 1.4e-5)
+REP_KSHAP_SAMPLES = 256
+REP_KSHAP_TOL = 1e-4
+REP_EFFICIENCY_TOL = 1e-3
+REP_IG_ROWS = 4
+REP_IG_STEPS = 64
+REP_IG_TOL = 1e-4                 # x max(1, scale), card against CPU
+# IG from another molecule's inputs (a zero baseline passes LayerNorm's
+# discontinuity at 0, which no number of steps closes): the gap of
+# sum(attributions) to f(x) - f(baseline) at 64 steps, of the largest
+# |f(x) - f(baseline)|; it shrinks as 1/steps (0.07 at 64, 0.016 at 256 on a
+# random init of the model on the CPU)
+REP_IG_COMPLETENESS = 0.2
+REP_PCA_TOL = 3e-4                # x max(1, scale), card against CPU
+REP_DRYRUN_TOL = 1e-5
+REP_DRYRUN_FLIPS = 0.005          # bf16: share of elements a rounding's sign
+                                  # turns in the first AdamW step
+# train_cv over a 1 x 1 NCCL mesh against the run without one: phase 9's
+# model, inputs and train_cv settings, its 50 epochs cut to these (snapshots
+# from the last of them, as phase 9 takes them from epoch 30)
+REP_MESH_EPOCHS = 2
+REP_PREFETCH_ITEMS = 12
 
 
 def read_csv(path: str):
@@ -1068,9 +1144,10 @@ def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
 
 
 
-def regressor_phase(card):
+def regressor_phase(card) -> dict:
     """Phase 9: the flagship regressor and its fold-batched ``train_cv``
-    on the card at ``RegressionTrainConfig``'s defaults."""
+    on the card at ``RegressionTrainConfig``'s defaults. Returns the
+    model's config, the trained parameters and the inputs."""
     import torch
 
     from bbbp_tpu_torch.entry import entry
@@ -1251,6 +1328,10 @@ def regressor_phase(card):
           f"{peak / 2**30:.3f} GiB, OOF R^2 {r2_oof:.4f} (floor 0.3), last epoch's "
           f"loss a fold {fmt(res.train_losses[:, run_epochs - 1])} "
           f"| on {card}", flush=True)
+    return {"model_kw": dict(cfg, fp_dim=nn_fp.shape[1]), "params": res.params,
+            "fp": nn_fp, "img": img, "y": y,
+            "cv_kw": dict(n_folds=folds, batch_size=batch, lr=lr, seed=seed,
+                          split_seed=seed, snapshot_from=snapshot_from)}
 
 
 def _near_tie_rows(d: np.ndarray, places: int) -> np.ndarray:
@@ -1285,7 +1366,8 @@ def _neighbour_swaps(rows: np.ndarray, kk: int, cuda) -> dict:
 def classification_phase(card, counters) -> dict:
     """Phase 10: the classification ensemble (``train/classification.py``)
     over ``testing.classification_inputs()``. Returns the launches of the
-    kernels in ``run_classification``."""
+    kernels in ``run_classification`` and the inputs (``x``, ``y``) with
+    their projection ``z``."""
     import torch
 
     from bbbp_tpu_torch.ops import resample as rs
@@ -1525,7 +1607,7 @@ def classification_phase(card, counters) -> dict:
           f"{time.time() - t10:.1f} s on {card}", flush=True)
     if problems:
         raise AssertionError("phase 10: " + " | ".join(problems))
-    return launches
+    return {"launches": launches, "x": x, "y": y, "z": z}
 
 
 def _block_errors(got, want) -> dict:
@@ -1741,7 +1823,9 @@ def regression_phase(card, counters, tmp) -> dict:
     from bbbp_tpu_torch.train.transfer import raw_transfer_features
 
     problems = []
-    cfg = rg.RegressionTrainConfig(**REG_CUTS)
+    # the artifacts (metrics, figures where matplotlib imports, the OOF
+    # pickle, the NN checkpoint that phase 13 restores) beside the TSV
+    cfg = rg.RegressionTrainConfig(**REG_CUTS, out_dir=os.path.join(tmp, "artifacts"))
     defaults = rg.RegressionTrainConfig()
     for key, value in REG_CUTS.items():
         print(f"[11 cut] {key} {getattr(defaults, key)} -> {value}", flush=True)
@@ -2153,6 +2237,413 @@ def families_phase(card, counters, tmp, labelled, phase11_r2) -> dict:
         raise AssertionError("phase 12: " + " | ".join(problems))
     return {"launches": launches, "wall_s": wall, "stage_s": stage_s,
             "peak_gib": peak, "checks": checks}
+
+
+def _importable(name: str) -> bool:
+    import importlib
+
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def _tree_on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_on(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _kernel_shap_f64(calls, x, background, n_samples, n_background=20,
+                     l2=1e-3, seed=0):
+    """``kernel_shap``'s phi solved in f64 from the predictions one run of
+    it made (``calls``: its predict_fn's (input, output) in order): its
+    coalitions and background rows are replayed from its seed, and every
+    recorded input is checked against the replay. Returns (phi [n, d], the
+    efficiency gaps sum(phi) - (f(x) - E[f(background)]) [n])."""
+    rng = np.random.default_rng(seed)
+    x = np.asarray(x, np.float32)
+    bg = np.asarray(background, np.float32)
+    bg = bg[rng.choice(len(bg), min(n_background, len(bg)), replace=False)]
+    n, d = x.shape
+    ks = np.arange(1, d)
+    pk = (d - 1) / (ks * (d - ks))
+    sizes = rng.choice(ks, size=n_samples, p=pk / pk.sum())
+    z = np.zeros((n_samples, d))
+    for i, k in enumerate(sizes):
+        z[i, rng.choice(d, k, replace=False)] = 1.0
+    z_full = np.concatenate([z, np.zeros((1, d)), np.ones((1, d))])
+    w = np.ones(n_samples + 2)
+    w[-2:] = 1e6
+    if len(calls) != n + 1 or not np.array_equal(calls[0][0], bg):
+        raise AssertionError("kernel SHAP's calls do not replay")
+    f_bg = float(np.mean(calls[0][1].astype(np.float64)))
+    design = np.concatenate([z_full, np.ones((n_samples + 2, 1))], axis=1)
+    reg = l2 * np.eye(d + 1)
+    reg[d, d] = 0.0
+    dw = design * w[:, None]
+    a = dw.T @ design + reg
+    phis, gaps = np.zeros((n, d)), np.zeros(n)
+    for i in range(n):
+        hyb = np.where(z_full[:, None, :] == 1.0, x[i][None, None, :], bg[None, :, :])
+        if not np.array_equal(calls[1 + i][0], hyb.reshape(-1, d)):
+            raise AssertionError(f"kernel SHAP's hybrid rows of row {i} do not replay")
+        fz = calls[1 + i][1].astype(np.float64).reshape(n_samples + 2, len(bg)).mean(1)
+        phis[i] = np.linalg.solve(a, dw.T @ (fz - f_bg))[:d]
+        gaps[i] = phis[i].sum() - (fz[-1] - f_bg)
+    return phis, gaps
+
+
+def reporting_phase(card, counters, tmp, p9, p10) -> dict:
+    """Phase 13: attribution, figures, checkpoints, profiling, prefetch, the
+    mesh and the dry run, and the CLIs, on the card (module doc), through
+    phase 11's B3DB-format directory ``tmp``; ``p9`` and ``p10`` are phases
+    9 and 10's returns. Every launch counter is set to 0 at its start and
+    read at its end."""
+    import contextlib
+    import copy
+    import io
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from bbbp_tpu_torch import entry as en
+    from bbbp_tpu_torch.models import MultiModalRegressor
+    from bbbp_tpu_torch.ops.forest import dense_to_tree_arrays, raw_predict
+    from bbbp_tpu_torch.ops.similarity import f32_matmul
+    from bbbp_tpu_torch.parallel import mesh as pm
+    from bbbp_tpu_torch.parallel.prefetch import prefetch_to_device
+    from bbbp_tpu_torch.pipelines import analyze as an
+    from bbbp_tpu_torch.pipelines import chemspace as cs
+    from bbbp_tpu_torch.pipelines import featurize as fz
+    from bbbp_tpu_torch.reporting.attribution import (forest_shap_values,
+                                                      integrated_gradients,
+                                                      kernel_shap)
+    from bbbp_tpu_torch.testing import b3db_env
+    from bbbp_tpu_torch.train import classification as cl
+    from bbbp_tpu_torch.train.loop import train_cv
+    from bbbp_tpu_torch.utils.checkpoint import restore_checkpoint
+    from bbbp_tpu_torch.utils.profiling import debug_nans, trace
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    problems, stage_s = [], {}
+    t13 = time.time()
+    has_mpl, has_pil = _importable("matplotlib.pyplot"), _importable("PIL.Image")
+    print(f"[13 env] matplotlib imports: {has_mpl}; PIL imports: {has_pil}",
+          flush=True)
+    for c in counters.values():
+        c.launches.reset()
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        stage_s[name] = round(time.time() - t0, 3)
+
+    # -- run_classification(tune=False, out_dir): the pipeline's files -------
+    x, y, z = p10["x"], p10["y"], p10["z"]
+    defaults = cl.ClassificationTrainConfig()
+    models = tuple(m for m in defaults.models if m not in REP_CLS_LEFT_OUT)
+    out = os.path.join(tmp, "classification")
+    cfg = cl.ClassificationTrainConfig(tune=False, out_dir=out, models=models,
+                                       with_learning_curves=False)
+    print(f"[13 cut] run_classification(tune=False, out_dir): models "
+          f"{defaults.models} -> {models} (rf's TreeSHAP, 200 trees of depth 10 "
+          f"over {REP_SHAP_ROWS} rows, is minutes of host numpy), learning "
+          f"curves off", flush=True)
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cls = cl.run_classification(cfg, x, y, verbose=False, device="cuda")
+    lap("run_classification", t0)
+    printed = buf.getvalue()
+    data_files = {"model_performance_metrics_maccs.csv", "fitted_models.pkl"}
+    figures = {"performance_maccs.png", "confusion_stacking.png", "shap_gb.png",
+               "shap_dependence_gb.png", "shap_kernel_mlp.png",
+               "shap_kernel_dependence_mlp.png"}
+    files = set(os.listdir(out))
+    want_files = data_files | (figures if has_mpl else set())
+    if files != want_files or "FAILED" in printed or (
+            not has_mpl and "does not import" not in printed):
+        problems.append(f"run_classification(out_dir) wrote {sorted(files)}, "
+                        f"expected {sorted(want_files)}; printed {printed!r}")
+    with open(os.path.join(out, "fitted_models.pkl"), "rb") as f:
+        fitted = pickle.load(f)
+
+    # -- TreeSHAP: additivity against the forest kernel's margin ------------
+    t0 = time.time()
+    est = fitted[REP_SHAP_FOREST]
+    rows = z[np.random.default_rng(0).choice(len(z), REP_SHAP_ROWS, replace=False)]
+    phi = forest_shap_values(est, rows, max_samples=None)
+    ens = est.ensemble_
+    trees = dense_to_tree_arrays(ens, rows)
+    base = ens.base_score + ens.tree_scale * sum(
+        float((t.value.astype(np.float64) * t.cover)[t.feature < 0].sum() / t.cover[0])
+        for t in trees)
+    margin = raw_predict(ens, torch.from_numpy(rows).to(cuda)).cpu().numpy()
+    add_err = np.abs(base + phi.sum(1) - margin) / np.maximum(1.0, np.abs(margin))
+    if not add_err.max() <= REP_ADDITIVITY_TOL:
+        problems.append(f"TreeSHAP additivity {add_err.max():.3g} of max(1, |margin|)")
+    lap("tree_shap", t0)
+
+    # -- kernel SHAP of the MLP: the card against the CPU -------------------
+    t0 = time.time()
+    mlp = fitted["mlp"]
+    mlp_cpu = copy.copy(mlp)
+    mlp_cpu.params_ = [(w.cpu(), b.cpu()) for w, b in mlp.params_]
+    kx = rows[:REP_KSHAP_ROWS]
+    phis, calls = {}, {}
+    for name, m in (("cuda", mlp), ("cpu", mlp_cpu)):
+        calls[name] = []
+
+        def predict(a, m=m, seen=calls[name]):
+            p = m.predict_proba(a)[:, 1]
+            seen.append((np.array(a, copy=True), np.array(p, copy=True)))
+            return p
+
+        phis[name] = kernel_shap(predict, kx, z, n_samples=REP_KSHAP_SAMPLES)
+    phi64 = {name: _kernel_shap_f64(calls[name], kx, z, REP_KSHAP_SAMPLES)
+             for name in calls}
+    kshap_err = float(np.abs(phi64["cuda"][0] - phi64["cpu"][0]).max())
+    eff_err = float(np.abs(phi64["cuda"][1]).max())
+    kshap32_err = float(np.abs(phis["cuda"] - phis["cpu"]).max())
+    solve32_err = float(np.abs(phis["cuda"] - phi64["cuda"][0]).max())
+    phi_max = float(np.abs(phi64["cuda"][0]).max())
+    phi_median = float(np.median(np.abs(phi64["cuda"][0])))
+    pred_err = max([float(np.abs(mlp.predict_proba(z) - mlp_cpu.predict_proba(z)).max())]
+                   + [float(np.abs(a[1] - b[1]).max())
+                      for a, b in zip(calls["cuda"], calls["cpu"])])
+    if not (kshap_err <= REP_KSHAP_TOL and eff_err <= REP_EFFICIENCY_TOL
+            and pred_err <= REP_PRED_TOL):
+        problems.append(f"kernel SHAP (f64 solve): card vs CPU {kshap_err:.3g} "
+                        f"(limit {REP_KSHAP_TOL}; |phi| up to {phi_max:.3g}), "
+                        f"efficiency {eff_err:.3g} (limit {REP_EFFICIENCY_TOL}); "
+                        f"the MLP's predictions card vs CPU {pred_err:.3g} "
+                        f"(limit {REP_PRED_TOL})")
+    lap("kernel_shap", t0)
+
+    # -- integrated gradients of phase 9's regressor (fold 0, f32) ----------
+    t0 = time.time()
+    nets = {}
+    for name, dev in (("cuda", cuda), ("cpu", cpu)):
+        net = MultiModalRegressor(**p9["model_kw"], dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            for pname, value in p9["params"].items():
+                net.get_parameter(pname).copy_(value[0:1])
+        nets[name] = net
+    fp = torch.from_numpy(np.asarray(p9["fp"][:REP_IG_ROWS + 1], np.float32))
+    img = torch.from_numpy(np.asarray(p9["img"][:REP_IG_ROWS + 1], np.float32))
+    ig = {}
+    with f32_matmul():
+        for name, dev in (("cuda", cuda), ("cpu", cpu)):
+            f, i = fp.to(dev), img.to(dev)
+            xs = (f[:REP_IG_ROWS], i[:REP_IG_ROWS])
+            base_in = (f[REP_IG_ROWS:].expand_as(xs[0]).contiguous(),
+                       i[REP_IG_ROWS:].expand_as(xs[1]).contiguous())
+            net = nets[name]
+            ig[name] = [a.detach().cpu() for a in integrated_gradients(
+                lambda v, net=net: net(v[0], v[1]), xs, baseline=base_in,
+                steps=REP_IG_STEPS)]
+            if name == "cuda":
+                with torch.no_grad():
+                    delta = (net(*xs) - net(*base_in)).cpu()
+                long = integrated_gradients(lambda v, net=net: net(v[0], v[1]), xs,
+                                            baseline=base_in, steps=4 * REP_IG_STEPS)
+                gap256 = float((sum(a.flatten(1).sum(1) for a in long).cpu()
+                                - delta).abs().max())
+    ig_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                 for a, b in zip(ig["cuda"], ig["cpu"]))
+    gap = float((sum(a.flatten(1).sum(1) for a in ig["cuda"]) - delta).abs().max())
+    scale_f = float(delta.abs().max())
+    if not (ig_err <= REP_IG_TOL and gap <= REP_IG_COMPLETENESS * max(scale_f, 1e-6)):
+        problems.append(f"integrated gradients: card vs CPU {ig_err:.3g} of scale "
+                        f"(limit {REP_IG_TOL}); completeness gap {gap:.3g} of "
+                        f"|f(x) - f(b)| up to {scale_f:.3g} (limit "
+                        f"{REP_IG_COMPLETENESS} of it)")
+    lap("integrated_gradients", t0)
+
+    # -- phase 11's NN checkpoint, restored onto the card --------------------
+    t0 = time.time()
+    ck_path = os.path.join(tmp, "artifacts", "nn_checkpoint")
+    ref = restore_checkpoint(ck_path)
+    on_card = restore_checkpoint(ck_path, _tree_on(ref, cuda))
+    ref_leaves, card_leaves = dict(_flat_leaves(ref)), dict(_flat_leaves(on_card))
+    ck_equal = set(ref_leaves) == set(card_leaves) and all(
+        v.is_cuda and v.dtype == ref_leaves[k].dtype
+        and torch.equal(v.cpu(), ref_leaves[k]) for k, v in card_leaves.items())
+    if not ck_equal or not ref_leaves:
+        problems.append("the NN checkpoint did not restore bit-equal onto the card")
+    lap("checkpoint", t0)
+
+    # -- prefetch, trace, debug_nans ----------------------------------------
+    t0 = time.time()
+    items = [np.full((1 << 18,), i, np.float32) for i in range(REP_PREFETCH_ITEMS)]
+    sums = [float((t * 2).sum()) for t in prefetch_to_device(iter(items), depth=2)]
+    prefetch_ok = sums == [2.0 * i * (1 << 18) for i in range(REP_PREFETCH_ITEMS)]
+    log_dir = os.path.join(tmp, "trace")
+    net = nets["cuda"]
+    with trace(log_dir) as prof:
+        out_t = net(fp[:REP_IG_ROWS].to(cuda), img[:REP_IG_ROWS].to(cuda))
+        torch.autograd.grad(out_t.sum(), list(net.parameters()))
+        torch.cuda.synchronize()
+    device_us = sum(getattr(e, "device_time_total", 0.0) or 0.0
+                    for e in prof.key_averages())
+    traced = os.listdir(log_dir)
+    nan_fwd = nan_bwd = False
+    with debug_nans():
+        try:
+            torch.log(torch.tensor([-1.0, 1.0], device=cuda))
+        except FloatingPointError:
+            nan_fwd = True
+        xg = torch.tensor([0.0, 4.0], device=cuda, requires_grad=True)
+        yg = (torch.sqrt(xg) * 0.0).sum()
+        try:
+            yg.backward()
+        except FloatingPointError:
+            nan_bwd = True
+    if not (prefetch_ok and len(traced) == 1 and device_us > 0 and nan_fwd and nan_bwd):
+        problems.append(f"prefetch in order {prefetch_ok}; trace files {traced}, "
+                        f"device us {device_us:.1f}; debug_nans raised forward "
+                        f"{nan_fwd}, backward {nan_bwd}")
+    lap("prefetch_trace_nans", t0)
+
+    # -- train_cv over a 1 x 1 mesh on NCCL: phase 9's model and inputs ------
+    t0 = time.time()
+    mesh_kw = dict(p9["cv_kw"], epochs=REP_MESH_EPOCHS, snapshot_from=REP_MESH_EPOCHS)
+    print(f"[13 cut] train_cv over a 1 x 1 NCCL mesh: phase 9's "
+          f"MultiModalRegressor({p9['model_kw']}), {len(p9['y'])} rows, "
+          f"{p9['cv_kw']} -> epochs {REP_MESH_EPOCHS}, snapshot_from "
+          f"{mesh_kw['snapshot_from']}", flush=True)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pm.init_local_group("nccl", 0, 1, pm.free_port())
+    try:
+        runs = [train_cv(MultiModalRegressor(**p9["model_kw"]), (p9["fp"], p9["img"]),
+                         p9["y"], device="cuda", mesh=mesh, **mesh_kw)
+                for mesh in (pm.make_mesh(1), None)]
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = det
+    mesh_equal = (np.array_equal(runs[0].oof_pred, runs[1].oof_pred)
+                  and np.array_equal(runs[0].train_losses, runs[1].train_losses)
+                  and set(runs[0].params) == set(runs[1].params)
+                  and all(torch.equal(runs[0].params[k], runs[1].params[k])
+                          for k in runs[1].params))
+    mesh_r2 = r2(p9["y"], runs[0].oof_pred)
+    if not (mesh_equal and np.isfinite(runs[0].oof_pred).all()):
+        problems.append("train_cv over a 1 x 1 NCCL mesh is not bit-equal to the "
+                        "run without a mesh")
+    del runs
+    lap("train_cv_mesh", t0)
+
+    # -- the dry run: 4 gloo processes on the CPU ---------------------------
+    t0 = time.time()
+    dry = en.dryrun_multichip(4)
+    want_loss, want = en.dryrun_step(2, device="cpu")
+    dry_loss_err = float(np.abs(dry["loss"] - want_loss).max())
+    flips = sum(int((np.abs(v - want[k]) > REP_DRYRUN_TOL).sum())
+                for k, v in dry["params"].items())
+    total = sum(v.size for v in want.values())
+    worst = max(float(np.abs(v - want[k]).max()) for k, v in dry["params"].items())
+    f32_loss, f32_params = pm.launch(en.dryrun_rank, 4, 4, None, None,
+                                     torch.float32)[0]
+    f32_want_loss, f32_want = en.dryrun_step(2, dtype=torch.float32, device="cpu")
+    f32_err = max([float(np.abs(f32_loss - f32_want_loss).max())] + [
+        float(np.abs(v - f32_want[k]).max()) for k, v in f32_params.items()])
+    if not (dry["backend"] == "gloo" and dry_loss_err <= REP_DRYRUN_TOL
+            and worst <= 2 * en.DRYRUN_LR + REP_DRYRUN_TOL
+            and flips <= REP_DRYRUN_FLIPS * total and f32_err <= REP_DRYRUN_TOL):
+        problems.append(f"dry run: bf16 losses {dry_loss_err:.3g}, params worst "
+                        f"{worst:.3g} with {flips} of {total} beyond "
+                        f"{REP_DRYRUN_TOL}; f32 {f32_err:.3g}")
+    lap("dryrun", t0)
+
+    # -- the CLIs over phase 11's directory ----------------------------------
+    t0 = time.time()
+    cli_dir = os.path.join(tmp, "cli")
+    saved_argv = sys.argv
+    with b3db_env(tmp):
+        try:
+            sys.argv = ["featurize", "b3db", "--dataset", "regression", "--kinds",
+                        "morgan", "maccs", "rdkit", "pairs", "--out-dir",
+                        os.path.join(cli_dir, "featurize")]
+            fz.main()
+            sys.argv = ["analyze", "--dataset", "regression", "--out-dir",
+                        os.path.join(cli_dir, "analyze"), "--device", "cuda"]
+            a_card = an.main()
+            sys.argv = ["chemspace", "--mode", "regression", "--out-dir",
+                        os.path.join(cli_dir, "chemspace"), "--device", "cuda"]
+            c_card = cs.main()
+        finally:
+            sys.argv = saved_argv
+        with contextlib.redirect_stdout(io.StringIO()):
+            a_cpu = an.analyze("regression", os.path.join(cli_dir, "a_cpu"),
+                               device="cpu")
+            c_cpu = cs.regression_space(os.path.join(cli_dir, "c_cpu"), device="cpu")
+    npys = sorted(f for f in os.listdir(os.path.join(cli_dir, "featurize"))
+                  if f.endswith(".npy"))
+    shapes = {f: np.load(os.path.join(cli_dir, "featurize", f)).shape for f in npys}
+    pca = {name: [a["coords"]] + [c["coords"][k] for k in sorted(c["coords"])]
+           for name, a, c in (("cuda", a_card, c_card), ("cpu", a_cpu, c_cpu))}
+    pca_err = max(float(np.abs(g - w).max()) / max(1.0, float(np.abs(w).max()))
+                  for g, w in zip(pca["cuda"], pca["cpu"]))
+    if len(npys) != 4 or pca_err > REP_PCA_TOL:
+        problems.append(f"CLIs: featurize wrote {npys}; PCA coordinates card vs "
+                        f"CPU {pca_err:.3g} of scale (limit {REP_PCA_TOL})")
+    lap("clis", t0)
+
+    launches = {name: c.launches.count for name, c in counters.items()}
+    wall = time.time() - t13
+    if launches["dense_forest_predict"] == 0:
+        problems.append("the forest kernel's counter did not move in phase 13")
+    print(f"[13 pipelines] run_classification(tune=False, out_dir) on cuda: "
+          f"{cls.wall_time_s:.3f} s, wrote {sorted(files)} (figures: {has_mpl}); "
+          f"by stage {cls.stage_s} | on {card}", flush=True)
+    print(f"[13 attribution] TreeSHAP of {REP_SHAP_FOREST} ({ens.leaf.shape[0]} "
+          f"trees of depth {ens.depth}) over {REP_SHAP_ROWS} rows: additivity "
+          f"against the forest kernel's margin max {add_err.max():.3g} of max(1, "
+          f"|margin|) (limit {REP_ADDITIVITY_TOL}); the MLP's predictions over "
+          f"{len(z)} rows card vs CPU {pred_err:.3g} (limit {REP_PRED_TOL}); "
+          f"kernel SHAP of the MLP over {REP_KSHAP_ROWS} rows (|phi| up to "
+          f"{phi_max:.3g}, median {phi_median:.3g}): phi solved in f64 from "
+          f"each device's predictions card vs CPU {kshap_err:.3g} (limit "
+          f"{REP_KSHAP_TOL}), efficiency {eff_err:.3g} (limit "
+          f"{REP_EFFICIENCY_TOL}); the f32 solve's phi card vs CPU "
+          f"{kshap32_err:.3g}, against its f64 solve {solve32_err:.3g} (its own "
+          f"rounding: not held); integrated gradients of phase 9's regressor "
+          f"(fold 0, f32, {REP_IG_ROWS} rows, {REP_IG_STEPS} steps, baseline "
+          f"another molecule): card vs CPU {ig_err:.3g} of scale (limit "
+          f"{REP_IG_TOL}), completeness gap {gap:.3g} of |f(x) - f(b)| up to "
+          f"{scale_f:.3g} (limit {REP_IG_COMPLETENESS} of it; "
+          f"{4 * REP_IG_STEPS} steps: {gap256:.3g}) | on {card}", flush=True)
+    print(f"[13 utilities] nn_checkpoint: {len(ref_leaves)} leaves restored onto "
+          f"cuda bit-equal {ck_equal}; prefetch_to_device({REP_PREFETCH_ITEMS} "
+          f"items of 1 MiB) in order {prefetch_ok}; trace: {traced}, device "
+          f"{device_us / 1e3:.3f} ms; debug_nans raised on the card forward "
+          f"{nan_fwd}, backward {nan_bwd}; train_cv of phase 9's regressor "
+          f"({mesh_kw['n_folds']} folds, {REP_MESH_EPOCHS} epochs) over a 1 x 1 "
+          f"NCCL mesh bit-equal {mesh_equal} (OOF R^2 {mesh_r2:.4f}); dryrun_multichip(4) on {dry['backend']}: "
+          f"mesh {dry['mesh']}, losses {np.round(dry['loss'], 6).tolist()}, "
+          f"against one unsharded step: losses {dry_loss_err:.3g}, params worst "
+          f"{worst:.3g} ({flips} of {total} elements beyond {REP_DRYRUN_TOL}: a "
+          f"first AdamW step's sign at a bf16 rounding; limit "
+          f"{REP_DRYRUN_FLIPS:.1%}), f32 {f32_err:.3g} (limit {REP_DRYRUN_TOL}) "
+          f"| on {card}", flush=True)
+    print(f"[13 clis] featurize b3db (regression): {shapes}; analyze and "
+          f"chemspace --device cuda: PCA coordinates card vs CPU {pca_err:.3g} "
+          f"of scale (limit {REP_PCA_TOL}) | phase 13 {wall:.1f} s by stage "
+          f"{stage_s} | launches {launches} | on {card}", flush=True)
+    if problems:
+        raise AssertionError("phase 13: " + " | ".join(problems))
+    return {"launches": launches, "wall_s": wall, "stage_s": stage_s}
 
 
 def own_children() -> list:
@@ -2776,17 +3267,19 @@ def run() -> int:
             card, counters, (smiles, labels), (reg_smiles, reg_y), reg_raw, cache)
 
     # -- phase 9: the regressor and train_cv ---------------------------------
-    regressor_phase(card)
+    p9 = regressor_phase(card)
 
     # -- phase 10: the classification ensemble ------------------------------
-    cls_launches = classification_phase(card, counters)
+    p10 = classification_phase(card, counters)
+    cls_launches = p10["launches"]
 
-    # -- phases 11 and 12: the regression stack, then every other family ---
-    # through the same B3DB-format directory and caches
+    # -- phases 11, 12 and 13: the regression stack, every other family, then
+    # reporting and the utilities, through the same B3DB-format directory
     with tempfile.TemporaryDirectory() as reg_dir:
         reg = regression_phase(card, counters, reg_dir)
         fam = families_phase(card, counters, reg_dir, (smiles, labels),
                              reg["stacked_r2"])
+        rep = reporting_phase(card, counters, reg_dir, p9, p10)
     reg_launches = reg["launches"]
 
     kernels = [
@@ -2961,6 +3454,7 @@ def run() -> int:
         kernels.append(entry)
     for entry in kernels:
         entry["launches_families"] = fam["launches"][entry["name"]]
+        entry["launches_reporting"] = rep["launches"][entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {nvidia_smi()}")
     print(json.dumps({"ok": True, "device": {

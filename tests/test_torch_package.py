@@ -28,6 +28,35 @@ print(len(names), leaked)
 """
 
 
+# the modules of the last slice: attribution, figures, checkpoints,
+# profiling, the mesh, the CLIs and curation
+SLICE_H = ["reporting.attribution", "reporting.plots", "chem.highlight", "utils",
+           "utils.checkpoint", "utils.profiling", "parallel", "parallel.mesh",
+           "parallel.prefetch", "pipelines.featurize", "pipelines.analyze",
+           "pipelines.chemspace", "data.curation", "entry",
+           "pipelines.screen_ensemble", "pipelines.train_baseline",
+           "pipelines.train_bert", "pipelines.train_classify",
+           "pipelines.train_flow", "pipelines.train_regress"]
+
+# imports each module alone (what it adds to sys.modules after torch and
+# numpy, removed again before the next) and prints what of the refused
+# packages each loaded
+_IMPORT_ALONE = """
+import importlib, json, sys
+import numpy, torch
+base = set(sys.modules)
+refused = ("jax", "jaxlib", "bbbp_tpu", "flax", "optax", "pandas", "matplotlib", "PIL")
+out = {}
+for name in sys.argv[1:]:
+    importlib.import_module("bbbp_tpu_torch." + name)
+    added = set(sys.modules) - base
+    out[name] = sorted(m for m in added if m.split(".")[0] in refused)
+    for m in added:
+        del sys.modules[m]
+print(json.dumps(out))
+"""
+
+
 def _py(*args, cwd=REPO, **env):
     return subprocess.run([sys.executable, *args], cwd=cwd, capture_output=True,
                           text=True, timeout=120, env={**os.environ, **env})
@@ -61,7 +90,7 @@ def test_sources_import_neither_jax_nor_bbbp_tpu():
     "pipelines.preprocess", "models.gnn", "train.regression", "models.bert",
     "models.mlp", "models.flow", "train.bert_pretrain", "train.aux_pretrain",
     "train.weighted_ensemble", "train.nn_search", "train.bert_pipeline",
-    "train.flow_pipeline"])
+    "train.flow_pipeline"] + SLICE_H)
 def test_import_checks_reach_the_classification_slice(module):
     """The two checks above walk every module of the package: each module of
     the classification and regression slices is among those they import and
@@ -73,6 +102,23 @@ def test_import_checks_reach_the_classification_slice(module):
     names = {m.name for m in pkgutil.walk_packages(bbbp_tpu_torch.__path__,
                                                    "bbbp_tpu_torch.")}
     assert f"bbbp_tpu_torch.{module}" in names
+
+
+@pytest.fixture(scope="module")
+def imported_alone():
+    import json
+
+    proc = _py("-c", _IMPORT_ALONE, *SLICE_H)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", SLICE_H)
+def test_module_alone_loads_no_jax_pandas_or_matplotlib(module, imported_alone):
+    """Imported alone, a module of the last slice loads no jax, flax, optax,
+    ``bbbp_tpu``, pandas, matplotlib or PIL (the figures import matplotlib
+    and PIL when they draw)."""
+    assert imported_alone[module] == []
 
 
 @pytest.mark.parametrize("seed", [0, 3, 42])

@@ -226,7 +226,13 @@ def test_interrupted_tree_stage_resumes_bit_identical(tmp_path, monkeypatch):
     for m in ("rf", "gbdt", "cat", "knn", "ridge", "tknn", "tkrr", "ckrr"):
         np.testing.assert_array_equal(res.oof[m], ref.oof[m], err_msg=m)
     assert not os.path.exists(os.path.join(out, "tree_ckpt.pkl"))
-    assert sorted(os.listdir(out)) == ["oof_predictions.pkl", "regression_metrics.csv"]
+    # the artifact set (the figures and the NN checkpoint since they are
+    # ported), and no tree-stage checkpoint left beside it
+    r2, mse = res.report["stacked"]["r2"], res.report["stacked"]["mse"]
+    assert sorted(os.listdir(out)) == sorted([
+        "nn_checkpoint", "oof_predictions.pkl", "regression_metrics.csv",
+        "nn_loss_curves.png", "prediction_distribution.png",
+        f"stacked_predict_r2_{r2:.4f}_MSE_{mse:.4f}.png"])
     with open(os.path.join(out, "oof_predictions.pkl"), "rb") as f:
         payload = pickle.load(f)
     np.testing.assert_array_equal(payload["stacked"], res.stacked_pred)
@@ -371,13 +377,15 @@ def test_cli_tiny_run_on_cpu(tmp_path, monkeypatch, capsys):
         "--nn-seeds", "1", "--tree-seeds", "1", "--workers", "1",
         "--out", str(out), "--out-dir", str(tmp_path / "artifacts")])
     R.main()
-    assert "writing no figures" in capsys.readouterr().out
+    assert "does not import" not in capsys.readouterr().out
     import json
 
     with open(out) as f:
         report = json.load(f)
     assert {"nn", "graph", "rf", "stacked", "ckrr"} <= set(report)
-    assert os.path.exists(tmp_path / "artifacts" / "regression_metrics.csv")
+    for name in ("regression_metrics.csv", "oof_predictions.pkl", "nn_checkpoint",
+                 "nn_loss_curves.png", "prediction_distribution.png"):
+        assert os.path.exists(tmp_path / "artifacts" / name), name
 
 
 def test_reference_script_builds_phase_11s_rows(tmp_path):
