@@ -5,7 +5,9 @@ Transformer+CNN regressor with the fold-batched K-fold trainer
 (``models/``, ``train/loop.py``; no kernel of their own), and of the
 classification ensemble with its searches and the A1 baseline
 (``ops/{metrics,linear,resample}.py``, ``train/{search,batched_search,
-classification,baseline}.py``; its forests run the trainer's kernels), and
+classification,baseline}.py``; its forests run the trainer's kernels, and
+with ``BBBP_FOREST_VMAP=1`` a search's forest trials × folds run as lanes of
+``ops/forest_train.py::fit_forest_lanes``), and
 of the logBB regression stack (``pipelines/preprocess.py``,
 ``models/gnn.py``, ``train/regression.py``; its forests and kernel legs run
 the trainer's and the similarity kernels), of the remaining model families

@@ -193,6 +193,35 @@ def kernels_lib() -> ctypes.CDLL:
         _P, _P, _P,            # next g, h [n] f32, bounds [2] f32
         _I, _P,                # cluster (blocks of 1,024 threads), stream
     ]
+    lib.bbbp_forest_level_histogram_lanes.restype = _I
+    lib.bbbp_forest_level_histogram_lanes.argtypes = (
+        lib.bbbp_forest_level_histogram.argtypes[:-1] + [
+            _I, ctypes.c_longlong,  # lanes, scratch words a lane
+            _P])                    # stream
+    lib.bbbp_forest_best_splits_lanes.restype = _I
+    lib.bbbp_forest_best_splits_lanes.argtypes = [
+        _P, _I, _I,            # hist [L, nodes, F, 64, 2] f32
+        _P, _P, _F, _I,        # col_mask [L, F] bool, lambda [L] f32, min_child, oblivious
+        _P,                    # scratch int32 [L, 2·candidates] or null
+        _P, _P, _P, _I, _P,    # feat, bin [L, nodes] int32, has_split bool, L, stream
+    ]
+    lib.bbbp_forest_leaf_values_lanes.restype = _I
+    lib.bbbp_forest_leaf_values_lanes.argtypes = [
+        _P, _I, _P, _P,        # pos [L, n] int32, g, h [L, n] f32
+        _I, _P, _P, _P,        # n_leaves, lambda [L], scale [L], bounds [L, 2] f32
+        _P, _P,                # leaf [L, n_leaves] f32, preds [L, n] f32 (in place)
+        _P, _P, _P, _P, _I,    # next tree: y [n], u, w_rows [L, n] or null, subsample [L], cls
+        _P, _P, _P,            # next g, h [L, n] f32, bounds [L, 2] f32
+        _I, _I, _P,            # cluster (blocks of 1,024 threads a lane), L, stream
+    ]
+    lib.bbbp_forest_route_rows.restype = _I
+    lib.bbbp_forest_route_rows.argtypes = [
+        _P, _I, _I,            # xb [n, F] uint8
+        _P, _P, _P, _I,        # pos [L, n] int32 (in place), f_l, b_l [L, nodes] int32, nodes
+        _P, _P,                # feats, bins int32 at [0, tree, first node of the level]
+        ctypes.c_longlong,     # words from one lane's tree arrays to the next
+        _I, _P,                # L, stream
+    ]
     lib.bbbp_tanimoto_topk.restype = _I
     lib.bbbp_tanimoto_topk.argtypes = [
         _P, _I, _P, _I, _I,    # q [nq, words], r [nr, words] packed bits

@@ -16,6 +16,24 @@
 //    reference's compiled tree step rounds it; in boosting also the next
 //    tree's g, h (tree_step, :302-319) from the updated margins, and their
 //    (max |g|, max |h|).
+// bbbp_forest_route_rows — replaces the routing of _fit_forest_device
+//    (:335-338): pos <- 2 * pos + (xb[row, f[pos]] > b[pos]) for every row,
+//    and the level's (feature, bin) pairs written into the tree's flat
+//    arrays. Integer work, a thread a row, the level's table in shared
+//    memory; bound by its bytes (pos read and written, one byte of xb a row
+//    read at a column that the row's node picks).
+//
+// Lanes. K3, K4, K5 and the routing also run `lanes` fits of one shape over
+// one binned matrix (the *_lanes entry points), as
+// bbbp_tpu/train/batched_search.py::_forest_cv_vmapped runs them under
+// jax.vmap (:340-344). The lane is one more grid dimension of the same
+// kernel bodies. K3's and K5's bodies take a template flag that compiles the
+// lane offsets out of the single fit's launch: compiled in, they made the
+// single-fit K3 and K5 3-5% slower on an H100. A lane has its own
+// pos, g, h, margins, bounds, scratch and, in K4 and K5, its lambda, scale
+// and subsample rate; xb and y are every lane's. A lane's sums are the
+// single launch's (integers, in any order), so a lane grows the trees of
+// the single fit with the same draws bit for bit.
 //
 // Determinism. Two fits with one seed must grow the same trees, so K3 and
 // K5 give the same sums on every run: each value is quantised to a 64-bit
@@ -190,8 +208,17 @@ constexpr int kOblRun = 32;                 // nodes a run
 constexpr int kOblThreads = kOblFeats * kBins;
 constexpr int kLeafThreads = 1024;
 constexpr int kLeafMaxCluster = 16;         // non-portable above 8
+constexpr int kRouteThreads = 256;
+constexpr int kRouteMaxNodes = 2048;        // a level of a depth-12 tree
+constexpr int kMaxLanes = 65535;            // a grid's y and z extent
 
 typedef unsigned long long u64;
+
+// p moved by `bytes`: a lane's part of a buffer laid out lane after lane.
+template <typename T>
+__device__ __forceinline__ T* shift(T* p, size_t bytes) {
+  return reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(p) + bytes);
+}
 
 }  // namespace
 
@@ -343,7 +370,11 @@ __device__ __forceinline__ void add_rows(int* s_cnt, int n_nodes,
 
 // scratch plan: scales f64 [4] (g, h, then their inverses), items
 // [max_items] int4 (node, first row, end row, slot or -1), slot_node
-// [acc_slots], info {items, slots in use}
+// [acc_slots], info {items, slots in use}. blockIdx.y is the lane: its rows
+// lie at lane * n, its bounds at 2 * lane and its scratch at lane *
+// lane_bytes from lane 0's. kLanes false is the single fit's launch, with
+// no lane offsets compiled in (one body, as before the lane axis).
+template <bool kLanes>
 __global__ void __launch_bounds__(kSortThreads)
 hist_group_kernel(const int* __restrict__ pos, int n,
                   const float* __restrict__ g, const float* __restrict__ h,
@@ -351,7 +382,21 @@ hist_group_kernel(const int* __restrict__ pos, int n,
                   const float* __restrict__ bounds, int* __restrict__ rows,
                   double* __restrict__ scales, int4* __restrict__ items,
                   int* __restrict__ slot_node, int* __restrict__ info,
-                  ulonglong2* __restrict__ acc, size_t acc_pairs) {
+                  ulonglong2* __restrict__ acc, size_t acc_pairs,
+                  size_t lane_bytes) {
+  if (kLanes) {
+    const size_t fit = blockIdx.y, at = fit * lane_bytes;
+    pos += fit * n;
+    g += fit * n;
+    h += fit * n;
+    bounds += 2 * fit;
+    rows = shift(rows, at);
+    scales = shift(scales, at);
+    items = shift(items, at);
+    slot_node = shift(slot_node, at);
+    info = shift(info, at);
+    acc = shift(acc, at);
+  }
   if (blockIdx.x > 0) {                     // the zeroing blocks
     if (blockIdx.x == 1 && threadIdx.x < 2) {
       // once a call, for the other kernels, off this kernel's one long block
@@ -461,13 +506,28 @@ __device__ __forceinline__ void shared_add64(u64* cell, long long value) {
   if (hi) atomicAdd(w + 1, hi);
 }
 
+// grid (items, feature tiles, lanes); xb and n_bins are every lane's, the
+// rest lane after lane as in hist_group_kernel, out [lane][node][f][b]
+template <bool kLanes>
 __global__ void __launch_bounds__(kHistThreads)
-level_hist_kernel(const uint8_t* __restrict__ xb, int F,
+level_hist_kernel(const uint8_t* __restrict__ xb, int n, int F,
                   const float* __restrict__ g, const float* __restrict__ h,
                   const uint8_t* __restrict__ n_bins, int tile_shift,
                   const int* __restrict__ rows, const double* __restrict__ scales,
                   const int4* __restrict__ items, const int* __restrict__ info,
-                  u64* __restrict__ acc, float2* __restrict__ out) {
+                  u64* __restrict__ acc, float2* __restrict__ out,
+                  size_t lane_bytes, size_t out_lane) {
+  if (kLanes) {
+    const size_t fit = blockIdx.z, at = fit * lane_bytes;
+    g += fit * n;
+    h += fit * n;
+    rows = shift(rows, at);
+    scales = shift(scales, at);
+    items = shift(items, at);
+    info = shift(info, at);
+    acc = shift(acc, at);
+    out += fit * out_lane;
+  }
   extern __shared__ u64 tile[];             // [occupied bin of the tile][g, h]
   __shared__ int s_off[33];                 // first tile bin of a feature
   __shared__ int s_nb[32];
@@ -573,12 +633,23 @@ level_hist_kernel(const uint8_t* __restrict__ xb, int F,
   }
 }
 
-// grid (acc_slots, parts): the slots in use become their nodes' histograms
+// grid (acc_slots, parts, lanes): the slots in use become their nodes'
+// histograms
+template <bool kLanes>
 __global__ void hist_finish_kernel(const long long* __restrict__ acc, int F,
                                    const int* __restrict__ slot_node,
                                    const int* __restrict__ info,
                                    const double* __restrict__ scales,
-                                   float* __restrict__ out) {
+                                   float* __restrict__ out, size_t lane_bytes,
+                                   size_t out_lane) {
+  if (kLanes) {
+    const size_t fit = blockIdx.z, at = fit * lane_bytes;
+    acc = shift(acc, at);
+    slot_node = shift(slot_node, at);
+    info = shift(info, at);
+    scales = shift(scales, at);
+    out += fit * out_lane * 2;
+  }
   if (static_cast<int>(blockIdx.x) >= info[1]) return;
   const double inverse_g = scales[2], inverse_h = scales[3];
   const size_t len = static_cast<size_t>(F) * kBins * 2;
@@ -731,16 +802,27 @@ __device__ __forceinline__ void write_split(const Best& best, int node,
   has_split[node] = has;
 }
 
-// grid (nodes, blocks of kSplitFeats features). With one block a node the
-// split is written; with more, each writes its best (gain, index) to
-// cand_gain, cand_idx [node][block] for splits_pick_kernel.
+// grid (nodes, blocks of kSplitFeats features, lanes). With one block a
+// node the split is written; with more, each writes its best (gain, index)
+// to cand_gain, cand_idx [node][block] for splits_pick_kernel. Lane l
+// reads hist, col_mask [l], lams[l] (when given, else lam) and writes its
+// candidates at l * cand_lane and its splits at l * nodes.
 __global__ void __launch_bounds__(kSplitThreads)
 best_splits_kernel(const float4* __restrict__ hist, int F,
                    const bool* __restrict__ col_mask, float lam,
-                   float min_child, float* __restrict__ cand_gain,
-                   int* __restrict__ cand_idx, int* feat, int* bin,
-                   bool* has_split) {
+                   const float* __restrict__ lams, float min_child,
+                   float* __restrict__ cand_gain, int* __restrict__ cand_idx,
+                   size_t cand_lane, int* feat, int* bin, bool* has_split) {
   __shared__ __align__(16) float stages[(kSplitThreads / 32) * kStageFloats];
+  const size_t fit = blockIdx.z, nodes = gridDim.x;
+  hist += fit * nodes * F * (kBins / 2);
+  col_mask += fit * F;
+  if (lams) lam = lams[fit];
+  cand_gain += fit * cand_lane;
+  cand_idx += fit * cand_lane;
+  feat += fit * nodes;
+  bin += fit * nodes;
+  has_split += fit * nodes;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* stage = stages + warp * kStageFloats;
   const int node = blockIdx.x;
@@ -775,11 +857,18 @@ best_splits_kernel(const float4* __restrict__ hist, int F,
   }
 }
 
-// a thread a node: the first-index maximum of its per_node candidates
+// a thread a node: the first-index maximum of its per_node candidates;
+// blockIdx.y is the lane
 __global__ void splits_pick_kernel(const float* __restrict__ cand_gain,
                                    const int* __restrict__ cand_idx,
-                                   int per_node, int n_nodes, int* feat,
-                                   int* bin, bool* has_split) {
+                                   size_t cand_lane, int per_node, int n_nodes,
+                                   int* feat, int* bin, bool* has_split) {
+  const size_t fit = blockIdx.y;
+  cand_gain += fit * cand_lane;
+  cand_idx += fit * cand_lane;
+  feat += fit * n_nodes;
+  bin += fit * n_nodes;
+  has_split += fit * n_nodes;
   const int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= n_nodes) return;
   Best best{-INFINITY, 0x7fffffff};
@@ -789,12 +878,20 @@ __global__ void splits_pick_kernel(const float* __restrict__ cand_gain,
   write_split(best, node, feat, bin, has_split);
 }
 
-// grid: groups of kOblFeats features; cand_gain, cand_idx [grid]
+// grid (groups of kOblFeats features, lanes); cand_gain, cand_idx [grid.x]
+// of each lane at lane * cand_lane
 __global__ void __launch_bounds__(kOblThreads)
 best_splits_oblivious_kernel(const float4* __restrict__ hist, int n_nodes, int F,
                              const bool* __restrict__ col_mask, float lam,
-                             float min_child, float* __restrict__ cand_gain,
-                             int* __restrict__ cand_idx) {
+                             const float* __restrict__ lams, float min_child,
+                             float* __restrict__ cand_gain,
+                             int* __restrict__ cand_idx, size_t cand_lane) {
+  const size_t fit = blockIdx.y;
+  hist += fit * n_nodes * F * (kBins / 2);
+  col_mask += fit * F;
+  if (lams) lam = lams[fit];
+  cand_gain += fit * cand_lane;
+  cand_idx += fit * cand_lane;
   extern __shared__ __align__(16) float stages[];   // the warps' stages, then gains
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -840,10 +937,17 @@ best_splits_oblivious_kernel(const float4* __restrict__ hist, int n_nodes, int F
   }
 }
 
+// a block a lane
 __global__ void oblivious_pick_kernel(const float* __restrict__ cand_gain,
                                       const int* __restrict__ cand_idx,
-                                      int n_cand, int n_nodes, int* feat,
-                                      int* bin, bool* has_split) {
+                                      size_t cand_lane, int n_cand, int n_nodes,
+                                      int* feat, int* bin, bool* has_split) {
+  const size_t fit = blockIdx.x;
+  cand_gain += fit * cand_lane;
+  cand_idx += fit * cand_lane;
+  feat += fit * n_nodes;
+  bin += fit * n_nodes;
+  has_split += fit * n_nodes;
   __shared__ Best s_best;
   Best mine{-INFINITY, 0x7fffffff};
   for (int i = threadIdx.x; i < n_cand; i += blockDim.x)
@@ -861,10 +965,11 @@ __global__ void oblivious_pick_kernel(const float* __restrict__ cand_gain,
 
 // The next boosted tree's inputs and outputs (y null: there is none).
 struct NextTree {
-  const float* y;
+  const float* y;                           // every lane's
   const float* u;                           // the tree's subsample draw
   const float* w;                           // row weights
   float subsample;
+  const float* subsamples;                  // a lane's rate, or null: subsample
   int cls;
   float* g;
   float* h;
@@ -929,14 +1034,40 @@ __device__ __forceinline__ LeafRow load_leaf_row(int r, int n, const int* pos,
   return row;
 }
 
-// K5: one cluster of 1 to 16 blocks, a row a thread (see K5 design).
-template <bool kNext>
+// K5: one cluster of 1 to 16 blocks a lane, a row a thread (see K5
+// design). blockIdx.y is the lane: its rows (pos, g, h, preds and the next
+// tree's u, w, g, h) at lane * n, its bounds at 2 * lane, its leaves at
+// lane * n_leaves, its lam, scale and subsample from lams, scales and
+// next.subsamples; y is every lane's. kLanes false: the single fit, with
+// lam, scale and subsample as given and no lane offsets compiled in.
+template <bool kNext, bool kLanes>
 __global__ void __launch_bounds__(kLeafThreads, 1)
 leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__ g,
                    const float* __restrict__ h, int n_leaves, float lam,
-                   float scale, const float* __restrict__ bounds,
+                   float scale, const float* __restrict__ lams,
+                   const float* __restrict__ scales,
+                   const float* __restrict__ bounds,
                    float* __restrict__ leaf, float* __restrict__ preds,
                    NextTree next) {
+  if (kLanes) {
+    const size_t fit = blockIdx.y, rows0 = fit * n;
+    pos += rows0;
+    g += rows0;
+    h += rows0;
+    preds += rows0;
+    bounds += 2 * fit;
+    leaf += fit * n_leaves;
+    lam = lams[fit];
+    scale = scales[fit];
+    if (kNext) {
+      next.u += rows0;
+      next.w += rows0;
+      next.g += rows0;
+      next.h += rows0;
+      next.bounds += 2 * fit;
+      next.subsample = next.subsamples[fit];
+    }
+  }
   extern __shared__ __align__(16) unsigned char leaf_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -1046,6 +1177,40 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
   LEAF_CLOCK(10);                           // wait to exit
 }
 
+// ---- routing -----------------------------------------------------------------
+
+// A row a thread: pos <- 2 pos + (xb[row, f[pos]] > b[pos]), in place, with
+// the level's (feature, bin) table of the thread's lane in shared memory;
+// block 0 of each lane also writes the table into the lane's tree. grid
+// (row blocks, lanes); f_l, b_l [lane][nodes], pos [lane][n], feats and
+// bins at the level's first node of the tree, lane after lane at tree_lane.
+__global__ void __launch_bounds__(kRouteThreads)
+route_rows_kernel(const uint8_t* __restrict__ xb, int n, int F,
+                  int* __restrict__ pos, const int* __restrict__ f_l,
+                  const int* __restrict__ b_l, int nodes, int* __restrict__ feats,
+                  int* __restrict__ bins, size_t tree_lane) {
+  __shared__ int s_feat[kRouteMaxNodes], s_bin[kRouteMaxNodes];
+  const size_t fit = blockIdx.y;
+  pos += fit * n;
+  f_l += fit * nodes;
+  b_l += fit * nodes;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int p = r < n ? pos[r] : 0;         // in flight while the table loads
+  for (int i = threadIdx.x; i < nodes; i += blockDim.x) {
+    const int f = f_l[i], b = b_l[i];
+    s_feat[i] = f;
+    s_bin[i] = b;
+    if (blockIdx.x == 0) {
+      feats[fit * tree_lane + i] = f;
+      bins[fit * tree_lane + i] = b;
+    }
+  }
+  __syncthreads();
+  if (r >= n) return;
+  const int x = xb[static_cast<size_t>(r) * F + s_feat[p]];
+  pos[r] = 2 * p + (x > s_bin[p]);
+}
+
 // Raises a kernel's dynamic shared-memory limit to the most it is launched
 // with, once (so that launches inside a CUDA graph capture set nothing).
 cudaError_t shared_limit(const void* kernel, int* raised_to, int bytes) {
@@ -1056,10 +1221,195 @@ cudaError_t shared_limit(const void* kernel, int* raised_to, int bytes) {
   return err;
 }
 
-int sort_smem_raised = 0;
+int sort_smem_raised[2] = {0, 0};            // [kLanes]
 int oblivious_smem_raised = 0;
-int leaf_smem_raised[2] = {0, 0};
-bool leaf_wide_clusters[2] = {false, false};
+int leaf_smem_raised[2][2] = {};              // [kNext][kLanes]
+bool leaf_wide_clusters[2][2] = {};
+
+template <bool kLanes>
+void launch_histogram(int groups, int sort_smem, const dim3& grid, int threads,
+                      int tile_smem, int acc_slots, int F, cudaStream_t s,
+                      const int* pos, int n, const float* gp, const float* hp,
+                      int n_nodes, int rows_per_item, int own_rows,
+                      const float* bounds, int* rows, double* scales, int4* items,
+                      int* slot_node, int* info, void* acc, size_t acc_pairs,
+                      const uint8_t* xb, const uint8_t* n_bins, int tile_shift,
+                      void* out, size_t lane_bytes, size_t out_lane) {
+  hist_group_kernel<kLanes><<<dim3(groups, grid.z), kSortThreads, sort_smem, s>>>(
+      pos, n, gp, hp, n_nodes, rows_per_item, own_rows, bounds, rows, scales,
+      items, slot_node, info, static_cast<ulonglong2*>(acc), acc_pairs, lane_bytes);
+  level_hist_kernel<kLanes><<<grid, threads, tile_smem, s>>>(
+      xb, n, F, gp, hp, n_bins, tile_shift, rows, scales, items, info,
+      static_cast<u64*>(acc), static_cast<float2*>(out), lane_bytes, out_lane);
+  if (acc_slots > 0)
+    hist_finish_kernel<kLanes>
+        <<<dim3(acc_slots, (F * kBins * 2 + 1023) / 1024, grid.z), 256, 0, s>>>(
+            static_cast<const long long*>(acc), F, slot_node, info, scales,
+            static_cast<float*>(out), lane_bytes, out_lane);
+}
+
+// K3 over `lanes` fits (1: the single fit's launch). pos, g, h [lanes][n],
+// bounds [lanes][2]; each lane's scratch (rows, plan, acc) lies lane_words
+// int64 words after the one before (even, so its int4 and 128-bit parts stay
+// aligned); out [lanes][n_nodes][F][64][2].
+int level_histogram(const void* xb, int n, int F, const void* pos,
+                    const void* g, const void* h, int n_nodes,
+                    const void* bounds, const void* n_bins, int tile_feats,
+                    int threads, int rows_per_item, int own_rows, void* rows,
+                    void* plan, void* acc, void* out, int lanes,
+                    long long lane_words, void* stream) {
+  if (n < 0 || F <= 0 || n_nodes <= 0 || n_nodes > kMaxSortNodes ||
+      n / (own_rows + 1) > kMaxSlots ||
+      rows_per_item <= 0 || own_rows < rows_per_item || threads < 32 ||
+      threads > kHistThreads || threads % 32 ||
+      (tile_feats != 8 && tile_feats != 16 && tile_feats != 32) ||
+      lanes < 1 || lanes > kMaxLanes || (lanes > 1 && (lane_words <= 0 || lane_words % 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t lane_bytes = static_cast<size_t>(lane_words) * sizeof(long long);
+  const size_t out_lane = static_cast<size_t>(n_nodes) * F * kBins;
+  const int max_items = n_nodes + n / rows_per_item;
+  const int by_rows = n / (own_rows + 1);
+  const int acc_slots = n_nodes < by_rows ? n_nodes : by_rows;
+  const size_t acc_pairs = static_cast<size_t>(acc_slots) * F * kBins;
+  double* scales = static_cast<double*>(plan);
+  int4* items = reinterpret_cast<int4*>(scales + 4);
+  int* slot_node = reinterpret_cast<int*>(items + max_items);
+  int* info = slot_node + acc_slots;
+  const float* gp = static_cast<const float*>(g);
+  const float* hp = static_cast<const float*>(h);
+  const size_t zero_blocks = (acc_pairs + 4 * kSortThreads - 1) / (4 * kSortThreads);
+  const int sort_smem = (n_nodes + (n <= kSortStagedRows ? n : 0)) *
+                        static_cast<int>(sizeof(int));
+  const bool with_lanes = lanes > 1;
+  const cudaError_t err = shared_limit(
+      with_lanes ? reinterpret_cast<const void*>(hist_group_kernel<true>)
+                 : reinterpret_cast<const void*>(hist_group_kernel<false>),
+      &sort_smem_raised[with_lanes], sort_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups = 1 + static_cast<int>(zero_blocks < 1 ? 1 : (zero_blocks < 128 ? zero_blocks : 128));
+  const int tile_shift = tile_feats == 8 ? 3 : (tile_feats == 16 ? 4 : 5);
+  const dim3 grid(max_items, (F + tile_feats - 1) / tile_feats, lanes);
+  const int tile_smem = tile_feats * kBins * 2 * static_cast<int>(sizeof(u64));
+  (with_lanes ? launch_histogram<true> : launch_histogram<false>)(
+      groups, sort_smem, grid, threads, tile_smem, acc_slots, F, s,
+      static_cast<const int*>(pos), n, gp, hp, n_nodes, rows_per_item, own_rows,
+      static_cast<const float*>(bounds), static_cast<int*>(rows), scales, items,
+      slot_node, info, acc, acc_pairs, static_cast<const uint8_t*>(xb),
+      static_cast<const uint8_t*>(n_bins), tile_shift, out, lane_bytes, out_lane);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 over `lanes` fits: hist [lanes][n_nodes][F][64][2], col_mask
+// [lanes][F], lams [lanes] or null for lam; scratch int32 [lanes][2 *
+// n_cand]: n_cand = ceil(F / 4) in oblivious mode, n_nodes * ceil(F / 64)
+// per node when F > 64, else unused; feat, bin, has_split [lanes][n_nodes].
+int best_splits(const void* hist, int n_nodes, int F, const void* col_mask,
+                float lam, const void* lams, float min_child, int oblivious,
+                void* scratch, void* feat, void* bin, void* has_split, int lanes,
+                void* stream) {
+  if (n_nodes <= 0 || F <= 0 || lanes < 1 || lanes > kMaxLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* hp = static_cast<const float4*>(hist);
+  const bool* mp = static_cast<const bool*>(col_mask);
+  const float* lp = static_cast<const float*>(lams);
+  int* fp = static_cast<int*>(feat);
+  int* bp = static_cast<int*>(bin);
+  bool* sp = static_cast<bool*>(has_split);
+  if (oblivious) {
+    const int blocks = (F + kOblFeats - 1) / kOblFeats;
+    const size_t cand_lane = 2 * static_cast<size_t>(blocks);
+    const int smem = ((kOblThreads / 32) * kStageFloats +
+                      kOblRun * kOblFeats * kBins) * static_cast<int>(sizeof(float));
+    const cudaError_t err = shared_limit(
+        reinterpret_cast<const void*>(best_splits_oblivious_kernel),
+        &oblivious_smem_raised, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    float* cand_gain = static_cast<float*>(scratch);
+    int* cand_idx = static_cast<int*>(scratch) + blocks;
+    best_splits_oblivious_kernel<<<dim3(blocks, lanes), kOblThreads, smem, s>>>(
+        hp, n_nodes, F, mp, lam, lp, min_child, cand_gain, cand_idx, cand_lane);
+    oblivious_pick_kernel<<<lanes, 256, 0, s>>>(cand_gain, cand_idx, cand_lane,
+                                                blocks, n_nodes, fp, bp, sp);
+  } else {
+    const int per_node = (F + kSplitFeats - 1) / kSplitFeats;
+    const int groups = (F + kGroupFeats - 1) / kGroupFeats;
+    const int threads = per_node > 1 ? kSplitThreads : groups * 32;
+    const size_t cand_lane = 2 * static_cast<size_t>(n_nodes) * per_node;
+    float* cand_gain = static_cast<float*>(scratch);
+    int* cand_idx = static_cast<int*>(scratch) + n_nodes * per_node;
+    best_splits_kernel<<<dim3(n_nodes, per_node, lanes), threads, 0, s>>>(
+        hp, F, mp, lam, lp, min_child, cand_gain, cand_idx, cand_lane, fp, bp, sp);
+    if (per_node > 1)
+      splits_pick_kernel<<<dim3((n_nodes + 255) / 256, lanes), 256, 0, s>>>(
+          cand_gain, cand_idx, cand_lane, per_node, n_nodes, fp, bp, sp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 over `lanes` fits, each one cluster of `cluster` blocks of kLeafThreads
+// (at most 16); the layout is leaf_values_kernel's.
+int leaf_values(const void* pos, int n, const void* g, const void* h,
+                int n_leaves, float lam, float scale, const void* lams,
+                const void* scales, const void* bounds, void* leaf, void* preds,
+                const void* y, const void* u, const void* w_rows,
+                float subsample, const void* subsamples, int cls, void* g_next,
+                void* h_next, void* bounds_next, int cluster, int lanes,
+                void* stream) {
+  if (n < 0 || n_leaves <= 0 || cluster < 1 || cluster > kLeafMaxCluster ||
+      lanes < 1 || lanes > kMaxLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool with_next = y != nullptr, with_lanes = lams != nullptr;
+  const NextTree next{static_cast<const float*>(y), static_cast<const float*>(u),
+                      static_cast<const float*>(w_rows), subsample,
+                      static_cast<const float*>(subsamples), cls,
+                      static_cast<float*>(g_next), static_cast<float*>(h_next),
+                      static_cast<unsigned*>(bounds_next)};
+  const void* kernels[2][2] = {
+      {reinterpret_cast<const void*>(leaf_values_kernel<false, false>),
+       reinterpret_cast<const void*>(leaf_values_kernel<false, true>)},
+      {reinterpret_cast<const void*>(leaf_values_kernel<true, false>),
+       reinterpret_cast<const void*>(leaf_values_kernel<true, true>)}};
+  const void* kernel = kernels[with_next][with_lanes];
+  const int per = n_leaves * cluster <= 2 * kLeafThreads
+                      ? n_leaves
+                      : (n_leaves + cluster - 1) / cluster;
+  const int smem = (n_leaves + cluster * per) * static_cast<int>(sizeof(ulonglong2)) +
+                   n_leaves * static_cast<int>(sizeof(float));
+  cudaError_t err = shared_limit(kernel, &leaf_smem_raised[with_next][with_lanes], smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cluster > 8 && !leaf_wide_clusters[with_next][with_lanes]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    leaf_wide_clusters[with_next][with_lanes] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, lanes);
+  cfg.blockDim = dim3(kLeafThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int* pp = static_cast<const int*>(pos);
+  const float* gp = static_cast<const float*>(g);
+  const float* hp = static_cast<const float*>(h);
+  const float* lamp = static_cast<const float*>(lams);
+  const float* scalep = static_cast<const float*>(scales);
+  const float* bp = static_cast<const float*>(bounds);
+  float* lp = static_cast<float*>(leaf);
+  float* predp = static_cast<float*>(preds);
+  void* args[] = {&pp, &n, &gp, &hp, &n_leaves, &lam, &scale, &lamp, &scalep,
+                  &bp, &lp, &predp, const_cast<NextTree*>(&next)};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -1076,46 +1426,20 @@ extern "C" int bbbp_forest_level_histogram(const void* xb, int n, int F,
                                            int threads, int rows_per_item,
                                            int own_rows, void* rows, void* plan,
                                            void* acc, void* out, void* stream) {
-  if (n < 0 || F <= 0 || n_nodes <= 0 || n_nodes > kMaxSortNodes ||
-      n / (own_rows + 1) > kMaxSlots ||
-      rows_per_item <= 0 || own_rows < rows_per_item || threads < 32 ||
-      threads > kHistThreads || threads % 32 ||
-      (tile_feats != 8 && tile_feats != 16 && tile_feats != 32))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int max_items = n_nodes + n / rows_per_item;
-  const int by_rows = n / (own_rows + 1);
-  const int acc_slots = n_nodes < by_rows ? n_nodes : by_rows;
-  const size_t acc_pairs = static_cast<size_t>(acc_slots) * F * kBins;
-  double* scales = static_cast<double*>(plan);
-  int4* items = reinterpret_cast<int4*>(scales + 4);
-  int* slot_node = reinterpret_cast<int*>(items + max_items);
-  int* info = slot_node + acc_slots;
-  const float* gp = static_cast<const float*>(g);
-  const float* hp = static_cast<const float*>(h);
-  const size_t zero_blocks = (acc_pairs + 4 * kSortThreads - 1) / (4 * kSortThreads);
-  const int sort_smem = (n_nodes + (n <= kSortStagedRows ? n : 0)) *
-                        static_cast<int>(sizeof(int));
-  const cudaError_t err = shared_limit(
-      reinterpret_cast<const void*>(hist_group_kernel), &sort_smem_raised, sort_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  hist_group_kernel<<<1 + static_cast<int>(zero_blocks < 1 ? 1 : (zero_blocks < 128 ? zero_blocks : 128)),
-                      kSortThreads, sort_smem, s>>>(
-      static_cast<const int*>(pos), n, gp, hp, n_nodes, rows_per_item, own_rows,
-      static_cast<const float*>(bounds), static_cast<int*>(rows), scales, items,
-      slot_node, info, static_cast<ulonglong2*>(acc), acc_pairs);
-  const int tile_shift = tile_feats == 8 ? 3 : (tile_feats == 16 ? 4 : 5);
-  const dim3 grid(max_items, (F + tile_feats - 1) / tile_feats);
-  level_hist_kernel<<<grid, threads, tile_feats * kBins * 2 * sizeof(u64), s>>>(
-      static_cast<const uint8_t*>(xb), F, gp, hp,
-      static_cast<const uint8_t*>(n_bins), tile_shift,
-      static_cast<const int*>(rows), scales, items, info,
-      static_cast<u64*>(acc), static_cast<float2*>(out));
-  if (acc_slots > 0)
-    hist_finish_kernel<<<dim3(acc_slots, (F * kBins * 2 + 1023) / 1024), 256, 0, s>>>(
-        static_cast<const long long*>(acc), F, slot_node, info, scales,
-        static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return level_histogram(xb, n, F, pos, g, h, n_nodes, bounds, n_bins, tile_feats,
+                         threads, rows_per_item, own_rows, rows, plan, acc, out, 1,
+                         0, stream);
+}
+
+// K3 with a lane axis: `lanes` fits over one xb (see level_histogram).
+extern "C" int bbbp_forest_level_histogram_lanes(
+    const void* xb, int n, int F, const void* pos, const void* g, const void* h,
+    int n_nodes, const void* bounds, const void* n_bins, int tile_feats,
+    int threads, int rows_per_item, int own_rows, void* rows, void* plan,
+    void* acc, void* out, int lanes, long long lane_words, void* stream) {
+  return level_histogram(xb, n, F, pos, g, h, n_nodes, bounds, n_bins, tile_feats,
+                         threads, rows_per_item, own_rows, rows, plan, acc, out,
+                         lanes, lane_words, stream);
 }
 
 // scratch: int32 [2 * n_cand] candidates: n_cand = ceil(F / 4) in oblivious
@@ -1125,40 +1449,19 @@ extern "C" int bbbp_forest_best_splits(const void* hist, int n_nodes, int F,
                                        float min_child, int oblivious,
                                        void* scratch, void* feat, void* bin,
                                        void* has_split, void* stream) {
-  if (n_nodes <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* hp = static_cast<const float4*>(hist);
-  const bool* mp = static_cast<const bool*>(col_mask);
-  int* fp = static_cast<int*>(feat);
-  int* bp = static_cast<int*>(bin);
-  bool* sp = static_cast<bool*>(has_split);
-  if (oblivious) {
-    const int blocks = (F + kOblFeats - 1) / kOblFeats;
-    const int smem = ((kOblThreads / 32) * kStageFloats +
-                      kOblRun * kOblFeats * kBins) * static_cast<int>(sizeof(float));
-    const cudaError_t err = shared_limit(
-        reinterpret_cast<const void*>(best_splits_oblivious_kernel),
-        &oblivious_smem_raised, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    float* cand_gain = static_cast<float*>(scratch);
-    int* cand_idx = static_cast<int*>(scratch) + blocks;
-    best_splits_oblivious_kernel<<<blocks, kOblThreads, smem, s>>>(
-        hp, n_nodes, F, mp, lam, min_child, cand_gain, cand_idx);
-    oblivious_pick_kernel<<<1, 256, 0, s>>>(cand_gain, cand_idx, blocks, n_nodes,
-                                            fp, bp, sp);
-  } else {
-    const int per_node = (F + kSplitFeats - 1) / kSplitFeats;
-    const int groups = (F + kGroupFeats - 1) / kGroupFeats;
-    const int threads = per_node > 1 ? kSplitThreads : groups * 32;
-    float* cand_gain = static_cast<float*>(scratch);
-    int* cand_idx = static_cast<int*>(scratch) + n_nodes * per_node;
-    best_splits_kernel<<<dim3(n_nodes, per_node), threads, 0, s>>>(
-        hp, F, mp, lam, min_child, cand_gain, cand_idx, fp, bp, sp);
-    if (per_node > 1)
-      splits_pick_kernel<<<(n_nodes + 255) / 256, 256, 0, s>>>(
-          cand_gain, cand_idx, per_node, n_nodes, fp, bp, sp);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return best_splits(hist, n_nodes, F, col_mask, lam, nullptr, min_child, oblivious,
+                     scratch, feat, bin, has_split, 1, stream);
+}
+
+// K4 with a lane axis and a lambda a lane (see best_splits).
+extern "C" int bbbp_forest_best_splits_lanes(const void* hist, int n_nodes, int F,
+                                             const void* col_mask, const void* lams,
+                                             float min_child, int oblivious,
+                                             void* scratch, void* feat, void* bin,
+                                             void* has_split, int lanes,
+                                             void* stream) {
+  return best_splits(hist, n_nodes, F, col_mask, 0.f, lams, min_child, oblivious,
+                     scratch, feat, bin, has_split, lanes, stream);
 }
 
 // K5. The leaves of one tree and the margin update; with y, also the next
@@ -1172,51 +1475,39 @@ extern "C" int bbbp_forest_leaf_values(const void* pos, int n, const void* g,
                                        float subsample, int cls, void* g_next,
                                        void* h_next, void* bounds_next,
                                        int cluster, void* stream) {
-  if (n < 0 || n_leaves <= 0 || cluster < 1 || cluster > kLeafMaxCluster)
+  return leaf_values(pos, n, g, h, n_leaves, lam, scale, nullptr, nullptr, bounds,
+                     leaf, preds, y, u, w_rows, subsample, nullptr, cls, g_next,
+                     h_next, bounds_next, cluster, 1, stream);
+}
+
+// K5 with a lane axis: a cluster a lane, lam, scale and subsample a lane
+// (see leaf_values_kernel).
+extern "C" int bbbp_forest_leaf_values_lanes(
+    const void* pos, int n, const void* g, const void* h, int n_leaves,
+    const void* lams, const void* scales, const void* bounds, void* leaf,
+    void* preds, const void* y, const void* u, const void* w_rows,
+    const void* subsamples, int cls, void* g_next, void* h_next,
+    void* bounds_next, int cluster, int lanes, void* stream) {
+  return leaf_values(pos, n, g, h, n_leaves, 0.f, 0.f, lams, scales, bounds, leaf,
+                     preds, y, u, w_rows, 1.f, subsamples, cls, g_next, h_next,
+                     bounds_next, cluster, lanes, stream);
+}
+
+// Routing of one level over `lanes` fits (see route_rows_kernel): feats and
+// bins point at node `off` of tree `t` of lane 0, tree_lane words apart.
+extern "C" int bbbp_forest_route_rows(const void* xb, int n, int F, void* pos,
+                                      const void* f_l, const void* b_l, int nodes,
+                                      void* feats, void* bins, long long tree_lane,
+                                      int lanes, void* stream) {
+  if (n < 0 || F <= 0 || nodes < 1 || nodes > kRouteMaxNodes || lanes < 1 ||
+      lanes > kMaxLanes || tree_lane < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool with_next = y != nullptr;
-  const NextTree next{static_cast<const float*>(y), static_cast<const float*>(u),
-                      static_cast<const float*>(w_rows), subsample, cls,
-                      static_cast<float*>(g_next), static_cast<float*>(h_next),
-                      static_cast<unsigned*>(bounds_next)};
-  const void* kernel = with_next
-                           ? reinterpret_cast<const void*>(leaf_values_kernel<true>)
-                           : reinterpret_cast<const void*>(leaf_values_kernel<false>);
-  const int per = n_leaves * cluster <= 2 * kLeafThreads
-                      ? n_leaves
-                      : (n_leaves + cluster - 1) / cluster;
-  const int smem = (n_leaves + cluster * per) * static_cast<int>(sizeof(ulonglong2)) +
-                   n_leaves * static_cast<int>(sizeof(float));
-  cudaError_t err = shared_limit(kernel, &leaf_smem_raised[with_next], smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (cluster > 8 && !leaf_wide_clusters[with_next]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    leaf_wide_clusters[with_next] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(kLeafThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const int* pp = static_cast<const int*>(pos);
-  const float* gp = static_cast<const float*>(g);
-  const float* hp = static_cast<const float*>(h);
-  const float* bp = static_cast<const float*>(bounds);
-  float* lp = static_cast<float*>(leaf);
-  float* predp = static_cast<float*>(preds);
-  err = with_next
-            ? cudaLaunchKernelEx(&cfg, leaf_values_kernel<true>, pp, n, gp, hp,
-                                 n_leaves, lam, scale, bp, lp, predp, next)
-            : cudaLaunchKernelEx(&cfg, leaf_values_kernel<false>, pp, n, gp, hp,
-                                 n_leaves, lam, scale, bp, lp, predp, next);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = n > 0 ? (n + kRouteThreads - 1) / kRouteThreads : 1;
+  route_rows_kernel<<<dim3(blocks, lanes), kRouteThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), n, F, static_cast<int*>(pos),
+      static_cast<const int*>(f_l), static_cast<const int*>(b_l), nodes,
+      static_cast<int*>(feats), static_cast<int*>(bins),
+      static_cast<size_t>(tree_lane));
   return static_cast<int>(cudaGetLastError());
 }

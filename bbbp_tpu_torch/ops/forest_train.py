@@ -9,7 +9,7 @@ prefix, with the same defaults; they add a ``device`` (``cuda`` unless the
 caller asks for ``cpu``).
 
 Features are quantile-binned once on the host (uint8, at most 64 bins).
-Each tree grows level by level over the implicit full-binary layout. Three
+Each tree grows level by level over the implicit full-binary layout. Four
 kernels carry a tree, each a CUDA C++ kernel (``csrc/forest_train.cu``) on a
 CUDA tensor and its plain PyTorch version on a CPU tensor:
 
@@ -20,9 +20,17 @@ CUDA tensor and its plain PyTorch version on a CPU tensor:
   argmax per node;
 - ``leaf_values`` (K5): the leaf sums, ``leaf = -G / (H + lambda)`` and
   ``preds += scale * leaf[pos]``; in boosting, the next tree's gradients
-  and their bounds from the updated margins, in the same launch.
+  and their bounds from the updated margins, in the same launch;
+- ``route_rows``: each row's next position from its node's split, and the
+  level's splits into the tree's flat arrays.
 
-Routing, the first tree's gradients, the random forest's weights and the
+``fit_forest_lanes`` runs L fits of one shape over one binned matrix (the
+JAX package's vmapped ``_fit_forest_device``): K3, K4 and K5 take a lane
+axis (``level_histogram_lanes``, ``best_splits_lanes``,
+``leaf_values_lanes``), the routing takes it as it is, and each lane grows
+the trees of ``fit_forest`` with its seed bit for bit.
+
+The first tree's gradients, the random forest's weights and the
 random draws stay torch ops on the fit's device, and nothing is copied to
 the host inside the tree loop. The random streams
 come from a ``torch.Generator`` seeded from ``seed``; they differ from
@@ -278,11 +286,11 @@ def next_gradients_reference(preds: torch.Tensor, y: torch.Tensor,
 # Kernel wrappers: the kernel on a CUDA tensor, the plain version on the CPU
 # ---------------------------------------------------------------------------
 
-def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
+def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
                 device: torch.device) -> None:
-    if t.dtype != dtype or t.shape != (n,):
-        raise TypeError(f"{name} must be {dtype} [{n}], got {t.dtype} "
-                        f"{tuple(t.shape)}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise TypeError(f"{name} must be {dtype} {list(shape)}, got {t.dtype} "
+                        f"{list(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
@@ -290,20 +298,21 @@ def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
 
 
 def gradient_bounds(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """f32 [2] (max |g|, max |h|) on the device of ``g``: the range K3 and
-    K5 quantise the rows into. g and h do not change within a tree, so a
+    """f32 [..., 2] (max |g|, max |h|) over the last axis, on the device of
+    ``g``: the range K3 and K5 quantise the rows into ([2] for one fit's
+    [n] rows, [L, 2] for lanes). g and h do not change within a tree, so a
     fit takes it once a tree (K5 takes the next tree's) and passes it to
     every K3 and K5 call."""
-    if g.numel() == 0:
-        return torch.zeros(2, dtype=torch.float32, device=g.device)
-    return torch.stack((g.abs().amax(), h.abs().amax()))
+    if g.shape[-1] == 0:
+        return torch.zeros((*g.shape[:-1], 2), dtype=torch.float32, device=g.device)
+    return torch.stack((g.abs().amax(-1), h.abs().amax(-1)), dim=-1)
 
 
 def _check_bounds(bounds: Optional[torch.Tensor], g: torch.Tensor,
                   h: torch.Tensor) -> torch.Tensor:
     if bounds is None:
         return gradient_bounds(g, h)
-    _check_rows("bounds", bounds, torch.float32, 2, g.device)
+    _check_rows("bounds", bounds, torch.float32, (2,), g.device)
     return bounds
 
 
@@ -391,9 +400,9 @@ def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
     if not xb.is_contiguous():
         raise ValueError("xb must be contiguous")
     n, n_feat = xb.shape
-    _check_rows("pos", pos, torch.int32, n, xb.device)
-    _check_rows("g", g, torch.float32, n, xb.device)
-    _check_rows("h", h, torch.float32, n, xb.device)
+    _check_rows("pos", pos, torch.int32, (n,), xb.device)
+    _check_rows("g", g, torch.float32, (n,), xb.device)
+    _check_rows("h", h, torch.float32, (n,), xb.device)
     if not 1 <= n_nodes <= 1 << MAX_DEPTH:
         raise ValueError(f"n_nodes must be in [1, {1 << MAX_DEPTH}], got {n_nodes}")
     if n_bins is not None:
@@ -511,7 +520,7 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         rows += [(name, getattr(next_tree, name), torch.float32)
                  for name in ("y", "u", "w_rows")]
     for name, t, dtype in rows:
-        _check_rows(name, t, dtype, n, pos.device)
+        _check_rows(name, t, dtype, (n,), pos.device)
     if not 1 <= n_leaves <= 1 << MAX_DEPTH:
         raise ValueError(f"n_leaves must be in [1, {1 << MAX_DEPTH}], got {n_leaves}")
     if not _kernel_device(pos, "forest_leaf_values"):
@@ -546,6 +555,322 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
 level_histogram.launches = LaunchCounter()
 best_splits.launches = LaunchCounter()
 leaf_values.launches = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# Routing: the fifth kernel of a tree, for one fit or for lanes
+# ---------------------------------------------------------------------------
+
+def route_rows_reference(xb: torch.Tensor, pos: torch.Tensor, f_l: torch.Tensor,
+                         b_l: torch.Tensor, feats: torch.Tensor,
+                         bins: torch.Tensor, tree: int, level: int) -> None:
+    """The torch ops of one level's routing, over lanes where the tensors
+    have a lane axis: the level's (feature, bin) pairs into the tree's flat
+    arrays, then ``pos = 2 * pos + (xb[row, f_l[pos]] > b_l[pos])`` in
+    place (``forest_tpu.py:335-338``)."""
+    n = xb.shape[0]
+    nodes, off = 1 << level, (1 << level) - 1
+    feats[..., tree, off:off + nodes] = f_l
+    bins[..., tree, off:off + nodes] = b_l
+    idx = pos.long()
+    row_f = f_l.gather(-1, idx).long().reshape(-1, n)
+    xf = xb.gather(1, row_f.T.contiguous()).T.reshape(pos.shape)
+    pos.copy_(2 * pos + (xf.int() > b_l.gather(-1, idx)).int())
+
+
+def route_rows(xb: torch.Tensor, pos: torch.Tensor, f_l: torch.Tensor,
+               b_l: torch.Tensor, feats: torch.Tensor, bins: torch.Tensor,
+               tree: int, level: int) -> None:
+    """Routing of level ``level`` of tree ``tree``: xb uint8 [n, F]; pos
+    int32 [n] (one fit) or [L, n] (lanes), in [0, 2^level), updated in
+    place to the next level's positions; f_l, b_l int32 [2^level] or [L,
+    2^level], the level's splits (``best_splits``); feats, bins int32 [T,
+    2^D − 1] or [L, T, 2^D − 1], the trees' flat arrays, which receive the
+    level's pairs at nodes 2^level − 1 onwards. The kernel
+    (``forest_route_rows``) on a CUDA tensor, ``route_rows_reference`` on a
+    CPU tensor; both give the same integers."""
+    if xb.dtype != torch.uint8 or xb.dim() != 2 or not xb.is_contiguous():
+        raise TypeError(f"xb must be a contiguous 2-D uint8 tensor, got "
+                        f"{xb.dtype} {tuple(xb.shape)}")
+    n, n_feat = xb.shape
+    lead = tuple(pos.shape[:-1])
+    if pos.dim() not in (1, 2):
+        raise TypeError(f"pos must be [n] or [L, n], got {tuple(pos.shape)}")
+    if not 0 <= level < MAX_DEPTH:
+        raise ValueError(f"level must be in [0, {MAX_DEPTH}), got {level}")
+    nodes = 1 << level
+    _check_rows("pos", pos, torch.int32, lead + (n,), xb.device)
+    _check_rows("f_l", f_l, torch.int32, lead + (nodes,), xb.device)
+    _check_rows("b_l", b_l, torch.int32, lead + (nodes,), xb.device)
+    if feats.dim() != len(lead) + 2:
+        raise TypeError(f"feats must be [{'L, ' if lead else ''}T, nodes], got "
+                        f"{tuple(feats.shape)}")
+    n_trees, n_internal = feats.shape[-2:]
+    _check_rows("feats", feats, torch.int32, lead + (n_trees, n_internal), xb.device)
+    _check_rows("bins", bins, torch.int32, lead + (n_trees, n_internal), xb.device)
+    if not 0 <= tree < n_trees or 2 * nodes - 1 > n_internal:
+        raise ValueError(f"tree {tree}, level {level} lie outside trees of shape "
+                         f"{tuple(feats.shape[-2:])}")
+    if not _kernel_device(xb, "forest_route_rows"):
+        route_rows_reference(xb, pos, f_l, b_l, feats, bins, tree, level)
+        return
+    first = 4 * (tree * n_internal + nodes - 1)
+    with torch.cuda.device(xb.device):
+        rc = kernels_lib().bbbp_forest_route_rows(
+            xb.data_ptr(), n, n_feat, pos.data_ptr(), f_l.data_ptr(),
+            b_l.data_ptr(), nodes, feats.data_ptr() + first,
+            bins.data_ptr() + first, n_trees * n_internal,
+            lead[0] if lead else 1, torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "forest_route_rows")
+    route_rows.launches.add()
+
+
+route_rows.launches = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# K3, K4 and K5 with a lane axis: L fits of one shape over one xb
+# ---------------------------------------------------------------------------
+
+def level_histogram_lanes_reference(xb: torch.Tensor, pos: torch.Tensor,
+                                    g: torch.Tensor, h: torch.Tensor,
+                                    n_nodes: int) -> torch.Tensor:
+    """``level_histogram_reference`` of each lane: [L, n_nodes, F, 64, 2]."""
+    return torch.stack([level_histogram_reference(xb, p, gl, hl, n_nodes)
+                        for p, gl, hl in zip(pos, g, h)])
+
+
+def level_histogram_lanes_fixed_reference(xb: torch.Tensor, pos: torch.Tensor,
+                                          g: torch.Tensor, h: torch.Tensor,
+                                          n_nodes: int, bounds: torch.Tensor
+                                          ) -> torch.Tensor:
+    """``level_histogram_fixed_reference`` of each lane, at its own bounds:
+    the lane kernel's bits."""
+    return torch.stack([level_histogram_fixed_reference(xb, p, gl, hl, n_nodes, bl)
+                        for p, gl, hl, bl in zip(pos, g, h, bounds)])
+
+
+def lane_words(n: int, n_feat: int, n_nodes: int) -> int:
+    """int64 words from one lane's K3 scratch to the next: the plan's words,
+    rounded up to even so that each lane's 16-byte parts stay aligned."""
+    words = histogram_plan(n, n_feat, n_nodes)["words"]
+    return words + (words & 1)
+
+
+def level_histogram_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
+                          h: torch.Tensor, n_nodes: int,
+                          bounds: Optional[torch.Tensor] = None,
+                          n_bins: Optional[torch.Tensor] = None, *,
+                          bins_checked: bool = False) -> torch.Tensor:
+    """K3 over lanes. xb uint8 [n, F], every lane's; pos int32, g, h f32
+    [L, n]; bounds f32 [L, 2] (``gradient_bounds(g, h)``, taken here when not
+    given) → hist f32 [L, n_nodes, F, 64, 2]. Each lane sums in K3's fixed
+    point at its own bounds, so lane l is bit-equal to ``level_histogram``
+    of lane l's rows. ``n_bins`` as in ``level_histogram``. On a CPU tensor
+    ``level_histogram_lanes_reference`` runs."""
+    if xb.dtype != torch.uint8 or xb.dim() != 2 or not xb.is_contiguous():
+        raise TypeError(f"xb must be a contiguous 2-D uint8 tensor, got "
+                        f"{xb.dtype} {tuple(xb.shape)}")
+    if pos.dim() != 2:
+        raise TypeError(f"pos must be [L, n], got {tuple(pos.shape)}")
+    n, n_feat = xb.shape
+    lanes = pos.shape[0]
+    for name, t, dtype in (("pos", pos, torch.int32), ("g", g, torch.float32),
+                           ("h", h, torch.float32)):
+        _check_rows(name, t, dtype, (lanes, n), xb.device)
+    if not 1 <= n_nodes <= 1 << MAX_DEPTH:
+        raise ValueError(f"n_nodes must be in [1, {1 << MAX_DEPTH}], got {n_nodes}")
+    if n_bins is not None:
+        check_bin_counts(n_bins, xb, occupancy=not bins_checked)
+    if not _kernel_device(xb, "forest_level_histogram_lanes"):
+        return level_histogram_lanes_reference(xb, pos, g, h, n_nodes)
+    out = torch.empty((lanes, n_nodes, n_feat, MAX_BINS, 2), dtype=torch.float32,
+                      device=xb.device)
+    if out.numel() == 0:
+        return out
+    if bounds is None:
+        bounds = gradient_bounds(g, h)
+    _check_rows("bounds", bounds, torch.float32, (lanes, 2), xb.device)
+    plan = histogram_plan(n, n_feat, n_nodes)
+    stride = lane_words(n, n_feat, n_nodes)
+    scratch = torch.empty(lanes * stride, dtype=torch.int64, device=xb.device)
+    base = scratch.data_ptr()
+    with torch.cuda.device(xb.device):
+        rc = kernels_lib().bbbp_forest_level_histogram_lanes(
+            xb.data_ptr(), n, n_feat, pos.data_ptr(), g.data_ptr(),
+            h.data_ptr(), n_nodes, bounds.data_ptr(),
+            None if n_bins is None else n_bins.data_ptr(),
+            plan["tile_feats"], plan["threads"], plan["rows_per_item"],
+            plan["own_rows"],
+            base + 8 * plan["rows"], base + 8 * plan["plan"], base,
+            out.data_ptr(), lanes, stride,
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "forest_level_histogram_lanes")
+    level_histogram_lanes.launches.add()
+    return out
+
+
+def _host_values(values) -> List[float]:
+    """A lane parameter ([L] tensor or sequence) as host floats; a sequence
+    is taken as it is, so that a caller can capture the plain versions in a
+    CUDA graph (a tensor on the card is read with a synchronisation)."""
+    return values.tolist() if isinstance(values, torch.Tensor) else list(values)
+
+
+def best_splits_lanes_reference(hist: torch.Tensor, col_mask: torch.Tensor,
+                                lam, min_child: float, oblivious: bool
+                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``best_splits_reference`` of each lane at its own lambda (``lam`` [L],
+    a tensor or host floats): (feat, bin, has_split), each [L, nodes]."""
+    per_lane = [best_splits_reference(hl, ml, lm, min_child, oblivious)
+                for hl, ml, lm in zip(hist, col_mask, _host_values(lam))]
+    return tuple(torch.stack(parts) for parts in zip(*per_lane))
+
+
+def best_splits_lanes(hist: torch.Tensor, col_mask: torch.Tensor,
+                      lam: torch.Tensor, min_child: float, oblivious: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 over lanes. hist f32 [L, nodes, F, 64, 2], col_mask bool [L, F],
+    lam f32 [L] on the same device → (feat int32, bin int32, has_split bool),
+    each [L, nodes]; lane l is ``best_splits`` of lane l at lam[l]. On a CPU
+    tensor ``best_splits_lanes_reference`` runs."""
+    if hist.dtype != torch.float32 or hist.dim() != 5 or \
+            hist.shape[3:] != (MAX_BINS, 2):
+        raise TypeError(f"hist must be float32 [L, nodes, F, {MAX_BINS}, 2], "
+                        f"got {hist.dtype} {tuple(hist.shape)}")
+    lanes, nodes, n_feat = hist.shape[:3]
+    if not hist.is_contiguous():
+        raise ValueError("hist must be contiguous")
+    if nodes < 1 or n_feat < 1:
+        raise ValueError(f"hist needs a node and a feature, got {tuple(hist.shape)}")
+    _check_rows("col_mask", col_mask, torch.bool, (lanes, n_feat), hist.device)
+    _check_rows("lam", lam, torch.float32, (lanes,), hist.device)
+    if not _kernel_device(hist, "forest_best_splits_lanes"):
+        return best_splits_lanes_reference(hist, col_mask, lam, min_child, oblivious)
+    dev = hist.device
+    feat = torch.empty((lanes, nodes), dtype=torch.int32, device=dev)
+    b = torch.empty((lanes, nodes), dtype=torch.int32, device=dev)
+    has_split = torch.empty((lanes, nodes), dtype=torch.bool, device=dev)
+    if lanes == 0:
+        return feat, b, has_split
+    n_cand = -(-n_feat // 4) if oblivious else nodes * -(-n_feat // 64)
+    scratch = (torch.empty(lanes * 2 * n_cand, dtype=torch.int32, device=dev)
+               if oblivious or n_feat > 64 else None)
+    with torch.cuda.device(dev):
+        rc = kernels_lib().bbbp_forest_best_splits_lanes(
+            hist.data_ptr(), nodes, n_feat, col_mask.data_ptr(), lam.data_ptr(),
+            float(min_child), int(bool(oblivious)),
+            None if scratch is None else scratch.data_ptr(),
+            feat.data_ptr(), b.data_ptr(), has_split.data_ptr(), lanes,
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "forest_best_splits_lanes")
+    best_splits_lanes.launches.add()
+    return feat, b, has_split
+
+
+def _with_next_gradients(leaves: torch.Tensor, preds: torch.Tensor,
+                         next_tree: Optional[NextTree]):
+    """``leaves`` alone, or with each lane's ``next_gradients_reference``
+    of its updated margins: (leaves, g, h, bounds)."""
+    if next_tree is None:
+        return leaves
+    nxt = [next_gradients_reference(pr, next_tree.y, u, sub, w, next_tree.task)
+           for pr, u, sub, w in zip(preds, next_tree.u,
+                                    _host_values(next_tree.subsample),
+                                    next_tree.w_rows)]
+    return (leaves, *(torch.stack(parts) for parts in zip(*nxt)))
+
+
+def leaf_values_lanes_reference(pos, g, h, n_leaves: int, lam, scale,
+                                preds: torch.Tensor,
+                                next_tree: Optional[NextTree] = None):
+    """``leaf_values_reference`` of each lane at its own lam and scale ([L]
+    tensors or host floats; preds [L, n] updated in place) → leaf [L,
+    n_leaves]; with ``next_tree`` also each lane's
+    ``next_gradients_reference``: (leaf, g, h, bounds [L, 2])."""
+    leaves = torch.stack([
+        leaf_values_reference(p, gl, hl, n_leaves, lm, sc, pr)
+        for p, gl, hl, lm, sc, pr in zip(pos, g, h, _host_values(lam),
+                                         _host_values(scale), preds)])
+    return _with_next_gradients(leaves, preds, next_tree)
+
+
+def leaf_values_lanes_fixed_reference(pos, g, h, n_leaves: int, lam, scale,
+                                      preds: torch.Tensor, bounds: torch.Tensor,
+                                      next_tree: Optional[NextTree] = None):
+    """``leaf_values_fixed_reference`` of each lane at its own bounds, lam
+    and scale, and the next tree's gradients as in
+    ``leaf_values_lanes_reference``: the lane kernel's bits."""
+    leaves = torch.stack([
+        leaf_values_fixed_reference(p, gl, hl, n_leaves, lm, sc, pr, bl)
+        for p, gl, hl, lm, sc, pr, bl in zip(pos, g, h, _host_values(lam),
+                                             _host_values(scale), preds, bounds)])
+    return _with_next_gradients(leaves, preds, next_tree)
+
+
+def leaf_values_lanes(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                      n_leaves: int, lam: torch.Tensor, scale: torch.Tensor,
+                      preds: torch.Tensor, bounds: Optional[torch.Tensor] = None,
+                      next_tree: Optional[NextTree] = None):
+    """K5 over lanes, a thread block cluster of ``leaf_plan(n)`` blocks a
+    lane. pos int32, g, h, preds f32 [L, n] (preds updated in place); lam,
+    scale f32 [L]; bounds f32 [L, 2] → leaf f32 [L, n_leaves]. With
+    ``next_tree`` (y [n], every lane's; u and w_rows [L, n]; subsample f32
+    [L]) it returns (leaf, g, h, bounds) of each lane's next boosted tree
+    from the same launch. Lane l is ``leaf_values`` of lane l. On a CPU
+    tensor ``leaf_values_lanes_reference`` runs."""
+    if pos.dim() != 2:
+        raise TypeError(f"pos must be [L, n], got {tuple(pos.shape)}")
+    lanes, n = pos.shape
+    dev = pos.device
+    rows = [("pos", pos, torch.int32), ("g", g, torch.float32),
+            ("h", h, torch.float32), ("preds", preds, torch.float32)]
+    if next_tree is not None:
+        if next_tree.task not in ("reg", "cls"):
+            raise ValueError(f"task must be 'reg' or 'cls', got {next_tree.task!r}")
+        rows += [("u", next_tree.u, torch.float32),
+                 ("w_rows", next_tree.w_rows, torch.float32)]
+        _check_rows("y", next_tree.y, torch.float32, (n,), dev)
+        _check_rows("subsample", next_tree.subsample, torch.float32, (lanes,), dev)
+    for name, t, dtype in rows:
+        _check_rows(name, t, dtype, (lanes, n), dev)
+    _check_rows("lam", lam, torch.float32, (lanes,), dev)
+    _check_rows("scale", scale, torch.float32, (lanes,), dev)
+    if not 1 <= n_leaves <= 1 << MAX_DEPTH:
+        raise ValueError(f"n_leaves must be in [1, {1 << MAX_DEPTH}], got {n_leaves}")
+    if not _kernel_device(pos, "forest_leaf_values_lanes"):
+        return leaf_values_lanes_reference(pos, g, h, n_leaves, lam, scale, preds,
+                                           next_tree)
+    if bounds is None:
+        bounds = gradient_bounds(g, h)
+    _check_rows("bounds", bounds, torch.float32, (lanes, 2), dev)
+    leaf = torch.empty((lanes, n_leaves), dtype=torch.float32, device=dev)
+    nxt = None
+    if next_tree is not None:
+        nxt = (torch.empty((lanes, n), dtype=torch.float32, device=dev),
+               torch.empty((lanes, n), dtype=torch.float32, device=dev),
+               torch.empty((lanes, 2), dtype=torch.float32, device=dev))
+    if lanes == 0:
+        return leaf if nxt is None else (leaf, *nxt)
+    with torch.cuda.device(dev):
+        rc = kernels_lib().bbbp_forest_leaf_values_lanes(
+            pos.data_ptr(), n, g.data_ptr(), h.data_ptr(), n_leaves,
+            lam.data_ptr(), scale.data_ptr(), bounds.data_ptr(), leaf.data_ptr(),
+            preds.data_ptr(),
+            *((None, None, None, None, 0) if next_tree is None else
+              (next_tree.y.data_ptr(), next_tree.u.data_ptr(),
+               next_tree.w_rows.data_ptr(), next_tree.subsample.data_ptr(),
+               int(next_tree.task == "cls"))),
+            *((None, None, None) if nxt is None else (t.data_ptr() for t in nxt)),
+            leaf_plan(n), lanes, torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "forest_leaf_values_lanes")
+    leaf_values_lanes.launches.add()
+    return leaf if nxt is None else (leaf, *nxt)
+
+
+level_histogram_lanes.launches = LaunchCounter()
+best_splits_lanes.launches = LaunchCounter()
+leaf_values_lanes.launches = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
@@ -597,7 +922,7 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     feats = torch.zeros((n_trees, n_internal), dtype=torch.int32, device=dev)
-    bins = torch.zeros((n_trees, n_internal), dtype=torch.int64, device=dev)
+    bins = torch.zeros((n_trees, n_internal), dtype=torch.int32, device=dev)
     leaves = torch.empty((n_trees, n_leaves), dtype=torch.float32, device=dev)
     feat_ids = torch.arange(n_feat, device=dev)
     scale = 1.0 if rf else float(lr)
@@ -619,15 +944,10 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
 
         pos = torch.zeros(n, dtype=torch.int32, device=dev)
         for level in range(depth):
-            nodes, off = 1 << level, (1 << level) - 1
-            hist = level_histogram(xb, pos, g, h, nodes, bounds, n_bins,
+            hist = level_histogram(xb, pos, g, h, 1 << level, bounds, n_bins,
                                    bins_checked=True)
             f_l, b_l, _ = best_splits(hist, col_mask, lam, min_child, oblivious)
-            feats[t, off:off + nodes] = f_l
-            bins[t, off:off + nodes] = b_l
-            row_f = f_l[pos].long()
-            xf = xb.gather(1, row_f[:, None])[:, 0]
-            pos = 2 * pos + (xf.int() > b_l[pos]).int()
+            route_rows(xb, pos, f_l, b_l, feats, bins, t, level)
         # drawn after this tree's column draw: the generator gives the
         # draws in the order subsample, columns, tree by tree
         nxt = (None if rf or t == n_trees - 1 else
@@ -638,7 +958,113 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
         else:
             leaves[t], g, h, bounds = out
 
-    thrs = edge_vals[feats.long(), bins]
+    thrs = edge_vals[feats.long(), bins.long()]
+    return preds, feats, thrs, leaves
+
+
+def _per_lane(value, lanes: int, device: torch.device) -> torch.Tensor:
+    """A scalar or [L] sequence as f32 [L] on ``device``."""
+    t = torch.as_tensor(value, dtype=torch.float32)
+    if t.dim() == 0:
+        t = t.expand(lanes)
+    if t.shape != (lanes,):
+        raise ValueError(f"a lane parameter must be a scalar or [{lanes}], got "
+                         f"{tuple(t.shape)}")
+    return t.contiguous().to(device)
+
+
+def lane_bytes(n: int, n_feat: int, depth: int, n_trees: int) -> int:
+    """Device bytes one lane of ``fit_forest_lanes`` holds at its deepest
+    level: the histogram, K3's scratch, the rows' [n] arrays (positions,
+    margins, gradients, draws, weights, the next tree's) and the trees."""
+    nodes = 1 << max(depth - 1, 0)
+    internal, leaves = (1 << depth) - 1, 1 << depth
+    return (nodes * n_feat * MAX_BINS * 8 + 8 * lane_words(n, n_feat, nodes)
+            + 4 * 12 * n + n_trees * (12 * internal + 4 * leaves))
+
+
+def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
+                     *, lr, lam, subsample, colsample, seeds, row_w: torch.Tensor,
+                     base_score: float, task: str, n_trees: int, depth: int,
+                     oblivious: bool, rf: bool, min_child: float = 1.0,
+                     n_bins: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """L fits of one shape at once, the counterpart of ``_fit_forest_device``
+    under ``jax.vmap`` (``batched_search.py:340-344``): xb uint8 [n, F],
+    ``edge_vals`` and ``y`` [n] every lane's; ``lr``, ``lam``,
+    ``subsample``, ``colsample`` a scalar or [L] each; ``seeds`` [L] ints;
+    ``row_w`` [L, n] (rows of weight 0 contribute nothing; their margins
+    still move along the trees); the statics as ``fit_forest``'s. Returns
+    (preds [L, n], feats [L, T, 2^D − 1] int32, thrs [L, T, 2^D − 1] f32,
+    leaves [L, T, 2^D] f32).
+
+    Each lane draws from its own ``torch.Generator`` seeded with its seed,
+    in ``fit_forest``'s order (the first subsample draw, then a tree's
+    Poisson weights in rf, its columns, the next subsample draw), so lane l
+    grows the trees, leaves and margins of ``fit_forest`` with ``seeds[l]``
+    and lane l's parameters bit for bit: each tree level is one launch of
+    K3, K4 and the routing over all lanes, each tree one of K5."""
+    if task not in ("reg", "cls"):
+        raise ValueError(f"task must be 'reg' or 'cls', got {task!r}")
+    if not 0 <= depth <= MAX_DEPTH:
+        raise ValueError(f"depth must be in [0, {MAX_DEPTH}], got {depth}")
+    dev = xb.device
+    n, n_feat = xb.shape
+    lanes = len(seeds)
+    if n_bins is not None:
+        check_bin_counts(n_bins, xb)
+    lr, lam, subsample, colsample = (_per_lane(v, lanes, dev)
+                                     for v in (lr, lam, subsample, colsample))
+    n_internal, n_leaves = (1 << depth) - 1, 1 << depth
+    y = y.to(dev, torch.float32)
+    w_rows = row_w.to(dev, torch.float32).contiguous()
+    if w_rows.shape != (lanes, n):
+        raise ValueError(f"row_w must be [{lanes}, {n}], got {tuple(w_rows.shape)}")
+    preds = torch.full((lanes, n), float(base_score), dtype=torch.float32, device=dev)
+    gens = [torch.Generator(device=dev) for _ in seeds]
+    for gen, seed in zip(gens, seeds):
+        gen.manual_seed(int(seed))
+    feats = torch.zeros((lanes, n_trees, n_internal), dtype=torch.int32, device=dev)
+    bins = torch.zeros((lanes, n_trees, n_internal), dtype=torch.int32, device=dev)
+    leaves = torch.empty((lanes, n_trees, n_leaves), dtype=torch.float32, device=dev)
+    feat_ids = torch.arange(n_feat, device=dev)
+    scale = torch.ones(lanes, device=dev) if rf else lr
+    ones = torch.ones(n, device=dev)
+
+    def draws(size: int) -> torch.Tensor:     # [L, size], a lane's from its own
+        return torch.stack([torch.rand(size, generator=gen, device=dev)
+                            for gen in gens])
+
+    if not rf and n_trees:                      # later trees' come from K5
+        u = draws(n)
+        first = [next_gradients_reference(p, y, ul, s, w, task) for p, ul, s, w
+                 in zip(preds, u, subsample.tolist(), w_rows)]
+        g, h, bounds = (torch.stack(parts) for parts in zip(*first))
+    for t in range(n_trees):
+        if rf:
+            w = torch.stack([torch.poisson(ones, generator=gen)
+                             for gen in gens]) * w_rows
+            g, h = -y * w, w
+            bounds = gradient_bounds(g, h)
+        col_mask = draws(n_feat) < colsample[:, None]
+        # at least one feature: the first drawn, else feature 0
+        col_mask = col_mask | (feat_ids == col_mask.to(torch.uint8).argmax(
+            dim=1, keepdim=True))
+        pos = torch.zeros((lanes, n), dtype=torch.int32, device=dev)
+        for level in range(depth):
+            hist = level_histogram_lanes(xb, pos, g, h, 1 << level, bounds, n_bins,
+                                         bins_checked=True)
+            f_l, b_l, _ = best_splits_lanes(hist, col_mask, lam, min_child, oblivious)
+            route_rows(xb, pos, f_l, b_l, feats, bins, t, level)
+        nxt = (None if rf or t == n_trees - 1 else
+               NextTree(y, draws(n), subsample, w_rows, task))
+        out = leaf_values_lanes(pos, g, h, n_leaves, lam, scale, preds, bounds, nxt)
+        if nxt is None:
+            leaves[:, t] = out
+        else:
+            leaves[:, t], g, h, bounds = out
+
+    thrs = edge_vals[feats.long(), bins.long()]
     return preds, feats, thrs, leaves
 
 

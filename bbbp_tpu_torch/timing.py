@@ -111,35 +111,48 @@ def event_ms(fn: Callable[[], object], calls: int = 50) -> float:
     return start.elapsed_time(end) / calls
 
 
-def level_histogram_bound(n: int, n_feat: int, n_nodes: int) -> Dict[str, object]:
-    """xb (one byte a value), pos, g and h read once, the f32 (g, h)
-    histogram written once; two adds per row and feature."""
-    return _bound(n * n_feat + 12 * n + n_nodes * n_feat * 64 * 8,
-                  2 * n * n_feat)
+def level_histogram_bound(n: int, n_feat: int, n_nodes: int,
+                          lanes: int = 1) -> Dict[str, object]:
+    """xb (one byte a value, every lane's) read once; each lane's pos, g and
+    h read once and its f32 (g, h) histogram written once; two adds per
+    row, feature and lane."""
+    return _bound(n * n_feat + lanes * (12 * n + n_nodes * n_feat * 64 * 8),
+                  2 * n * n_feat * lanes)
 
 
-def best_splits_bound(n_nodes: int, n_feat: int) -> Dict[str, object]:
-    """The histogram and the column mask read once, (feat, bin, has_split)
-    written once; per (node, feature, bin) 15 f32 operations: two running
-    sums, the gain's two subtractions, two lambda adds, two squares, two
-    divisions, one add and one subtraction, two min_child compares and the
-    argmax compare."""
-    return _bound(n_nodes * n_feat * 64 * 8 + n_feat + 9 * n_nodes,
-                  15 * n_nodes * n_feat * 64)
+def best_splits_bound(n_nodes: int, n_feat: int, lanes: int = 1) -> Dict[str, object]:
+    """Each lane's histogram, column mask (and lambda) read once, its
+    (feat, bin, has_split) written once; per (node, feature, bin) 15 f32
+    operations: two running sums, the gain's two subtractions, two lambda
+    adds, two squares, two divisions, one add and one subtraction, two
+    min_child compares and the argmax compare."""
+    return _bound(lanes * (n_nodes * n_feat * 64 * 8 + n_feat + 9 * n_nodes
+                           + (4 if lanes > 1 else 0)),
+                  15 * n_nodes * n_feat * 64 * lanes)
 
 
-def leaf_values_bound(n: int, n_leaves: int,
-                      next_tree: bool = False) -> Dict[str, object]:
+def leaf_values_bound(n: int, n_leaves: int, next_tree: bool = False,
+                      lanes: int = 1) -> Dict[str, object]:
     """pos, g and h read once, the margins read and written once, the leaves
     written once; two adds and one fused multiply-add (two operations) per
-    row, an add and a division per leaf. With ``next_tree`` also y, u and
-    the row weights read once, the next g and h written once with their two
-    maxima, and 14 operations a row (the sigmoid's exp, add and division,
-    p − y, 1 − p, the product, the clamp, the mask's compare, four products,
-    two maxima)."""
-    extra_bytes, extra_ops = (20 * n + 8, 14 * n) if next_tree else (0, 0)
-    return _bound(12 * n + 8 * n + 4 * n_leaves + extra_bytes,
-                  4 * n + 2 * n_leaves + extra_ops)
+    row, an add and a division per leaf. With ``next_tree`` also y (every
+    lane's), u and the row weights read once, the next g and h written once
+    with their two maxima, and 14 operations a row (the sigmoid's exp, add
+    and division, p − y, 1 − p, the product, the clamp, the mask's compare,
+    four products, two maxima). Lanes: each lane's share, y once."""
+    extra_bytes, extra_ops = (16 * n + 8, 14 * n) if next_tree else (0, 0)
+    lane_params = 12 if lanes > 1 else 0           # lam, scale, subsample
+    return _bound(lanes * (12 * n + 8 * n + 4 * n_leaves + extra_bytes + lane_params)
+                  + (4 * n if next_tree else 0),
+                  lanes * (4 * n + 2 * n_leaves + extra_ops))
+
+
+def route_rows_bound(n: int, n_nodes: int, lanes: int = 1) -> Dict[str, object]:
+    """Each lane's positions read and written once, the one byte of xb a
+    row reads (at the column its node's split names), the level's (feature,
+    bin) table read once and written into the tree once; a compare and a
+    multiply-add (two operations) a row."""
+    return _bound(lanes * (9 * n + 16 * n_nodes), 2 * n * lanes)
 
 
 def topk_bound(nq: int, nr: int, words: int, k: int) -> Dict[str, object]:

@@ -20,13 +20,19 @@ validation rows given weight 0, scored by ``ops/forest.py::raw_predict``
 ``t * 131 + k``, the index the JAX package folds into its key; the streams
 differ (``torch.Generator`` against ``jax.random``), so subsampled,
 column-sampled and random-forest trials match the JAX package only
-statistically. The JAX package's lane-batched forest search
-(``_forest_cv_vmapped``, off by default there) is not ported yet.
+statistically. With ``BBBP_FOREST_VMAP=1`` (off by default, as in the JAX
+package) and at most ``FOREST_VMAP_MAX_F`` features, ``_forest_cv_vmapped``
+runs instead: all (trial × fold) fits of one static shape as lanes of
+``fit_forest_lanes`` (a tree level is one launch of K3, K4 and the routing
+over every lane), each lane seeded as the sequential fit and growing its
+trees bit for bit, the out-of-fold predictions read from the fit's final
+margins at the validation rows.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -34,7 +40,9 @@ import numpy as np
 import torch
 
 from bbbp_tpu_torch.ops.forest import DenseTreeEnsemble, raw_predict
-from bbbp_tpu_torch.ops.forest_train import BinMapper, fit_forest, resolve_device
+from bbbp_tpu_torch.ops.forest_train import (BinMapper, fit_forest,
+                                             fit_forest_lanes, lane_bytes,
+                                             resolve_device)
 from bbbp_tpu_torch.ops.linear import (init_mlp, lane_dot, logreg_newton,
                                        mlp_adam, mlp_lanes, nearest,
                                        sq_distances, svc_adam, with_bias)
@@ -44,6 +52,15 @@ from bbbp_tpu_torch.train.search import _sample_params, stratified_kfold_indices
 LOGREG_STEPS = 20
 SVC_STEPS = 400
 FOREST_FAMILIES = ("dt", "rf", "gb", "xgb", "cat")
+# the lane-batched forest search, as the JAX package switches it
+# (bbbp_tpu/train/batched_search.py:290-291): off unless BBBP_FOREST_VMAP=1,
+# and only up to FOREST_VMAP_MAX_F features
+FOREST_VMAP = os.environ.get("BBBP_FOREST_VMAP", "0") == "1"
+FOREST_VMAP_MAX_F = 512
+# device bytes of one block of lanes (``lane_bytes`` a lane): a 255-lane
+# group of depth 6 is one block; dt's depth 12 (a 31.5 MB histogram a lane at
+# 30 features) runs in blocks of ~128
+FOREST_LANE_BUDGET = 4 << 30
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +230,7 @@ def _forest_cv(x, y, folds, param_sets: List[Dict], classify: bool = True,
     acc = np.zeros(len(param_sets))
     prec = np.zeros(len(param_sets))
     f1 = np.zeros(len(param_sets))
-    if classify:
-        p0 = float(np.clip(y_np.mean(), 1e-6, 1 - 1e-6))
-        base = float(np.log(p0 / (1 - p0)))
-    else:
-        base = float(y_np.mean())
+    base = _forest_base(y_np, classify)
     score_fn = _masked_scores if classify else _masked_r2
     for t, p in enumerate(param_sets):
         rf = bool(p.get("rf", False))
@@ -253,6 +266,93 @@ def _forest_cv(x, y, folds, param_sets: List[Dict], classify: bool = True,
     return acc, prec, f1
 
 
+def _forest_base(y_np: np.ndarray, classify: bool) -> float:
+    """Every trial's starting margin: the log-odds of the positive share
+    (classification) or the mean (regression), over all rows."""
+    if classify:
+        p0 = float(np.clip(y_np.mean(), 1e-6, 1 - 1e-6))
+        return float(np.log(p0 / (1 - p0)))
+    return float(y_np.mean())
+
+
+def _forest_groups(param_sets: List[Dict]) -> Dict[Tuple, List[int]]:
+    """Trial indices by static shape ``(rf, n_estimators, max_depth,
+    oblivious)``: one lane group each."""
+    groups: Dict[Tuple, List[int]] = {}
+    for t, p in enumerate(param_sets):
+        statics = (bool(p.get("rf", False)), int(p.get("n_estimators", 300)),
+                   int(p.get("max_depth", 6)), bool(p.get("oblivious", False)))
+        groups.setdefault(statics, []).append(t)
+    return groups
+
+
+def _fit_lane_block(prep: dict, param_sets: List[Dict], blk: List[Tuple[int, int]],
+                    base: float, classify: bool = True):
+    """``fit_forest_lanes`` of the lanes ``blk`` [(trial, fold)] of one
+    group: trial t's parameters, fold k's row weights, seed t * 131 + k."""
+    ps = [param_sets[t] for t, _ in blk]
+    rf = bool(ps[0].get("rf", False))
+    return fit_forest_lanes(
+        prep["xb"], prep["edge_vals"], prep["y"],
+        lr=[p.get("learning_rate", 0.1) for p in ps],
+        lam=[p.get("reg_lambda", 1.0) for p in ps],
+        subsample=[p.get("subsample", 1.0) for p in ps],
+        colsample=[p.get("colsample", 1.0) for p in ps],
+        seeds=[t * 131 + k for t, k in blk], row_w=prep["w_kn"][[k for _, k in blk]],
+        base_score=0.0 if rf else base, task="cls" if classify else "reg",
+        n_trees=int(ps[0].get("n_estimators", 300)),
+        depth=int(ps[0].get("max_depth", 6)),
+        oblivious=bool(ps[0].get("oblivious", False)), rf=rf, n_bins=prep["n_bins"])
+
+
+def _forest_cv_vmapped(x, y, folds, param_sets: List[Dict],
+                       classify: bool = True, verbose: bool = False,
+                       device="cuda"):
+    """All (trial × fold) forest fits of one static shape ``(rf,
+    n_estimators, max_depth, oblivious)`` as lanes of ``fit_forest_lanes``
+    over the shared binned matrix, in blocks of at most
+    ``FOREST_LANE_BUDGET`` device bytes. Lane (t, k) has trial t's
+    parameters, fold k's row weights (its validation rows weigh 0) and the
+    sequential path's seed ``t * 131 + k``, so it grows ``_forest_cv``'s
+    trees. Its validation rows' final margins are the out-of-fold
+    predictions (rf: margin / n_estimators clipped to [0, 1]; boosting:
+    sigmoid), with no second traversal; each trial is scored over its
+    [K, V] grid as in ``_forest_cv``."""
+    prep = _forest_prep(x, y, folds, device)
+    n, n_feat = prep["xb"].shape
+    n_folds = len(folds)
+    y_np = np.asarray(y, np.float32)
+    y_va = torch.from_numpy(y_np[prep["va_idx"]])
+    va_mask = torch.from_numpy(prep["va_mask"])
+    va_idx = torch.from_numpy(prep["va_idx"]).to(prep["xb"].device)
+    base = _forest_base(y_np, classify)
+    score_fn = _masked_scores if classify else _masked_r2
+    acc = np.zeros(len(param_sets))
+    prec = np.zeros(len(param_sets))
+    f1 = np.zeros(len(param_sets))
+
+    for (rf, n_est, depth, obl), t_ids in _forest_groups(param_sets).items():
+        lanes = [(t, k) for t in t_ids for k in range(n_folds)]
+        block = max(1, FOREST_LANE_BUDGET // lane_bytes(n, n_feat, depth, n_est))
+        proba = np.zeros((len(lanes), va_idx.shape[1]), np.float32)
+        for s in range(0, len(lanes), block):
+            blk = lanes[s:s + block]
+            preds, _, _, _ = _fit_lane_block(prep, param_sets, blk, base, classify)
+            raw = (preds / n_est if rf else preds).gather(1, va_idx[[k for _, k in blk]])
+            if classify:
+                raw = raw.clamp(0.0, 1.0) if rf else torch.sigmoid(raw)
+            proba[s:s + len(blk)] = raw.cpu().numpy()
+        for j, t in enumerate(t_ids):
+            a, pr, f = score_fn(torch.from_numpy(proba[j * n_folds:(j + 1) * n_folds]),
+                                y_va, va_mask)
+            acc[t], prec[t], f1[t] = float(a), float(pr), float(f)
+        if verbose:
+            print(f"[search] forest lanes rf={rf} T={n_est} d={depth} obl={obl}: "
+                  f"{len(t_ids)} trials x {n_folds} folds in blocks of "
+                  f"{min(block, len(lanes))}", flush=True)
+    return acc, prec, f1
+
+
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
@@ -273,8 +373,11 @@ def _score_param_sets(model_name: str, x: np.ndarray, y: np.ndarray,
     dev = resolve_device(device)
     folds = stratified_kfold_indices(y, cv, seed)
     if model_name in FOREST_FAMILIES:
-        return _forest_cv(x, y, folds, params, classify=True, verbose=verbose,
-                          device=dev)
+        cv_fn = (_forest_cv_vmapped
+                 if FOREST_VMAP and np.shape(x)[1] <= FOREST_VMAP_MAX_F
+                 else _forest_cv)
+        return cv_fn(x, y, folds, params, classify=True, verbose=verbose,
+                     device=dev)
     tr_idx, va_idx, va_mask = (torch.from_numpy(a).to(dev) for a in
                                padded_cv_arrays(len(y), folds))
     xd = torch.from_numpy(np.array(x, np.float32)).to(dev)

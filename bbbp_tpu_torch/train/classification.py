@@ -75,7 +75,8 @@ class ClassificationTrainConfig:
     # run as lanes (train/batched_search.py)
     tune: bool = True
     n_search_iter: int = 50
-    # forest trials are sequential fits, so they get their own budget;
+    # forest trials are sequential fits (lanes with BBBP_FOREST_VMAP=1, see
+    # batched_search._forest_cv_vmapped), so they get their own budget;
     # None = same as n_search_iter
     n_search_iter_forest: Optional[int] = None
     search_folds: int = 5

@@ -174,7 +174,7 @@ before its last line):
    MLM pretraining, aux pretraining of the graph and multimodal trunks,
    ``run_regression`` at phase 11's cuts with the SMILES leg and both warm
    starts, ``run_weighted_ensemble``, ``search_nn_cv`` over the MLP's
-   learning rate and weight decay (3 trials x 5 folds in one ``train_cv``),
+   learning rate and weight decay (2 trials x 5 folds in one ``train_cv``),
    ``run_bert`` and ``do_flow_train`` (each cut printed): wall seconds by
    stage, peak memory, the forest kernel's and K3-K5's launches (they must
    move), and learning checks against floors stated in the code (MLM loss
@@ -211,7 +211,30 @@ before its last line):
    parameters but for first-step sign flips at a rounding, at most 0.5%; f32
    within 1e-5); the featurize, analyze and chemspace CLIs (``--device
    cuda``) over phase 11's TSV, the PCA coordinates against a CPU run within
-   3e-4 of scale.
+   3e-4 of scale;
+14. the lane-batched forest search (``BBBP_FOREST_VMAP`` on) over phase
+   10's search matrix (its training rows after SMOTE-Tomek, 30 PCA
+   columns): ``tune_zoo`` of the five forest families at phase 10's trials
+   x 5 folds as lanes, every launch counter set to 0 before and read after
+   (the four lane kernels must move, the single-fit kernels and the forest
+   kernel must not), each trial's CV accuracy within 0.006 of phase 10's
+   sequential search, and fold 0 of every trial (its lane in a group fit
+   as the search fits it) bit-equal to ``fit_forest`` with the trial's seed:
+   margins, trees, thresholds and leaves; then the lane kernels at L = 15
+   (3 trials x 5 folds' row weights, lambda 0.1-10 a lane, a lane of 40x
+   the others' gradients), levels 0, 5, 9 and 11: K3 bit-equal to its
+   fixed-point plain version and to the single-fit kernel lane by lane and
+   within one f32 rounding of the float64 sums, K4 (per node, oblivious,
+   column masks) equal to the single-fit kernel lane by lane and to its
+   plain version but at counted near ties, the routing integer-equal to the
+   torch ops, K5 with the next tree (64 and 1,024 leaves) bit-equal to its
+   fixed-point plain version and to the single-fit kernel; each timed in
+   CUDA graphs beside its plain version, its bound (``timing.py``, every
+   lane's share, the shared xb and y once) and, for K3, one ``index_add_``
+   over the lanes' keys; then xgb's search at 50 + 1 trials x 5 folds = 255
+   lanes: wall s, peak memory, launches, and under ``torch.profiler`` the
+   device busy time and the host's launch calls (the per-lane draws among
+   them).
 
 Then one JSON line for the kernels (each with its launches in phase 12's
 run under ``launches_families`` and in phase 13 under
@@ -254,8 +277,10 @@ REG_FOLDS = 10
 FOLD_ROWS = 106                   # a tenth of B3DB regression's 1,058 rows
 AUC_FLOOR = 0.6
 LEVELS = 16
-REG_EPOCH_BUDGET_S = 60.0         # phase 9: train_cv's 50 epochs are cut to
-                                  # fit this where they would not
+REG_EPOCH_BUDGET_S = 40.0         # phase 9: train_cv's 50 epochs are cut to
+                                  # fit this where they would not (60 s until
+                                  # phase 14 came: the whole run took 1,105 s
+                                  # on a slow host of the card)
 FWD_ROWS = 16                     # rows of phase 9's forward checks
 # phase 9's forward, card against CPU: f32 with TF32 off; bf16 rounds at
 # other places (bf16 against f32 on the CPU differs by up to 6.3e-3 on
@@ -353,13 +378,15 @@ FAM_STATS_TOL = 1e-5
 # FAM_AUX_EPOCHS; run_regression at phase 11's cuts with the three options,
 # bert_seeds 2 -> 1 and bert_epochs 40 -> 12 (snapshots from epoch 2, as
 # run_regression sets them: max(1, bert_epochs - 10)); the weighted
-# ensemble, the NN search (3 trials x 5 folds, one train_cv of 15
-# replicas), run_bert and do_flow_train at their defaults
+# ensemble, the NN search (2 trials x 5 folds, one train_cv of 10
+# replicas), run_bert and do_flow_train at their defaults. The graph
+# pretraining's 5 epochs and the search's 3 trials were cut to these when
+# phase 14 came (the whole run took 1,105 s on a slow host of the card)
 FAM_CORPUS = 20_000
 FAM_MLM_EPOCHS = 1
-FAM_AUX_EPOCHS = {"graph": 5, "multimodal": 1}
+FAM_AUX_EPOCHS = {"graph": 3, "multimodal": 1}
 FAM_BERT_CUTS = dict(bert_seeds=1, bert_epochs=12)
-FAM_SEARCH_TRIALS, FAM_SEARCH_FOLDS = 3, 5
+FAM_SEARCH_TRIALS, FAM_SEARCH_FOLDS = 2, 5
 # learning checks, not targets (floors set before the first card run, but
 # for the majority share and the ROC AUC of BERT and flow, added after it:
 # a two-thirds BBB+ split lets a constant prediction pass 0.6)
@@ -416,6 +443,16 @@ REP_DRYRUN_FLIPS = 0.005          # bf16: share of elements a rounding's sign
 # from the last of them, as phase 9 takes them from epoch 30)
 REP_MESH_EPOCHS = 2
 REP_PREFETCH_ITEMS = 12
+# phase 14: the lane-batched forest search. Its CV accuracies against phase
+# 10's sequential search within LANES_SCORE_TOL (the bound VERDICT r5 held
+# the JAX package's vmapped search to); equal where the trees are, but for
+# validation rows whose margin is a rounding from the threshold (the lanes
+# read the fit's margins, the sequential search the forest kernel's sum)
+LANES_SCORE_TOL = 0.006
+LANES_L = 15                      # the kernels' lanes: 3 trials x 5 folds
+LANES_LEVELS = (0, 5, 9, 11)      # depth 6 (gb, xgb, cat), 10 (rf), 12 (dt)
+LANES_GROUP_TRIALS = 50           # + the default: xgb's 255-lane group
+LANES_PROFILED_TREES = 10         # of its 300 trees, under torch.profiler
 
 
 def read_csv(path: str):
@@ -509,7 +546,7 @@ def index_add_call(xb, pos, g, h, nodes):
                                ).index_add_(0, keys, vals)
 
 
-def split_mismatches(tr, hist, mask, min_child, oblivious, got, want):
+def split_mismatches(tr, hist, mask, min_child, oblivious, got, want, lam=1.0):
     """Nodes where the kernel's split differs from the plain version's; each
     must be a near tie (the two candidates' scores within 1e-6 of the
     node's largest |score|), or this raises. Returns their count and the
@@ -520,7 +557,7 @@ def split_mismatches(tr, hist, mask, min_child, oblivious, got, want):
     differ = ~((got[0] == want[0]) & (got[1] == want[1]) & (got[2] == want[2]))
     if not bool(differ.any()):
         return 0, 0.0
-    gain, valid = tr.split_gains(hist, mask, 1.0, min_child)
+    gain, valid = tr.split_gains(hist, mask, lam, min_child)
     if oblivious:
         score = torch.where(valid & (gain > 0), gain, torch.zeros_like(gain)).sum(0)
         score = torch.where(valid.any(0), score, -torch.inf).reshape(1, -1)
@@ -1072,7 +1109,9 @@ def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
     want = {"packed_project": 0, "dense_forest_predict": 6,
             "forest_level_histogram": per_level, "forest_best_splits": per_level,
             "forest_leaf_values": 2 * (2 * cfg.trees + cfg.rf_trees),
-            "tanimoto_topk": 2, "tanimoto_gram": 0, "minmax_gram": 0}
+            "tanimoto_topk": 2, "tanimoto_gram": 0, "minmax_gram": 0,
+            "forest_route_rows": per_level, "forest_level_histogram_lanes": 0,
+            "forest_best_splits_lanes": 0, "forest_leaf_values_lanes": 0}
     if launched != want:
         raise AssertionError(f"transfer_features launches {launched}, expected {want}")
     f = res.features
@@ -1521,7 +1560,8 @@ def classification_phase(card, counters) -> dict:
     launches = {name: c.launches.count for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name in ("dense_forest_predict", "forest_level_histogram",
-                 "forest_best_splits", "forest_leaf_values"):
+                 "forest_best_splits", "forest_leaf_values",
+                 "forest_route_rows"):
         if not launches[name]:
             problems.append(f"run_classification launched no {name}")
     for m, r in res.report.items():
@@ -1607,7 +1647,8 @@ def classification_phase(card, counters) -> dict:
           f"{time.time() - t10:.1f} s on {card}", flush=True)
     if problems:
         raise AssertionError("phase 10: " + " | ".join(problems))
-    return {"launches": launches, "x": x, "y": y, "z": z}
+    return {"launches": launches, "x": x, "y": y, "z": z, "search_x": fx,
+            "search_y": fy, "forest_trials": trials, "forest_cfg": tcfg}
 
 
 def _block_errors(got, want) -> dict:
@@ -1900,7 +1941,8 @@ def regression_phase(card, counters, tmp) -> dict:
         data = ProcessedData.load(cache_path(pcfg, env["BBBP_PREPROCESS_CACHE"]))
         ck_desc, ck_maccs, ck_counts = raw_transfer_features(data.smiles)
     for name in ("dense_forest_predict", "forest_level_histogram",
-                 "forest_best_splits", "forest_leaf_values", "tanimoto_topk",
+                 "forest_best_splits", "forest_leaf_values",
+                 "forest_route_rows", "tanimoto_topk",
                  "tanimoto_gram", "minmax_gram"):
         if not launches[name]:
             problems.append(f"run_regression launched no {name}")
@@ -2120,7 +2162,8 @@ def families_phase(card, counters, tmp, labelled, phase11_r2) -> dict:
           f"{rg.RegressionTrainConfig().bert_seeds} -> "
           f"{FAM_BERT_CUTS['bert_seeds']}, bert_epochs "
           f"{rg.RegressionTrainConfig().bert_epochs} -> "
-          f"{FAM_BERT_CUTS['bert_epochs']}", flush=True)
+          f"{FAM_BERT_CUTS['bert_epochs']}; the NN search {FAM_SEARCH_TRIALS} "
+          f"trials x {FAM_SEARCH_FOLDS} folds", flush=True)
 
     def lap(name, t0):
         torch.cuda.synchronize()
@@ -2177,7 +2220,8 @@ def families_phase(card, counters, tmp, labelled, phase11_r2) -> dict:
         launches = {name: c.launches.count for name, c in counters.items()}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name in ("dense_forest_predict", "forest_level_histogram",
-                 "forest_best_splits", "forest_leaf_values"):
+                 "forest_best_splits", "forest_leaf_values",
+                 "forest_route_rows"):
         if not launches[name]:
             problems.append(f"phase 12 launched no {name}")
     r2 = {leg: res.report[leg]["r2"] for leg in ("smiles", "nn", "graph", "stacked")}
@@ -2644,6 +2688,414 @@ def reporting_phase(card, counters, tmp, p9, p10) -> dict:
     if problems:
         raise AssertionError("phase 13: " + " | ".join(problems))
     return {"launches": launches, "wall_s": wall, "stage_s": stage_s}
+
+
+def lanes_phase(card, counters, p10) -> dict:
+    """Phase 14: the lane-batched forest search (``_forest_cv_vmapped``
+    over ``fit_forest_lanes``) on phase 10's search matrix. Returns the
+    lane kernels' numbers for the kernels line."""
+    import torch
+
+    from bbbp_tpu_torch.ops import forest_train as tr
+    from bbbp_tpu_torch.timing import (best_splits_bound, device_ms,
+                                       host_launch_calls, leaf_values_bound,
+                                       level_histogram_bound, profile_summary,
+                                       route_rows_bound)
+    from bbbp_tpu_torch.train import batched_search as bs
+    from bbbp_tpu_torch.train import classification as cl
+
+    cuda = torch.device("cuda")
+    t14 = time.time()
+    problems = []
+    fx, fy, tcfg = p10["search_x"], p10["search_y"], p10["forest_cfg"]
+    seq_trials = p10["forest_trials"]
+    lane_names = ("forest_level_histogram_lanes", "forest_best_splits_lanes",
+                  "forest_leaf_values_lanes", "forest_route_rows")
+    single_names = ("forest_level_histogram", "forest_best_splits",
+                    "forest_leaf_values", "dense_forest_predict")
+
+    def reset():
+        for c in counters.values():
+            c.launches.reset()
+
+    def read():
+        return {name: c.launches.count for name, c in counters.items()}
+
+    def trial_params(t):
+        return {k: v for k, v in t.items()
+                if not k.startswith("mean_") and k != "repeat_std"}
+
+    stage_s = {}
+    t_stage = time.time()
+    vmap_before = bs.FOREST_VMAP
+    bs.FOREST_VMAP = True
+    try:
+        # -- the five families' searches through tune_zoo, on the lanes -------
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, lane_trials, lane_walls = cl.tune_zoo(fx, fy, bs.FOREST_FAMILIES, tcfg,
+                                                 verbose=False, device=cuda)
+        torch.cuda.synchronize()
+        search_s = time.time() - t0
+        launches = read()
+        for name in lane_names:
+            if not launches[name]:
+                problems.append(f"the lane search launched no {name}")
+        for name in single_names:
+            if launches[name]:
+                problems.append(f"the lane search launched {name}")
+        scores = {}
+        for m in bs.FOREST_FAMILIES:
+            a = np.array([t["mean_accuracy"] for t in seq_trials[m]])
+            b = np.array([t["mean_accuracy"] for t in lane_trials[m]])
+            same = ([trial_params(t) for t in seq_trials[m]]
+                    == [trial_params(t) for t in lane_trials[m]])
+            diff = float(np.abs(a - b).max())
+            scores[m] = {"trials": len(a), "equal": int((a == b).sum()),
+                         "max_diff": round(diff, 6),
+                         "max_diff_rows": round(diff * len(fy), 2),
+                         "lane_s": round(lane_walls[m], 3)}
+            if not same or diff > LANES_SCORE_TOL:
+                problems.append(f"{m} lane search vs sequential: trials "
+                                f"{'equal' if same else 'differ'}, max |dacc| {diff:.4g}")
+
+        # -- fold 0 of every trial: a lane of its group against fit_forest ----
+        folds = bs.stratified_kfold_indices(fy, tcfg.search_folds, tcfg.seed)
+        prep = bs._forest_prep(fx, fy, folds, cuda)
+        base = bs._forest_base(np.asarray(fy, np.float32), True)
+        n_folds = len(folds)
+        checked = 0
+        for m in bs.FOREST_FAMILIES:
+            params = [trial_params(t) for t in lane_trials[m]]
+            for t_ids in bs._forest_groups(params).values():
+                blk = [(t, k) for t in t_ids for k in range(n_folds)]
+                lanes = bs._fit_lane_block(prep, params, blk, base)
+                for j, (t, k) in enumerate(blk):
+                    if k:
+                        continue
+                    p = params[t]
+                    rf = bool(p.get("rf", False))
+                    one = tr.fit_forest(
+                        prep["xb"], prep["edge_vals"], prep["y"],
+                        lr=p.get("learning_rate", 0.1), lam=p.get("reg_lambda", 1.0),
+                        min_child=1.0, subsample=p.get("subsample", 1.0),
+                        colsample=p.get("colsample", 1.0),
+                        base_score=0.0 if rf else base, seed=t * 131, task="cls",
+                        n_trees=int(p.get("n_estimators", 300)),
+                        depth=int(p.get("max_depth", 6)),
+                        oblivious=bool(p.get("oblivious", False)), rf=rf,
+                        row_w=prep["w_kn"][0], n_bins=prep["n_bins"])
+                    for name, a, b in zip(("margins", "feats", "thrs", "leaves"),
+                                          lanes, one):
+                        if not torch.equal(a[j], b):
+                            problems.append(f"{m} trial {t} fold 0: the lane's "
+                                            f"{name} differ from fit_forest's")
+                    checked += 1
+            del lanes
+        stage_s["search and fold-0 fits"] = time.time() - t_stage
+        t_stage = time.time()
+        print(f"[14 lane search] tune_zoo with BBBP_FOREST_VMAP on, "
+              f"{bs.FOREST_FAMILIES} at phase 10's trials x {n_folds} folds over "
+              f"{len(fy)} rows: {search_s:.3f} s | s a family "
+              f"{ {m: s['lane_s'] for m, s in scores.items()} } | against phase 10's "
+              f"sequential search: {scores} (limit {LANES_SCORE_TOL}) | launches "
+              f"{ {k: v for k, v in launches.items() if v or k in single_names} } | "
+              f"fold 0 of {checked} trials: margins, trees, thresholds and leaves "
+              f"bit-equal to fit_forest with the trial's seed", flush=True)
+
+        # -- the lane kernels at L = 15 against their plain versions ----------
+        xb, y, n_bins = prep["xb"], prep["y"], prep["n_bins"]
+        n, n_feat = xb.shape
+        L = LANES_L
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(14)
+        w = prep["w_kn"][[k % n_folds for k in range(L)]]        # 3 trials x 5 folds
+        margins = torch.randn(L, n, generator=gen, device=cuda)
+        p = torch.sigmoid(margins)
+        g = (p - y) * w
+        h = torch.clamp(p * (1 - p), min=1e-6) * w
+        g[1] *= 40.0                                # a lane of other bounds
+        bounds = tr.gradient_bounds(g, h)
+        lam = torch.logspace(-1, 1, L, device=cuda)
+        lam_host = lam.tolist()
+        held = {"k3_err": 0.0, "k4_near": 0, "k4_err": 0.0, "k4_calls": 0}
+        timed = {}
+        every = torch.ones(L, n_feat, dtype=torch.bool, device=cuda)
+        for level in LANES_LEVELS:
+            nodes = 1 << level
+            pos = torch.randint(0, nodes, (L, n), generator=gen, dtype=torch.int32,
+                                device=cuda)
+            hist = tr.level_histogram_lanes(xb, pos, g, h, nodes, bounds, n_bins,
+                                            bins_checked=True)
+            fixed = tr.level_histogram_lanes_fixed_reference(xb, pos, g, h, nodes,
+                                                            bounds)
+            single = torch.stack([tr.level_histogram(xb, pos[i], g[i], h[i], nodes,
+                                                     bounds[i], n_bins,
+                                                     bins_checked=True)
+                                  for i in range(L)])
+            torch.cuda.synchronize()
+            if not (torch.equal(hist, fixed) and torch.equal(hist, single)):
+                problems.append(f"level_histogram_lanes level {level}: "
+                                f"{int((hist != fixed).sum())} bins off the fixed-point "
+                                f"plain version, {int((hist != single).sum())} off "
+                                f"the single-fit kernel")
+            del fixed, single
+            exact = tr.level_histogram_lanes_reference(xb, pos, g.double(), h.double(),
+                                                       nodes)
+            err = (hist.double() - exact).abs()
+            vmax = float(torch.maximum(g.abs().max(), h.abs().max()))
+            if bool((err > 2.4e-7 * exact.abs() + 1e-9 * n * vmax).any()):
+                problems.append(f"level_histogram_lanes level {level}: max |err| "
+                                f"{float(err.max()):.3g} against the float64 sums")
+            held["k3_err"] = max(held["k3_err"], float(err.max()))
+            del exact, err
+            mask = torch.rand(L, n_feat, generator=gen, device=cuda) < 0.7
+            mask[:, -1] = True
+            for obl, col in ((False, mask), (True, mask), (False, every)):
+                got = tr.best_splits_lanes(hist, col, lam, 1.0, obl)
+                want = tr.best_splits_lanes_reference(hist, col, lam_host, 1.0, obl)
+                for i in range(L):
+                    one = tr.best_splits(hist[i], col[i], lam_host[i], 1.0, obl)
+                    if not all(torch.equal(a[i], b) for a, b in zip(got, one)):
+                        problems.append(f"best_splits_lanes level {level} lane {i} "
+                                        f"oblivious={obl}: not the single-fit kernel's")
+                    near, worst = split_mismatches(
+                        tr, hist[i], col[i], 1.0, obl, [a[i] for a in got],
+                        [b[i] for b in want], lam=lam_host[i])
+                    held["k4_near"] += near
+                    held["k4_err"] = max(held["k4_err"], worst)
+                held["k4_calls"] += 1
+            f_l, b_l = got[0], got[1]
+            feats = torch.zeros((L, 1, (2 << LANES_LEVELS[-1]) - 1), dtype=torch.int32,
+                                device=cuda)
+            bins = torch.zeros_like(feats)
+            p_k, p_r, f_r, b_r = pos.clone(), pos.clone(), feats.clone(), bins.clone()
+            tr.route_rows(xb, p_k, f_l, b_l, feats, bins, 0, level)
+            tr.route_rows_reference(xb, p_r, f_l, b_l, f_r, b_r, 0, level)
+            torch.cuda.synchronize()
+            if not (torch.equal(p_k, p_r) and torch.equal(feats, f_r)
+                    and torch.equal(bins, b_r)):
+                problems.append(f"route_rows level {level}: "
+                                f"{int((p_k != p_r).sum())} rows off the torch ops")
+            # times (CUDA graphs); the routing updates pos in place, so each
+            # timed call restores it first, and the copy is timed alone
+            keys = (torch.arange(L, device=cuda)[:, None, None] * (nodes * n_feat * 64)
+                    + pos.long()[:, :, None] * (n_feat * 64)
+                    + torch.arange(n_feat, device=cuda)[None, None, :] * 64
+                    + xb.long()[None]).reshape(-1)
+            vals = torch.stack([g, h], dim=-1)[:, :, None, :].expand(
+                L, n, n_feat, 2).reshape(-1, 2)
+            p_t = pos.clone()
+            slow = dict(calls=2, replays=3)         # the plain versions loop over lanes
+            timed[level] = {
+                "k3": device_ms(lambda: tr.level_histogram_lanes(
+                    xb, pos, g, h, nodes, bounds, n_bins, bins_checked=True)),
+                "k3_plain": device_ms(lambda: tr.level_histogram_lanes_reference(
+                    xb, pos, g, h, nodes), **slow),
+                "k3_library": device_ms(lambda: torch.zeros(
+                    (L * nodes * n_feat * 64, 2), device=cuda).index_add_(0, keys, vals)),
+                "k3_bound": level_histogram_bound(n, n_feat, nodes, L),
+                "k4": device_ms(lambda: tr.best_splits_lanes(hist, every, lam, 1.0, False)),
+                "k4_plain": device_ms(lambda: tr.best_splits_lanes_reference(
+                    hist, every, lam_host, 1.0, False), **slow),
+                "k4_oblivious": device_ms(lambda: tr.best_splits_lanes(
+                    hist, every, lam, 1.0, True)),
+                "k4_oblivious_plain": device_ms(lambda: tr.best_splits_lanes_reference(
+                    hist, every, lam_host, 1.0, True), **slow),
+                "k4_bound": best_splits_bound(nodes, n_feat, L),
+                "route_copy": device_ms(lambda: p_t.copy_(pos)),
+                "route_with_copy": device_ms(lambda: (p_t.copy_(pos), tr.route_rows(
+                    xb, p_t, f_l, b_l, feats, bins, 0, level))),
+                "route_plain_with_copy": device_ms(lambda: (
+                    p_t.copy_(pos), tr.route_rows_reference(
+                        xb, p_t, f_l, b_l, f_r, b_r, 0, level))),
+                "route_bound": route_rows_bound(n, nodes, L),
+            }
+            t = timed[level]
+            t["route"] = t["route_with_copy"] - t["route_copy"]
+            t["route_plain"] = t["route_plain_with_copy"] - t["route_copy"]
+            del hist, keys, vals
+
+        # K5 over lanes with the next tree, 64 and 1,024 leaves
+        scale = torch.linspace(0.02, 0.3, L, device=cuda)
+        sub = torch.linspace(0.6, 1.0, L, device=cuda)
+        scale_host, sub_host = scale.tolist(), sub.tolist()
+        k5_err, k5 = 0.0, {}
+        for n_leaves in (64, 1024):
+            pos = torch.randint(0, n_leaves, (L, n), generator=gen, dtype=torch.int32,
+                                device=cuda)
+            u = torch.rand(L, n, generator=gen, device=cuda)
+            nxt = tr.NextTree(y, u, sub, w, "cls")
+            nxt_host = tr.NextTree(y, u, sub_host, w, "cls")
+            p_k, p_f, p_64 = margins.clone(), margins.clone(), margins.double()
+            got = tr.leaf_values_lanes(pos, g, h, n_leaves, lam, scale, p_k, bounds, nxt)
+            want = tr.leaf_values_lanes_fixed_reference(pos, g, h, n_leaves, lam_host,
+                                                        scale_host, p_f, bounds,
+                                                        nxt_host)
+            leaf_64 = tr.leaf_values_lanes_reference(pos, g.double(), h.double(),
+                                                     n_leaves, lam_host, scale_host,
+                                                     p_64)
+            torch.cuda.synchronize()
+            if not (torch.equal(p_k, p_f) and all(torch.equal(a, b)
+                                                  for a, b in zip(got, want))):
+                problems.append(f"leaf_values_lanes {n_leaves} leaves: not its "
+                                f"fixed-point plain version with the next tree")
+            for i in range(L):
+                p_one = margins[i].clone()
+                one = tr.leaf_values(pos[i], g[i], h[i], n_leaves, lam_host[i],
+                                     scale_host[i], p_one, bounds[i],
+                                     tr.NextTree(y, u[i], sub_host[i], w[i], "cls"))
+                if not (torch.equal(p_one, p_k[i])
+                        and all(torch.equal(a[i], b) for a, b in zip(got, one))):
+                    problems.append(f"leaf_values_lanes {n_leaves} leaves lane {i}: "
+                                    f"not the single-fit kernel's")
+            k5_err = max(k5_err, float((got[0].double() - leaf_64).abs().max()))
+            p_t = margins.clone()
+            k5[n_leaves] = {
+                "ms": device_ms(lambda: tr.leaf_values_lanes(
+                    pos, g, h, n_leaves, lam, scale, p_t, bounds, nxt)),
+                "plain_ms": device_ms(lambda: tr.leaf_values_lanes_reference(
+                    pos, g, h, n_leaves, lam_host, scale_host, p_t, nxt_host), **slow),
+                "bound": leaf_values_bound(n, n_leaves, True, L)}
+
+        stage_s["kernels held and timed"] = time.time() - t_stage
+        t_stage = time.time()
+        # -- xgb's 255-lane group: 51 trials x 5 folds -------------------------
+        kw = dict(n_iter=LANES_GROUP_TRIALS, cv=tcfg.search_folds, seed=tcfg.seed,
+                  extra_trials=[cl.DEFAULT_TRIALS["xgb"]], device=cuda)
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()     # the earlier phases' tensors
+        t0 = time.time()
+        group = bs.batched_random_search("xgb", fx, fy, cl.SEARCH_SPACES["xgb"], **kw)
+        torch.cuda.synchronize()
+        group_s = time.time() - t0
+        group_peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+        group_launches = {k: v for k, v in read().items() if v}
+        # the same lanes under torch.profiler for their first LANES_PROFILED_TREES
+        # trees: every tree repeats the same launches, and the profiler's
+        # post-processing of the whole group's ~600,000 events takes minutes
+        window = [{**trial_params(t), "n_estimators": LANES_PROFILED_TREES}
+                  for t in group.trials]
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            bs._score_param_sets("xgb", fx, fy, window, tcfg.search_folds,
+                                 tcfg.seed, False, cuda)
+            torch.cuda.synchronize()
+            window_s = time.time() - t0
+        t0 = time.time()
+        window_busy = profile_summary(prof, lambda name: name)["device_busy_ms"]
+        window_calls = host_launch_calls(prof)
+        window_draws = sum(e.count for e in prof.key_averages()
+                           if e.key in ("aten::rand", "aten::poisson"))
+        del prof
+        stage_s["xgb group"] = time.time() - t_stage
+        stage_s["profiler post-processing"] = time.time() - t0
+    finally:
+        bs.FOREST_VMAP = vmap_before
+    n_lanes = len(group.trials) * tcfg.search_folds
+    print(f"[14 xgb group] batched_random_search('xgb') with the lanes, "
+          f"{len(group.trials)} trials x {tcfg.search_folds} folds = {n_lanes} lanes "
+          f"of 300 trees x depth 6 over {len(fy)} rows: {group_s:.3f} s wall, peak "
+          f"allocated {group_peak:.3f} GiB above the {live / 2 ** 30:.3f} GiB live "
+          f"before it, launches {group_launches} | its first "
+          f"{LANES_PROFILED_TREES} trees under torch.profiler: {window_s:.3f} s, "
+          f"device busy {window_busy:.1f} ms ({window_busy / 1e3 / window_s:.1%}), "
+          f"{window_calls} host launch calls ({window_calls / LANES_PROFILED_TREES:.1f} "
+          f"a tree), {window_draws} of them the per-lane draws (aten::rand, "
+          f"aten::poisson; {window_draws / LANES_PROFILED_TREES:.1f} a tree) | best CV "
+          f"accuracy {group.best_score:.4f} {group.best_params} | phase 14 stage s "
+          f"{ {k: round(v, 1) for k, v in stage_s.items()} }", flush=True)
+
+    def lv(key, field=None):
+        return [timed[lv_][key][field] if field else timed[lv_][key]
+                for lv_ in LANES_LEVELS]
+
+    print(f"[14 lane kernels] L={L} lanes (3 trials x 5 folds' row weights), "
+          f"n={n}, F={n_feat}, levels {list(LANES_LEVELS)} (ms): "
+          f"level_histogram_lanes {fmt(lv('k3'))}, plain {fmt(lv('k3_plain'))}, "
+          f"index_add_ over the lanes' keys {fmt(lv('k3_library'))}, bound "
+          f"{fmt(lv('k3_bound', 'bound_ms'))}; best_splits_lanes {fmt(lv('k4'))}, "
+          f"plain {fmt(lv('k4_plain'))}, oblivious {fmt(lv('k4_oblivious'))}, plain "
+          f"{fmt(lv('k4_oblivious_plain'))}, bound {fmt(lv('k4_bound', 'bound_ms'))}; "
+          f"route_rows {fmt(lv('route'))} (with pos restored "
+          f"{fmt(lv('route_with_copy'))}, the copy {fmt(lv('route_copy'))}), plain "
+          f"{fmt(lv('route_plain'))}, bound {fmt(lv('route_bound', 'bound_ms'))}; "
+          f"leaf_values_lanes with the next tree, 64 / 1,024 leaves "
+          f"{k5[64]['ms']:.4f} / {k5[1024]['ms']:.4f}, plain {k5[64]['plain_ms']:.4f} "
+          f"/ {k5[1024]['plain_ms']:.4f}, bound {k5[64]['bound']['bound_ms']:.6f} / "
+          f"{k5[1024]['bound']['bound_ms']:.6f} | K3 bit-equal to its fixed-point "
+          f"plain version and to the single-fit kernel lane by lane, max |err| "
+          f"{held['k3_err']:.3g} against the float64 sums; K4 ({held['k4_calls']} "
+          f"calls, per node and oblivious, lambda 0.1-10 a lane, column masks) equal "
+          f"to the single-fit kernel lane by lane and to the plain version but "
+          f"{held['k4_near']} counted near ties (max |dscore| {held['k4_err']:.3g}); "
+          f"K5 with the next tree bit-equal to its fixed-point plain version and the "
+          f"single-fit kernel, max |dleaf| {k5_err:.3g} against the float64 sums; "
+          f"routing integer-equal | phase 14 {time.time() - t14:.1f} s on {card}",
+          flush=True)
+    if problems:
+        raise AssertionError("phase 14: " + " | ".join(problems))
+    main = LANES_LEVELS.index(5)
+    replaces = {"forest_level_histogram_lanes": "bbbp_tpu/ops/forest_tpu.py:188",
+                "forest_best_splits_lanes": "bbbp_tpu/ops/forest_tpu.py:125",
+                "forest_leaf_values_lanes": "bbbp_tpu/ops/forest_tpu.py:340",
+                "forest_route_rows": "bbbp_tpu/ops/forest_tpu.py:335"}
+    keys = {"forest_level_histogram_lanes": "k3", "forest_best_splits_lanes": "k4",
+            "forest_route_rows": "route"}
+    entries = []
+    for name in lane_names:
+        entry = {"name": name, "route": "cuda",
+                 "source": "bbbp_tpu_torch/csrc/forest_train.cu",
+                 "replaces": replaces[name], "launches": launches[name],
+                 "launches_xgb_group": group_launches.get(name, 0)}
+        if name == "forest_leaf_values_lanes":
+            t = k5[64]
+            entry.update(max_abs_err=k5_err, ms=t["ms"], plain_ms=t["plain_ms"],
+                         bound_ms=t["bound"]["bound_ms"],
+                         bound_by=t["bound"]["bound_by"], library_ms=None,
+                         shape=f"L={L}, n={n}, 64 leaves, with the next tree",
+                         ms_1024_leaves=k5[1024]["ms"],
+                         plain_ms_1024_leaves=k5[1024]["plain_ms"],
+                         bound_ms_1024_leaves=k5[1024]["bound"]["bound_ms"])
+        else:
+            key = keys[name]
+            t = timed[LANES_LEVELS[main]]
+            entry.update(
+                max_abs_err={"k3": held["k3_err"], "k4": held["k4_err"],
+                             "route": 0.0}[key],
+                ms=t[key], plain_ms=t[key + "_plain"],
+                bound_ms=t[key + "_bound"]["bound_ms"],
+                bound_by=t[key + "_bound"]["bound_by"],
+                library_ms=t["k3_library"] if key == "k3" else None,
+                shape=f"L={L}, n={n}, F={n_feat}, level {LANES_LEVELS[main]}",
+                levels=list(LANES_LEVELS), ms_levels=lv(key),
+                plain_ms_levels=lv(key + "_plain"),
+                bound_ms_levels=lv(key + "_bound", "bound_ms"))
+            if key == "k3":
+                entry["library_call"] = ("torch.zeros(...).index_add_(0, keys, (g, h) "
+                                         "values) over the lanes' keys, made beforehand")
+                entry["library_ms_levels"] = lv("k3_library")
+            if key == "k4":
+                entry["ms_oblivious_levels"] = lv("k4_oblivious")
+                entry["plain_ms_oblivious_levels"] = lv("k4_oblivious_plain")
+                entry["near_tie_nodes"] = held["k4_near"]
+            if key == "route":
+                entry["ms_with_pos_restored_levels"] = lv("route_with_copy")
+                entry["copy_ms_levels"] = lv("route_copy")
+        entries.append(entry)
+    group_info = {"lanes": n_lanes, "trees": 300, "wall_s": group_s,
+                  "peak_gib_above_live": group_peak, "live_gib": live / 2 ** 30,
+                  "profiled_trees": LANES_PROFILED_TREES,
+                  "profiled_s": window_s, "busy_ms": window_busy,
+                  "host_launch_calls": window_calls, "draws": window_draws}
+    for entry in entries:
+        entry["xgb_group"] = group_info
+    return {"kernels": entries}
 
 
 def own_children() -> list:
@@ -3126,7 +3578,8 @@ def run() -> int:
 
     # -- phase 6: training the screening model --------------------------------
     smiles, labels = labelled_training_set()
-    for counter in (tr.level_histogram, tr.best_splits, tr.leaf_values):
+    for counter in (tr.level_histogram, tr.best_splits, tr.leaf_values,
+                    tr.route_rows):
         counter.launches.reset()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -3135,10 +3588,12 @@ def run() -> int:
     train_s = time.time() - t0
     train_launches = {"forest_level_histogram": tr.level_histogram.launches.count,
                       "forest_best_splits": tr.best_splits.launches.count,
-                      "forest_leaf_values": tr.leaf_values.launches.count}
+                      "forest_leaf_values": tr.leaf_values.launches.count,
+                      "forest_route_rows": tr.route_rows.launches.count}
     want_launches = {"forest_level_histogram": N_TREES * TRAIN_DEPTH,
                      "forest_best_splits": N_TREES * TRAIN_DEPTH,
-                     "forest_leaf_values": N_TREES}
+                     "forest_leaf_values": N_TREES,
+                     "forest_route_rows": N_TREES * TRAIN_DEPTH}
     if train_launches != want_launches:
         raise AssertionError(f"ScreeningModel.train launches {train_launches}, "
                              f"expected {want_launches}")
@@ -3252,7 +3707,11 @@ def run() -> int:
                 "forest_best_splits": tr.best_splits,
                 "forest_leaf_values": tr.leaf_values,
                 "tanimoto_topk": sm.tanimoto_topk_packed,
-                "tanimoto_gram": sm.tanimoto_gram, "minmax_gram": sm.minmax_gram}
+                "tanimoto_gram": sm.tanimoto_gram, "minmax_gram": sm.minmax_gram,
+                "forest_route_rows": tr.route_rows,
+                "forest_level_histogram_lanes": tr.level_histogram_lanes,
+                "forest_best_splits_lanes": tr.best_splits_lanes,
+                "forest_leaf_values_lanes": tr.leaf_values_lanes}
     with tempfile.TemporaryDirectory() as cache:
         t0 = time.time()
         aux_raw = raw_transfer_features(smiles, cache_dir=cache)
@@ -3281,6 +3740,9 @@ def run() -> int:
                              reg["stacked_r2"])
         rep = reporting_phase(card, counters, reg_dir, p9, p10)
     reg_launches = reg["launches"]
+
+    # -- phase 14: the lane-batched forest search -----------------------------
+    lanes = lanes_phase(card, counters, p10)
 
     kernels = [
         {"name": "packed_project", "route": "cuda",
@@ -3452,6 +3914,14 @@ def run() -> int:
             if "bound_weighted" in other:
                 entry["bound_ms_weighted" + suffix] = other["bound_weighted"]["bound_ms"]
         kernels.append(entry)
+    # the routing kernel in the sequential fits of phases 6, 8, 10 and 11;
+    # its own entry holds phase 14's lanes
+    route_entry = next(e for e in lanes["kernels"] if e["name"] == "forest_route_rows")
+    route_entry.update(launches_train=train_launches["forest_route_rows"],
+                       launches_transfer=transfer_launches["forest_route_rows"],
+                       launches_classification=cls_launches["forest_route_rows"],
+                       launches_regression=reg_launches["forest_route_rows"])
+    kernels += lanes["kernels"]
     for entry in kernels:
         entry["launches_families"] = fam["launches"][entry["name"]]
         entry["launches_reporting"] = rep["launches"][entry["name"]]
