@@ -205,6 +205,18 @@ def kernels_lib() -> ctypes.CDLL:
         _P,                    # scratch int32 [L, 2·candidates] or null
         _P, _P, _P, _I, _P,    # feat, bin [L, nodes] int32, has_split bool, L, stream
     ]
+    lib.bbbp_forest_level_splits_lanes.restype = _I
+    lib.bbbp_forest_level_splits_lanes.argtypes = [
+        _P, _I, _I,            # xb [n, F] uint8
+        _P, _P, _P, _I,        # pos [L, n] int32, g, h [L, n] f32, n_nodes
+        _P, _P,                # bounds [L, 2] f32, n_bins [F] uint8 or null
+        _P, _P, _F,            # col_mask [L, F] bool, lambda [L] f32, min_child
+        _I, _I, _I,            # rows_per_item, own_rows, units a warp
+        _P, _P, _P, _P,        # scratch: rows, plan, acc, candidates
+        _P, _P, _P,            # feat, bin [L, nodes] int32, has_split bool
+        _I, ctypes.c_longlong,  # L, scratch words a lane
+        _P,                    # stream
+    ]
     lib.bbbp_forest_leaf_values_lanes.restype = _I
     lib.bbbp_forest_leaf_values_lanes.argtypes = [
         _P, _I, _P, _P,        # pos [L, n] int32, g, h [L, n] f32

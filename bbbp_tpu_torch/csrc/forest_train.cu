@@ -16,6 +16,10 @@
 //    reference's compiled tree step rounds it; in boosting also the next
 //    tree's g, h (tree_step, :302-319) from the updated margins, and their
 //    (max |g|, max |h|).
+// bbbp_forest_level_splits_lanes — replaces _grow_level (:154-231) under
+//    jax.vmap, as bbbp_tpu/train/batched_search.py:340-344 runs it: one
+//    level's split search over lanes, K3's sums and K4's per-node pick in
+//    one pass, with no histogram in device memory (see its design below).
 // bbbp_forest_route_rows — replaces the routing of _fit_forest_device
 //    (:335-338): pos <- 2 * pos + (xb[row, f[pos]] > b[pos]) for every row,
 //    and the level's (feature, bin) pairs written into the tree's flat
@@ -139,6 +143,62 @@
 // (gain, index); a second one-block launch takes the first-index maximum of
 // those and writes the level's split to every node.
 //
+// Fused split search design (lanes, per-node mode). K3 then K4 with lanes
+// hand over a dense [L, nodes, F, 64, 2] f32 histogram, written and read
+// back: at rf's level 9 a node holds ~16 of 8,162 rows, so at most 480 of
+// its 1,920 (feature, bin) cells are not zero, and 250 lanes move 2 GB each
+// way a level. The reference never exposes it: _grow_level returns (feat,
+// bin, has_split) a node. So the gains are taken where the sums lie.
+// 1. hist_group_kernel, as K3: each lane's rows sorted by node, items
+//    (node, row range) of at most own_rows rows, a split node's items with
+//    an int64 accumulator slot, the lane's fixed-point scales.
+// 2. level_splits_kernel: a unit is (item, group of 8 live features), a
+//    warp a unit, a block of kSplitWarps warps walking `run` units a warp
+//    (split_run in ops/forest_train.py: one unit while the units fill four
+//    rounds of the card's warps, up to 8 where many small nodes would each
+//    pay a block's start-up, zeroing its tiles). Timed by chip_smoke.py
+//    phase 14 on an H100 80GB HBM3 at 700 W, n = 8,162, F = 30, levels
+//    9 / 11: at 250 lanes 1.297 / 3.279 ms against 1.568 / 4.084 with one
+//    unit a warp, at 15 lanes 0.098 / 0.211 against 0.103 / 0.248; at
+//    levels 0 and 5 the runs (2-4 units at 250 lanes) are within 2% of one
+//    unit. A node's groups run on as
+//    many warps, so a large node is not one warp's serial work. The warp
+//    sums its rows into its own tile of 8
+//    features x 64 bins of int64 (g, h) in shared memory, K3's quantisation
+//    and two-word atomics. A unit of an owned node rounds each non-zero bin
+//    once to f32 (K3's value), in place: these are the only int64 -> f64
+//    -> f32 conversions, which run on the slow double-precision unit. Then
+//    K4's sums in K4's order
+//    (lane 4s + k: chunk k of slot s, sequential inside the chunk, chunk
+//    offsets last) and K4's gain with K4's rounded operations
+//    (group_best): every bin of the chunk is summed, and the gain is taken
+//    only at fresh bins: a bin whose left sums have the bits of the bin
+//    before it has the same gain and validity, and the first index wins
+//    ties, so it is never the pick (an empty bin adds +0, so it is such a
+//    bin unless a sum of -0 becomes +0, and then it is fresh). Fresh bins
+//    are queued in the tile and the warp's 32 lanes take them in turn.
+//    The unit writes its first-index maximum (gain, f * 64 + b) as the
+//    (node, group) candidate. A unit of a split node adds its non-zero
+//    bins to the node's slot instead.
+// 3. splits_finish_kernel: a block a slot in use takes those nodes' group
+//    candidates from their int64 sums, with group_best.
+// 4. splits_pick_kernel (K4's): a thread a node, the first-index maximum of
+//    its group candidates; dead-node rule (feature 0, bin 63) where the gain
+//    is not finite or not > 0. The candidates are fixed values, so the
+//    result does not depend on the order in which units run.
+// The candidates are 8 bytes a (node, group), the only output of step 2.
+// Every value the pick sees is the one K4 computes from K3's histogram, so
+// (feat, bin, has_split) equal K3 then K4 with lanes bit for bit.
+// Oblivious mode sums a (feature, bin)'s gain over the level's nodes before
+// its argmax, so it cannot finish node by node: it keeps K3 then K4.
+// Tried on the card and dropped: a warp a whole node (slower at 15 lanes'
+// shallow levels, where a level has too few nodes to fill the card, and
+// wherever nodes were skewed, a large node being one warp's serial work),
+// converting every bin, touched or not (the double-precision unit bound
+// it), and a sparse form for nodes of few rows, which marked the bins its
+// rows touched and walked only those (faster only at a level of even
+// 8-row nodes that no tree of the search reaches, slower at level 8).
+//
 // K5 design: one launch, no memset, no global scratch. One thread block
 // cluster of up to 16 blocks of 1,024 threads, a row a thread (8 blocks at
 // the trainer's 7,809 rows), more rows in a loop.
@@ -211,6 +271,12 @@ constexpr int kLeafMaxCluster = 16;         // non-portable above 8
 constexpr int kRouteThreads = 256;
 constexpr int kRouteMaxNodes = 2048;        // a level of a depth-12 tree
 constexpr int kMaxLanes = 65535;            // a grid's y and z extent
+constexpr int kSplitWarps = 8;              // warps a block, fused split search
+constexpr int kSplitBlocks = 3;             // blocks an SM, for the registers
+constexpr int kSplitUnroll = 4;             // (row, feature) pairs a lane has in flight
+constexpr int kTileChunk = kChunk + 1;      // cells a chunk's row of a tile, padded
+constexpr int kWarpTile = 32 * kTileChunk;  // cells of a warp's tile: 8 features
+constexpr int kMaxSplitFeats = 8192;
 
 typedef unsigned long long u64;
 
@@ -675,14 +741,20 @@ __device__ __forceinline__ bool better(float ag, int ai, float bg, int bi) {
   return ai < bi;
 }
 
-__device__ Best block_best(Best mine) {
-  __shared__ float s_gain[32];
-  __shared__ int s_idx[32];
+// the warp's best, in every lane
+__device__ __forceinline__ Best warp_best(Best mine) {
   for (int o = 16; o > 0; o >>= 1) {
     const float og = __shfl_xor_sync(0xffffffffu, mine.gain, o);
     const int oi = __shfl_xor_sync(0xffffffffu, mine.idx, o);
     if (better(og, oi, mine.gain, mine.idx)) mine = {og, oi};
   }
+  return mine;
+}
+
+__device__ Best block_best(Best mine) {
+  __shared__ float s_gain[32];
+  __shared__ int s_idx[32];
+  mine = warp_best(mine);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
     s_gain[warp] = mine.gain;
@@ -691,13 +763,8 @@ __device__ Best block_best(Best mine) {
   __syncthreads();
   if (warp == 0) {
     const int warps = blockDim.x >> 5;
-    mine = lane < warps ? Best{s_gain[lane], s_idx[lane]}
-                        : Best{-INFINITY, 0x7fffffff};
-    for (int o = 16; o > 0; o >>= 1) {
-      const float og = __shfl_xor_sync(0xffffffffu, mine.gain, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, mine.idx, o);
-      if (better(og, oi, mine.gain, mine.idx)) mine = {og, oi};
-    }
+    mine = warp_best(lane < warps ? Best{s_gain[lane], s_idx[lane]}
+                                  : Best{-INFINITY, 0x7fffffff});
   }
   return mine;                              // valid in warp 0
 }
@@ -736,59 +803,92 @@ __device__ __forceinline__ void stage_copy(float* stage, int lane, Slice slice) 
   __syncwarp();
 }
 
+// The bin sums of one 16-bin chunk, K4's order: lane 4 * s + k holds chunk k
+// of feature slot s; bin(i) gives its bin i as f32 (g, h). rg, rh: the
+// running sums inside the chunk, sequential; og, oh: the chunks before it,
+// added in chunk order; tg, th the feature's totals and parent its term.
+// All 32 lanes must call it: the four lanes of a feature exchange their chunk
+// totals by shuffle.
+struct ChunkOffsets {
+  float og, oh, tg, th, parent;
+};
+
+struct ChunkSums : ChunkOffsets {
+  float rg[kChunk], rh[kChunk];
+};
+
+// K4's chunk offsets from each lane's chunk totals (ag, ah): og, oh the
+// chunks before the lane's, in chunk order; tg, th the feature's totals and
+// parent its term.
+__device__ __forceinline__ void chunk_offsets(float ag, float ah, float lam,
+                                              ChunkOffsets& c) {
+  const int lane = threadIdx.x & 31, k = lane & (kChunks - 1);
+  float og = 0.f, oh = 0.f;
+  c.og = c.oh = c.tg = c.th = 0.f;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const float cg = __shfl_sync(0xffffffffu, ag, (lane & ~(kChunks - 1)) + j);
+    const float ch = __shfl_sync(0xffffffffu, ah, (lane & ~(kChunks - 1)) + j);
+    if (j == k) {
+      c.og = og;
+      c.oh = oh;
+    }
+    if (j == kChunks - 1) {
+      c.tg = __fadd_rn(cg, og);
+      c.th = __fadd_rn(ch, oh);
+    }
+    og = __fadd_rn(og, cg);
+    oh = __fadd_rn(oh, ch);
+  }
+  c.parent = __fdiv_rn(__fmul_rn(c.tg, c.tg), __fadd_rn(c.th, lam));
+}
+
+template <typename Bin>
+__device__ __forceinline__ void chunk_sums(Bin bin, float lam, ChunkSums& c) {
+  float ag = 0.f, ah = 0.f;
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    const float2 v = bin(i);
+    ag = i ? __fadd_rn(ag, v.x) : v.x;
+    ah = i ? __fadd_rn(ah, v.y) : v.y;
+    c.rg[i] = ag;
+    c.rh[i] = ah;
+  }
+  chunk_offsets(ag, ah, lam, c);
+}
+
+// The XGBoost gain of a split with left sums (gl, hl) and right (gr, hr).
+__device__ __forceinline__ float split_gain(float gl, float hl, float gr, float hr,
+                                            float parent, float lam) {
+  const float left = __fdiv_rn(__fmul_rn(gl, gl), __fadd_rn(hl, lam));
+  const float right = __fdiv_rn(__fmul_rn(gr, gr), __fadd_rn(hr, lam));
+  return __fsub_rn(__fadd_rn(left, right), parent);
+}
+
 // Lane 4 * s + k of a warp holds chunk k (16 bins) of the feature staged in
 // slot s. Calls visit(b, gain, valid) for its bins in order. All 32 lanes
-// must call it: the four lanes of a feature exchange their chunk totals,
-// and the two divisions of a bin are skipped where no lane's bin is valid
-// (deep levels: most bins hold less than min_child on one side).
+// must call it, and the two divisions of a bin are skipped where no lane's
+// bin is valid (deep levels: most bins hold less than min_child on one side).
 // The sums are those of the plain version: sequential inside a chunk, the
 // offset of the chunks before it added last, in chunk order.
 template <typename Visit>
 __device__ __forceinline__ void chunk_gains(const float* __restrict__ stage,
                                             float lam, float min_child,
                                             Visit visit) {
-  const int lane = threadIdx.x & 31, k = lane & (kChunks - 1);
-  const float2* bins = reinterpret_cast<const float2*>(stage + lane * kChunkStride);
-  float rg[kChunk], rh[kChunk];
-  float ag = 0.f, ah = 0.f;
+  const int k = threadIdx.x & (kChunks - 1);
+  const float2* bins = reinterpret_cast<const float2*>(
+      stage + (threadIdx.x & 31) * kChunkStride);
+  ChunkSums c;
+  chunk_sums([&](int i) { return bins[i]; }, lam, c);
 #pragma unroll
   for (int i = 0; i < kChunk; ++i) {
-    const float2 v = bins[i];
-    ag = i ? __fadd_rn(ag, v.x) : v.x;
-    ah = i ? __fadd_rn(ah, v.y) : v.y;
-    rg[i] = ag;
-    rh[i] = ah;
-  }
-  float og = 0.f, oh = 0.f, my_og = 0.f, my_oh = 0.f, tg = 0.f, th = 0.f;
-#pragma unroll
-  for (int j = 0; j < kChunks; ++j) {
-    const float cg = __shfl_sync(0xffffffffu, ag, (lane & ~(kChunks - 1)) + j);
-    const float ch = __shfl_sync(0xffffffffu, ah, (lane & ~(kChunks - 1)) + j);
-    if (j == k) {
-      my_og = og;
-      my_oh = oh;
-    }
-    if (j == kChunks - 1) {
-      tg = __fadd_rn(cg, og);
-      th = __fadd_rn(ch, oh);
-    }
-    og = __fadd_rn(og, cg);
-    oh = __fadd_rn(oh, ch);
-  }
-  const float parent = __fdiv_rn(__fmul_rn(tg, tg), __fadd_rn(th, lam));
-#pragma unroll
-  for (int i = 0; i < kChunk; ++i) {
-    const float gl = __fadd_rn(rg[i], my_og);
-    const float hl = __fadd_rn(rh[i], my_oh);
-    const float gr = __fsub_rn(tg, gl);
-    const float hr = __fsub_rn(th, hl);
+    const float gl = __fadd_rn(c.rg[i], c.og);
+    const float hl = __fadd_rn(c.rh[i], c.oh);
+    const float gr = __fsub_rn(c.tg, gl);
+    const float hr = __fsub_rn(c.th, hl);
     const bool valid = hl >= min_child && hr >= min_child;
     float gain = 0.f;                         // read only where valid
-    if (__any_sync(0xffffffffu, valid)) {
-      const float left = __fdiv_rn(__fmul_rn(gl, gl), __fadd_rn(hl, lam));
-      const float right = __fdiv_rn(__fmul_rn(gr, gr), __fadd_rn(hr, lam));
-      gain = __fsub_rn(__fadd_rn(left, right), parent);
-    }
+    if (__any_sync(0xffffffffu, valid)) gain = split_gain(gl, hl, gr, hr, c.parent, lam);
     visit(k * kChunk + i, gain, valid);
   }
 }
@@ -959,6 +1059,298 @@ __global__ void oblivious_pick_kernel(const float* __restrict__ cand_gain,
   const Best best = s_best;
   for (int node = threadIdx.x; node < n_nodes; node += blockDim.x)
     write_split(best, node, feat, bin, has_split);
+}
+
+// ---- the fused split search over lanes -------------------------------------
+
+// A fresh bin waiting for its gain (see the fused search's design): its left
+// sums, f * 64 + b, and its feature's slot in the warp's group.
+struct Fresh {
+  float gl, hl;
+  int idx, slot;
+};
+
+// Cell of (feature slot s, bin b) in a warp's tile: chunk (s, b / 16) is a
+// row of kTileChunk cells, one more than its bins, so that the lanes reading
+// their chunks' bin i meet on distinct banks.
+__device__ __forceinline__ int tile_cell(int s, int b) {
+  return (s * kChunks + (b >> 4)) * kTileChunk + (b & (kChunk - 1));
+}
+
+// The lane's unmasked features, in order, into feats; returns their count.
+// One warp works; every thread of the block must call it.
+__device__ int live_features(const bool* __restrict__ col_mask, int F, int* feats,
+                             int* s_count) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int count = 0;
+    for (int f0 = 0; f0 < F; f0 += 32) {
+      const int f = f0 + lane;
+      const bool on = f < F && col_mask[f];
+      const unsigned ball = __ballot_sync(0xffffffffu, on);
+      if (on) feats[count + __popc(ball & ((1u << lane) - 1))] = f;
+      count += __popc(ball);
+    }
+    if (lane == 0) *s_count = count;
+  }
+  __syncthreads();
+  return *s_count;
+}
+
+// The best (gain, f * 64 + b) of one warp's group of `count` live features
+// feats[0..count), merged into `best` (each lane its own). Lane 4 * s + k
+// takes chunk k of feats[s]; bin(s, b) gives bin b of slot s as f32 (g, h),
+// K3's value (one rounding of its fixed-point sums; bins past n_bins are
+// K3's zeros). From them K4's sums and gains, op for op, so the pick is K4's
+// on K3's histogram. Only fresh bins get a gain: a bin whose left sums (gl,
+// hl) have the bits of the bin before it in its chunk has that bin's gr, hr,
+// validity and gain bit for bit, and ties go to the first index, so it can
+// never be the pick (an empty bin is such a bin, but where a sum of -0
+// meets +0). The fresh bins are queued (`queue`, up to 512) and the warp's
+// lanes take them in turn; *queued is their number. totals holds each
+// slot's (tg, th, parent).
+template <typename Bin>
+__device__ __forceinline__ Best group_best(Bin bin, const int* __restrict__ feats,
+                                           int count, const uint8_t* __restrict__ n_bins,
+                                           float lam, float min_child, Fresh* queue,
+                                           float (*totals)[3], int* queued, Best best) {
+  const int lane = threadIdx.x & 31, s = lane / kChunks, k = lane & (kChunks - 1);
+  const bool live = s < count;
+  const int f = live ? feats[s] : 0;
+  const int nb = !live ? 0 : (n_bins ? min(static_cast<int>(n_bins[f]), kBins) : kBins);
+  ChunkSums c;
+  chunk_sums([&](int i) {
+    const int b = k * kChunk + i;
+    return b < nb ? bin(s, b) : make_float2(0.f, 0.f);
+  }, lam, c);
+  unsigned fresh = 0;
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    const float gl = __fadd_rn(c.rg[i], c.og), hl = __fadd_rn(c.rh[i], c.oh);
+    const int before = i > 0 ? i - 1 : 0;
+    if (i == 0 || __float_as_uint(gl) != __float_as_uint(c.rg[before]) ||
+        __float_as_uint(hl) != __float_as_uint(c.rh[before]))
+      fresh |= 1u << i;
+    c.rg[i] = gl;                           // now the left sums
+    c.rh[i] = hl;
+  }
+  if (!live) fresh = 0;
+  const int mine = __popc(fresh);
+  int at = mine;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, at, o);
+    if (lane >= o) at += up;
+  }
+  const int total = __shfl_sync(0xffffffffu, at, 31);
+  at -= mine;
+  __syncwarp();                             // every bin is read: the queue may overwrite them
+  if (k == 0 && live) {
+    totals[s][0] = c.tg;
+    totals[s][1] = c.th;
+    totals[s][2] = c.parent;
+  }
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i)
+    if (fresh >> i & 1) queue[at++] = Fresh{c.rg[i], c.rh[i], f * kBins + k * kChunk + i, s};
+  __syncwarp();
+  for (int e = lane; e < total; e += 32) {
+    const Fresh q = queue[e];
+    const float gr = __fsub_rn(totals[q.slot][0], q.gl);
+    const float hr = __fsub_rn(totals[q.slot][1], q.hl);
+    if (q.hl >= min_child && hr >= min_child) {
+      const float gain = split_gain(q.gl, q.hl, gr, hr, totals[q.slot][2], lam);
+      if (better(gain, q.idx, best.gain, best.idx)) best = {gain, q.idx};
+    }
+  }
+  *queued = total;
+  __syncwarp();                             // before the queue and totals are written again
+  return best;
+}
+
+// grid (blocks of kSplitWarps warps, lanes). A unit is an item
+// (hist_group_kernel's) and a group of 8 live features: unit u is item u /
+// groups and group u % groups. Warp w of block x takes units (x *
+// kSplitWarps + w) + j * gridDim.x * kSplitWarps, j < run, of its lane. The
+// warp sums the item's rows into its tile (int64 fixed point, as K3). A
+// unit of an item that is its node rounds its non-zero bins to f32 in
+// place (the only conversions: the double-precision unit is the slow one),
+// takes group_best from them and writes its first-index maximum to
+// cand_gain, cand_idx [node][group] (-inf where the group holds no live
+// feature); a unit of a part of a split node adds its non-zero bins to the
+// node's slot in acc. A warp leaves its tile zero behind it. Lane offsets as level_hist_kernel's; col_mask [L][F],
+// lams [L]; cand_* cand_lane apart.
+__global__ void __launch_bounds__(kSplitWarps * 32, kSplitBlocks)
+level_splits_kernel(const uint8_t* __restrict__ xb, int n, int F,
+                    const float* __restrict__ g, const float* __restrict__ h,
+                    const uint8_t* __restrict__ n_bins, const bool* __restrict__ col_mask,
+                    const float* __restrict__ lams, float min_child,
+                    const int* __restrict__ rows, const double* __restrict__ scales,
+                    const int4* __restrict__ items, const int* __restrict__ info,
+                    u64* __restrict__ acc, int groups, int run,
+                    float* __restrict__ cand_gain, int* __restrict__ cand_idx,
+                    size_t cand_lane, size_t lane_bytes) {
+  const size_t fit = blockIdx.y, at = fit * lane_bytes;
+  g += fit * n;
+  h += fit * n;
+  rows = shift(rows, at);
+  scales = shift(scales, at);
+  items = shift(items, at);
+  info = shift(info, at);
+  acc = shift(acc, at);
+  col_mask += fit * F;
+  cand_gain += fit * cand_lane;
+  cand_idx += fit * cand_lane;
+  const int n_units = info[0] * groups;
+  const int stride = gridDim.x * kSplitWarps;
+  if (static_cast<int>(blockIdx.x) * kSplitWarps >= n_units) return;
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  ulonglong2* tiles = reinterpret_cast<ulonglong2*>(split_smem);   // [warp][kWarpTile]
+  int* feats = reinterpret_cast<int*>(tiles + kSplitWarps * kWarpTile);   // [F]
+  __shared__ float s_totals[kSplitWarps][kGroupFeats][3];
+  __shared__ int s_live;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kSplitWarps * kWarpTile; i += blockDim.x)
+    tiles[i] = make_ulonglong2(0, 0);
+  const int live = live_features(col_mask, F, feats, &s_live);
+  const double sg = scales[0], sh = scales[1], inv_g = scales[2], inv_h = scales[3];
+  const float lam = lams[fit];
+  ulonglong2* tile = tiles + warp * kWarpTile;
+  const ulonglong2 zero = make_ulonglong2(0, 0);
+  const int slot = lane / kChunks, chunk = lane & (kChunks - 1);
+  for (int j = 0, u = blockIdx.x * kSplitWarps + warp; j < run && u < n_units;
+       ++j, u += stride) {
+    const int4 item = items[u / groups];
+    const int group = u % groups;
+    const int pairs = kGroupFeats * (item.z - item.y);
+    Best best{-INFINITY, 0x7fffffff};
+    if (group * kGroupFeats < live) {
+      const int count = min(kGroupFeats, live - group * kGroupFeats);
+      const int* gf = feats + group * kGroupFeats;
+      // pair p: row item.y + p / 8 at slot p % 8, kSplitUnroll pairs' loads in flight
+      for (int p0 = lane; p0 < pairs; p0 += 32 * kSplitUnroll) {
+        int r[kSplitUnroll], b[kSplitUnroll];
+        float gv[kSplitUnroll], hv[kSplitUnroll];
+#pragma unroll
+        for (int k = 0; k < kSplitUnroll; ++k) {
+          const int p = p0 + 32 * k;
+          r[k] = p < pairs && (p & (kGroupFeats - 1)) < count ? rows[item.y + p / kGroupFeats] : -1;
+        }
+#pragma unroll
+        for (int k = 0; k < kSplitUnroll; ++k) {
+          const int s = (p0 + 32 * k) & (kGroupFeats - 1);
+          b[k] = r[k] >= 0 ? xb[static_cast<size_t>(r[k]) * F + gf[s]] : 0;
+          gv[k] = r[k] >= 0 ? g[r[k]] : 0.f;
+          hv[k] = r[k] >= 0 ? h[r[k]] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kSplitUnroll; ++k) {
+          if (r[k] < 0) continue;
+          const int s = (p0 + 32 * k) & (kGroupFeats - 1);
+          ulonglong2* cell = tile + tile_cell(s, b[k]);
+          shared_add64(&cell->x, quantise(gv[k], sg));
+          shared_add64(&cell->y, quantise(hv[k], sh));
+        }
+      }
+      __syncwarp();
+      if (item.w < 0) {                     // the node is this item's
+        // this lane's chunk: its non-zero bins to f32 in place, K3's rounding
+        unsigned mine = 0xffffu;
+        for (int i = 0; i < kChunk; ++i) {
+          const ulonglong2 q = tile[tile_cell(slot, chunk * kChunk + i)];
+          if (!(q.x | q.y)) mine &= ~(1u << i);
+        }
+        for (unsigned m = mine; m; m &= m - 1) {
+          ulonglong2* cell = tile + tile_cell(slot, chunk * kChunk + __ffs(m) - 1);
+          const ulonglong2 q = *cell;
+          *reinterpret_cast<float2*>(cell) = make_float2(
+              q.x ? bin_value(static_cast<long long>(q.x), inv_g) : 0.f,
+              q.y ? bin_value(static_cast<long long>(q.y), inv_h) : 0.f);
+        }
+        int queued;
+        best = group_best(
+            [&](int s, int b) {
+              if (!(mine >> (b & (kChunk - 1)) & 1)) return make_float2(0.f, 0.f);
+              ulonglong2* cell = tile + tile_cell(s, b);
+              const float2 v = *reinterpret_cast<const float2*>(cell);
+              *cell = zero;
+              return v;
+            },
+            gf, count, n_bins, lam, min_child, reinterpret_cast<Fresh*>(tile),
+            s_totals[warp], &queued, best);
+        for (int i = lane; i < queued; i += 32) tile[i] = zero;   // the queue
+      } else {                              // a part of a split node: into its slot
+        u64* dst0 = acc + 2 * static_cast<size_t>(item.w) * F * kBins;
+        for (int i = lane; i < count * kBins; i += 32) {
+          const int s = i / kBins, b = i % kBins;
+          ulonglong2* cell = tile + tile_cell(s, b);
+          u64* dst = dst0 + 2 * (static_cast<size_t>(gf[s]) * kBins + b);
+          if (cell->x) atomicAdd(dst, cell->x);
+          if (cell->y) atomicAdd(dst + 1, cell->y);
+          *cell = zero;
+        }
+      }
+      __syncwarp();
+    }
+    if (item.w >= 0) continue;
+    best = warp_best(best);
+    if (lane == 0) {
+      const size_t cand = static_cast<size_t>(item.x) * groups + group;
+      cand_gain[cand] = best.gain;
+      cand_idx[cand] = best.idx;
+    }
+  }
+}
+
+// grid (acc_slots, lanes): the group candidates of each split node (the
+// slots in use) from its fixed-point sums in acc, as level_splits_kernel
+// takes an owned node's from its tile: warp w takes groups w, w +
+// kSplitWarps, ...
+__global__ void __launch_bounds__(kSplitWarps * 32)
+splits_finish_kernel(const ulonglong2* __restrict__ acc, int F,
+                     const int* __restrict__ slot_node, const int* __restrict__ info,
+                     const double* __restrict__ scales, const uint8_t* __restrict__ n_bins,
+                     const bool* __restrict__ col_mask, const float* __restrict__ lams,
+                     float min_child, int groups, float* __restrict__ cand_gain,
+                     int* __restrict__ cand_idx, size_t cand_lane, size_t lane_bytes) {
+  const size_t fit = blockIdx.y, at = fit * lane_bytes;
+  acc = shift(acc, at);
+  slot_node = shift(slot_node, at);
+  info = shift(info, at);
+  scales = shift(scales, at);
+  col_mask += fit * F;
+  cand_gain += fit * cand_lane;
+  cand_idx += fit * cand_lane;
+  if (static_cast<int>(blockIdx.x) >= info[1]) return;
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  Fresh* queues = reinterpret_cast<Fresh*>(split_smem);   // [warp][8 features x 64 bins]
+  int* feats = reinterpret_cast<int*>(queues + kSplitWarps * kGroupFeats * kBins);
+  __shared__ float s_totals[kSplitWarps][kGroupFeats][3];
+  __shared__ int s_live;
+  const int live = live_features(col_mask, F, feats, &s_live);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const ulonglong2* node_sums = acc + static_cast<size_t>(blockIdx.x) * F * kBins;
+  const double inv_g = scales[2], inv_h = scales[3];
+  const size_t cand0 = static_cast<size_t>(slot_node[blockIdx.x]) * groups;
+  for (int group = warp; group < groups; group += kSplitWarps) {
+    const int g0 = group * kGroupFeats;
+    Best best{-INFINITY, 0x7fffffff};
+    if (g0 < live) {
+      const int* gf = feats + g0;
+      int queued;
+      best = warp_best(group_best(
+          [&](int s, int b) {
+            const ulonglong2 q = node_sums[static_cast<size_t>(gf[s]) * kBins + b];
+            return make_float2(q.x ? bin_value(static_cast<long long>(q.x), inv_g) : 0.f,
+                               q.y ? bin_value(static_cast<long long>(q.y), inv_h) : 0.f);
+          },
+          gf, min(kGroupFeats, live - g0), n_bins, lams[fit], min_child,
+          queues + warp * kGroupFeats * kBins, s_totals[warp], &queued, best));
+    }
+    if (lane == 0) {
+      cand_gain[cand0 + group] = best.gain;
+      cand_idx[cand0 + group] = best.idx;
+    }
+  }
 }
 
 // ---- K5 ---------------------------------------------------------------------
@@ -1226,6 +1618,35 @@ int oblivious_smem_raised = 0;
 int leaf_smem_raised[2][2] = {};              // [kNext][kLanes]
 bool leaf_wide_clusters[2][2] = {};
 
+// One lane's K3 scratch (the sort's plan) and the sort launch's sizes: the
+// plan holds f64 [4] scales, int4 [max_items] items, int [acc_slots] slot
+// nodes and int [2] counts; acc holds acc_pairs (g, h) int64 pairs.
+struct SortPlan {
+  int max_items, acc_slots, sort_blocks, sort_smem;
+  size_t acc_pairs;
+  double* scales;
+  int4* items;
+  int* slot_node;
+  int* info;
+};
+
+SortPlan sort_plan(int n, int F, int n_nodes, int rows_per_item, int own_rows,
+                   void* plan) {
+  SortPlan p;
+  p.max_items = n_nodes + n / rows_per_item;
+  const int by_rows = n / (own_rows + 1);
+  p.acc_slots = n_nodes < by_rows ? n_nodes : by_rows;
+  p.acc_pairs = static_cast<size_t>(p.acc_slots) * F * kBins;
+  p.scales = static_cast<double*>(plan);
+  p.items = reinterpret_cast<int4*>(p.scales + 4);
+  p.slot_node = reinterpret_cast<int*>(p.items + p.max_items);
+  p.info = p.slot_node + p.acc_slots;
+  const size_t zero_blocks = (p.acc_pairs + 4 * kSortThreads - 1) / (4 * kSortThreads);
+  p.sort_blocks = 1 + static_cast<int>(zero_blocks < 1 ? 1 : (zero_blocks < 128 ? zero_blocks : 128));
+  p.sort_smem = (n_nodes + (n <= kSortStagedRows ? n : 0)) * static_cast<int>(sizeof(int));
+  return p;
+}
+
 template <bool kLanes>
 void launch_histogram(int groups, int sort_smem, const dim3& grid, int threads,
                       int tile_smem, int acc_slots, int F, cudaStream_t s,
@@ -1268,35 +1689,92 @@ int level_histogram(const void* xb, int n, int F, const void* pos,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t lane_bytes = static_cast<size_t>(lane_words) * sizeof(long long);
   const size_t out_lane = static_cast<size_t>(n_nodes) * F * kBins;
-  const int max_items = n_nodes + n / rows_per_item;
-  const int by_rows = n / (own_rows + 1);
-  const int acc_slots = n_nodes < by_rows ? n_nodes : by_rows;
-  const size_t acc_pairs = static_cast<size_t>(acc_slots) * F * kBins;
-  double* scales = static_cast<double*>(plan);
-  int4* items = reinterpret_cast<int4*>(scales + 4);
-  int* slot_node = reinterpret_cast<int*>(items + max_items);
-  int* info = slot_node + acc_slots;
+  const SortPlan p = sort_plan(n, F, n_nodes, rows_per_item, own_rows, plan);
   const float* gp = static_cast<const float*>(g);
   const float* hp = static_cast<const float*>(h);
-  const size_t zero_blocks = (acc_pairs + 4 * kSortThreads - 1) / (4 * kSortThreads);
-  const int sort_smem = (n_nodes + (n <= kSortStagedRows ? n : 0)) *
-                        static_cast<int>(sizeof(int));
   const bool with_lanes = lanes > 1;
   const cudaError_t err = shared_limit(
       with_lanes ? reinterpret_cast<const void*>(hist_group_kernel<true>)
                  : reinterpret_cast<const void*>(hist_group_kernel<false>),
-      &sort_smem_raised[with_lanes], sort_smem);
+      &sort_smem_raised[with_lanes], p.sort_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int groups = 1 + static_cast<int>(zero_blocks < 1 ? 1 : (zero_blocks < 128 ? zero_blocks : 128));
   const int tile_shift = tile_feats == 8 ? 3 : (tile_feats == 16 ? 4 : 5);
-  const dim3 grid(max_items, (F + tile_feats - 1) / tile_feats, lanes);
+  const dim3 grid(p.max_items, (F + tile_feats - 1) / tile_feats, lanes);
   const int tile_smem = tile_feats * kBins * 2 * static_cast<int>(sizeof(u64));
   (with_lanes ? launch_histogram<true> : launch_histogram<false>)(
-      groups, sort_smem, grid, threads, tile_smem, acc_slots, F, s,
+      p.sort_blocks, p.sort_smem, grid, threads, tile_smem, p.acc_slots, F, s,
       static_cast<const int*>(pos), n, gp, hp, n_nodes, rows_per_item, own_rows,
-      static_cast<const float*>(bounds), static_cast<int*>(rows), scales, items,
-      slot_node, info, acc, acc_pairs, static_cast<const uint8_t*>(xb),
+      static_cast<const float*>(bounds), static_cast<int*>(rows), p.scales, p.items,
+      p.slot_node, p.info, acc, p.acc_pairs, static_cast<const uint8_t*>(xb),
       static_cast<const uint8_t*>(n_bins), tile_shift, out, lane_bytes, out_lane);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int splits_smem_raised = 0;
+int finish_smem_raised = 0;
+
+// The fused split search over `lanes` fits: the sort (hist_group_kernel),
+// level_splits_kernel over the items, `run` a warp, and, where a node can be
+// split (n > own_rows), splits_finish_kernel. pos, g, h [lanes][n], bounds
+// [lanes][2], col_mask [lanes][F], lams [lanes]; the scratch (rows, plan,
+// acc) as level_histogram's, lane_words apart; feat, bin, has_split
+// [lanes][n_nodes].
+int level_splits(const void* xb, int n, int F, const void* pos, const void* g,
+                 const void* h, int n_nodes, const void* bounds, const void* n_bins,
+                 const void* col_mask, const void* lams, float min_child,
+                 int rows_per_item, int own_rows, int run,
+                 void* rows, void* plan, void* acc, void* cand, void* feat, void* bin,
+                 void* has_split, int lanes, long long lane_words, void* stream) {
+  if (n < 0 || F <= 0 || F > kMaxSplitFeats || n_nodes <= 0 ||
+      n_nodes > kMaxSortNodes || n / (own_rows + 1) > kMaxSlots ||
+      rows_per_item <= 0 || own_rows < rows_per_item || run < 1 || lanes < 1 ||
+      lanes > kMaxLanes || lane_words <= 0 || lane_words % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t lane_bytes = static_cast<size_t>(lane_words) * sizeof(long long);
+  const SortPlan p = sort_plan(n, F, n_nodes, rows_per_item, own_rows, plan);
+  const float* gp = static_cast<const float*>(g);
+  const float* hp = static_cast<const float*>(h);
+  const uint8_t* nbp = static_cast<const uint8_t*>(n_bins);
+  const bool* mp = static_cast<const bool*>(col_mask);
+  const float* lp = static_cast<const float*>(lams);
+  int* fp = static_cast<int*>(feat);
+  int* bp = static_cast<int*>(bin);
+  bool* sp = static_cast<bool*>(has_split);
+  const int split_smem = kSplitWarps * kWarpTile * static_cast<int>(sizeof(ulonglong2)) +
+                         F * static_cast<int>(sizeof(int));
+  const int groups = (F + kGroupFeats - 1) / kGroupFeats;
+  const int finish_smem = kSplitWarps * kGroupFeats * kBins * static_cast<int>(sizeof(Fresh)) +
+                          F * static_cast<int>(sizeof(int));
+  cudaError_t err = shared_limit(reinterpret_cast<const void*>(hist_group_kernel<true>),
+                                 &sort_smem_raised[1], p.sort_smem);
+  if (err == cudaSuccess)
+    err = shared_limit(reinterpret_cast<const void*>(level_splits_kernel),
+                       &splits_smem_raised, split_smem);
+  if (err == cudaSuccess)
+    err = shared_limit(reinterpret_cast<const void*>(splits_finish_kernel),
+                       &finish_smem_raised, finish_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_block = kSplitWarps * run;
+  const size_t cand_lane = static_cast<size_t>(n_nodes) * groups;
+  float* cand_gain = static_cast<float*>(cand);
+  int* cand_idx = static_cast<int*>(cand) + static_cast<size_t>(lanes) * cand_lane;
+  hist_group_kernel<true><<<dim3(p.sort_blocks, lanes), kSortThreads, p.sort_smem, s>>>(
+      static_cast<const int*>(pos), n, gp, hp, n_nodes, rows_per_item, own_rows,
+      static_cast<const float*>(bounds), static_cast<int*>(rows), p.scales, p.items,
+      p.slot_node, p.info, static_cast<ulonglong2*>(acc), p.acc_pairs, lane_bytes);
+  const int units = p.max_items * groups;
+  level_splits_kernel<<<dim3((units + per_block - 1) / per_block, lanes),
+                        kSplitWarps * 32, split_smem, s>>>(
+      static_cast<const uint8_t*>(xb), n, F, gp, hp, nbp, mp, lp, min_child,
+      static_cast<const int*>(rows), p.scales, p.items, p.info, static_cast<u64*>(acc),
+      groups, run, cand_gain, cand_idx, cand_lane, lane_bytes);
+  if (p.acc_slots > 0)
+    splits_finish_kernel<<<dim3(p.acc_slots, lanes), kSplitWarps * 32, finish_smem, s>>>(
+        static_cast<const ulonglong2*>(acc), F, p.slot_node, p.info, p.scales, nbp, mp, lp,
+        min_child, groups, cand_gain, cand_idx, cand_lane, lane_bytes);
+  splits_pick_kernel<<<dim3((n_nodes + 255) / 256, lanes), 256, 0, s>>>(
+      cand_gain, cand_idx, cand_lane, groups, n_nodes, fp, bp, sp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1440,6 +1918,22 @@ extern "C" int bbbp_forest_level_histogram_lanes(
   return level_histogram(xb, n, F, pos, g, h, n_nodes, bounds, n_bins, tile_feats,
                          threads, rows_per_item, own_rows, rows, plan, acc, out,
                          lanes, lane_words, stream);
+}
+
+// The split search of one level over `lanes` fits in one pass, K3's sums and
+// K4's pick without the histogram in device memory (see level_splits):
+// feat, bin, has_split [lanes][n_nodes] equal bbbp_forest_best_splits_lanes
+// on bbbp_forest_level_histogram_lanes's histogram, per node mode.
+extern "C" int bbbp_forest_level_splits_lanes(
+    const void* xb, int n, int F, const void* pos, const void* g, const void* h,
+    int n_nodes, const void* bounds, const void* n_bins, const void* col_mask,
+    const void* lams, float min_child, int rows_per_item, int own_rows,
+    int run, void* rows, void* plan, void* acc, void* cand,
+    void* feat, void* bin, void* has_split, int lanes, long long lane_words,
+    void* stream) {
+  return level_splits(xb, n, F, pos, g, h, n_nodes, bounds, n_bins, col_mask, lams,
+                      min_child, rows_per_item, own_rows, run, rows, plan,
+                      acc, cand, feat, bin, has_split, lanes, lane_words, stream);
 }
 
 // scratch: int32 [2 * n_cand] candidates: n_cand = ceil(F / 4) in oblivious

@@ -25,10 +25,12 @@ CUDA tensor and its plain PyTorch version on a CPU tensor:
   level's splits into the tree's flat arrays.
 
 ``fit_forest_lanes`` runs L fits of one shape over one binned matrix (the
-JAX package's vmapped ``_fit_forest_device``): K3, K4 and K5 take a lane
-axis (``level_histogram_lanes``, ``best_splits_lanes``,
-``leaf_values_lanes``), the routing takes it as it is, and each lane grows
-the trees of ``fit_forest`` with its seed bit for bit.
+JAX package's vmapped ``_fit_forest_device``): each level's split search is
+one fused pass over the lanes (``level_splits_lanes``: K3's sums and K4's
+pick, with no histogram in device memory), or in oblivious mode K3 and K4
+with a lane axis (``level_histogram_lanes``, ``best_splits_lanes``); K5
+takes a lane axis (``leaf_values_lanes``), the routing takes it as it is,
+and each lane grows the trees of ``fit_forest`` with its seed bit for bit.
 
 The first tree's gradients, the random forest's weights and the
 random draws stay torch ops on the fit's device, and nothing is copied to
@@ -768,6 +770,124 @@ def best_splits_lanes(hist: torch.Tensor, col_mask: torch.Tensor,
     return feat, b, has_split
 
 
+def level_splits_lanes_reference(xb: torch.Tensor, pos: torch.Tensor,
+                                 g: torch.Tensor, h: torch.Tensor, n_nodes: int,
+                                 col_mask: torch.Tensor, lam, min_child: float
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``best_splits_lanes_reference`` (per node) of
+    ``level_histogram_lanes_reference``: each lane's splits from its f32
+    histogram, summed in row order."""
+    return best_splits_lanes_reference(
+        level_histogram_lanes_reference(xb, pos, g, h, n_nodes), col_mask, lam,
+        min_child, False)
+
+
+def level_splits_lanes_fixed_reference(xb: torch.Tensor, pos: torch.Tensor,
+                                       g: torch.Tensor, h: torch.Tensor,
+                                       n_nodes: int, col_mask: torch.Tensor, lam,
+                                       min_child: float, bounds: torch.Tensor
+                                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``best_splits_lanes_reference`` (per node) of
+    ``level_histogram_lanes_fixed_reference``: K3's fixed-point sums at each
+    lane's bounds, then K4's arithmetic, which is what the fused kernel
+    computes."""
+    return best_splits_lanes_reference(
+        level_histogram_lanes_fixed_reference(xb, pos, g, h, n_nodes, bounds),
+        col_mask, lam, min_child, False)
+
+
+SPLIT_GROUP = 8                     # features a unit of the fused split search
+SPLIT_MAX_RUN = 8                   # units a warp walks
+SPLIT_SM_WARPS = 24                 # warps an SM holds of the kernel: its launch
+                                    # bounds, 3 blocks of 8 warps (kSplitBlocks)
+SPLIT_ROUNDS = 4                    # rounds of the card's warps that take one unit
+
+
+def split_run(lanes: int, units: int, sms: int) -> int:
+    """Units a warp of the fused split search walks on a card of ``sms``
+    SMs: one while the lanes' units fill ``SPLIT_ROUNDS`` rounds of the
+    warps the SMs hold, else more, up to ``SPLIT_MAX_RUN``, so that several
+    small nodes share a block's start-up (zeroing its 69 KB of tiles): 17%
+    and 20% off the deep levels 9 and 11 at 250 lanes on an H100
+    (``chip_smoke.py`` phase 14; the design comment in
+    ``csrc/forest_train.cu``)."""
+    return max(1, min(SPLIT_MAX_RUN,
+                      lanes * units // (SPLIT_ROUNDS * sms * SPLIT_SM_WARPS)))
+
+
+def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
+                       h: torch.Tensor, n_nodes: int,
+                       bounds: Optional[torch.Tensor], col_mask: torch.Tensor,
+                       lam: torch.Tensor, min_child: float,
+                       n_bins: Optional[torch.Tensor] = None, *,
+                       bins_checked: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One level's split search over lanes in one pass, the counterpart of
+    ``_grow_level`` under ``jax.vmap`` (``forest_tpu.py:154-231``). xb uint8
+    [n, F], every lane's; pos int32, g, h f32 [L, n]; bounds f32 [L, 2]
+    (``gradient_bounds(g, h)``, taken here when None); col_mask bool [L, F];
+    lam f32 [L]; ``n_bins`` as in ``level_histogram`` → (feat int32, bin
+    int32, has_split bool), each [L, n_nodes].
+
+    On a CUDA tensor the kernel (``forest_level_splits_lanes``) sums each
+    node's rows in K3's fixed point and takes K4's per-node pick from the
+    sums where they lie, so its result is ``best_splits_lanes`` of
+    ``level_histogram_lanes`` on the same inputs, bit for bit, with no
+    histogram in device memory. On a CPU tensor
+    ``level_splits_lanes_reference`` runs."""
+    if xb.dtype != torch.uint8 or xb.dim() != 2 or not xb.is_contiguous():
+        raise TypeError(f"xb must be a contiguous 2-D uint8 tensor, got "
+                        f"{xb.dtype} {tuple(xb.shape)}")
+    if pos.dim() != 2:
+        raise TypeError(f"pos must be [L, n], got {tuple(pos.shape)}")
+    n, n_feat = xb.shape
+    lanes = pos.shape[0]
+    if n_feat < 1:
+        raise ValueError("xb needs a feature")
+    for name, t, dtype in (("pos", pos, torch.int32), ("g", g, torch.float32),
+                           ("h", h, torch.float32)):
+        _check_rows(name, t, dtype, (lanes, n), xb.device)
+    _check_rows("col_mask", col_mask, torch.bool, (lanes, n_feat), xb.device)
+    _check_rows("lam", lam, torch.float32, (lanes,), xb.device)
+    if not 1 <= n_nodes <= 1 << MAX_DEPTH:
+        raise ValueError(f"n_nodes must be in [1, {1 << MAX_DEPTH}], got {n_nodes}")
+    if n_bins is not None:
+        check_bin_counts(n_bins, xb, occupancy=not bins_checked)
+    if not _kernel_device(xb, "forest_level_splits_lanes"):
+        return level_splits_lanes_reference(xb, pos, g, h, n_nodes, col_mask, lam,
+                                            min_child)
+    dev = xb.device
+    feat = torch.empty((lanes, n_nodes), dtype=torch.int32, device=dev)
+    b = torch.empty((lanes, n_nodes), dtype=torch.int32, device=dev)
+    has_split = torch.empty((lanes, n_nodes), dtype=torch.bool, device=dev)
+    if lanes == 0:
+        return feat, b, has_split
+    if bounds is None:
+        bounds = gradient_bounds(g, h)
+    _check_rows("bounds", bounds, torch.float32, (lanes, 2), dev)
+    plan = histogram_plan(n, n_feat, n_nodes)
+    stride = lane_words(n, n_feat, n_nodes)
+    scratch = torch.empty(lanes * stride, dtype=torch.int64, device=dev)
+    base = scratch.data_ptr()
+    # a (gain, index) candidate of each node and group of 8 features
+    groups = -(-n_feat // SPLIT_GROUP)
+    cand = torch.empty(2 * lanes * n_nodes * groups, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kernels_lib().bbbp_forest_level_splits_lanes(
+            xb.data_ptr(), n, n_feat, pos.data_ptr(), g.data_ptr(), h.data_ptr(),
+            n_nodes, bounds.data_ptr(), None if n_bins is None else n_bins.data_ptr(),
+            col_mask.data_ptr(), lam.data_ptr(), float(min_child),
+            plan["rows_per_item"], plan["own_rows"],
+            split_run(lanes, plan["max_items"] * groups,
+                      torch.cuda.get_device_properties(dev).multi_processor_count),
+            base + 8 * plan["rows"], base + 8 * plan["plan"], base, cand.data_ptr(),
+            feat.data_ptr(), b.data_ptr(), has_split.data_ptr(), lanes, stride,
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "forest_level_splits_lanes")
+    level_splits_lanes.launches.add()
+    return feat, b, has_split
+
+
 def _with_next_gradients(leaves: torch.Tensor, preds: torch.Tensor,
                          next_tree: Optional[NextTree]):
     """``leaves`` alone, or with each lane's ``next_gradients_reference``
@@ -870,6 +990,7 @@ def leaf_values_lanes(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
 
 level_histogram_lanes.launches = LaunchCounter()
 best_splits_lanes.launches = LaunchCounter()
+level_splits_lanes.launches = LaunchCounter()
 leaf_values_lanes.launches = LaunchCounter()
 
 
@@ -973,13 +1094,19 @@ def _per_lane(value, lanes: int, device: torch.device) -> torch.Tensor:
     return t.contiguous().to(device)
 
 
-def lane_bytes(n: int, n_feat: int, depth: int, n_trees: int) -> int:
+def lane_bytes(n: int, n_feat: int, depth: int, n_trees: int,
+               oblivious: bool = False) -> int:
     """Device bytes one lane of ``fit_forest_lanes`` holds at its deepest
-    level: the histogram, K3's scratch, the rows' [n] arrays (positions,
-    margins, gradients, draws, weights, the next tree's) and the trees."""
+    level: K3's scratch (the fused split search's too), the rows' [n] arrays
+    (positions, margins, gradients, draws, weights, the next tree's), the
+    trees and, in oblivious mode, the [nodes, F, 64, 2] histogram between
+    K3 and K4, else the fused search's candidates (8 bytes a node and group
+    of 8 features)."""
     nodes = 1 << max(depth - 1, 0)
     internal, leaves = (1 << depth) - 1, 1 << depth
-    return (nodes * n_feat * MAX_BINS * 8 + 8 * lane_words(n, n_feat, nodes)
+    hist = (nodes * n_feat * MAX_BINS * 8 if oblivious
+            else nodes * -(-n_feat // SPLIT_GROUP) * 8)
+    return (hist + 8 * lane_words(n, n_feat, nodes)
             + 4 * 12 * n + n_trees * (12 * internal + 4 * leaves))
 
 
@@ -1002,8 +1129,9 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
     in ``fit_forest``'s order (the first subsample draw, then a tree's
     Poisson weights in rf, its columns, the next subsample draw), so lane l
     grows the trees, leaves and margins of ``fit_forest`` with ``seeds[l]``
-    and lane l's parameters bit for bit: each tree level is one launch of
-    K3, K4 and the routing over all lanes, each tree one of K5."""
+    and lane l's parameters bit for bit: each tree level is one call of
+    the fused split search (oblivious: K3 and K4) and one of the routing
+    over all lanes, each tree one of K5."""
     if task not in ("reg", "cls"):
         raise ValueError(f"task must be 'reg' or 'cls', got {task!r}")
     if not 0 <= depth <= MAX_DEPTH:
@@ -1052,9 +1180,14 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
             dim=1, keepdim=True))
         pos = torch.zeros((lanes, n), dtype=torch.int32, device=dev)
         for level in range(depth):
-            hist = level_histogram_lanes(xb, pos, g, h, 1 << level, bounds, n_bins,
-                                         bins_checked=True)
-            f_l, b_l, _ = best_splits_lanes(hist, col_mask, lam, min_child, oblivious)
+            if oblivious:               # a level's gain sums over its nodes
+                hist = level_histogram_lanes(xb, pos, g, h, 1 << level, bounds,
+                                             n_bins, bins_checked=True)
+                f_l, b_l, _ = best_splits_lanes(hist, col_mask, lam, min_child, True)
+            else:
+                f_l, b_l, _ = level_splits_lanes(xb, pos, g, h, 1 << level, bounds,
+                                                 col_mask, lam, min_child, n_bins,
+                                                 bins_checked=True)
             route_rows(xb, pos, f_l, b_l, feats, bins, t, level)
         nxt = (None if rf or t == n_trees - 1 else
                NextTree(y, draws(n), subsample, w_rows, task))

@@ -131,6 +131,20 @@ def best_splits_bound(n_nodes: int, n_feat: int, lanes: int = 1) -> Dict[str, ob
                   15 * n_nodes * n_feat * 64 * lanes)
 
 
+def level_splits_bound(n: int, n_feat: int, n_nodes: int, lanes: int,
+                       occupied: int) -> Dict[str, object]:
+    """The fused split search of one level over lanes: xb (one byte a
+    value, every lane's) read once; each lane's pos, g and h (12 bytes a
+    row), column mask (a byte a feature) and lambda read once, and its
+    (feat, bin, has_split) written once (9 bytes a node). Operations: two
+    adds per (row, feature, lane), and K4's 15 f32 operations (see
+    ``best_splits_bound``) per occupied (lane, node, feature, bin), the
+    ``occupied`` cells that this level's rows reach: an empty bin's gain
+    repeats the bin before it, so the inputs need no more."""
+    return _bound(n * n_feat + lanes * (12 * n + n_feat + 4 + 9 * n_nodes),
+                  2 * n * n_feat * lanes + 15 * occupied)
+
+
 def leaf_values_bound(n: int, n_leaves: int, next_tree: bool = False,
                       lanes: int = 1) -> Dict[str, object]:
     """pos, g and h read once, the margins read and written once, the leaves

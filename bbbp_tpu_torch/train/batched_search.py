@@ -57,9 +57,10 @@ FOREST_FAMILIES = ("dt", "rf", "gb", "xgb", "cat")
 # and only up to FOREST_VMAP_MAX_F features
 FOREST_VMAP = os.environ.get("BBBP_FOREST_VMAP", "0") == "1"
 FOREST_VMAP_MAX_F = 512
-# device bytes of one block of lanes (``lane_bytes`` a lane): a 255-lane
-# group of depth 6 is one block; dt's depth 12 (a 31.5 MB histogram a lane at
-# 30 features) runs in blocks of ~128
+# device bytes of one block of lanes (``lane_bytes`` a lane): at the search
+# matrix's 8,162 rows and 30 features each family's tuned group (250-255
+# lanes) is one block, dt's depth 12 too (~1 MB a lane: no histogram is kept
+# but cat's oblivious one, 0.49 MB a lane at depth 6)
 FOREST_LANE_BUDGET = 4 << 30
 
 
@@ -305,6 +306,14 @@ def _fit_lane_block(prep: dict, param_sets: List[Dict], blk: List[Tuple[int, int
         oblivious=bool(ps[0].get("oblivious", False)), rf=rf, n_bins=prep["n_bins"])
 
 
+def lane_block(n: int, n_feat: int, depth: int, n_trees: int,
+               oblivious: bool) -> int:
+    """Lanes in one block of a group of this static shape: as many as
+    ``FOREST_LANE_BUDGET`` holds, at least one."""
+    return max(1, FOREST_LANE_BUDGET // lane_bytes(n, n_feat, depth, n_trees,
+                                                   oblivious))
+
+
 def _forest_cv_vmapped(x, y, folds, param_sets: List[Dict],
                        classify: bool = True, verbose: bool = False,
                        device="cuda"):
@@ -333,7 +342,7 @@ def _forest_cv_vmapped(x, y, folds, param_sets: List[Dict],
 
     for (rf, n_est, depth, obl), t_ids in _forest_groups(param_sets).items():
         lanes = [(t, k) for t in t_ids for k in range(n_folds)]
-        block = max(1, FOREST_LANE_BUDGET // lane_bytes(n, n_feat, depth, n_est))
+        block = lane_block(n, n_feat, depth, n_est, obl)
         proba = np.zeros((len(lanes), va_idx.shape[1]), np.float32)
         for s in range(0, len(lanes), block):
             blk = lanes[s:s + block]

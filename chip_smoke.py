@@ -215,9 +215,11 @@ before its last line):
 14. the lane-batched forest search (``BBBP_FOREST_VMAP`` on) over phase
    10's search matrix (its training rows after SMOTE-Tomek, 30 PCA
    columns): ``tune_zoo`` of the five forest families at phase 10's trials
-   x 5 folds as lanes, every launch counter set to 0 before and read after
-   (the four lane kernels must move, the single-fit kernels and the forest
-   kernel must not), each trial's CV accuracy within 0.006 of phase 10's
+   x 5 folds as lanes, family by family, every launch counter set to 0
+   before and read after (the fused split search, K5 with lanes and the
+   routing must move, K3 and K4 with lanes in cat's oblivious search only,
+   the single-fit kernels and the forest kernel never), each trial's CV
+   accuracy within 0.006 of phase 10's
    sequential search, and fold 0 of every trial (its lane in a group fit
    as the search fits it) bit-equal to ``fit_forest`` with the trial's seed:
    margins, trees, thresholds and leaves; then the lane kernels at L = 15
@@ -228,13 +230,20 @@ before its last line):
    column masks) equal to the single-fit kernel lane by lane and to its
    plain version but at counted near ties, the routing integer-equal to the
    torch ops, K5 with the next tree (64 and 1,024 leaves) bit-equal to its
-   fixed-point plain version and to the single-fit kernel; each timed in
-   CUDA graphs beside its plain version, its bound (``timing.py``, every
-   lane's share, the shared xb and y once) and, for K3, one ``index_add_``
-   over the lanes' keys; then xgb's search at 50 + 1 trials x 5 folds = 255
-   lanes: wall s, peak memory, launches, and under ``torch.profiler`` the
-   device busy time and the host's launch calls (the per-lane draws among
-   them).
+   fixed-point plain version and to the single-fit kernel, the fused split
+   search (``level_splits_lanes``) bit-equal to K3 then K4 with lanes and to
+   its fixed-point plain version but at counted near ties (min_child 0 and
+   1, column masks and none); each timed in CUDA graphs beside its plain
+   version, its bound (``timing.py``, every lane's share, the shared xb and
+   y once; the fused search's operations at the occupied bins counted from
+   xb and pos) and, for K3, one ``index_add_`` over the lanes' keys; the
+   fused search and K3 then K4 again at L = 250 (50 trials x 5 folds' row
+   weights), held bit for bit and timed, the fused search also with each
+   warp taking one unit; then xgb's search at 50 + 1 trials
+   x 5 folds = 255 lanes and rf's at 50 + 1 (a 250-lane group of 300 trees
+   of depth 10): wall s, peak memory, launches, lane blocks, and under
+   ``torch.profiler`` the device busy time and the host's launch calls (the
+   per-lane draws among them) over their first trees.
 
 Then one JSON line for the kernels (each with its launches in phase 12's
 run under ``launches_families`` and in phase 13 under
@@ -450,6 +459,7 @@ REP_PREFETCH_ITEMS = 12
 # read the fit's margins, the sequential search the forest kernel's sum)
 LANES_SCORE_TOL = 0.006
 LANES_L = 15                      # the kernels' lanes: 3 trials x 5 folds
+LANES_WIDE_L = 250                # a tuned group's: 50 trials x 5 folds
 LANES_LEVELS = (0, 5, 9, 11)      # depth 6 (gb, xgb, cat), 10 (rf), 12 (dt)
 LANES_GROUP_TRIALS = 50           # + the default: xgb's 255-lane group
 LANES_PROFILED_TREES = 10         # of its 300 trees, under torch.profiler
@@ -575,6 +585,68 @@ def split_mismatches(tr, hist, mask, min_child, oblivious, got, want, lam=1.0):
                                  f"{[int(t[node]) for t in want]}")
         worst = max(worst, abs(float(a - b)))
     return int(differ.sum()), worst
+
+
+def occupied_cells(xb, pos, g, h, nodes) -> int:
+    """The (lane, node, feature, bin) cells that hold a row of non-zero
+    weight, counted on the host from xb and pos (pos [L, n]): the cells
+    whose gains the fused split search needs (``level_splits_bound``)."""
+    codes = xb.cpu().numpy().astype(np.int64)
+    n_feat = codes.shape[1]
+    codes += np.arange(n_feat) * 64
+    live = ((g != 0) | (h != 0)).cpu().numpy()
+    total = 0
+    for p, keep in zip(pos.cpu().numpy().astype(np.int64), live):
+        seen = np.zeros(nodes * n_feat * 64, bool)
+        seen[(p[keep, None] * (n_feat * 64) + codes[keep]).ravel()] = True
+        total += int(seen.sum())
+    return total
+
+
+def one_unit_ms(tr, device_ms, fn, **kw) -> float:
+    """``device_ms(fn)`` with each warp of the fused split search taking one
+    unit (``split_run`` held at 1): what its runs of units save."""
+    saved = tr.SPLIT_MAX_RUN
+    tr.SPLIT_MAX_RUN = 1
+    try:
+        return device_ms(fn, **kw)
+    finally:
+        tr.SPLIT_MAX_RUN = saved
+
+
+def hold_fused(tr, xb, pos, g, h, nodes, bounds, n_bins, hist, masks, lam, problems,
+               held, plain_lanes=None):
+    """The fused split search at min_child 0 and 1 for each column mask:
+    bit-equal to K4 with lanes on K3 with lanes' histogram ``hist``, and,
+    on ``plain_lanes`` (default all), to its fixed-point plain version but
+    at counted near ties."""
+    import torch
+
+    lanes = pos.shape[0]
+    picked = range(lanes) if plain_lanes is None else plain_lanes
+    lam_host = lam.tolist()
+    for min_child in (0.0, 1.0):
+        for col in masks:
+            got = tr.level_splits_lanes(xb, pos, g, h, nodes, bounds, col, lam,
+                                        min_child, n_bins, bins_checked=True)
+            two = tr.best_splits_lanes(hist, col, lam, min_child, False)
+            sub = list(picked)
+            want = tr.level_splits_lanes_fixed_reference(
+                xb, pos[sub], g[sub], h[sub], nodes, col[sub], [lam_host[i] for i in sub],
+                min_child, bounds[sub])
+            torch.cuda.synchronize()
+            off = sum(int((a != b).sum()) for a, b in zip(got, two))
+            if off:
+                problems.append(f"level_splits_lanes L={lanes} level {nodes.bit_length() - 1} "
+                                f"min_child {min_child}: {off} values off K3 then K4 "
+                                f"with lanes")
+            for j, i in enumerate(sub):
+                near, worst = split_mismatches(tr, hist[i], col[i], min_child, False,
+                                               [a[i] for a in got], [b[j] for b in want],
+                                               lam=lam_host[i])
+                held["fused_near"] += near
+                held["fused_err"] = max(held["fused_err"], worst)
+            held["fused_calls"] += 1
 
 
 def hold_level(tr, label, xb, pos, g, h, n_bins, nodes, rng, held):
@@ -1111,7 +1183,8 @@ def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
             "forest_leaf_values": 2 * (2 * cfg.trees + cfg.rf_trees),
             "tanimoto_topk": 2, "tanimoto_gram": 0, "minmax_gram": 0,
             "forest_route_rows": per_level, "forest_level_histogram_lanes": 0,
-            "forest_best_splits_lanes": 0, "forest_leaf_values_lanes": 0}
+            "forest_best_splits_lanes": 0, "forest_level_splits_lanes": 0,
+            "forest_leaf_values_lanes": 0}
     if launched != want:
         raise AssertionError(f"transfer_features launches {launched}, expected {want}")
     f = res.features
@@ -2699,8 +2772,8 @@ def lanes_phase(card, counters, p10) -> dict:
     from bbbp_tpu_torch.ops import forest_train as tr
     from bbbp_tpu_torch.timing import (best_splits_bound, device_ms,
                                        host_launch_calls, leaf_values_bound,
-                                       level_histogram_bound, profile_summary,
-                                       route_rows_bound)
+                                       level_histogram_bound, level_splits_bound,
+                                       profile_summary, route_rows_bound)
     from bbbp_tpu_torch.train import batched_search as bs
     from bbbp_tpu_torch.train import classification as cl
 
@@ -2709,8 +2782,10 @@ def lanes_phase(card, counters, p10) -> dict:
     problems = []
     fx, fy, tcfg = p10["search_x"], p10["search_y"], p10["forest_cfg"]
     seq_trials = p10["forest_trials"]
-    lane_names = ("forest_level_histogram_lanes", "forest_best_splits_lanes",
-                  "forest_leaf_values_lanes", "forest_route_rows")
+    lane_names = ("forest_level_splits_lanes", "forest_level_histogram_lanes",
+                  "forest_best_splits_lanes", "forest_leaf_values_lanes",
+                  "forest_route_rows")
+    two_kernels = ("forest_level_histogram_lanes", "forest_best_splits_lanes")
     single_names = ("forest_level_histogram", "forest_best_splits",
                     "forest_leaf_values", "dense_forest_predict")
 
@@ -2725,20 +2800,78 @@ def lanes_phase(card, counters, p10) -> dict:
         return {k: v for k, v in t.items()
                 if not k.startswith("mean_") and k != "repeat_std"}
 
+    def searched_group(m):
+        """m's tuned search with the lanes (``LANES_GROUP_TRIALS`` + the
+        default trial, 5 folds): wall s, peak memory, launches and the
+        blocks of lanes it cut each static shape into; then the same lanes
+        under ``torch.profiler`` for their first ``LANES_PROFILED_TREES``
+        trees (every tree repeats the same launches, and the profiler's
+        post-processing of a whole group's ~600,000 events takes minutes):
+        device busy ms, host launch calls, the per-lane draws among them."""
+        kw = dict(n_iter=LANES_GROUP_TRIALS, cv=tcfg.search_folds, seed=tcfg.seed,
+                  extra_trials=[cl.DEFAULT_TRIALS[m]], device=cuda)
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()     # the earlier phases' tensors
+        t0 = time.time()
+        group = bs.batched_random_search(m, fx, fy, cl.SEARCH_SPACES[m], **kw)
+        torch.cuda.synchronize()
+        out = {"group": group, "wall_s": time.time() - t0,
+               "peak_gib_above_live": (torch.cuda.max_memory_allocated() - live) / 2 ** 30,
+               "live_gib": live / 2 ** 30,
+               "launches": {k: v for k, v in read().items() if v}}
+        params = [trial_params(t) for t in group.trials]
+        n_rows, n_cols = len(fy), np.asarray(fx).shape[1]
+        out["lane_blocks"] = {
+            f"T={n_est} depth {depth}": [len(t_ids) * tcfg.search_folds, -(
+                -len(t_ids) * tcfg.search_folds
+                // bs.lane_block(n_rows, n_cols, depth, n_est, obl))]
+            for (_, n_est, depth, obl), t_ids in bs._forest_groups(params).items()}
+        window = [{**p, "n_estimators": LANES_PROFILED_TREES} for p in params]
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            bs._score_param_sets(m, fx, fy, window, tcfg.search_folds, tcfg.seed,
+                                 False, cuda)
+            torch.cuda.synchronize()
+            out["profiled_s"] = time.time() - t0
+        t0 = time.time()
+        out["busy_ms"] = profile_summary(prof, lambda name: name)["device_busy_ms"]
+        out["host_launch_calls"] = host_launch_calls(prof)
+        out["draws"] = sum(e.count for e in prof.key_averages()
+                           if e.key in ("aten::rand", "aten::poisson"))
+        out["profiler_post_s"] = time.time() - t0
+        return out
+
     stage_s = {}
     t_stage = time.time()
     vmap_before = bs.FOREST_VMAP
     bs.FOREST_VMAP = True
     try:
-        # -- the five families' searches through tune_zoo, on the lanes -------
-        reset()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        _, lane_trials, lane_walls = cl.tune_zoo(fx, fy, bs.FOREST_FAMILIES, tcfg,
-                                                 verbose=False, device=cuda)
-        torch.cuda.synchronize()
-        search_s = time.time() - t0
-        launches = read()
+        # -- the five families' searches through tune_zoo, on the lanes, family
+        # by family: K3 and K4 with lanes in cat's oblivious search only ------
+        lane_trials, lane_walls, family_launches = {}, {}, {}
+        search_s = 0.0
+        for m in bs.FOREST_FAMILIES:
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, trials_m, walls_m = cl.tune_zoo(fx, fy, (m,), tcfg, verbose=False,
+                                               device=cuda)
+            torch.cuda.synchronize()
+            search_s += time.time() - t0
+            family_launches[m] = read()
+            lane_trials.update(trials_m)
+            lane_walls.update(walls_m)
+            fused = family_launches[m]["forest_level_splits_lanes"]
+            two = [family_launches[m][name] for name in two_kernels]
+            if not ((all(two) and not fused) if m == "cat" else (fused and not any(two))):
+                problems.append(f"{m} lane search: fused {fused}, K3 / K4 with lanes "
+                                f"{two} launches")
+        launches = {name: sum(f[name] for f in family_launches.values())
+                    for name in counters}
         for name in lane_names:
             if not launches[name]:
                 problems.append(f"the lane search launched no {name}")
@@ -2800,7 +2933,11 @@ def lanes_phase(card, counters, p10) -> dict:
               f"{len(fy)} rows: {search_s:.3f} s | s a family "
               f"{ {m: s['lane_s'] for m, s in scores.items()} } | against phase 10's "
               f"sequential search: {scores} (limit {LANES_SCORE_TOL}) | launches "
-              f"{ {k: v for k, v in launches.items() if v or k in single_names} } | "
+              f"{ {k: v for k, v in launches.items() if v or k in single_names} }, "
+              f"K3 / K4 with lanes { {m: [f[k] for k in two_kernels] for m, f in family_launches.items()} } "
+              f"and the fused search "
+              f"{ {m: f['forest_level_splits_lanes'] for m, f in family_launches.items()} } "
+              f"a family | "
               f"fold 0 of {checked} trials: margins, trees, thresholds and leaves "
               f"bit-equal to fit_forest with the trial's seed", flush=True)
 
@@ -2819,7 +2956,8 @@ def lanes_phase(card, counters, p10) -> dict:
         bounds = tr.gradient_bounds(g, h)
         lam = torch.logspace(-1, 1, L, device=cuda)
         lam_host = lam.tolist()
-        held = {"k3_err": 0.0, "k4_near": 0, "k4_err": 0.0, "k4_calls": 0}
+        held = {"k3_err": 0.0, "k4_near": 0, "k4_err": 0.0, "k4_calls": 0,
+                "fused_near": 0, "fused_err": 0.0, "fused_calls": 0}
         timed = {}
         every = torch.ones(L, n_feat, dtype=torch.bool, device=cuda)
         for level in LANES_LEVELS:
@@ -2867,6 +3005,8 @@ def lanes_phase(card, counters, p10) -> dict:
                     held["k4_err"] = max(held["k4_err"], worst)
                 held["k4_calls"] += 1
             f_l, b_l = got[0], got[1]
+            hold_fused(tr, xb, pos, g, h, nodes, bounds, n_bins, hist, (mask, every),
+                       lam, problems, held)
             feats = torch.zeros((L, 1, (2 << LANES_LEVELS[-1]) - 1), dtype=torch.int32,
                                 device=cuda)
             bins = torch.zeros_like(feats)
@@ -2904,6 +3044,16 @@ def lanes_phase(card, counters, p10) -> dict:
                 "k4_oblivious_plain": device_ms(lambda: tr.best_splits_lanes_reference(
                     hist, every, lam_host, 1.0, True), **slow),
                 "k4_bound": best_splits_bound(nodes, n_feat, L),
+                "fused": device_ms(lambda: tr.level_splits_lanes(
+                    xb, pos, g, h, nodes, bounds, every, lam, 1.0, n_bins,
+                    bins_checked=True)),
+                "fused_one_unit": one_unit_ms(tr, device_ms, lambda: tr.level_splits_lanes(
+                    xb, pos, g, h, nodes, bounds, every, lam, 1.0, n_bins,
+                    bins_checked=True)),
+                "fused_plain": device_ms(lambda: tr.level_splits_lanes_reference(
+                    xb, pos, g, h, nodes, every, lam_host, 1.0), **slow),
+                "fused_bound": level_splits_bound(n, n_feat, nodes, L,
+                                                  occupied_cells(xb, pos, g, h, nodes)),
                 "route_copy": device_ms(lambda: p_t.copy_(pos)),
                 "route_with_copy": device_ms(lambda: (p_t.copy_(pos), tr.route_rows(
                     xb, p_t, f_l, b_l, feats, bins, 0, level))),
@@ -2915,6 +3065,7 @@ def lanes_phase(card, counters, p10) -> dict:
             t = timed[level]
             t["route"] = t["route_with_copy"] - t["route_copy"]
             t["route_plain"] = t["route_plain_with_copy"] - t["route_copy"]
+            t["two"] = t["k3"] + t["k4"]
             del hist, keys, vals
 
         # K5 over lanes with the next tree, 64 and 1,024 leaves
@@ -2959,61 +3110,91 @@ def lanes_phase(card, counters, p10) -> dict:
                     pos, g, h, n_leaves, lam_host, scale_host, p_t, nxt_host), **slow),
                 "bound": leaf_values_bound(n, n_leaves, True, L)}
 
+        # -- the fused search against K3 then K4 with lanes at L = 250 --------
+        WL = LANES_WIDE_L
+        w_wide = prep["w_kn"][[k % n_folds for k in range(WL)]]   # 50 trials x 5 folds
+        p_wide = torch.sigmoid(torch.randn(WL, n, generator=gen, device=cuda))
+        g_wide = (p_wide - y) * w_wide
+        h_wide = torch.clamp(p_wide * (1 - p_wide), min=1e-6) * w_wide
+        g_wide[1] *= 40.0
+        bounds_wide = tr.gradient_bounds(g_wide, h_wide)
+        lam_wide = torch.logspace(-1, 1, WL, device=cuda)
+        mask_wide = torch.rand(WL, n_feat, generator=gen, device=cuda) < 0.7
+        mask_wide[:, -1] = True
+        every_wide = torch.ones(WL, n_feat, dtype=torch.bool, device=cuda)
+        wide = {}
+        for level in LANES_LEVELS:
+            nodes = 1 << level
+            pos_w = torch.randint(0, nodes, (WL, n), generator=gen, dtype=torch.int32,
+                                  device=cuda)
+            hist_w = tr.level_histogram_lanes(xb, pos_w, g_wide, h_wide, nodes,
+                                              bounds_wide, n_bins, bins_checked=True)
+            hold_fused(tr, xb, pos_w, g_wide, h_wide, nodes, bounds_wide, n_bins, hist_w,
+                       (mask_wide, every_wide), lam_wide, problems, held,
+                       plain_lanes=range(0, WL, 10))
+            # the histogram is 7.9 GB at level 11: two calls a graph there
+            few = dict(calls=2, replays=5) if level >= 9 else {}
+            wide[level] = {
+                "fused": device_ms(lambda: tr.level_splits_lanes(
+                    xb, pos_w, g_wide, h_wide, nodes, bounds_wide, every_wide, lam_wide,
+                    1.0, n_bins, bins_checked=True)),
+                "fused_one_unit": one_unit_ms(tr, device_ms, lambda: tr.level_splits_lanes(
+                    xb, pos_w, g_wide, h_wide, nodes, bounds_wide, every_wide, lam_wide,
+                    1.0, n_bins, bins_checked=True)),
+                "k3": device_ms(lambda: tr.level_histogram_lanes(
+                    xb, pos_w, g_wide, h_wide, nodes, bounds_wide, n_bins,
+                    bins_checked=True), **few),
+                "k4": device_ms(lambda: tr.best_splits_lanes(
+                    hist_w, every_wide, lam_wide, 1.0, False), **few),
+                "k4_oblivious": device_ms(lambda: tr.best_splits_lanes(
+                    hist_w, every_wide, lam_wide, 1.0, True), **few),
+                "fused_bound": level_splits_bound(
+                    n, n_feat, nodes, WL,
+                    occupied_cells(xb, pos_w, g_wide, h_wide, nodes)),
+                "k3_bound": level_histogram_bound(n, n_feat, nodes, WL),
+                "k4_bound": best_splits_bound(nodes, n_feat, WL)}
+            wide[level]["two"] = wide[level]["k3"] + wide[level]["k4"]
+            del hist_w
+            torch.cuda.empty_cache()
+        del g_wide, h_wide, p_wide, w_wide
+
         stage_s["kernels held and timed"] = time.time() - t_stage
         t_stage = time.time()
-        # -- xgb's 255-lane group: 51 trials x 5 folds -------------------------
-        kw = dict(n_iter=LANES_GROUP_TRIALS, cv=tcfg.search_folds, seed=tcfg.seed,
-                  extra_trials=[cl.DEFAULT_TRIALS["xgb"]], device=cuda)
-        reset()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        live = torch.cuda.memory_allocated()     # the earlier phases' tensors
-        t0 = time.time()
-        group = bs.batched_random_search("xgb", fx, fy, cl.SEARCH_SPACES["xgb"], **kw)
-        torch.cuda.synchronize()
-        group_s = time.time() - t0
-        group_peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
-        group_launches = {k: v for k, v in read().items() if v}
-        # the same lanes under torch.profiler for their first LANES_PROFILED_TREES
-        # trees: every tree repeats the same launches, and the profiler's
-        # post-processing of the whole group's ~600,000 events takes minutes
-        window = [{**trial_params(t), "n_estimators": LANES_PROFILED_TREES}
-                  for t in group.trials]
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            bs._score_param_sets("xgb", fx, fy, window, tcfg.search_folds,
-                                 tcfg.seed, False, cuda)
-            torch.cuda.synchronize()
-            window_s = time.time() - t0
-        t0 = time.time()
-        window_busy = profile_summary(prof, lambda name: name)["device_busy_ms"]
-        window_calls = host_launch_calls(prof)
-        window_draws = sum(e.count for e in prof.key_averages()
-                           if e.key in ("aten::rand", "aten::poisson"))
-        del prof
-        stage_s["xgb group"] = time.time() - t_stage
-        stage_s["profiler post-processing"] = time.time() - t0
+        # -- xgb's and rf's tuned groups: 50 + 1 trials x 5 folds --------------
+        groups = {}
+        for m in ("xgb", "rf"):
+            groups[m] = searched_group(m)
+            stage_s[f"{m} group"] = time.time() - t_stage
+            t_stage = time.time()
     finally:
         bs.FOREST_VMAP = vmap_before
-    n_lanes = len(group.trials) * tcfg.search_folds
-    print(f"[14 xgb group] batched_random_search('xgb') with the lanes, "
-          f"{len(group.trials)} trials x {tcfg.search_folds} folds = {n_lanes} lanes "
-          f"of 300 trees x depth 6 over {len(fy)} rows: {group_s:.3f} s wall, peak "
-          f"allocated {group_peak:.3f} GiB above the {live / 2 ** 30:.3f} GiB live "
-          f"before it, launches {group_launches} | its first "
-          f"{LANES_PROFILED_TREES} trees under torch.profiler: {window_s:.3f} s, "
-          f"device busy {window_busy:.1f} ms ({window_busy / 1e3 / window_s:.1%}), "
-          f"{window_calls} host launch calls ({window_calls / LANES_PROFILED_TREES:.1f} "
-          f"a tree), {window_draws} of them the per-lane draws (aten::rand, "
-          f"aten::poisson; {window_draws / LANES_PROFILED_TREES:.1f} a tree) | best CV "
-          f"accuracy {group.best_score:.4f} {group.best_params} | phase 14 stage s "
+    for m, (trees, depth) in (("xgb", (300, 6)), ("rf", (300, 10))):
+        info = groups[m]
+        group = info["group"]
+        print(f"[14 {m} group] batched_random_search({m!r}) with the lanes, "
+              f"{len(group.trials)} trials x {tcfg.search_folds} folds over {len(fy)} rows "
+              f"({trees} trees x depth {depth}; lanes and blocks by shape "
+              f"{info['lane_blocks']}): {info['wall_s']:.3f} s wall, peak allocated "
+              f"{info['peak_gib_above_live']:.3f} GiB above the {info['live_gib']:.3f} GiB "
+              f"live before it, launches {info['launches']} | its first "
+              f"{LANES_PROFILED_TREES} trees under torch.profiler: "
+              f"{info['profiled_s']:.3f} s, device busy {info['busy_ms']:.1f} ms "
+              f"({info['busy_ms'] / 1e3 / info['profiled_s']:.1%}), "
+              f"{info['host_launch_calls']} host launch calls "
+              f"({info['host_launch_calls'] / LANES_PROFILED_TREES:.1f} a tree), "
+              f"{info['draws']} of them the per-lane draws (aten::rand, aten::poisson; "
+              f"{info['draws'] / LANES_PROFILED_TREES:.1f} a tree), profiler "
+              f"post-processing {info['profiler_post_s']:.1f} s | best CV accuracy "
+              f"{group.best_score:.4f} {group.best_params}", flush=True)
+    print(f"[14 stages] phase 14 stage s "
           f"{ {k: round(v, 1) for k, v in stage_s.items()} }", flush=True)
 
-    def lv(key, field=None):
-        return [timed[lv_][key][field] if field else timed[lv_][key]
-                for lv_ in LANES_LEVELS]
+    def lv(key, field=None, at=None):
+        at = timed if at is None else at
+        return [at[lv_][key][field] if field else at[lv_][key] for lv_ in LANES_LEVELS]
+
+    def wv(key, field=None):                # at L = 250
+        return lv(key, field, wide)
 
     print(f"[14 lane kernels] L={L} lanes (3 trials x 5 folds' row weights), "
           f"n={n}, F={n_feat}, levels {list(LANES_LEVELS)} (ms): "
@@ -3038,21 +3219,39 @@ def lanes_phase(card, counters, p10) -> dict:
           f"single-fit kernel, max |dleaf| {k5_err:.3g} against the float64 sums; "
           f"routing integer-equal | phase 14 {time.time() - t14:.1f} s on {card}",
           flush=True)
+    print(f"[14 fused split search] level_splits_lanes, n={n}, F={n_feat}, levels "
+          f"{list(LANES_LEVELS)} (ms): L={L} {fmt(lv('fused'))} (a unit a warp "
+          f"{fmt(lv('fused_one_unit'))}) against K3 + K4 with "
+          f"lanes {fmt(lv('two'))}, plain {fmt(lv('fused_plain'))}, bound "
+          f"{fmt(lv('fused_bound', 'bound_ms'))}; L={LANES_WIDE_L} {fmt(wv('fused'))} "
+          f"(a unit a warp {fmt(wv('fused_one_unit'))}) "
+          f"against K3 + K4 with lanes {fmt(wv('two'))} (K3 {fmt(wv('k3'))}, K4 "
+          f"{fmt(wv('k4'))}, oblivious {fmt(wv('k4_oblivious'))}), bound "
+          f"{fmt(wv('fused_bound', 'bound_ms'))} (K3 {fmt(wv('k3_bound', 'bound_ms'))}, "
+          f"K4 {fmt(wv('k4_bound', 'bound_ms'))}) | {held['fused_calls']} calls "
+          f"(min_child 0 and 1, column masks and none, lambda 0.1-10 a lane, a lane "
+          f"of 40x gradients, zero-weight rows) bit-equal to K3 then K4 with lanes, "
+          f"and to the fixed-point plain version (all lanes at L={L}, every 10th at "
+          f"L={LANES_WIDE_L}) but {held['fused_near']} counted near ties (max "
+          f"|dscore| {held['fused_err']:.3g})", flush=True)
     if problems:
         raise AssertionError("phase 14: " + " | ".join(problems))
     main = LANES_LEVELS.index(5)
-    replaces = {"forest_level_histogram_lanes": "bbbp_tpu/ops/forest_tpu.py:188",
+    replaces = {"forest_level_splits_lanes": "bbbp_tpu/ops/forest_tpu.py:154",
+                "forest_level_histogram_lanes": "bbbp_tpu/ops/forest_tpu.py:188",
                 "forest_best_splits_lanes": "bbbp_tpu/ops/forest_tpu.py:125",
                 "forest_leaf_values_lanes": "bbbp_tpu/ops/forest_tpu.py:340",
                 "forest_route_rows": "bbbp_tpu/ops/forest_tpu.py:335"}
-    keys = {"forest_level_histogram_lanes": "k3", "forest_best_splits_lanes": "k4",
-            "forest_route_rows": "route"}
+    keys = {"forest_level_splits_lanes": "fused", "forest_level_histogram_lanes": "k3",
+            "forest_best_splits_lanes": "k4", "forest_route_rows": "route"}
     entries = []
     for name in lane_names:
         entry = {"name": name, "route": "cuda",
                  "source": "bbbp_tpu_torch/csrc/forest_train.cu",
                  "replaces": replaces[name], "launches": launches[name],
-                 "launches_xgb_group": group_launches.get(name, 0)}
+                 "launches_by_family": {m: f[name] for m, f in family_launches.items()},
+                 "launches_xgb_group": groups["xgb"]["launches"].get(name, 0),
+                 "launches_rf_group": groups["rf"]["launches"].get(name, 0)}
         if name == "forest_leaf_values_lanes":
             t = k5[64]
             entry.update(max_abs_err=k5_err, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -3067,7 +3266,7 @@ def lanes_phase(card, counters, p10) -> dict:
             t = timed[LANES_LEVELS[main]]
             entry.update(
                 max_abs_err={"k3": held["k3_err"], "k4": held["k4_err"],
-                             "route": 0.0}[key],
+                             "fused": held["fused_err"], "route": 0.0}[key],
                 ms=t[key], plain_ms=t[key + "_plain"],
                 bound_ms=t[key + "_bound"]["bound_ms"],
                 bound_by=t[key + "_bound"]["bound_by"],
@@ -3084,17 +3283,28 @@ def lanes_phase(card, counters, p10) -> dict:
                 entry["ms_oblivious_levels"] = lv("k4_oblivious")
                 entry["plain_ms_oblivious_levels"] = lv("k4_oblivious_plain")
                 entry["near_tie_nodes"] = held["k4_near"]
+            if key in ("k3", "k4", "fused"):
+                entry[f"ms_levels_L{LANES_WIDE_L}"] = wv(key)
+                entry[f"bound_ms_levels_L{LANES_WIDE_L}"] = wv(key + "_bound", "bound_ms")
+            if key == "k4":
+                entry[f"ms_oblivious_levels_L{LANES_WIDE_L}"] = wv("k4_oblivious")
+            if key == "fused":
+                entry["two_kernel_ms_levels"] = lv("two")
+                entry["one_unit_a_warp_ms_levels"] = lv("fused_one_unit")
+                entry[f"one_unit_a_warp_ms_levels_L{LANES_WIDE_L}"] = wv("fused_one_unit")
+                entry[f"two_kernel_ms_levels_L{LANES_WIDE_L}"] = wv("two")
+                entry["near_tie_nodes"] = held["fused_near"]
+                entry["bit_equal_to_two_kernels_calls"] = held["fused_calls"]
             if key == "route":
                 entry["ms_with_pos_restored_levels"] = lv("route_with_copy")
                 entry["copy_ms_levels"] = lv("route_copy")
         entries.append(entry)
-    group_info = {"lanes": n_lanes, "trees": 300, "wall_s": group_s,
-                  "peak_gib_above_live": group_peak, "live_gib": live / 2 ** 30,
-                  "profiled_trees": LANES_PROFILED_TREES,
-                  "profiled_s": window_s, "busy_ms": window_busy,
-                  "host_launch_calls": window_calls, "draws": window_draws}
-    for entry in entries:
-        entry["xgb_group"] = group_info
+    for m, info in groups.items():
+        group_info = {k: v for k, v in info.items() if k != "group"}
+        group_info.update(trials=len(info["group"].trials),
+                          profiled_trees=LANES_PROFILED_TREES)
+        for entry in entries:
+            entry[f"{m}_group"] = group_info
     return {"kernels": entries}
 
 
@@ -3711,6 +3921,7 @@ def run() -> int:
                 "forest_route_rows": tr.route_rows,
                 "forest_level_histogram_lanes": tr.level_histogram_lanes,
                 "forest_best_splits_lanes": tr.best_splits_lanes,
+                "forest_level_splits_lanes": tr.level_splits_lanes,
                 "forest_leaf_values_lanes": tr.leaf_values_lanes}
     with tempfile.TemporaryDirectory() as cache:
         t0 = time.time()

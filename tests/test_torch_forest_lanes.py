@@ -40,6 +40,16 @@ def jb():
     return pytest.importorskip("bbbp_tpu.train.batched_search")
 
 
+@pytest.fixture(scope="module")
+def jft():
+    return pytest.importorskip("bbbp_tpu.ops.forest_tpu")
+
+
+@pytest.fixture(scope="module")
+def jax():
+    return pytest.importorskip("jax")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """Many small torch ops: one intra-op thread, as the test workers share
@@ -376,6 +386,215 @@ def test_gradient_bounds_over_lanes():
     assert tr.gradient_bounds(g[:, :0], h[:, :0]).shape == (2, 2)
 
 
+# -- the fused split search against the JAX package's _grow_level ---------------
+
+SPLIT_LANES = 6
+SPLIT_LAMBDAS = [0.1, 0.5, 1.0, 2.0, 5.0, 10.0]
+
+
+def _split_level(seed, level, n_feat, integer, n=300, empty=False, col_share=1.0):
+    """One level over SPLIT_LANES lanes: a fifth of each lane's rows of
+    weight 0; integer-valued g and h (sums exact in any order) or random
+    f32; with ``empty``, only even nodes hold rows."""
+    rng = np.random.default_rng(seed)
+    lanes, nodes = SPLIT_LANES, 1 << level
+    xb = rng.integers(0, tr.MAX_BINS, (n, n_feat)).astype(np.uint8)
+    xb[:, 1] = rng.integers(0, 3, n)                # a feature of three bins
+    pos = rng.integers(0, nodes, (lanes, n)).astype(np.int32)
+    if empty:
+        pos &= ~1
+    if integer:
+        g = rng.integers(-3, 4, (lanes, n)).astype(np.float32)
+        h = rng.integers(0, 4, (lanes, n)).astype(np.float32)
+    else:
+        g = rng.normal(size=(lanes, n)).astype(np.float32)
+        h = rng.uniform(0.05, 0.4, (lanes, n)).astype(np.float32)
+    zero = rng.random((lanes, n)) < 0.2
+    g[zero], h[zero] = 0.0, 0.0
+    g[1] *= 40.0                                     # a lane of other bounds
+    mask = rng.random((lanes, n_feat)) < col_share
+    mask[np.arange(lanes), rng.integers(0, n_feat, lanes)] = True
+    return xb, pos, g, h, mask
+
+
+def _jax_level_splits(jft, jax, xb, pos, g, h, mask, level, lam, min_child):
+    """``jax.vmap`` of ``_grow_level(..., hist="matmul")`` over the lanes, as
+    the JAX package's vmapped search runs it, with xb and the masks padded
+    and chunked as ``_fit_forest_device`` does."""
+    jnp = jax.numpy
+    n, n_feat = xb.shape
+    fc = min(jft.F_CHUNK, jft._pad128(n_feat))
+    pad = (-n_feat) % fc
+    xb_chunks = jnp.pad(jnp.asarray(xb, jnp.int32), ((0, 0), (0, pad)))
+    xb_chunks = xb_chunks.reshape(n, -1, fc).transpose(1, 0, 2)
+    masks = jnp.pad(jnp.asarray(mask), ((0, 0), (0, pad))).reshape(len(mask), -1, fc)
+
+    def one(p, gl, hl, lm, m):
+        return jft._grow_level(p, xb_chunks, gl, hl, level, tr.MAX_BINS, lm,
+                               min_child, m, False, hist_mode="matmul")
+
+    out = jax.vmap(one)(jnp.asarray(pos), jnp.asarray(g), jnp.asarray(h),
+                        jnp.asarray(lam, jnp.float32), masks)
+    return [np.asarray(a) for a in out]
+
+
+def _near_tie(hist, mask, lam, min_child, got, want, node):
+    """Whether two picks of one node are a near tie: their gains (from the
+    port's plain arithmetic on its histogram) within 1e-5 of the larger
+    magnitude, or both at most 1e-5 of it from 0 where one side has no
+    split."""
+    gain, valid = tr.split_gains(hist[node:node + 1], torch.from_numpy(mask), lam,
+                                 min_child)
+    flat = torch.where(valid, gain, torch.tensor(-np.inf)).reshape(-1)
+
+    def at(pick):
+        f, b, has = (int(v[node]) for v in pick)
+        return float(flat[f * tr.MAX_BINS + b]) if has else 0.0
+
+    a, b = at(got), at(want)
+    return abs(a - b) <= 1e-5 * max(1.0, abs(a), abs(b))
+
+
+@pytest.mark.parametrize("level,n_feat,min_child,col_share,empty", [
+    (0, 5, 1.0, 1.0, False), (1, 12, 0.0, 0.6, False), (2, 9, 1.0, 0.5, True),
+    (3, 7, 0.0, 1.0, True), (4, 12, 1.0, 0.7, False), (4, 6, 0.0, 0.4, True)])
+def test_level_splits_equal_vmapped_grow_level_exactly(level, n_feat, min_child,
+                                                        col_share, empty, jft, jax):
+    """Integer-valued g and h: every bin sum is exact in either package, so
+    each lane's (feat, bin, has_split) equals the vmapped ``_grow_level``'s
+    at every node; per-lane lambda 0.1-10, a lane of 40x gradients, column
+    masks, zero-weight rows and, where ``empty``, empty nodes."""
+    xb, pos, g, h, mask = _split_level(level * 10 + n_feat, level, n_feat, True,
+                                       empty=empty, col_share=col_share)
+    counts = [c.launches.count for c in (tr.level_splits_lanes,
+                                         tr.level_histogram_lanes,
+                                         tr.best_splits_lanes)]
+    got = tr.level_splits_lanes(torch.from_numpy(xb), torch.from_numpy(pos),
+                                torch.from_numpy(g), torch.from_numpy(h), 1 << level,
+                                None, torch.from_numpy(mask),
+                                torch.tensor(SPLIT_LAMBDAS), min_child)
+    want = _jax_level_splits(jft, jax, xb, pos, g, h, mask, level, SPLIT_LAMBDAS,
+                             min_child)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), b)
+    assert got[2].any()
+    if empty:
+        assert not got[2][:, 1::2].any()
+        assert (got[1][:, 1::2] == tr.MAX_BINS - 1).all()
+    assert [c.launches.count for c in (tr.level_splits_lanes, tr.level_histogram_lanes,
+                                       tr.best_splits_lanes)] == counts   # the CPU
+
+
+@pytest.mark.parametrize("min_child", [0.0, 1.0])
+def test_level_splits_equal_vmapped_grow_level_but_near_ties(min_child, jft, jax):
+    """Random f32 g and h at levels 0-4: the two packages sum the bins in
+    other orders (row order here, a matmul there), so a node may pick
+    another split of an equal gain; at most 1% of the nodes differ, each a
+    counted near tie."""
+    nodes = near = 0
+    for level in range(5):
+        xb, pos, g, h, mask = _split_level(100 + level, level, 11, False,
+                                           col_share=0.7)
+        got = tr.level_splits_lanes(torch.from_numpy(xb), torch.from_numpy(pos),
+                                    torch.from_numpy(g), torch.from_numpy(h),
+                                    1 << level, None, torch.from_numpy(mask),
+                                    torch.tensor(SPLIT_LAMBDAS), min_child)
+        want = _jax_level_splits(jft, jax, xb, pos, g, h, mask, level,
+                                 SPLIT_LAMBDAS, min_child)
+        for i in range(SPLIT_LANES):
+            hist = tr.level_histogram_reference(
+                torch.from_numpy(xb), torch.from_numpy(pos[i]), torch.from_numpy(g[i]),
+                torch.from_numpy(h[i]), 1 << level)
+            lane_got = [a[i] for a in got]
+            lane_want = [torch.from_numpy(b[i].copy()) for b in want]
+            for node in range(1 << level):
+                nodes += 1
+                if all(bool(a[node] == b[node]) for a, b in zip(lane_got, lane_want)):
+                    continue
+                assert _near_tie(hist, mask[i], SPLIT_LAMBDAS[i], min_child,
+                                 lane_got, lane_want, node), (level, i, node)
+                near += 1
+    assert near <= 0.01 * nodes, (near, nodes)
+
+
+@pytest.mark.parametrize("min_child", [0.0, 1.0])
+def test_level_splits_plain_versions_agree(min_child):
+    """On the CPU the wrapper is the composition of K3's and K4's lane plain
+    versions; with integer-valued sums the fixed-point plain version (the
+    kernel's arithmetic) gives the same splits."""
+    xb, pos, g, h, mask = _split_level(7, 3, 10, True, empty=True, col_share=0.6)
+    args = [torch.from_numpy(a) for a in (xb, pos, g, h)]
+    lam = torch.tensor(SPLIT_LAMBDAS)
+    col = torch.from_numpy(mask)
+    got = tr.level_splits_lanes(*args, 8, None, col, lam, min_child,
+                                torch.full((10,), 64, dtype=torch.uint8))
+    two = tr.best_splits_lanes(tr.level_histogram_lanes(*args, 8), col, lam,
+                               min_child, False)
+    fixed = tr.level_splits_lanes_fixed_reference(*args, 8, col, lam, min_child,
+                                                  tr.gradient_bounds(*args[2:]))
+    for a, b, c in zip(got, two, fixed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_level_splits_reject_wrong_inputs():
+    xb, pos, g, h, mask = (torch.from_numpy(a) for a in _split_level(1, 2, 5, True))
+    lam = torch.tensor(SPLIT_LAMBDAS)
+    with pytest.raises(TypeError, match="col_mask"):
+        tr.level_splits_lanes(xb, pos, g, h, 4, None, mask[:, :3].contiguous(), lam, 1.0)
+    with pytest.raises(TypeError, match="lam"):
+        tr.level_splits_lanes(xb, pos, g, h, 4, None, mask, lam[:2].contiguous(), 1.0)
+    with pytest.raises(TypeError, match="pos"):
+        tr.level_splits_lanes(xb, pos[0], g, h, 4, None, mask, lam, 1.0)
+    with pytest.raises(ValueError, match="n_bins"):
+        tr.level_splits_lanes(xb, pos, g, h, 4, None, mask, lam, 1.0,
+                              torch.full((5,), 2, dtype=torch.uint8))
+
+
+def test_each_familys_tuned_group_is_one_lane_block():
+    """The blocks ``_forest_cv_vmapped`` cuts each tuned group into (50
+    sampled trials and the default, 5 folds) at the search matrix's 8,162
+    rows and 30 features: one block each. Only cat's oblivious lanes keep a
+    histogram; with one kept, dt's depth-12 group would take two."""
+    from bbbp_tpu_torch.train import classification as cl
+    from bbbp_tpu_torch.train.search import _sample_params
+
+    n, n_feat, folds = 8162, 30, 5
+    blocks = {}
+    for m in tb.FOREST_FAMILIES:
+        rng = np.random.default_rng(42)
+        params = [cl.DEFAULT_TRIALS[m]] + [_sample_params(cl.SEARCH_SPACES[m], rng)
+                                           for _ in range(50)]
+        for (rf, n_est, depth, obl), t_ids in tb._forest_groups(params).items():
+            lanes = len(t_ids) * folds
+            block = tb.lane_block(n, n_feat, depth, n_est, obl)
+            blocks[(m, n_est, depth)] = -(-lanes // block)
+    assert blocks == {("dt", 1, 12): 1, ("rf", 200, 10): 1, ("rf", 300, 10): 1,
+                      ("gb", 200, 4): 1, ("gb", 300, 6): 1, ("xgb", 300, 6): 1,
+                      ("cat", 300, 6): 1}
+    assert -(-255 // tb.lane_block(n, n_feat, 12, 1, True)) == 2
+
+
+def test_level_splits_bound_counts_the_occupied_cells():
+    """``timing.level_splits_bound`` counts xb once, each lane's rows, mask,
+    lambda and splits, and K4's 15 operations at the occupied cells only;
+    ``chip_smoke.occupied_cells`` counts those cells from xb and pos over
+    the rows of non-zero weight."""
+    import chip_smoke
+    from bbbp_tpu_torch.timing import level_splits_bound
+
+    xb = torch.tensor([[0, 5], [0, 5], [1, 5], [3, 6]], dtype=torch.uint8)
+    pos = torch.tensor([[0, 0, 1, 1], [1, 1, 1, 0]], dtype=torch.int32)
+    g = torch.tensor([[1.0, 2.0, 0.0, -1.0], [0.5, 0.0, 1.0, 1.0]])
+    h = torch.tensor([[1.0, 1.0, 0.0, 1.0], [1.0, 0.0, 1.0, 1.0]])
+    # lane 0: node 0 {(0, 0), (1, 5)}, node 1 {(0, 3), (1, 6)} (row 2 weighs 0);
+    # lane 1: node 1 {(0, 0), (0, 1), (1, 5)}, node 0 {(0, 3), (1, 6)}
+    assert chip_smoke.occupied_cells(xb, pos, g, h, 2) == 9
+    bound = level_splits_bound(4, 2, 2, 2, 9)
+    assert bound["bytes"] == 4 * 2 + 2 * (12 * 4 + 2 + 4 + 9 * 2)
+    assert bound["ops"] == 2 * 4 * 2 * 2 + 15 * 9
+    assert bound["bound_by"] == "bytes"
+
+
 # -- the kernels on the card -----------------------------------------------------
 
 @pytest.mark.cuda
@@ -455,3 +674,34 @@ def test_lanes_equal_fit_forest_on_cuda(cuda_device):
                             row_w=row_w[i], **kw)
         for a, b in zip(lanes, one):
             assert torch.equal(a[i], b), i
+
+
+@pytest.mark.cuda
+def test_level_splits_equal_two_kernels_on_cuda(cuda_device):
+    """The fused split search equals K3 with lanes then K4 with lanes bit for
+    bit (feat, bin, has_split), and the fixed-point plain version, at levels
+    0-11 over 8,162 rows and 30 features (the node rows of the shallow
+    levels cut into items and summed in slots, the deep ones a warp a node),
+    with column masks, zero-weight rows, a lane of 40x gradients, per-lane
+    lambda and min_child 0 and 1."""
+    for level, n_feat, lanes in ((0, 30, 5), (3, 30, 5), (5, 30, 5), (9, 30, 5),
+                                 (11, 30, 3), (5, 167, 3), (2, 7, 7)):
+        xb, pos, g, h = (t.to(cuda_device) for t in _lane_level(
+            level, lanes=lanes, n=8162, n_feat=n_feat, level=level))
+        g[1] *= 40.0
+        nodes = 1 << level
+        bounds = tr.gradient_bounds(g, h)
+        lam = torch.logspace(-1, 1, lanes, device=cuda_device)
+        mask = torch.rand(lanes, n_feat, device=cuda_device) < 0.7
+        mask[:, 0] = True
+        for min_child in (0.0, 1.0):
+            got = tr.level_splits_lanes(xb, pos, g, h, nodes, bounds, mask, lam,
+                                        min_child)
+            hist = tr.level_histogram_lanes(xb, pos, g, h, nodes, bounds)
+            two = tr.best_splits_lanes(hist, mask, lam, min_child, False)
+            fixed = tr.level_splits_lanes_fixed_reference(xb, pos, g, h, nodes, mask,
+                                                          lam, min_child, bounds)
+            torch.cuda.synchronize()
+            for a, b, c in zip(got, two, fixed):
+                assert torch.equal(a, b), (level, n_feat, min_child)
+                assert torch.equal(a, c), (level, n_feat, min_child)

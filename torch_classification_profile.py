@@ -17,7 +17,11 @@ writes it to ``--out``.
 for the run, so each forest family's search runs as lanes
 (``_forest_cv_vmapped``); then, on the run's own search rows (the training
 split after SMOTE-Tomek), it times xgb's search sequentially and as lanes,
-one after the other, since wall seconds differ between hosts.
+one after the other, since wall seconds differ between hosts, and rf's and
+dt's tuned searches with each form of the lanes' split search (the fused
+``level_splits_lanes``, and K3 then K4 with lanes) in turns: wall s, peak
+memory, scores equal, and rf's lanes' first 10 trees under
+``torch.profiler`` (device busy ms, host launch calls, largest kernels).
 """
 
 from __future__ import annotations
@@ -29,17 +33,17 @@ import sys
 import time
 
 
-def xgb_search_both_ways(x, y, cfg) -> dict:
-    """Wall seconds of xgb's tuned search over ``run_classification``'s own
-    search rows (projection, SMOTE-Tomek and split as it takes them),
-    sequentially and then as lanes, and the largest difference of their
-    trials' CV accuracies."""
+PROFILED_TREES = 10
+
+
+def search_rows(x, y, cfg):
+    """``run_classification``'s own search rows: projection, SMOTE-Tomek and
+    the training split as it takes them."""
     import numpy as np
     import torch
 
     from bbbp_tpu_torch.ops import resample as rs
     from bbbp_tpu_torch.ops.similarity import f32_matmul
-    from bbbp_tpu_torch.train import batched_search as bs
     from bbbp_tpu_torch.train import classification as cl
 
     cuda = torch.device("cuda")
@@ -47,19 +51,107 @@ def xgb_search_both_ways(x, y, cfg) -> dict:
         z = cl._project(cl._fit_basis(x, cfg.pca_dim, cuda), x, cuda)
     xs, ys = rs.smote_tomek(z, y, seed=cfg.seed, device=cuda)
     perm = np.random.default_rng(cfg.seed).permutation(len(ys))
-    tr_rows = perm[int(len(ys) * cfg.test_size):]
+    keep = perm[int(len(ys) * cfg.test_size):]
+    return xs[keep], ys[keep]
+
+
+def xgb_search_both_ways(xs, ys, cfg) -> dict:
+    """Wall seconds of xgb's tuned search over the search rows,
+    sequentially and then as lanes, and the largest difference of their
+    trials' CV accuracies."""
+    import numpy as np
+    import torch
+
+    from bbbp_tpu_torch.train import batched_search as bs
+    from bbbp_tpu_torch.train import classification as cl
+
+    cuda = torch.device("cuda")
     out, accs = {}, {}
     for mode, on in (("sequential", False), ("lanes", True)):
         bs.FOREST_VMAP = on
         torch.cuda.synchronize()
         t0 = time.time()
-        _, trials, _ = cl.tune_zoo(xs[tr_rows], ys[tr_rows], ("xgb",), cfg,
-                                   verbose=False, device=cuda)
+        _, trials, _ = cl.tune_zoo(xs, ys, ("xgb",), cfg, verbose=False, device=cuda)
         torch.cuda.synchronize()
         out[mode + "_s"] = time.time() - t0
         accs[mode] = np.array([t["mean_accuracy"] for t in trials["xgb"]])
     out["trials"] = len(accs["lanes"])
     out["max_accuracy_diff"] = float(np.abs(accs["lanes"] - accs["sequential"]).max())
+    return out
+
+
+def search_both_forms(xs, ys, cfg) -> dict:
+    """rf's tuned search as lanes (50 trials and the default x 5 folds: a
+    250-lane group of 300 trees of depth 10) and dt's (255 lanes of one tree
+    of depth up to 12), each with the fused split search and with K3 then K4
+    with lanes behind ``level_splits_lanes``'s name, in turns (fused, two,
+    two, fused): wall s, peak allocated memory, scores equal; then each form
+    over rf's lanes' first ``PROFILED_TREES`` trees under
+    ``torch.profiler``."""
+    import numpy as np
+    import torch
+
+    from bbbp_tpu_torch.ops import forest_train as tr
+    from bbbp_tpu_torch.timing import host_launch_calls, profile_summary
+    from bbbp_tpu_torch.train import batched_search as bs
+    from bbbp_tpu_torch.train import classification as cl
+
+    def two_kernels(xb, pos, g, h, n_nodes, bounds, col_mask, lam, min_child,
+                    n_bins=None, *, bins_checked=False):
+        hist = tr.level_histogram_lanes(xb, pos, g, h, n_nodes, bounds, n_bins,
+                                        bins_checked=bins_checked)
+        return tr.best_splits_lanes(hist, col_mask, lam, min_child, False)
+
+    cuda = torch.device("cuda")
+    n_iter = (cfg.n_search_iter if cfg.n_search_iter_forest is None
+              else cfg.n_search_iter_forest)
+    forms = {"fused": tr.level_splits_lanes, "two": two_kernels}
+    bs.FOREST_VMAP = True
+    out = {"rf_profile": {}}
+    try:
+        for m in ("rf", "dt"):
+            runs, scores = [], {}
+            for form in ("fused", "two", "two", "fused"):
+                tr.level_splits_lanes = forms[form]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                res = bs.batched_random_search(
+                    m, xs, ys, cl.SEARCH_SPACES[m], n_iter=n_iter,
+                    cv=cfg.search_folds, seed=cfg.seed,
+                    extra_trials=[cl.DEFAULT_TRIALS[m]], device=cuda)
+                torch.cuda.synchronize()
+                runs.append({"form": form, "wall_s": time.time() - t0,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+                scores.setdefault(form, [t["mean_accuracy"] for t in res.trials])
+            out[m] = {"trials": len(scores["fused"]), "runs": runs,
+                      "scores_equal": bool(np.array_equal(scores["fused"],
+                                                          scores["two"]))}
+            if m == "rf":
+                trials = res.trials
+        window = [{**{k: v for k, v in t.items()
+                      if not k.startswith("mean_") and k != "repeat_std"},
+                   "n_estimators": PROFILED_TREES} for t in trials]
+        for form in ("fused", "two"):
+            tr.level_splits_lanes = forms[form]
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                bs._score_param_sets("rf", xs, ys, window, cfg.search_folds, cfg.seed,
+                                     False, cuda)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            summary = profile_summary(prof, lambda name: name)
+            top = sorted(summary["device"].items(), key=lambda kv: -kv[1]["ms"])[:6]
+            out["rf_profile"][form] = {
+                "trees": PROFILED_TREES, "wall_s": wall,
+                "busy_ms": summary["device_busy_ms"],
+                "host_launch_calls": host_launch_calls(prof),
+                "largest_kernels_ms": [[name[:70], v["ms"], v["count"]]
+                                       for name, v in top]}
+    finally:
+        tr.level_splits_lanes = forms["fused"]
     return out
 
 
@@ -79,6 +171,7 @@ def run(forest_lanes: bool) -> dict:
                 "forest_route_rows": tr.route_rows,
                 "forest_level_histogram_lanes": tr.level_histogram_lanes,
                 "forest_best_splits_lanes": tr.best_splits_lanes,
+                "forest_level_splits_lanes": tr.level_splits_lanes,
                 "forest_leaf_values_lanes": tr.leaf_values_lanes}
     bs.FOREST_VMAP = forest_lanes or bs.FOREST_VMAP
     cfg = cl.ClassificationTrainConfig()
@@ -96,15 +189,18 @@ def run(forest_lanes: bool) -> dict:
               "launches": {k: c.launches.count for k, c in counters.items()},
               "report": res.report}
     if forest_lanes:
-        result["xgb_search"] = xgb_search_both_ways(x, y, cfg)
+        xs, ys = search_rows(x, y, cfg)
+        result["xgb_search"] = xgb_search_both_ways(xs, ys, cfg)
+        result["split_search_forms"] = search_both_forms(xs, ys, cfg)
     return result
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forest-lanes", action="store_true",
-                    help="run the forest searches as lanes (BBBP_FOREST_VMAP=1) "
-                         "and time xgb's search both ways")
+                    help="run the forest searches as lanes (BBBP_FOREST_VMAP=1), "
+                         "time xgb's search both ways and rf's and dt's with both "
+                         "split search forms")
     ap.add_argument("--out", default="chiprun_out/classification_profile.json")
     args = ap.parse_args()
     import torch
