@@ -150,6 +150,10 @@ def build_chem() -> str:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+# a parent split: f_l, b_l [(L,) nodes] int32, nodes (0: none), feats and bins
+# int32 at the parent level's first node of the tree (of lane 0)
+_PARENT = (_P, _P, _I, _P, _P)
 
 
 @functools.lru_cache(maxsize=None)
@@ -175,7 +179,9 @@ def kernels_lib() -> ctypes.CDLL:
         _P, _P,                # bounds [2] f32, n_bins [F] uint8 or null
         _I, _I, _I, _I,        # tile_feats, threads, rows_per_item, own_rows
         _P, _P, _P,            # scratch: rows, plan, acc
-        _P, _P,                # out [nodes, F, 64, 2] f32, stream
+        _P,                    # out [nodes, F, 64, 2] f32
+        *_PARENT,              # the parent split (no lane stride)
+        _P,                    # stream
     ]
     lib.bbbp_forest_best_splits.restype = _I
     lib.bbbp_forest_best_splits.argtypes = [
@@ -191,12 +197,16 @@ def kernels_lib() -> ctypes.CDLL:
         _P, _P,                # leaf [n_leaves] f32, preds [n] f32 (in place)
         _P, _P, _P, _F, _I,    # next tree: y, u, w_rows [n] f32 or null, subsample, cls
         _P, _P, _P,            # next g, h [n] f32, bounds [2] f32
-        _I, _P,                # cluster (blocks of 1,024 threads), stream
+        _I,                    # cluster (blocks of 1,024 threads)
+        _P, _I,                # xb [n, F] uint8 (for the parent split)
+        *_PARENT,              # the parent split (no lane stride)
+        _P,                    # stream
     ]
     lib.bbbp_forest_level_histogram_lanes.restype = _I
     lib.bbbp_forest_level_histogram_lanes.argtypes = (
         lib.bbbp_forest_level_histogram.argtypes[:-1] + [
-            _I, ctypes.c_longlong,  # lanes, scratch words a lane
+            _L,                     # words from one lane's trees to the next
+            _I, _L,                 # lanes, scratch words a lane
             _P])                    # stream
     lib.bbbp_forest_best_splits_lanes.restype = _I
     lib.bbbp_forest_best_splits_lanes.argtypes = [
@@ -214,7 +224,8 @@ def kernels_lib() -> ctypes.CDLL:
         _I, _I, _I,            # rows_per_item, own_rows, units a warp
         _P, _P, _P, _P,        # scratch: rows, plan, acc, candidates
         _P, _P, _P,            # feat, bin [L, nodes] int32, has_split bool
-        _I, ctypes.c_longlong,  # L, scratch words a lane
+        *_PARENT, _L,          # the parent split, words from one lane's trees to the next
+        _I, _L,                # L, scratch words a lane
         _P,                    # stream
     ]
     lib.bbbp_forest_leaf_values_lanes.restype = _I
@@ -224,14 +235,9 @@ def kernels_lib() -> ctypes.CDLL:
         _P, _P,                # leaf [L, n_leaves] f32, preds [L, n] f32 (in place)
         _P, _P, _P, _P, _I,    # next tree: y [n], u, w_rows [L, n] or null, subsample [L], cls
         _P, _P, _P,            # next g, h [L, n] f32, bounds [L, 2] f32
-        _I, _I, _P,            # cluster (blocks of 1,024 threads a lane), L, stream
-    ]
-    lib.bbbp_forest_route_rows.restype = _I
-    lib.bbbp_forest_route_rows.argtypes = [
-        _P, _I, _I,            # xb [n, F] uint8
-        _P, _P, _P, _I,        # pos [L, n] int32 (in place), f_l, b_l [L, nodes] int32, nodes
-        _P, _P,                # feats, bins int32 at [0, tree, first node of the level]
-        ctypes.c_longlong,     # words from one lane's tree arrays to the next
+        _I, _I,                # cluster (the cluster form's blocks a lane), shape
+        _P, _I,                # xb [n, F] uint8 (for the parent split)
+        *_PARENT, _L,          # the parent split, words from one lane's trees to the next
         _I, _P,                # L, stream
     ]
     lib.bbbp_tanimoto_topk.restype = _I

@@ -20,14 +20,12 @@
 //    jax.vmap, as bbbp_tpu/train/batched_search.py:340-344 runs it: one
 //    level's split search over lanes, K3's sums and K4's per-node pick in
 //    one pass, with no histogram in device memory (see its design below).
-// bbbp_forest_route_rows — replaces the routing of _fit_forest_device
-//    (:335-338): pos <- 2 * pos + (xb[row, f[pos]] > b[pos]) for every row,
-//    and the level's (feature, bin) pairs written into the tree's flat
-//    arrays. Integer work, a thread a row, the level's table in shared
-//    memory; bound by its bytes (pos read and written, one byte of xb a row
-//    read at a column that the row's node picks).
+// The routing of _fit_forest_device (:335-338), pos <- 2 * pos + (xb[row,
+//    f[pos]] > b[pos]) for every row and the level's (feature, bin) pairs
+//    into the tree's flat arrays, has no entry point of its own: the kernel
+//    that next reads the positions routes them (see Routing design).
 //
-// Lanes. K3, K4, K5 and the routing also run `lanes` fits of one shape over
+// Lanes. K3, K4 and K5 also run `lanes` fits of one shape over
 // one binned matrix (the *_lanes entry points), as
 // bbbp_tpu/train/batched_search.py::_forest_cv_vmapped runs them under
 // jax.vmap (:340-344). The lane is one more grid dimension of the same
@@ -199,6 +197,38 @@
 // rows touched and walked only those (faster only at a level of even
 // 8-row nodes that no tree of the search reaches, slower at level 8).
 //
+// Routing design. The reference routes a level's rows in a step of its own
+// (_fit_forest_device, :335-338). As a kernel of its own (PR 14) it moved 9
+// bytes a row and took 1.5 us for one fit, 2.0 us at 15 lanes: a launch, a
+// table load and two dependent round trips, far from its bound however it
+// was written. So it has no launch: the kernel that next reads the
+// positions routes them as it reads them.
+// - Levels >= 1: hist_group_kernel<kLanes, kRoute = true> (K3's sort and the
+//   fused search's, one fit and lanes) stages the parent level's table in
+//   shared memory, one int a node (pack_split: a row takes its split in one
+//   shared load), while its first rows' positions are in flight; then the
+//   xb loads of kSortUnroll rows go out with their g and h, each row is
+//   routed (weight 0 too: K5 moves their margins), pos is written back and
+//   the child counted. Past kSortUnroll * blockDim.x rows the scatter pass
+//   reads the routed pos (the thread's own writes) and does not route again.
+//   Block 1, which takes the scales, writes the table into the tree. The
+//   unrouted sort is its own instantiation: the block runs at its
+//   64-register limit, and routing's registers in one body spilled both.
+// - After the last level, K5 routes each row as it loads it (both forms)
+//   and does not write pos back, as no one reads it; rank 0 (or the lane's
+//   block) writes the table into the tree.
+// - A level of one node, or the children of one, reads no positions: every
+//   row is at 0, so a fit never resets pos between trees.
+// Measured by torch_route_leaf_profile.py against PR 15's build in one call
+// (H100 80GB HBM3, 700 W, n = 7,809 / 8,162, F = 30): the sort with routing
+// against PR 15's sort alone plus its routing kernel (1.5 us one fit, 2.0-2.8
+// at 15 lanes, 8.9-14.9 at 250), one fit, levels 1-5: +0.4 to +0.8 us a
+// level; 15 lanes +0.4 to +0.9 us; 250 lanes 3.0 to 5.8 us less; K5 with
+// routing +0.5 us over PR 15's K5, which saves the last level's launch. The
+// device time is about what it was; a fit issues one launch call a level
+// fewer and no zeroing of pos a tree. Past 8,192 rows each chunk of the sort
+// adds a round trip (9-14 us a level at 65,536 rows, chip_smoke.py phase 5).
+
 // K5 design: one launch, no memset, no global scratch. One thread block
 // cluster of up to 16 blocks of 1,024 threads, a row a thread (8 blocks at
 // the trainer's 7,809 rows), more rows in a loop.
@@ -236,6 +266,40 @@
 // into the others' shared memory with st.async, counted on each receiver's
 // transaction barrier (under half a microsecond less at 64 leaves, for a
 // second exchange path of raw PTX with its own ordering argument).
+//
+// K5 with lanes design. The cluster form above gives every lane the single
+// fit's cluster of leaf_plan(n) blocks of 1,024 threads (8 at 8,162 rows)
+// and its chain of cluster barriers. At 64 registers a thread one block
+// fills an SM, so one wave of the card holds about 16 such clusters: 250
+// lanes ran as ~15 waves of a latency chain, 0.0909 ms at 64 leaves with the next
+// tree, while their work is bandwidth-sized (73.6 MB, 0.022 ms at the
+// memory rate). So leaf_values asks the card how many clusters one wave
+// holds (cudaOccupancyMaxActiveClusters) and takes the largest cluster of
+// leaf_plan(n), leaf_plan(n) / 2, ... 2 blocks of which one wave holds every
+// lane's; where none does, one block a lane (leaf_values_block_kernel): no
+// cluster barrier and no distributed shared memory. The block walks its
+// lane's rows kLeafUnroll rows a thread at a time (all their loads in
+// flight), sums them into its own table with the two-word atomics, takes
+// the leaves, and walks the rows again for the update and the next tree's
+// gradients; 1,024 threads where one wave holds the lanes' blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), else 512, two an SM.
+// The sums are integers, so every shape gives the same bits.
+// Timed by torch_route_leaf_profile.py against PR 15's build in one call
+// (chip_smoke.py phase 14 times both shapes) on an H100 80GB HBM3 at 700 W,
+// n = 8,162, 64 / 1,024 leaves, the next tree and routing: L = 250 the chosen
+// block a lane 0.0424 / 0.0444 ms against PR 15's cluster form 0.0909 /
+// 0.1207 (bound 0.0221 / 0.0229); L = 100 0.0182 / 0.0188 against 0.0347 /
+// 0.0464; L = 50 a cluster of 2 blocks 0.0118 / 0.0131 against 0.0198 /
+// 0.0266; L = 15 the cluster of 8, 0.0066 / 0.0083 against 0.0060 / 0.0076
+// (the routing's round trip).
+// Tried on the card and dropped: a warp's rows of one leaf summed before the
+// atomics (__match_any_sync and a shuffle tree over the peers: slower at 64
+// and 1,024 leaves, where a warp's 32 rows in row order seldom share a
+// leaf), blocks of 256 threads, blocks at 32 registers (spilling the next
+// tree's loads), and a cluster of one block in place of the block form
+// (slower at 250 lanes). For the routing, reading the routed bins from a
+// copy of xb's columns [F, n] made once a fit was no faster, in the sort or
+// in K5.
 
 #include <cmath>
 #include <cooperative_groups.h>
@@ -268,7 +332,7 @@ constexpr int kOblRun = 32;                 // nodes a run
 constexpr int kOblThreads = kOblFeats * kBins;
 constexpr int kLeafThreads = 1024;
 constexpr int kLeafMaxCluster = 16;         // non-portable above 8
-constexpr int kRouteThreads = 256;
+constexpr int kLeafUnroll = 4;              // rows a thread has in flight, a block a lane
 constexpr int kRouteMaxNodes = 2048;        // a level of a depth-12 tree
 constexpr int kMaxLanes = 65535;            // a grid's y and z extent
 constexpr int kSplitWarps = 8;              // warps a block, fused split search
@@ -284,6 +348,62 @@ typedef unsigned long long u64;
 template <typename T>
 __device__ __forceinline__ T* shift(T* p, size_t bytes) {
   return reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(p) + bytes);
+}
+
+// The parent level's splits, routed by the kernel that next reads the
+// positions (see Routing design). nodes 0: no routing, pos holds the level's
+// positions as they are.
+struct Route {
+  const uint8_t* xb;   // [n, F]
+  int F;
+  const int* f;        // [lanes][nodes]: the parent level's features
+  const int* b;        // and bins
+  int nodes;
+  int* feats;          // the tree's flat arrays at the parent level's first
+  int* bins;           // node, lane after lane at tree_lane
+  size_t tree_lane;
+};
+
+// A node's split as the routing reads it from shared memory, one int:
+// feature << 9 | (bin + 1), the bin clamped to [-1, 255] (the same compare
+// for every uint8 bin), so that a row takes its node's split in one load.
+constexpr int kSplitBinBits = 9;
+constexpr int kRouteMaxFeats = 1 << (31 - kSplitBinBits);
+
+__device__ __forceinline__ int pack_split(int f, int b) {
+  return (f << kSplitBinBits) | (min(max(b, -1), 255) + 1);
+}
+
+// The child of parent p for a row whose bin of the split's feature is x.
+__device__ __forceinline__ int child_of(int p, int split, int x) {
+  return 2 * p + (x > (split & ((1 << kSplitBinBits) - 1)) - 1);
+}
+
+// Row r's bin of the split's feature.
+__device__ __forceinline__ int split_bin(const Route& r, int row, int split) {
+  return r.xb[static_cast<size_t>(row) * r.F + (split >> kSplitBinBits)];
+}
+
+// A lane's part of a Route.
+__device__ __forceinline__ Route lane_route(Route r, size_t fit) {
+  r.f += fit * r.nodes;
+  r.b += fit * r.nodes;
+  r.feats += fit * r.tree_lane;
+  r.bins += fit * r.tree_lane;
+  return r;
+}
+
+// The parent level's table into shared memory (pack_split a node), and, by
+// the block that `writes`, into the tree's flat arrays.
+__device__ __forceinline__ void stage_route(const Route& r, int* table, bool writes) {
+  for (int i = threadIdx.x; i < r.nodes; i += blockDim.x) {
+    const int f = r.f[i], b = r.b[i];
+    table[i] = pack_split(f, b);
+    if (writes) {
+      r.feats[i] = f;
+      r.bins[i] = b;
+    }
+  }
 }
 
 }  // namespace
@@ -354,26 +474,50 @@ __device__ long long block_exclusive_scan(long long v, long long* total) {
   return s_warp[warp] + inc - v;
 }
 
-// The nodes of the block's rows first + u * blockDim.x + threadIdx.x, u <
-// kSortUnroll: -1 for a row of weight 0 (g = h = 0, as subsampling leaves
-// them), a row outside the level or a slot past n. The loads of all
-// kSortUnroll rows are in flight together.
-__device__ __forceinline__ void live_nodes(const int* __restrict__ pos, int n,
+// The positions of the sort block's rows first + u * blockDim.x +
+// threadIdx.x, u < kSortUnroll (the parent level's, with routing): read only
+// where they can be other than 0 (`read`: more than one node); 0 past n.
+__device__ __forceinline__ void load_positions(const int* pos, bool read, int n, int first,
+                                               int (&p)[kSortUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kSortUnroll; ++u) {
+    const int r = first + u * blockDim.x + threadIdx.x;
+    p[u] = r < n && read ? pos[r] : 0;
+  }
+}
+
+// The nodes of those rows from their positions p: -1 for a row of weight 0
+// (g = h = 0, as subsampling leaves them), a row outside the level or a
+// slot past n. With kRoute, each row is first routed by the parent level's
+// table (shared memory, pack_split a node), p <- 2 p + (xb[r, f[p]] > b[p]),
+// and the routed position written back to pos, weight 0 or not (K5 moves
+// every row's margin). The g, h and xb loads of all kSortUnroll rows are in
+// flight together; a row's split is read from the table again for its
+// child rather than held (the block runs at its 64-register limit).
+template <bool kRoute>
+__device__ __forceinline__ void live_nodes(int (&p)[kSortUnroll], int* pos, int n,
                                            const float* __restrict__ g,
-                                           const float* __restrict__ h,
-                                           int n_nodes, int first,
+                                           const float* __restrict__ h, int n_nodes,
+                                           int first, const int* table, const Route& rt,
                                            int (&node)[kSortUnroll]) {
+  int x[kSortUnroll];
   float gv[kSortUnroll], hv[kSortUnroll];
 #pragma unroll
   for (int u = 0; u < kSortUnroll; ++u) {
     const int r = first + u * blockDim.x + threadIdx.x;
-    node[u] = r < n ? pos[r] : -1;
+    if (kRoute) x[u] = r < n ? split_bin(rt, r, table[p[u]]) : 0;
     gv[u] = r < n ? g[r] : 0.f;
     hv[u] = r < n ? h[r] : 0.f;
   }
 #pragma unroll
-  for (int u = 0; u < kSortUnroll; ++u)
-    if (node[u] >= n_nodes || (gv[u] == 0.f && hv[u] == 0.f)) node[u] = -1;
+  for (int u = 0; u < kSortUnroll; ++u) {
+    const int r = first + u * blockDim.x + threadIdx.x;
+    if (kRoute && r < n) {
+      p[u] = child_of(p[u], table[p[u]], x[u]);
+      pos[r] = p[u];
+    }
+    node[u] = r >= n || p[u] >= n_nodes || (gv[u] == 0.f && hv[u] == 0.f) ? -1 : p[u];
+  }
 }
 
 // Where this lane's kSortUnroll rows go: every (warp, node) adds its rows
@@ -439,17 +583,20 @@ __device__ __forceinline__ void add_rows(int* s_cnt, int n_nodes,
 // [acc_slots], info {items, slots in use}. blockIdx.y is the lane: its rows
 // lie at lane * n, its bounds at 2 * lane and its scratch at lane *
 // lane_bytes from lane 0's. kLanes false is the single fit's launch, with
-// no lane offsets compiled in (one body, as before the lane axis).
-template <bool kLanes>
+// no lane offsets compiled in (one body, as before the lane axis). With a
+// parent table (kRoute, route.nodes > 0) pos holds the parent level's
+// positions and the sort block routes them in place; block 1 writes the
+// table into the tree.
+template <bool kLanes, bool kRoute>
 __global__ void __launch_bounds__(kSortThreads)
-hist_group_kernel(const int* __restrict__ pos, int n,
+hist_group_kernel(int* __restrict__ pos, int n,
                   const float* __restrict__ g, const float* __restrict__ h,
                   int n_nodes, int rows_per_item, int own_rows,
                   const float* __restrict__ bounds, int* __restrict__ rows,
                   double* __restrict__ scales, int4* __restrict__ items,
                   int* __restrict__ slot_node, int* __restrict__ info,
                   ulonglong2* __restrict__ acc, size_t acc_pairs,
-                  size_t lane_bytes) {
+                  size_t lane_bytes, Route route) {
   if (kLanes) {
     const size_t fit = blockIdx.y, at = fit * lane_bytes;
     pos += fit * n;
@@ -462,13 +609,20 @@ hist_group_kernel(const int* __restrict__ pos, int n,
     slot_node = shift(slot_node, at);
     info = shift(info, at);
     acc = shift(acc, at);
+    route = lane_route(route, fit);
   }
   if (blockIdx.x > 0) {                     // the zeroing blocks
-    if (blockIdx.x == 1 && threadIdx.x < 2) {
+    if (blockIdx.x == 1) {
       // once a call, for the other kernels, off this kernel's one long block
-      const double scale = fixed_scale(bounds[threadIdx.x], n);
-      scales[threadIdx.x] = scale;
-      scales[2 + threadIdx.x] = 1.0 / scale;
+      if (threadIdx.x < 2) {
+        const double scale = fixed_scale(bounds[threadIdx.x], n);
+        scales[threadIdx.x] = scale;
+        scales[2 + threadIdx.x] = 1.0 / scale;
+      }
+      for (int i = threadIdx.x; i < route.nodes; i += blockDim.x) {
+        route.feats[i] = route.f[i];
+        route.bins[i] = route.b[i];
+      }
     }
     const size_t stride = static_cast<size_t>(gridDim.x - 1) * blockDim.x;
     for (size_t i = static_cast<size_t>(blockIdx.x - 1) * blockDim.x + threadIdx.x;
@@ -476,21 +630,31 @@ hist_group_kernel(const int* __restrict__ pos, int n,
       acc[i] = make_ulonglong2(0, 0);
     return;
   }
-  extern __shared__ int s_cnt[];            // [n_nodes] counts, then cursors
+  extern __shared__ int s_route[];          // [route.nodes], then s_cnt
+  int* s_cnt = s_route + (kRoute ? route.nodes : 0);   // [n_nodes] counts, then cursors
   __shared__ long long s_total;
   __shared__ int4 s_split[kMaxSlots];       // a split node: rows, first item
-  for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) s_cnt[i] = 0;
-  __syncthreads();
   // every thread walks the same number of row slots, so the warp-wide
   // primitives below see whole warps; the first kSortUnroll * blockDim.x
   // rows' nodes stay in registers for the scatter (all of them at the
-  // trainer's 7,809 rows: one multiprocessor reads pos, g and h once)
+  // trainer's 7,809 rows: one multiprocessor reads pos, g and h once). With
+  // routing the first rows' positions are in flight while the table is
+  // staged; a level of one node (or the children of one) reads none.
   const int chunk = kSortUnroll * blockDim.x;
-  int kept_node[kSortUnroll], node[kSortUnroll], place[kSortUnroll];
-  live_nodes(pos, n, g, h, n_nodes, 0, kept_node);
+  const bool read = (kRoute ? route.nodes : n_nodes) > 1;
+  int kept_node[kSortUnroll], node[kSortUnroll], place[kSortUnroll], p[kSortUnroll];
+  if (kRoute) {
+    load_positions(pos, read, n, 0, p);
+    stage_route(route, s_route, false);
+  }
+  for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) s_cnt[i] = 0;
+  __syncthreads();
+  if (!kRoute) load_positions(pos, read, n, 0, p);
+  live_nodes<kRoute>(p, pos, n, g, h, n_nodes, 0, s_route, route, kept_node);
   add_rows<false>(s_cnt, n_nodes, kept_node, place);
   for (int first = chunk; first < n; first += chunk) {
-    live_nodes(pos, n, g, h, n_nodes, first, node);
+    load_positions(pos, read, n, first, p);
+    live_nodes<kRoute>(p, pos, n, g, h, n_nodes, first, s_route, route, node);
     add_rows<false>(s_cnt, n_nodes, node, place);
   }
   __syncthreads();
@@ -548,7 +712,10 @@ hist_group_kernel(const int* __restrict__ pos, int n,
   };
   scatter(kept_node, 0);
   for (int first = chunk; first < n; first += chunk) {
-    live_nodes(pos, n, g, h, n_nodes, first, node);
+    // the rows past the first chunk again, at the positions routed above
+    // (this thread's own writes)
+    load_positions(pos, n_nodes > 1, n, first, p);
+    live_nodes<false>(p, pos, n, g, h, n_nodes, first, s_route, route, node);
     scatter(node, first);
   }
   if (!staged) return;
@@ -1407,14 +1574,16 @@ struct LeafRow {
   float g, h, pred, y, u, w;
 };
 
+// pos is read only where it can hold other than 0 (`read`); a slot past n
+// is position -1.
 template <bool kNext>
-__device__ __forceinline__ LeafRow load_leaf_row(int r, int n, const int* pos,
+__device__ __forceinline__ LeafRow load_leaf_row(int r, int n, const int* pos, bool read,
                                                  const float* g, const float* h,
                                                  const float* preds,
                                                  const NextTree& next) {
   LeafRow row{-1, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (r >= n) return row;
-  row.p = pos[r];
+  row.p = read ? pos[r] : 0;
   row.g = g[r];
   row.h = h[r];
   row.pred = preds[r];
@@ -1426,12 +1595,24 @@ __device__ __forceinline__ LeafRow load_leaf_row(int r, int n, const int* pos,
   return row;
 }
 
+// Row r's leaf from its parent position p (-1 past n) and, with `routing`,
+// the parent level's table in shared memory; p itself without.
+__device__ __forceinline__ int routed_leaf(int p, int r, bool routing, const int* table,
+                                           const Route& route) {
+  if (!routing || p < 0) return p;
+  const int split = table[p];
+  return child_of(p, split, split_bin(route, r, split));
+}
+
 // K5: one cluster of 1 to 16 blocks a lane, a row a thread (see K5
 // design). blockIdx.y is the lane: its rows (pos, g, h, preds and the next
 // tree's u, w, g, h) at lane * n, its bounds at 2 * lane, its leaves at
 // lane * n_leaves, its lam, scale and subsample from lams, scales and
 // next.subsamples; y is every lane's. kLanes false: the single fit, with
-// lam, scale and subsample as given and no lane offsets compiled in.
+// lam, scale and subsample as given and no lane offsets compiled in. With a
+// parent table pos holds the last level's parents, and each row is routed
+// as it is loaded (pos is not written back); rank 0 writes the table into
+// the tree.
 template <bool kNext, bool kLanes>
 __global__ void __launch_bounds__(kLeafThreads, 1)
 leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__ g,
@@ -1440,7 +1621,7 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
                    const float* __restrict__ scales,
                    const float* __restrict__ bounds,
                    float* __restrict__ leaf, float* __restrict__ preds,
-                   NextTree next) {
+                   NextTree next, Route route) {
   if (kLanes) {
     const size_t fit = blockIdx.y, rows0 = fit * n;
     pos += rows0;
@@ -1459,6 +1640,7 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
       next.bounds += 2 * fit;
       next.subsample = next.subsamples[fit];
     }
+    route = lane_route(route, fit);
   }
   extern __shared__ __align__(16) unsigned char leaf_smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -1468,16 +1650,20 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
   const int per = every ? n_leaves : (n_leaves + blocks - 1) / blocks;
   ulonglong2* sums = reinterpret_cast<ulonglong2*>(leaf_smem);  // [leaf] (g, h)
   ulonglong2* stage = sums + n_leaves;                           // [block][per]
-  float* values = reinterpret_cast<float*>(stage + blocks * per);   // [leaf]
+  int* s_route = reinterpret_cast<int*>(stage + blocks * per);      // [parent]
+  float* values = reinterpret_cast<float*>(s_route + route.nodes);  // [leaf]
   __shared__ double s_scale[4];             // g, h, then their inverses
   __shared__ unsigned s_max[2];
   const int stride = blocks * blockDim.x;
   const int r0 = rank * blockDim.x + threadIdx.x;
+  const bool read = (route.nodes ? route.nodes : n_leaves) > 1;
+  const bool routing = route.nodes > 0;
   LEAF_CLOCK(0);
   // every load of the first row (at the trainer's sizes, every row) and
   // the bounds are in flight together, through the start-up and barriers
   const float bound = threadIdx.x < 2 ? bounds[threadIdx.x] : 0.f;
-  const LeafRow first = load_leaf_row<kNext>(r0, n, pos, g, h, preds, next);
+  LeafRow first = load_leaf_row<kNext>(r0, n, pos, read, g, h, preds, next);
+  stage_route(route, s_route, rank == 0);
   for (int i = threadIdx.x; i < n_leaves; i += blockDim.x)
     sums[i] = make_ulonglong2(0, 0);
   if (threadIdx.x < 2) {
@@ -1488,11 +1674,15 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
     if (kNext && rank == 0) atomicExch(next.bounds + threadIdx.x, 0u);
   }
   __syncthreads();
+  first.p = routed_leaf(first.p, r0, routing, s_route, route);
   LEAF_CLOCK(1);                            // loads issued, table zeroed, scales
   const double sg = s_scale[0], sh = s_scale[1];
   for (int r = r0; r < n; r += stride) {    // this block's rows, its own table
-    const LeafRow row = r == r0 ? first
-                                : load_leaf_row<false>(r, n, pos, g, h, preds, next);
+    LeafRow row = first;
+    if (r != r0) {
+      row = load_leaf_row<false>(r, n, pos, read, g, h, preds, next);
+      row.p = routed_leaf(row.p, r, routing, s_route, route);
+    }
     if (row.p < 0 || row.p >= n_leaves) continue;
     shared_add64(&sums[row.p].x, quantise(row.g, sg));
     shared_add64(&sums[row.p].y, quantise(row.h, sh));
@@ -1537,8 +1727,11 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
 
   unsigned max_g = 0, max_h = 0;
   for (int r = r0; r < n; r += stride) {
-    const LeafRow row = r == r0 ? first
-                                : load_leaf_row<kNext>(r, n, pos, g, h, preds, next);
+    LeafRow row = first;
+    if (r != r0) {
+      row = load_leaf_row<kNext>(r, n, pos, read, g, h, preds, next);
+      row.p = routed_leaf(row.p, r, routing, s_route, route);
+    }
     float pred = row.pred;
     if (row.p >= 0 && row.p < n_leaves) {   // one fused multiply-add, as the reference
       pred = __fmaf_rn(scale, values[row.p], pred);
@@ -1569,51 +1762,177 @@ leaf_values_kernel(const int* __restrict__ pos, int n, const float* __restrict__
   LEAF_CLOCK(10);                           // wait to exit
 }
 
-// ---- routing -----------------------------------------------------------------
-
-// A row a thread: pos <- 2 pos + (xb[row, f[pos]] > b[pos]), in place, with
-// the level's (feature, bin) table of the thread's lane in shared memory;
-// block 0 of each lane also writes the table into the lane's tree. grid
-// (row blocks, lanes); f_l, b_l [lane][nodes], pos [lane][n], feats and
-// bins at the level's first node of the tree, lane after lane at tree_lane.
-__global__ void __launch_bounds__(kRouteThreads)
-route_rows_kernel(const uint8_t* __restrict__ xb, int n, int F,
-                  int* __restrict__ pos, const int* __restrict__ f_l,
-                  const int* __restrict__ b_l, int nodes, int* __restrict__ feats,
-                  int* __restrict__ bins, size_t tree_lane) {
-  __shared__ int s_feat[kRouteMaxNodes], s_bin[kRouteMaxNodes];
-  const size_t fit = blockIdx.y;
-  pos += fit * n;
-  f_l += fit * nodes;
-  b_l += fit * nodes;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = r < n ? pos[r] : 0;         // in flight while the table loads
-  for (int i = threadIdx.x; i < nodes; i += blockDim.x) {
-    const int f = f_l[i], b = b_l[i];
-    s_feat[i] = f;
-    s_bin[i] = b;
-    if (blockIdx.x == 0) {
-      feats[fit * tree_lane + i] = f;
-      bins[fit * tree_lane + i] = b;
+// K5 with lanes, one block a lane (see K5 with lanes design): the block
+// walks its lane's rows kLeafUnroll a thread at a time, sums them into its
+// own shared table, takes the leaves, and walks the rows again for the
+// update and the next tree's gradients. No cluster, no barrier but the
+// block's. blockIdx.x is the lane; the layout is leaf_values_kernel's.
+template <bool kNext, int kThreads>
+__global__ void __launch_bounds__(kThreads, kLeafThreads / kThreads)
+leaf_values_block_kernel(const int* __restrict__ pos, int n,
+                         const float* __restrict__ g, const float* __restrict__ h,
+                         int n_leaves, const float* __restrict__ lams,
+                         const float* __restrict__ scales,
+                         const float* __restrict__ bounds, float* __restrict__ leaf,
+                         float* __restrict__ preds, NextTree next, Route route) {
+  const size_t fit = blockIdx.x, rows0 = fit * n;
+  pos += rows0;
+  g += rows0;
+  h += rows0;
+  preds += rows0;
+  bounds += 2 * fit;
+  leaf += fit * n_leaves;
+  const float lam = lams[fit], scale = scales[fit];
+  if (kNext) {
+    next.u += rows0;
+    next.w += rows0;
+    next.g += rows0;
+    next.h += rows0;
+    next.bounds += 2 * fit;
+    next.subsample = next.subsamples[fit];
+  }
+  route = lane_route(route, fit);
+  extern __shared__ __align__(16) unsigned char leaf_smem[];
+  ulonglong2* sums = reinterpret_cast<ulonglong2*>(leaf_smem);      // [leaf] (g, h)
+  int* s_route = reinterpret_cast<int*>(sums + n_leaves);           // [parent]
+  float* values = reinterpret_cast<float*>(s_route + route.nodes);  // [leaf]
+  __shared__ double s_scale[4];
+  __shared__ unsigned s_max[2];
+  const bool read = (route.nodes ? route.nodes : n_leaves) > 1;
+  const bool routing = route.nodes > 0;
+  const float bound = threadIdx.x < 2 ? bounds[threadIdx.x] : 0.f;
+  stage_route(route, s_route, true);
+  for (int i = threadIdx.x; i < n_leaves; i += kThreads) sums[i] = make_ulonglong2(0, 0);
+  if (threadIdx.x < 2) {
+    const double sc = fixed_scale(bound, n);
+    s_scale[threadIdx.x] = sc;
+    s_scale[2 + threadIdx.x] = 1.0 / sc;
+    s_max[threadIdx.x] = 0;
+  }
+  __syncthreads();
+  const double sg = s_scale[0], sh = s_scale[1];
+  // a thread's kLeafUnroll rows: their loads in flight together, then
+  // their xb loads
+  for (int base = 0; base < n; base += kLeafUnroll * kThreads) {
+    int p[kLeafUnroll];
+    float gv[kLeafUnroll], hv[kLeafUnroll];
+#pragma unroll
+    for (int u = 0; u < kLeafUnroll; ++u) {
+      const int r = base + u * kThreads + threadIdx.x;
+      p[u] = r < n ? (read ? pos[r] : 0) : -1;
+      gv[u] = r < n ? g[r] : 0.f;
+      hv[u] = r < n ? h[r] : 0.f;
+    }
+    if (routing) {
+      int split[kLeafUnroll], x[kLeafUnroll];
+#pragma unroll
+      for (int u = 0; u < kLeafUnroll; ++u) split[u] = p[u] >= 0 ? s_route[p[u]] : 0;
+#pragma unroll
+      for (int u = 0; u < kLeafUnroll; ++u) {
+        const int r = base + u * kThreads + threadIdx.x;
+        x[u] = p[u] >= 0 ? split_bin(route, r, split[u]) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kLeafUnroll; ++u)
+        if (p[u] >= 0) p[u] = child_of(p[u], split[u], x[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kLeafUnroll; ++u) {
+      if (p[u] < 0 || p[u] >= n_leaves) continue;
+      shared_add64(&sums[p[u]].x, quantise(gv[u], sg));
+      shared_add64(&sums[p[u]].y, quantise(hv[u], sh));
     }
   }
   __syncthreads();
-  if (r >= n) return;
-  const int x = xb[static_cast<size_t>(r) * F + s_feat[p]];
-  pos[r] = 2 * p + (x > s_bin[p]);
+  for (int li = threadIdx.x; li < n_leaves; li += kThreads) {
+    const ulonglong2 s = sums[li];
+    const float gl = bin_value(static_cast<long long>(s.x), s_scale[2]);
+    const float hl = bin_value(static_cast<long long>(s.y), s_scale[3]);
+    const float v = __fdiv_rn(-gl, __fadd_rn(hl, lam));
+    values[li] = v;
+    leaf[li] = v;
+  }
+  __syncthreads();
+  unsigned max_g = 0, max_h = 0;
+  for (int base = 0; base < n; base += kLeafUnroll * kThreads) {
+    int p[kLeafUnroll];
+    float pv[kLeafUnroll], yv[kLeafUnroll], uv[kLeafUnroll], wv[kLeafUnroll];
+#pragma unroll
+    for (int u = 0; u < kLeafUnroll; ++u) {
+      const int r = base + u * kThreads + threadIdx.x;
+      p[u] = r < n ? (read ? pos[r] : 0) : -1;
+      pv[u] = r < n ? preds[r] : 0.f;
+      if (kNext) {
+        yv[u] = r < n ? next.y[r] : 0.f;
+        uv[u] = r < n ? next.u[r] : 0.f;
+        wv[u] = r < n ? next.w[r] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLeafUnroll; ++u) {
+      const int r = base + u * kThreads + threadIdx.x;
+      p[u] = routed_leaf(p[u], r, routing, s_route, route);
+    }
+#pragma unroll
+    for (int u = 0; u < kLeafUnroll; ++u) {
+      const int r = base + u * kThreads + threadIdx.x;
+      if (r >= n) continue;
+      float pred = pv[u];
+      if (p[u] >= 0 && p[u] < n_leaves) {  // one fused multiply-add, as the reference
+        pred = __fmaf_rn(scale, values[p[u]], pred);
+        preds[r] = pred;
+      }
+      if (kNext) {
+        float gn, hn;
+        next_gradient(pred, yv[u], uv[u], wv[u], next, &gn, &hn);
+        next.g[r] = gn;
+        next.h[r] = hn;
+        max_g = max(max_g, __float_as_uint(fabsf(gn)));
+        max_h = max(max_h, __float_as_uint(fabsf(hn)));
+      }
+    }
+  }
+  if (kNext) {
+    max_g = __reduce_max_sync(0xffffffffu, max_g);
+    max_h = __reduce_max_sync(0xffffffffu, max_h);
+    if ((threadIdx.x & 31) == 0) {
+      atomicMax(s_max, max_g);
+      atomicMax(s_max + 1, max_h);
+    }
+    __syncthreads();
+    if (threadIdx.x < 2) next.bounds[threadIdx.x] = s_max[threadIdx.x];
+  }
 }
 
 // Raises a kernel's dynamic shared-memory limit to the most it is launched
-// with, once (so that launches inside a CUDA graph capture set nothing).
+// with, once a size (so that launches inside a CUDA graph capture set
+// nothing once the calls before it have). Every size is set, 48 KB or
+// under too: the kernel's static shared memory counts toward 48 KB.
 cudaError_t shared_limit(const void* kernel, int* raised_to, int bytes) {
-  if (bytes <= 48 * 1024 || bytes <= *raised_to) return cudaSuccess;
+  if (bytes <= *raised_to) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) *raised_to = bytes;
   return err;
 }
 
-int sort_smem_raised[2] = {0, 0};            // [kLanes]
+int sort_smem_raised[2][2] = {};             // [kLanes][kRoute]
+
+typedef void (*SortKernel)(int*, int, const float*, const float*, int, int, int,
+                           const float*, int*, double*, int4*, int*, int*, ulonglong2*,
+                           size_t, size_t, Route);
+const SortKernel sort_kernels[2][2] = {          // [kLanes][kRoute]
+    {hist_group_kernel<false, false>, hist_group_kernel<false, true>},
+    {hist_group_kernel<true, false>, hist_group_kernel<true, true>}};
+
+// The sort's kernel for a launch, its dynamic shared memory (the parent's
+// table, then the plan's counters and rows) raised to `smem` bytes.
+cudaError_t sort_kernel(bool lanes, const Route& route, int smem, SortKernel* kernel) {
+  const bool routing = route.nodes > 0;
+  *kernel = sort_kernels[lanes][routing];
+  return shared_limit(reinterpret_cast<const void*>(*kernel),
+                      &sort_smem_raised[lanes][routing], smem);
+}
 int oblivious_smem_raised = 0;
 int leaf_smem_raised[2][2] = {};              // [kNext][kLanes]
 bool leaf_wide_clusters[2][2] = {};
@@ -1647,6 +1966,19 @@ SortPlan sort_plan(int n, int F, int n_nodes, int rows_per_item, int own_rows,
   return p;
 }
 
+// The parent split of a C entry point's arguments; false where they do not
+// describe one that leads to `children` nodes (nodes 0: no routing).
+bool parent_route(const void* xb, int F, const void* f, const void* b, int nodes,
+                  void* feats, void* bins, long long tree_lane, int children,
+                  Route* route) {
+  *route = Route{static_cast<const uint8_t*>(xb), F, static_cast<const int*>(f),
+                 static_cast<const int*>(b), nodes, static_cast<int*>(feats),
+                 static_cast<int*>(bins), static_cast<size_t>(tree_lane)};
+  if (nodes == 0) return true;
+  return nodes > 0 && nodes <= kRouteMaxNodes && 2 * nodes == children && xb && F > 0 &&
+         F <= kRouteMaxFeats && f && b && feats && bins && tree_lane >= 0;
+}
+
 template <bool kLanes>
 void launch_histogram(int groups, int sort_smem, const dim3& grid, int threads,
                       int tile_smem, int acc_slots, int F, cudaStream_t s,
@@ -1655,10 +1987,12 @@ void launch_histogram(int groups, int sort_smem, const dim3& grid, int threads,
                       const float* bounds, int* rows, double* scales, int4* items,
                       int* slot_node, int* info, void* acc, size_t acc_pairs,
                       const uint8_t* xb, const uint8_t* n_bins, int tile_shift,
-                      void* out, size_t lane_bytes, size_t out_lane) {
-  hist_group_kernel<kLanes><<<dim3(groups, grid.z), kSortThreads, sort_smem, s>>>(
-      pos, n, gp, hp, n_nodes, rows_per_item, own_rows, bounds, rows, scales,
-      items, slot_node, info, static_cast<ulonglong2*>(acc), acc_pairs, lane_bytes);
+                      void* out, size_t lane_bytes, size_t out_lane,
+                      SortKernel sort, const Route& route) {
+  sort<<<dim3(groups, grid.z), kSortThreads, sort_smem, s>>>(
+      const_cast<int*>(pos), n, gp, hp, n_nodes, rows_per_item, own_rows, bounds, rows,
+      scales, items, slot_node, info, static_cast<ulonglong2*>(acc), acc_pairs,
+      lane_bytes, route);
   level_hist_kernel<kLanes><<<grid, threads, tile_smem, s>>>(
       xb, n, F, gp, hp, n_bins, tile_shift, rows, scales, items, info,
       static_cast<u64*>(acc), static_cast<float2*>(out), lane_bytes, out_lane);
@@ -1672,13 +2006,14 @@ void launch_histogram(int groups, int sort_smem, const dim3& grid, int threads,
 // K3 over `lanes` fits (1: the single fit's launch). pos, g, h [lanes][n],
 // bounds [lanes][2]; each lane's scratch (rows, plan, acc) lies lane_words
 // int64 words after the one before (even, so its int4 and 128-bit parts stay
-// aligned); out [lanes][n_nodes][F][64][2].
+// aligned); out [lanes][n_nodes][F][64][2]. With a parent split (route)
+// pos holds the parent level's positions and is routed in place.
 int level_histogram(const void* xb, int n, int F, const void* pos,
                     const void* g, const void* h, int n_nodes,
                     const void* bounds, const void* n_bins, int tile_feats,
                     int threads, int rows_per_item, int own_rows, void* rows,
                     void* plan, void* acc, void* out, int lanes,
-                    long long lane_words, void* stream) {
+                    long long lane_words, const Route& route, void* stream) {
   if (n < 0 || F <= 0 || n_nodes <= 0 || n_nodes > kMaxSortNodes ||
       n / (own_rows + 1) > kMaxSlots ||
       rows_per_item <= 0 || own_rows < rows_per_item || threads < 32 ||
@@ -1690,23 +2025,23 @@ int level_histogram(const void* xb, int n, int F, const void* pos,
   const size_t lane_bytes = static_cast<size_t>(lane_words) * sizeof(long long);
   const size_t out_lane = static_cast<size_t>(n_nodes) * F * kBins;
   const SortPlan p = sort_plan(n, F, n_nodes, rows_per_item, own_rows, plan);
+  const int sort_smem = p.sort_smem + route.nodes * static_cast<int>(sizeof(int));
   const float* gp = static_cast<const float*>(g);
   const float* hp = static_cast<const float*>(h);
   const bool with_lanes = lanes > 1;
-  const cudaError_t err = shared_limit(
-      with_lanes ? reinterpret_cast<const void*>(hist_group_kernel<true>)
-                 : reinterpret_cast<const void*>(hist_group_kernel<false>),
-      &sort_smem_raised[with_lanes], p.sort_smem);
+  SortKernel sort;
+  const cudaError_t err = sort_kernel(with_lanes, route, sort_smem, &sort);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tile_shift = tile_feats == 8 ? 3 : (tile_feats == 16 ? 4 : 5);
   const dim3 grid(p.max_items, (F + tile_feats - 1) / tile_feats, lanes);
   const int tile_smem = tile_feats * kBins * 2 * static_cast<int>(sizeof(u64));
   (with_lanes ? launch_histogram<true> : launch_histogram<false>)(
-      p.sort_blocks, p.sort_smem, grid, threads, tile_smem, p.acc_slots, F, s,
+      p.sort_blocks, sort_smem, grid, threads, tile_smem, p.acc_slots, F, s,
       static_cast<const int*>(pos), n, gp, hp, n_nodes, rows_per_item, own_rows,
       static_cast<const float*>(bounds), static_cast<int*>(rows), p.scales, p.items,
       p.slot_node, p.info, acc, p.acc_pairs, static_cast<const uint8_t*>(xb),
-      static_cast<const uint8_t*>(n_bins), tile_shift, out, lane_bytes, out_lane);
+      static_cast<const uint8_t*>(n_bins), tile_shift, out, lane_bytes, out_lane, sort,
+      route);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1724,7 +2059,8 @@ int level_splits(const void* xb, int n, int F, const void* pos, const void* g,
                  const void* col_mask, const void* lams, float min_child,
                  int rows_per_item, int own_rows, int run,
                  void* rows, void* plan, void* acc, void* cand, void* feat, void* bin,
-                 void* has_split, int lanes, long long lane_words, void* stream) {
+                 void* has_split, int lanes, long long lane_words, const Route& route,
+                 void* stream) {
   if (n < 0 || F <= 0 || F > kMaxSplitFeats || n_nodes <= 0 ||
       n_nodes > kMaxSortNodes || n / (own_rows + 1) > kMaxSlots ||
       rows_per_item <= 0 || own_rows < rows_per_item || run < 1 || lanes < 1 ||
@@ -1746,8 +2082,9 @@ int level_splits(const void* xb, int n, int F, const void* pos, const void* g,
   const int groups = (F + kGroupFeats - 1) / kGroupFeats;
   const int finish_smem = kSplitWarps * kGroupFeats * kBins * static_cast<int>(sizeof(Fresh)) +
                           F * static_cast<int>(sizeof(int));
-  cudaError_t err = shared_limit(reinterpret_cast<const void*>(hist_group_kernel<true>),
-                                 &sort_smem_raised[1], p.sort_smem);
+  const int sort_smem = p.sort_smem + route.nodes * static_cast<int>(sizeof(int));
+  SortKernel sort;
+  cudaError_t err = sort_kernel(true, route, sort_smem, &sort);
   if (err == cudaSuccess)
     err = shared_limit(reinterpret_cast<const void*>(level_splits_kernel),
                        &splits_smem_raised, split_smem);
@@ -1759,10 +2096,11 @@ int level_splits(const void* xb, int n, int F, const void* pos, const void* g,
   const size_t cand_lane = static_cast<size_t>(n_nodes) * groups;
   float* cand_gain = static_cast<float*>(cand);
   int* cand_idx = static_cast<int*>(cand) + static_cast<size_t>(lanes) * cand_lane;
-  hist_group_kernel<true><<<dim3(p.sort_blocks, lanes), kSortThreads, p.sort_smem, s>>>(
-      static_cast<const int*>(pos), n, gp, hp, n_nodes, rows_per_item, own_rows,
-      static_cast<const float*>(bounds), static_cast<int*>(rows), p.scales, p.items,
-      p.slot_node, p.info, static_cast<ulonglong2*>(acc), p.acc_pairs, lane_bytes);
+  sort<<<dim3(p.sort_blocks, lanes), kSortThreads, sort_smem, s>>>(
+      static_cast<int*>(const_cast<void*>(pos)), n, gp, hp, n_nodes, rows_per_item,
+      own_rows, static_cast<const float*>(bounds), static_cast<int*>(rows), p.scales,
+      p.items, p.slot_node, p.info, static_cast<ulonglong2*>(acc), p.acc_pairs,
+      lane_bytes, route);
   const int units = p.max_items * groups;
   level_splits_kernel<<<dim3((units + per_block - 1) / per_block, lanes),
                         kSplitWarps * 32, split_smem, s>>>(
@@ -1826,54 +2164,64 @@ int best_splits(const void* hist, int n_nodes, int F, const void* col_mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5 over `lanes` fits, each one cluster of `cluster` blocks of kLeafThreads
-// (at most 16); the layout is leaf_values_kernel's.
+// What one wave of the card holds of a launch: clusters of a cluster
+// launch (cudaOccupancyMaxActiveClusters) or blocks of a plain one
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs). Asked once
+// a kernel, size and shared-memory size; known = {shared bytes, count}.
+int wave_size(const void* kernel, const cudaLaunchConfig_t* cfg, int threads, int smem,
+              int2* known) {
+  if (known->x == smem && known->y > 0) return known->y;
+  int count = 0;
+  cudaError_t err;
+  if (cfg) {
+    err = cudaOccupancyMaxActiveClusters(&count, kernel, cfg);
+  } else {
+    int device = 0, sms = 0;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, threads, smem);
+    count *= sms;
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  *known = make_int2(smem, count > 0 ? count : 1);
+  return known->y;
+}
+
+int2 leaf_wave[2][kLeafMaxCluster + 1] = {};  // [kNext][cluster size]
+int2 leaf_block_wave[2][2] = {};              // [kNext][512, 1,024 threads]
+int leaf_block_smem_raised[2][2] = {};
+
+typedef void (*LeafBlockKernel)(const int*, int, const float*, const float*, int,
+                                const float*, const float*, const float*, float*, float*,
+                                NextTree, Route);
+
+// K5 over `lanes` fits. The single fit takes the cluster form: one cluster
+// of `cluster` blocks of kLeafThreads (at most 16). Over lanes, shape 0
+// chooses (see K5 with lanes design): the cluster form at the largest
+// cluster of `cluster`, `cluster` / 2, ... 2 blocks of which one wave of the
+// card holds every lane's cluster, else one block a lane, of 1,024 threads
+// where one wave holds the lanes' blocks, else of 512. shape 1 is the
+// cluster form at `cluster` blocks and shape 2 the block form, whatever the
+// lanes (for tests and timing). The layout is leaf_values_kernel's.
 int leaf_values(const void* pos, int n, const void* g, const void* h,
                 int n_leaves, float lam, float scale, const void* lams,
                 const void* scales, const void* bounds, void* leaf, void* preds,
                 const void* y, const void* u, const void* w_rows,
                 float subsample, const void* subsamples, int cls, void* g_next,
-                void* h_next, void* bounds_next, int cluster, int lanes,
-                void* stream) {
-  if (n < 0 || n_leaves <= 0 || cluster < 1 || cluster > kLeafMaxCluster ||
-      lanes < 1 || lanes > kMaxLanes)
-    return static_cast<int>(cudaErrorInvalidValue);
+                void* h_next, void* bounds_next, int cluster, int shape, int lanes,
+                const Route& route, void* stream) {
   const bool with_next = y != nullptr, with_lanes = lams != nullptr;
+  if (n < 0 || n_leaves <= 0 || cluster < 1 || cluster > kLeafMaxCluster ||
+      lanes < 1 || lanes > kMaxLanes || shape < 0 || shape > 2 ||
+      (shape != 1 && !with_lanes))
+    return static_cast<int>(cudaErrorInvalidValue);
   const NextTree next{static_cast<const float*>(y), static_cast<const float*>(u),
                       static_cast<const float*>(w_rows), subsample,
                       static_cast<const float*>(subsamples), cls,
                       static_cast<float*>(g_next), static_cast<float*>(h_next),
                       static_cast<unsigned*>(bounds_next)};
-  const void* kernels[2][2] = {
-      {reinterpret_cast<const void*>(leaf_values_kernel<false, false>),
-       reinterpret_cast<const void*>(leaf_values_kernel<false, true>)},
-      {reinterpret_cast<const void*>(leaf_values_kernel<true, false>),
-       reinterpret_cast<const void*>(leaf_values_kernel<true, true>)}};
-  const void* kernel = kernels[with_next][with_lanes];
-  const int per = n_leaves * cluster <= 2 * kLeafThreads
-                      ? n_leaves
-                      : (n_leaves + cluster - 1) / cluster;
-  const int smem = (n_leaves + cluster * per) * static_cast<int>(sizeof(ulonglong2)) +
-                   n_leaves * static_cast<int>(sizeof(float));
-  cudaError_t err = shared_limit(kernel, &leaf_smem_raised[with_next][with_lanes], smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (cluster > 8 && !leaf_wide_clusters[with_next][with_lanes]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    leaf_wide_clusters[with_next][with_lanes] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, lanes);
-  cfg.blockDim = dim3(kLeafThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   const int* pp = static_cast<const int*>(pos);
   const float* gp = static_cast<const float*>(g);
   const float* hp = static_cast<const float*>(h);
@@ -1882,8 +2230,78 @@ int leaf_values(const void* pos, int n, const void* g, const void* h,
   const float* bp = static_cast<const float*>(bounds);
   float* lp = static_cast<float*>(leaf);
   float* predp = static_cast<float*>(preds);
+  Route rt = route;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int table = route.nodes * static_cast<int>(sizeof(int));
+  const void* kernels[2][2] = {
+      {reinterpret_cast<const void*>(leaf_values_kernel<false, false>),
+       reinterpret_cast<const void*>(leaf_values_kernel<false, true>)},
+      {reinterpret_cast<const void*>(leaf_values_kernel<true, false>),
+       reinterpret_cast<const void*>(leaf_values_kernel<true, true>)}};
+  const void* kernel = kernels[with_next][with_lanes];
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kLeafThreads);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the cluster form's configuration at c blocks a lane
+  const auto cluster_config = [&](int c) {
+    const int per = n_leaves * c <= 2 * kLeafThreads ? n_leaves : (n_leaves + c - 1) / c;
+    cfg.gridDim = dim3(c, lanes);
+    cfg.dynamicSmemBytes = (n_leaves + c * per) * static_cast<int>(sizeof(ulonglong2)) +
+                           table + n_leaves * static_cast<int>(sizeof(float));
+    attr[0].val.clusterDim.x = c;
+    cudaError_t err = shared_limit(kernel, &leaf_smem_raised[with_next][with_lanes],
+                                   static_cast<int>(cfg.dynamicSmemBytes));
+    if (err == cudaSuccess && c > 8 && !leaf_wide_clusters[with_next][with_lanes]) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err == cudaSuccess) leaf_wide_clusters[with_next][with_lanes] = true;
+    }
+    return err;
+  };
+  cudaError_t err;
+  if (shape == 0) {                          // lanes: the shape from the card's wave
+    shape = 2;
+    for (int c = cluster; c >= 2; c /= 2) {
+      if ((err = cluster_config(c)) != cudaSuccess) return static_cast<int>(err);
+      const int wave = wave_size(kernel, &cfg, kLeafThreads,
+                                 static_cast<int>(cfg.dynamicSmemBytes),
+                                 &leaf_wave[with_next][c]);
+      if (wave < 0) return -wave;
+      if (lanes <= wave) {
+        cluster = c;
+        shape = 1;
+        break;
+      }
+    }
+  }
+  if (shape == 2) {                          // one block a lane
+    const LeafBlockKernel forms[2][2] = {
+        {leaf_values_block_kernel<false, 512>, leaf_values_block_kernel<false, 1024>},
+        {leaf_values_block_kernel<true, 512>, leaf_values_block_kernel<true, 1024>}};
+    const int smem = n_leaves * static_cast<int>(sizeof(ulonglong2)) + table +
+                     n_leaves * static_cast<int>(sizeof(float));
+    int wide = 1;
+    for (; wide >= 0; --wide) {              // 1,024 threads where a wave holds them
+      const void* k = reinterpret_cast<const void*>(forms[with_next][wide]);
+      err = shared_limit(k, &leaf_block_smem_raised[with_next][wide], smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int wave = wave_size(k, nullptr, 512 << wide, smem,
+                                 &leaf_block_wave[with_next][wide]);
+      if (wave < 0) return -wave;
+      if (lanes <= wave || wide == 0) break;
+    }
+    forms[with_next][wide]<<<lanes, 512 << wide, smem, s>>>(
+        pp, n, gp, hp, n_leaves, lamp, scalep, bp, lp, predp, next, rt);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if ((err = cluster_config(cluster)) != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&pp, &n, &gp, &hp, &n_leaves, &lam, &scale, &lamp, &scalep,
-                  &bp, &lp, &predp, const_cast<NextTree*>(&next)};
+                  &bp, &lp, &predp, const_cast<NextTree*>(&next), &rt};
   err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -1896,6 +2314,12 @@ int leaf_values(const void* pos, int n, const void* g, const void* h,
 // plan's sizes follow from rows_per_item and own_rows: max_items = n_nodes +
 // n / rows_per_item, acc_slots = min(n_nodes, n / (own_rows + 1)).
 // n_bins is uint8 [F], the occupied bins of each feature, or null for 64.
+// The parent split, in every entry point that reads positions: f_l, b_l
+// int32 [lanes][route_nodes], the parent level's features and bins (route_nodes
+// 0: none, pos holds the level's own positions); feats and bins int32 at the
+// parent level's first node of the tree of lane 0, tree_lane words apart.
+// With one, pos holds the parent level's positions; K3 and the fused search
+// route them in place, K5 reads them and leaves them as they are.
 extern "C" int bbbp_forest_level_histogram(const void* xb, int n, int F,
                                            const void* pos, const void* g,
                                            const void* h, int n_nodes,
@@ -1903,10 +2327,16 @@ extern "C" int bbbp_forest_level_histogram(const void* xb, int n, int F,
                                            const void* n_bins, int tile_feats,
                                            int threads, int rows_per_item,
                                            int own_rows, void* rows, void* plan,
-                                           void* acc, void* out, void* stream) {
+                                           void* acc, void* out,
+                                           const void* f_l, const void* b_l,
+                                           int route_nodes, void* feats, void* bins,
+                                           void* stream) {
+  Route route;
+  if (!parent_route(xb, F, f_l, b_l, route_nodes, feats, bins, 0, n_nodes, &route))
+    return static_cast<int>(cudaErrorInvalidValue);
   return level_histogram(xb, n, F, pos, g, h, n_nodes, bounds, n_bins, tile_feats,
                          threads, rows_per_item, own_rows, rows, plan, acc, out, 1,
-                         0, stream);
+                         0, route, stream);
 }
 
 // K3 with a lane axis: `lanes` fits over one xb (see level_histogram).
@@ -1914,10 +2344,15 @@ extern "C" int bbbp_forest_level_histogram_lanes(
     const void* xb, int n, int F, const void* pos, const void* g, const void* h,
     int n_nodes, const void* bounds, const void* n_bins, int tile_feats,
     int threads, int rows_per_item, int own_rows, void* rows, void* plan,
-    void* acc, void* out, int lanes, long long lane_words, void* stream) {
+    void* acc, void* out, const void* f_l, const void* b_l, int route_nodes,
+    void* feats, void* bins, long long tree_lane, int lanes, long long lane_words,
+    void* stream) {
+  Route route;
+  if (!parent_route(xb, F, f_l, b_l, route_nodes, feats, bins, tree_lane, n_nodes, &route))
+    return static_cast<int>(cudaErrorInvalidValue);
   return level_histogram(xb, n, F, pos, g, h, n_nodes, bounds, n_bins, tile_feats,
                          threads, rows_per_item, own_rows, rows, plan, acc, out,
-                         lanes, lane_words, stream);
+                         lanes, lane_words, route, stream);
 }
 
 // The split search of one level over `lanes` fits in one pass, K3's sums and
@@ -1929,11 +2364,15 @@ extern "C" int bbbp_forest_level_splits_lanes(
     int n_nodes, const void* bounds, const void* n_bins, const void* col_mask,
     const void* lams, float min_child, int rows_per_item, int own_rows,
     int run, void* rows, void* plan, void* acc, void* cand,
-    void* feat, void* bin, void* has_split, int lanes, long long lane_words,
-    void* stream) {
+    void* feat, void* bin, void* has_split, const void* f_l, const void* b_l,
+    int route_nodes, void* feats, void* bins, long long tree_lane, int lanes,
+    long long lane_words, void* stream) {
+  Route route;
+  if (!parent_route(xb, F, f_l, b_l, route_nodes, feats, bins, tree_lane, n_nodes, &route))
+    return static_cast<int>(cudaErrorInvalidValue);
   return level_splits(xb, n, F, pos, g, h, n_nodes, bounds, n_bins, col_mask, lams,
                       min_child, rows_per_item, own_rows, run, rows, plan,
-                      acc, cand, feat, bin, has_split, lanes, lane_words, stream);
+                      acc, cand, feat, bin, has_split, lanes, lane_words, route, stream);
 }
 
 // scratch: int32 [2 * n_cand] candidates: n_cand = ceil(F / 4) in oblivious
@@ -1960,7 +2399,7 @@ extern "C" int bbbp_forest_best_splits_lanes(const void* hist, int n_nodes, int 
 
 // K5. The leaves of one tree and the margin update; with y, also the next
 // tree's (g, h) and bounds. One launch: `cluster` blocks of kLeafThreads in
-// one thread block cluster (at most 16).
+// one thread block cluster (at most 16). xb [n, F] for the parent split.
 extern "C" int bbbp_forest_leaf_values(const void* pos, int n, const void* g,
                                        const void* h, int n_leaves, float lam,
                                        float scale, const void* bounds,
@@ -1968,40 +2407,33 @@ extern "C" int bbbp_forest_leaf_values(const void* pos, int n, const void* g,
                                        const void* u, const void* w_rows,
                                        float subsample, int cls, void* g_next,
                                        void* h_next, void* bounds_next,
-                                       int cluster, void* stream) {
+                                       int cluster, const void* xb, int F,
+                                       const void* f_l, const void* b_l,
+                                       int route_nodes, void* feats, void* bins,
+                                       void* stream) {
+  Route route;
+  if (!parent_route(xb, F, f_l, b_l, route_nodes, feats, bins, 0, n_leaves, &route))
+    return static_cast<int>(cudaErrorInvalidValue);
   return leaf_values(pos, n, g, h, n_leaves, lam, scale, nullptr, nullptr, bounds,
                      leaf, preds, y, u, w_rows, subsample, nullptr, cls, g_next,
-                     h_next, bounds_next, cluster, 1, stream);
+                     h_next, bounds_next, cluster, 1, 1, route, stream);
 }
 
-// K5 with a lane axis: a cluster a lane, lam, scale and subsample a lane
-// (see leaf_values_kernel).
+// K5 with a lane axis: lam, scale and subsample a lane, the launch shape
+// chosen from the lanes (shape 0) or given (see leaf_values).
 extern "C" int bbbp_forest_leaf_values_lanes(
     const void* pos, int n, const void* g, const void* h, int n_leaves,
     const void* lams, const void* scales, const void* bounds, void* leaf,
     void* preds, const void* y, const void* u, const void* w_rows,
     const void* subsamples, int cls, void* g_next, void* h_next,
-    void* bounds_next, int cluster, int lanes, void* stream) {
+    void* bounds_next, int cluster, int shape, const void* xb, int F,
+    const void* f_l, const void* b_l, int route_nodes, void* feats, void* bins,
+    long long tree_lane, int lanes, void* stream) {
+  Route route;
+  if (!parent_route(xb, F, f_l, b_l, route_nodes, feats, bins, tree_lane, n_leaves,
+                    &route))
+    return static_cast<int>(cudaErrorInvalidValue);
   return leaf_values(pos, n, g, h, n_leaves, 0.f, 0.f, lams, scales, bounds, leaf,
                      preds, y, u, w_rows, 1.f, subsamples, cls, g_next, h_next,
-                     bounds_next, cluster, lanes, stream);
-}
-
-// Routing of one level over `lanes` fits (see route_rows_kernel): feats and
-// bins point at node `off` of tree `t` of lane 0, tree_lane words apart.
-extern "C" int bbbp_forest_route_rows(const void* xb, int n, int F, void* pos,
-                                      const void* f_l, const void* b_l, int nodes,
-                                      void* feats, void* bins, long long tree_lane,
-                                      int lanes, void* stream) {
-  if (n < 0 || F <= 0 || nodes < 1 || nodes > kRouteMaxNodes || lanes < 1 ||
-      lanes > kMaxLanes || tree_lane < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = n > 0 ? (n + kRouteThreads - 1) / kRouteThreads : 1;
-  route_rows_kernel<<<dim3(blocks, lanes), kRouteThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xb), n, F, static_cast<int*>(pos),
-      static_cast<const int*>(f_l), static_cast<const int*>(b_l), nodes,
-      static_cast<int*>(feats), static_cast<int*>(bins),
-      static_cast<size_t>(tree_lane));
-  return static_cast<int>(cudaGetLastError());
+                     bounds_next, cluster, shape, lanes, route, stream);
 }

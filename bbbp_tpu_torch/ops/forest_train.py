@@ -20,16 +20,22 @@ CUDA tensor and its plain PyTorch version on a CPU tensor:
   argmax per node;
 - ``leaf_values`` (K5): the leaf sums, ``leaf = -G / (H + lambda)`` and
   ``preds += scale * leaf[pos]``; in boosting, the next tree's gradients
-  and their bounds from the updated margins, in the same launch;
-- ``route_rows``: each row's next position from its node's split, and the
-  level's splits into the tree's flat arrays.
+  and their bounds from the updated margins, in the same launch.
+
+The routing (each row's next position from its node's split, and the
+level's splits into the tree's flat arrays) has no launch of its own: the
+call that next reads the positions takes the parent level's split
+(``ParentSplit``) and routes each row as it reads it, K3's sort (or the
+fused search's) at the next level, K5 after the last. ``route_rows_reference``
+is its plain version.
 
 ``fit_forest_lanes`` runs L fits of one shape over one binned matrix (the
 JAX package's vmapped ``_fit_forest_device``): each level's split search is
 one fused pass over the lanes (``level_splits_lanes``: K3's sums and K4's
 pick, with no histogram in device memory), or in oblivious mode K3 and K4
 with a lane axis (``level_histogram_lanes``, ``best_splits_lanes``); K5
-takes a lane axis (``leaf_values_lanes``), the routing takes it as it is,
+takes a lane axis (``leaf_values_lanes``: a thread block cluster a lane
+where one wave of the card holds the lanes' clusters, else a block a lane),
 and each lane grows the trees of ``fit_forest`` with its seed bit for bit.
 
 The first tree's gradients, the random forest's weights and the
@@ -353,6 +359,98 @@ def check_bin_counts(n_bins: torch.Tensor, xb: torch.Tensor,
                              f"holds bin {int(largest[f])}")
 
 
+class ParentSplit(NamedTuple):
+    """The parent level's splits, routed by the call that next reads the
+    positions: ``f_l``, ``b_l`` int32 [2^level] (one fit) or [L, 2^level]
+    (lanes), the splits of level ``level`` of tree ``tree``
+    (``best_splits``); ``feats``, ``bins`` int32 [T, 2^D − 1] or [L, T,
+    2^D − 1], the trees' flat arrays, which receive the pairs at nodes
+    2^level − 1 onwards. A row at parent node p goes to
+    ``2 p + (xb[row, f_l[p]] > b_l[p])`` (``route_rows_reference``)."""
+    f_l: torch.Tensor
+    b_l: torch.Tensor
+    feats: torch.Tensor
+    bins: torch.Tensor
+    tree: int
+    level: int
+
+
+def route_rows_reference(xb: torch.Tensor, pos: torch.Tensor, f_l: torch.Tensor,
+                         b_l: torch.Tensor, feats: torch.Tensor,
+                         bins: torch.Tensor, tree: int, level: int) -> None:
+    """The routing's plain version, the torch ops of one level, over lanes
+    where the tensors have a lane axis: the level's (feature, bin) pairs
+    into the tree's flat arrays, then ``pos = 2 * pos + (xb[row, f_l[pos]]
+    > b_l[pos])`` in place (``forest_tpu.py:335-338``)."""
+    n = xb.shape[0]
+    nodes, off = 1 << level, (1 << level) - 1
+    feats[..., tree, off:off + nodes] = f_l
+    bins[..., tree, off:off + nodes] = b_l
+    idx = pos.long()
+    row_f = f_l.gather(-1, idx).long().reshape(-1, n)
+    xf = xb.gather(1, row_f.T.contiguous()).T.reshape(pos.shape)
+    pos.copy_(2 * pos + (xf.int() > b_l.gather(-1, idx)).int())
+
+
+NO_PARENT = (None, None, 0, None, None)     # the C arguments of no parent split
+
+
+def _parent_args(parent: Optional[ParentSplit], xb: torch.Tensor,
+                 pos: torch.Tensor, children: int) -> Tuple[tuple, int]:
+    """Checks a parent split against ``xb`` [n, F], ``pos`` [n] or [L, n]
+    and the ``children`` nodes it leads to. Returns its C arguments (f_l,
+    b_l, nodes, and feats and bins at the level's first node of the tree)
+    and the words from one lane's trees to the next; (``NO_PARENT``, 0)
+    for None."""
+    if parent is None:
+        return NO_PARENT, 0
+    if xb.dtype != torch.uint8 or xb.dim() != 2 or not xb.is_contiguous():
+        raise TypeError(f"xb must be a contiguous 2-D uint8 tensor, got "
+                        f"{xb.dtype} {tuple(xb.shape)}")
+    lead = tuple(pos.shape[:-1])
+    level = parent.level
+    if not 0 <= level < MAX_DEPTH:
+        raise ValueError(f"level must be in [0, {MAX_DEPTH}), got {level}")
+    nodes = 1 << level
+    if 2 * nodes != children:
+        raise ValueError(f"a parent split of level {level} leads to {2 * nodes} "
+                         f"nodes, not {children}")
+    _check_rows("f_l", parent.f_l, torch.int32, lead + (nodes,), xb.device)
+    _check_rows("b_l", parent.b_l, torch.int32, lead + (nodes,), xb.device)
+    feats, bins = parent.feats, parent.bins
+    if feats.dim() != len(lead) + 2:
+        raise TypeError(f"feats must be [{'L, ' if lead else ''}T, nodes], got "
+                        f"{tuple(feats.shape)}")
+    n_trees, n_internal = feats.shape[-2:]
+    _check_rows("feats", feats, torch.int32, lead + (n_trees, n_internal), xb.device)
+    _check_rows("bins", bins, torch.int32, lead + (n_trees, n_internal), xb.device)
+    if not 0 <= parent.tree < n_trees or 2 * nodes - 1 > n_internal:
+        raise ValueError(f"tree {parent.tree}, level {level} lie outside trees of "
+                         f"shape {tuple(feats.shape[-2:])}")
+    first = 4 * (parent.tree * n_internal + nodes - 1)
+    return ((parent.f_l.data_ptr(), parent.b_l.data_ptr(), nodes,
+             feats.data_ptr() + first, bins.data_ptr() + first),
+            n_trees * n_internal)
+
+
+def _plain_positions(xb: torch.Tensor, pos: torch.Tensor, n_nodes: int,
+                     parent: Optional[ParentSplit], in_place: bool) -> torch.Tensor:
+    """The positions a plain version reads, as the kernels take them: where
+    they can only be 0 (a level of one node, or a parent split of level 0)
+    pos is not read; with a parent split they are routed
+    (``route_rows_reference``), in pos itself with ``in_place`` (K3 and the
+    fused search), else in a copy (K5)."""
+    single = n_nodes == 1 if parent is None else parent.level == 0
+    if parent is None:
+        return torch.zeros_like(pos) if single else pos
+    if single:
+        pos = pos.zero_() if in_place else torch.zeros_like(pos)
+    elif not in_place:
+        pos = pos.clone()
+    route_rows_reference(xb, pos, *parent)
+    return pos
+
+
 @functools.lru_cache(maxsize=256)
 def histogram_plan(n: int, n_feat: int, n_nodes: int) -> dict:
     """How K3 cuts a level into blocks, and the scratch it needs. A feature
@@ -377,13 +475,55 @@ def histogram_plan(n: int, n_feat: int, n_nodes: int) -> dict:
             "words": rows + (n + 1) // 2}
 
 
+def _sort_scratch(scratch: Optional[torch.Tensor], words: int,
+                  device: torch.device) -> torch.Tensor:
+    """The caller's scratch, checked, or a new one of ``words`` int64."""
+    if scratch is None:
+        return torch.empty(words, dtype=torch.int64, device=device)
+    _check_rows("scratch", scratch, torch.int64, (words,), device)
+    return scratch
+
+
+def sorted_rows(scratch: torch.Tensor, n: int, n_feat: int, n_nodes: int,
+                lane: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the sort of K3 (or of the fused search) left in ``scratch``
+    for lane ``lane``: (node, row), each int32 [kept], the kept rows (weight
+    not 0) in the order the sort placed them, and each one's node, read
+    from the plan's items (node, first, end). For tests."""
+    plan = histogram_plan(n, n_feat, n_nodes)
+    part = scratch.view(-1, lane_words(n, n_feat, n_nodes))[lane] \
+        if scratch.numel() != plan["words"] else scratch
+    words = part[plan["plan"] + 4:plan["rows"]].cpu()
+    ints = words.view(torch.int32)
+    items = ints[:4 * plan["max_items"]].view(-1, 4)
+    info = ints[4 * plan["max_items"] + plan["acc_slots"]:][:2]
+    rows = part[plan["rows"]:].cpu().view(torch.int32)[:n]
+    nodes, order = [], []
+    for node, first, end, _ in items[:int(info[0])].tolist():
+        nodes.append(torch.full((end - first,), node, dtype=torch.int32))
+        order.append(rows[first:end])
+    if not nodes:
+        return torch.zeros(0, dtype=torch.int32), torch.zeros(0, dtype=torch.int32)
+    return torch.cat(nodes), torch.cat(order)
+
+
 def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
                     h: torch.Tensor, n_nodes: int,
                     bounds: Optional[torch.Tensor] = None,
                     n_bins: Optional[torch.Tensor] = None, *,
-                    bins_checked: bool = False) -> torch.Tensor:
+                    bins_checked: bool = False,
+                    parent: Optional[ParentSplit] = None,
+                    scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3. xb uint8 [n, F] (bins < 64), pos int32 [n] in [0, n_nodes),
     g, h f32 [n] → hist f32 [n_nodes, F, 64, 2].
+
+    With ``parent`` (the split of the level before, n_nodes / 2 nodes) pos
+    holds the parent level's positions: the kernel's sort routes every row
+    (weight 0 or not) as it reads it, writes the level's positions back to
+    pos and the parent's pairs into its tree; no other launch. Where the
+    positions can only be 0 (one node, or a parent of one) pos is not read.
+    ``scratch``, optional: int64 [histogram_plan(...)["words"]], the sort's
+    plan and row order, for a caller that reads them (``sorted_rows``).
 
     ``n_bins`` uint8 [F], optional: the occupied bins of each feature
     (``BinMapper.bin_counts``), so that the kernel keeps only those in
@@ -409,15 +549,17 @@ def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"n_nodes must be in [1, {1 << MAX_DEPTH}], got {n_nodes}")
     if n_bins is not None:
         check_bin_counts(n_bins, xb, occupancy=not bins_checked)
+    route, _ = _parent_args(parent, xb, pos, n_nodes)
     if not _kernel_device(xb, "forest_level_histogram"):
-        return level_histogram_reference(xb, pos, g, h, n_nodes)
+        return level_histogram_reference(
+            xb, _plain_positions(xb, pos, n_nodes, parent, True), g, h, n_nodes)
     out = torch.empty((n_nodes, n_feat, MAX_BINS, 2), dtype=torch.float32,
                       device=xb.device)
     if out.numel() == 0:
         return out
     bounds = _check_bounds(bounds, g, h)
     plan = histogram_plan(n, n_feat, n_nodes)
-    scratch = torch.empty(plan["words"], dtype=torch.int64, device=xb.device)
+    scratch = _sort_scratch(scratch, plan["words"], xb.device)
     base = scratch.data_ptr()
     with torch.cuda.device(xb.device):
         rc = kernels_lib().bbbp_forest_level_histogram(
@@ -427,7 +569,7 @@ def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
             plan["tile_feats"], plan["threads"], plan["rows_per_item"],
             plan["own_rows"],
             base + 8 * plan["rows"], base + 8 * plan["plan"], base,
-            out.data_ptr(),
+            out.data_ptr(), *route,
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_histogram")
     level_histogram.launches.add()
@@ -499,10 +641,25 @@ def leaf_plan(n: int) -> int:
     return min(LEAF_MAX_CLUSTER, max(1, -(-n // LEAF_THREADS)))
 
 
+def _leaf_rows(xb: Optional[torch.Tensor], parent: Optional[ParentSplit],
+               pos: torch.Tensor) -> tuple:
+    """K5's (xb, F) C arguments: the binned rows a parent split routes."""
+    if parent is None:
+        return None, 0
+    if xb is None:
+        raise ValueError("a parent split needs xb, the rows it routes")
+    if xb.dim() != 2 or xb.shape[0] != pos.shape[-1] or xb.device != pos.device:
+        raise ValueError(f"xb must be [{pos.shape[-1]}, F] on {pos.device}, got "
+                         f"{tuple(xb.shape)} on {xb.device}")
+    return xb.data_ptr(), xb.shape[1]
+
+
 def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                 n_leaves: int, lam: float, scale: float, preds: torch.Tensor,
                 bounds: Optional[torch.Tensor] = None,
-                next_tree: Optional[NextTree] = None):
+                next_tree: Optional[NextTree] = None, *,
+                parent: Optional[ParentSplit] = None,
+                xb: Optional[torch.Tensor] = None):
     """K5. pos int32 [n] in [0, n_leaves), g, h f32 [n], preds f32 [n]
     (updated in place, as the reference's scan carry is replaced) →
     leaf f32 [n_leaves]. The kernel sums in 64-bit fixed point, as K3, with
@@ -510,7 +667,12 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
 
     With ``next_tree`` it returns (leaf, g, h, bounds) of the next boosted
     tree, ``next_gradients_reference`` of the updated margins, from the same
-    launch. The kernel runs in one cluster of ``leaf_plan(n)`` blocks."""
+    launch. The kernel runs in one cluster of ``leaf_plan(n)`` blocks.
+
+    With ``parent`` (the last level's split, n_leaves / 2 nodes) and ``xb``
+    [n, F], pos holds the last level's positions: each row is routed as it
+    is read, the pairs go into the tree, and pos is left as it is. Where
+    the positions can only be 0 pos is not read."""
     if pos.dim() != 1:
         raise TypeError(f"pos must be 1-D, got {tuple(pos.shape)}")
     n = pos.shape[0]
@@ -525,8 +687,12 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         _check_rows(name, t, dtype, (n,), pos.device)
     if not 1 <= n_leaves <= 1 << MAX_DEPTH:
         raise ValueError(f"n_leaves must be in [1, {1 << MAX_DEPTH}], got {n_leaves}")
+    xb_args = _leaf_rows(xb, parent, pos)
+    route, _ = _parent_args(parent, xb, pos, n_leaves)
     if not _kernel_device(pos, "forest_leaf_values"):
-        leaf = leaf_values_reference(pos, g, h, n_leaves, lam, scale, preds)
+        leaf = leaf_values_reference(
+            _plain_positions(xb, pos, n_leaves, parent, False), g, h, n_leaves, lam,
+            scale, preds)
         if next_tree is None:
             return leaf
         return (leaf, *next_gradients_reference(preds, *next_tree))
@@ -548,7 +714,7 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                next_tree.w_rows.data_ptr(), float(next_tree.subsample),
                int(next_tree.task == "cls"))),
             *((None, None, None) if nxt is None else (t.data_ptr() for t in nxt)),
-            leaf_plan(n), torch.cuda.current_stream().cuda_stream)
+            leaf_plan(n), *xb_args, *route, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_leaf_values")
     leaf_values.launches.add()
     return leaf if nxt is None else (leaf, *nxt)
@@ -557,77 +723,6 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
 level_histogram.launches = LaunchCounter()
 best_splits.launches = LaunchCounter()
 leaf_values.launches = LaunchCounter()
-
-
-# ---------------------------------------------------------------------------
-# Routing: the fifth kernel of a tree, for one fit or for lanes
-# ---------------------------------------------------------------------------
-
-def route_rows_reference(xb: torch.Tensor, pos: torch.Tensor, f_l: torch.Tensor,
-                         b_l: torch.Tensor, feats: torch.Tensor,
-                         bins: torch.Tensor, tree: int, level: int) -> None:
-    """The torch ops of one level's routing, over lanes where the tensors
-    have a lane axis: the level's (feature, bin) pairs into the tree's flat
-    arrays, then ``pos = 2 * pos + (xb[row, f_l[pos]] > b_l[pos])`` in
-    place (``forest_tpu.py:335-338``)."""
-    n = xb.shape[0]
-    nodes, off = 1 << level, (1 << level) - 1
-    feats[..., tree, off:off + nodes] = f_l
-    bins[..., tree, off:off + nodes] = b_l
-    idx = pos.long()
-    row_f = f_l.gather(-1, idx).long().reshape(-1, n)
-    xf = xb.gather(1, row_f.T.contiguous()).T.reshape(pos.shape)
-    pos.copy_(2 * pos + (xf.int() > b_l.gather(-1, idx)).int())
-
-
-def route_rows(xb: torch.Tensor, pos: torch.Tensor, f_l: torch.Tensor,
-               b_l: torch.Tensor, feats: torch.Tensor, bins: torch.Tensor,
-               tree: int, level: int) -> None:
-    """Routing of level ``level`` of tree ``tree``: xb uint8 [n, F]; pos
-    int32 [n] (one fit) or [L, n] (lanes), in [0, 2^level), updated in
-    place to the next level's positions; f_l, b_l int32 [2^level] or [L,
-    2^level], the level's splits (``best_splits``); feats, bins int32 [T,
-    2^D − 1] or [L, T, 2^D − 1], the trees' flat arrays, which receive the
-    level's pairs at nodes 2^level − 1 onwards. The kernel
-    (``forest_route_rows``) on a CUDA tensor, ``route_rows_reference`` on a
-    CPU tensor; both give the same integers."""
-    if xb.dtype != torch.uint8 or xb.dim() != 2 or not xb.is_contiguous():
-        raise TypeError(f"xb must be a contiguous 2-D uint8 tensor, got "
-                        f"{xb.dtype} {tuple(xb.shape)}")
-    n, n_feat = xb.shape
-    lead = tuple(pos.shape[:-1])
-    if pos.dim() not in (1, 2):
-        raise TypeError(f"pos must be [n] or [L, n], got {tuple(pos.shape)}")
-    if not 0 <= level < MAX_DEPTH:
-        raise ValueError(f"level must be in [0, {MAX_DEPTH}), got {level}")
-    nodes = 1 << level
-    _check_rows("pos", pos, torch.int32, lead + (n,), xb.device)
-    _check_rows("f_l", f_l, torch.int32, lead + (nodes,), xb.device)
-    _check_rows("b_l", b_l, torch.int32, lead + (nodes,), xb.device)
-    if feats.dim() != len(lead) + 2:
-        raise TypeError(f"feats must be [{'L, ' if lead else ''}T, nodes], got "
-                        f"{tuple(feats.shape)}")
-    n_trees, n_internal = feats.shape[-2:]
-    _check_rows("feats", feats, torch.int32, lead + (n_trees, n_internal), xb.device)
-    _check_rows("bins", bins, torch.int32, lead + (n_trees, n_internal), xb.device)
-    if not 0 <= tree < n_trees or 2 * nodes - 1 > n_internal:
-        raise ValueError(f"tree {tree}, level {level} lie outside trees of shape "
-                         f"{tuple(feats.shape[-2:])}")
-    if not _kernel_device(xb, "forest_route_rows"):
-        route_rows_reference(xb, pos, f_l, b_l, feats, bins, tree, level)
-        return
-    first = 4 * (tree * n_internal + nodes - 1)
-    with torch.cuda.device(xb.device):
-        rc = kernels_lib().bbbp_forest_route_rows(
-            xb.data_ptr(), n, n_feat, pos.data_ptr(), f_l.data_ptr(),
-            b_l.data_ptr(), nodes, feats.data_ptr() + first,
-            bins.data_ptr() + first, n_trees * n_internal,
-            lead[0] if lead else 1, torch.cuda.current_stream().cuda_stream)
-    check_launch(rc, "forest_route_rows")
-    route_rows.launches.add()
-
-
-route_rows.launches = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
@@ -663,13 +758,17 @@ def level_histogram_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
                           h: torch.Tensor, n_nodes: int,
                           bounds: Optional[torch.Tensor] = None,
                           n_bins: Optional[torch.Tensor] = None, *,
-                          bins_checked: bool = False) -> torch.Tensor:
+                          bins_checked: bool = False,
+                          parent: Optional[ParentSplit] = None,
+                          scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3 over lanes. xb uint8 [n, F], every lane's; pos int32, g, h f32
     [L, n]; bounds f32 [L, 2] (``gradient_bounds(g, h)``, taken here when not
     given) → hist f32 [L, n_nodes, F, 64, 2]. Each lane sums in K3's fixed
     point at its own bounds, so lane l is bit-equal to ``level_histogram``
-    of lane l's rows. ``n_bins`` as in ``level_histogram``. On a CPU tensor
-    ``level_histogram_lanes_reference`` runs."""
+    of lane l's rows. ``n_bins``, ``parent`` (with a lane axis) and
+    ``scratch`` (int64 [L · lane_words]) as in ``level_histogram``. On a CPU
+    tensor ``level_histogram_lanes_reference`` runs, after
+    ``route_rows_reference`` with a parent split."""
     if xb.dtype != torch.uint8 or xb.dim() != 2 or not xb.is_contiguous():
         raise TypeError(f"xb must be a contiguous 2-D uint8 tensor, got "
                         f"{xb.dtype} {tuple(xb.shape)}")
@@ -684,8 +783,10 @@ def level_histogram_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"n_nodes must be in [1, {1 << MAX_DEPTH}], got {n_nodes}")
     if n_bins is not None:
         check_bin_counts(n_bins, xb, occupancy=not bins_checked)
+    route, tree_lane = _parent_args(parent, xb, pos, n_nodes)
     if not _kernel_device(xb, "forest_level_histogram_lanes"):
-        return level_histogram_lanes_reference(xb, pos, g, h, n_nodes)
+        return level_histogram_lanes_reference(
+            xb, _plain_positions(xb, pos, n_nodes, parent, True), g, h, n_nodes)
     out = torch.empty((lanes, n_nodes, n_feat, MAX_BINS, 2), dtype=torch.float32,
                       device=xb.device)
     if out.numel() == 0:
@@ -695,7 +796,7 @@ def level_histogram_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
     _check_rows("bounds", bounds, torch.float32, (lanes, 2), xb.device)
     plan = histogram_plan(n, n_feat, n_nodes)
     stride = lane_words(n, n_feat, n_nodes)
-    scratch = torch.empty(lanes * stride, dtype=torch.int64, device=xb.device)
+    scratch = _sort_scratch(scratch, lanes * stride, xb.device)
     base = scratch.data_ptr()
     with torch.cuda.device(xb.device):
         rc = kernels_lib().bbbp_forest_level_histogram_lanes(
@@ -705,7 +806,7 @@ def level_histogram_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
             plan["tile_feats"], plan["threads"], plan["rows_per_item"],
             plan["own_rows"],
             base + 8 * plan["rows"], base + 8 * plan["plan"], base,
-            out.data_ptr(), lanes, stride,
+            out.data_ptr(), *route, tree_lane, lanes, stride,
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_histogram_lanes")
     level_histogram_lanes.launches.add()
@@ -820,7 +921,9 @@ def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
                        bounds: Optional[torch.Tensor], col_mask: torch.Tensor,
                        lam: torch.Tensor, min_child: float,
                        n_bins: Optional[torch.Tensor] = None, *,
-                       bins_checked: bool = False
+                       bins_checked: bool = False,
+                       parent: Optional[ParentSplit] = None,
+                       scratch: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One level's split search over lanes in one pass, the counterpart of
     ``_grow_level`` under ``jax.vmap`` (``forest_tpu.py:154-231``). xb uint8
@@ -833,8 +936,10 @@ def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
     node's rows in K3's fixed point and takes K4's per-node pick from the
     sums where they lie, so its result is ``best_splits_lanes`` of
     ``level_histogram_lanes`` on the same inputs, bit for bit, with no
-    histogram in device memory. On a CPU tensor
-    ``level_splits_lanes_reference`` runs."""
+    histogram in device memory. ``parent`` and ``scratch`` as in
+    ``level_histogram_lanes``: the sort routes the parent level's positions
+    in place. On a CPU tensor ``level_splits_lanes_reference`` runs, after
+    ``route_rows_reference`` with a parent split."""
     if xb.dtype != torch.uint8 or xb.dim() != 2 or not xb.is_contiguous():
         raise TypeError(f"xb must be a contiguous 2-D uint8 tensor, got "
                         f"{xb.dtype} {tuple(xb.shape)}")
@@ -853,9 +958,11 @@ def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"n_nodes must be in [1, {1 << MAX_DEPTH}], got {n_nodes}")
     if n_bins is not None:
         check_bin_counts(n_bins, xb, occupancy=not bins_checked)
+    route, tree_lane = _parent_args(parent, xb, pos, n_nodes)
     if not _kernel_device(xb, "forest_level_splits_lanes"):
-        return level_splits_lanes_reference(xb, pos, g, h, n_nodes, col_mask, lam,
-                                            min_child)
+        return level_splits_lanes_reference(
+            xb, _plain_positions(xb, pos, n_nodes, parent, True), g, h, n_nodes,
+            col_mask, lam, min_child)
     dev = xb.device
     feat = torch.empty((lanes, n_nodes), dtype=torch.int32, device=dev)
     b = torch.empty((lanes, n_nodes), dtype=torch.int32, device=dev)
@@ -867,7 +974,7 @@ def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
     _check_rows("bounds", bounds, torch.float32, (lanes, 2), dev)
     plan = histogram_plan(n, n_feat, n_nodes)
     stride = lane_words(n, n_feat, n_nodes)
-    scratch = torch.empty(lanes * stride, dtype=torch.int64, device=dev)
+    scratch = _sort_scratch(scratch, lanes * stride, dev)
     base = scratch.data_ptr()
     # a (gain, index) candidate of each node and group of 8 features
     groups = -(-n_feat // SPLIT_GROUP)
@@ -881,8 +988,8 @@ def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
             split_run(lanes, plan["max_items"] * groups,
                       torch.cuda.get_device_properties(dev).multi_processor_count),
             base + 8 * plan["rows"], base + 8 * plan["plan"], base, cand.data_ptr(),
-            feat.data_ptr(), b.data_ptr(), has_split.data_ptr(), lanes, stride,
-            torch.cuda.current_stream().cuda_stream)
+            feat.data_ptr(), b.data_ptr(), has_split.data_ptr(), *route, tree_lane,
+            lanes, stride, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_splits_lanes")
     level_splits_lanes.launches.add()
     return feat, b, has_split
@@ -928,17 +1035,28 @@ def leaf_values_lanes_fixed_reference(pos, g, h, n_leaves: int, lam, scale,
     return _with_next_gradients(leaves, preds, next_tree)
 
 
+LEAF_SHAPES = {"auto": 0, "cluster": 1, "block": 2}     # the C entry's shape
+
+
 def leaf_values_lanes(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                       n_leaves: int, lam: torch.Tensor, scale: torch.Tensor,
                       preds: torch.Tensor, bounds: Optional[torch.Tensor] = None,
-                      next_tree: Optional[NextTree] = None):
-    """K5 over lanes, a thread block cluster of ``leaf_plan(n)`` blocks a
-    lane. pos int32, g, h, preds f32 [L, n] (preds updated in place); lam,
-    scale f32 [L]; bounds f32 [L, 2] → leaf f32 [L, n_leaves]. With
-    ``next_tree`` (y [n], every lane's; u and w_rows [L, n]; subsample f32
-    [L]) it returns (leaf, g, h, bounds) of each lane's next boosted tree
-    from the same launch. Lane l is ``leaf_values`` of lane l. On a CPU
-    tensor ``leaf_values_lanes_reference`` runs."""
+                      next_tree: Optional[NextTree] = None, *,
+                      parent: Optional[ParentSplit] = None,
+                      xb: Optional[torch.Tensor] = None, shape: str = "auto"):
+    """K5 over lanes. pos int32, g, h, preds f32 [L, n] (preds updated in
+    place); lam, scale f32 [L]; bounds f32 [L, 2] → leaf f32 [L, n_leaves].
+    With ``next_tree`` (y [n], every lane's; u and w_rows [L, n]; subsample
+    f32 [L]) it returns (leaf, g, h, bounds) of each lane's next boosted
+    tree from the same launch. ``parent`` (with a lane axis) and ``xb`` as in
+    ``leaf_values``. Lane l is ``leaf_values`` of lane l. On a CPU tensor
+    ``leaf_values_lanes_reference`` runs.
+
+    ``shape``: ``cluster`` launches a thread block cluster of
+    ``leaf_plan(n)`` blocks a lane (the single fit's form), ``block`` one
+    block a lane; ``auto`` takes the cluster form where one wave of the card
+    holds every lane's cluster, else a block a lane. Both give the same
+    bits."""
     if pos.dim() != 2:
         raise TypeError(f"pos must be [L, n], got {tuple(pos.shape)}")
     lanes, n = pos.shape
@@ -958,9 +1076,14 @@ def leaf_values_lanes(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     _check_rows("scale", scale, torch.float32, (lanes,), dev)
     if not 1 <= n_leaves <= 1 << MAX_DEPTH:
         raise ValueError(f"n_leaves must be in [1, {1 << MAX_DEPTH}], got {n_leaves}")
+    if shape not in LEAF_SHAPES:
+        raise ValueError(f"shape must be one of {sorted(LEAF_SHAPES)}, got {shape!r}")
+    xb_args = _leaf_rows(xb, parent, pos)
+    route, tree_lane = _parent_args(parent, xb, pos, n_leaves)
     if not _kernel_device(pos, "forest_leaf_values_lanes"):
-        return leaf_values_lanes_reference(pos, g, h, n_leaves, lam, scale, preds,
-                                           next_tree)
+        return leaf_values_lanes_reference(
+            _plain_positions(xb, pos, n_leaves, parent, False), g, h, n_leaves, lam,
+            scale, preds, next_tree)
     if bounds is None:
         bounds = gradient_bounds(g, h)
     _check_rows("bounds", bounds, torch.float32, (lanes, 2), dev)
@@ -982,7 +1105,8 @@ def leaf_values_lanes(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                next_tree.w_rows.data_ptr(), next_tree.subsample.data_ptr(),
                int(next_tree.task == "cls"))),
             *((None, None, None) if nxt is None else (t.data_ptr() for t in nxt)),
-            leaf_plan(n), lanes, torch.cuda.current_stream().cuda_stream)
+            leaf_plan(n), LEAF_SHAPES[shape], *xb_args, *route, tree_lane, lanes,
+            torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_leaf_values_lanes")
     leaf_values_lanes.launches.add()
     return leaf if nxt is None else (leaf, *nxt)
@@ -1054,6 +1178,9 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
     if not rf and n_trees:                      # later trees' come from K5
         g, h, bounds = next_gradients_reference(preds, y, draw(), subsample,
                                                 w_rows, task)
+    # every level routes its parent's positions as it reads them, and
+    # levels 0 and 1 read none: pos is never reset
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
     for t in range(n_trees):
         if rf:
             w = torch.poisson(torch.ones(n, device=dev), generator=gen) * w_rows
@@ -1063,17 +1190,18 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
         # at least one feature: the first drawn, else feature 0
         col_mask = col_mask | (feat_ids == col_mask.to(torch.uint8).argmax())
 
-        pos = torch.zeros(n, dtype=torch.int32, device=dev)
+        parent = None
         for level in range(depth):
             hist = level_histogram(xb, pos, g, h, 1 << level, bounds, n_bins,
-                                   bins_checked=True)
+                                   bins_checked=True, parent=parent)
             f_l, b_l, _ = best_splits(hist, col_mask, lam, min_child, oblivious)
-            route_rows(xb, pos, f_l, b_l, feats, bins, t, level)
+            parent = ParentSplit(f_l, b_l, feats, bins, t, level)
         # drawn after this tree's column draw: the generator gives the
         # draws in the order subsample, columns, tree by tree
         nxt = (None if rf or t == n_trees - 1 else
                NextTree(y, draw(), subsample, w_rows, task))
-        out = leaf_values(pos, g, h, n_leaves, lam, scale, preds, bounds, nxt)
+        out = leaf_values(pos, g, h, n_leaves, lam, scale, preds, bounds, nxt,
+                          parent=parent, xb=xb)
         if nxt is None:
             leaves[t] = out
         else:
@@ -1130,8 +1258,9 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
     Poisson weights in rf, its columns, the next subsample draw), so lane l
     grows the trees, leaves and margins of ``fit_forest`` with ``seeds[l]``
     and lane l's parameters bit for bit: each tree level is one call of
-    the fused split search (oblivious: K3 and K4) and one of the routing
-    over all lanes, each tree one of K5."""
+    the fused split search (oblivious: K3 and K4) over all lanes, which
+    routes the level before, and each tree one of K5, which routes the
+    last."""
     if task not in ("reg", "cls"):
         raise ValueError(f"task must be 'reg' or 'cls', got {task!r}")
     if not 0 <= depth <= MAX_DEPTH:
@@ -1158,6 +1287,7 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
     feat_ids = torch.arange(n_feat, device=dev)
     scale = torch.ones(lanes, device=dev) if rf else lr
     ones = torch.ones(n, device=dev)
+    pos = torch.empty((lanes, n), dtype=torch.int32, device=dev)   # as fit_forest's
 
     def draws(size: int) -> torch.Tensor:     # [L, size], a lane's from its own
         return torch.stack([torch.rand(size, generator=gen, device=dev)
@@ -1178,20 +1308,21 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
         # at least one feature: the first drawn, else feature 0
         col_mask = col_mask | (feat_ids == col_mask.to(torch.uint8).argmax(
             dim=1, keepdim=True))
-        pos = torch.zeros((lanes, n), dtype=torch.int32, device=dev)
+        parent = None
         for level in range(depth):
             if oblivious:               # a level's gain sums over its nodes
                 hist = level_histogram_lanes(xb, pos, g, h, 1 << level, bounds,
-                                             n_bins, bins_checked=True)
+                                             n_bins, bins_checked=True, parent=parent)
                 f_l, b_l, _ = best_splits_lanes(hist, col_mask, lam, min_child, True)
             else:
                 f_l, b_l, _ = level_splits_lanes(xb, pos, g, h, 1 << level, bounds,
                                                  col_mask, lam, min_child, n_bins,
-                                                 bins_checked=True)
-            route_rows(xb, pos, f_l, b_l, feats, bins, t, level)
+                                                 bins_checked=True, parent=parent)
+            parent = ParentSplit(f_l, b_l, feats, bins, t, level)
         nxt = (None if rf or t == n_trees - 1 else
                NextTree(y, draws(n), subsample, w_rows, task))
-        out = leaf_values_lanes(pos, g, h, n_leaves, lam, scale, preds, bounds, nxt)
+        out = leaf_values_lanes(pos, g, h, n_leaves, lam, scale, preds, bounds, nxt,
+                                parent=parent, xb=xb)
         if nxt is None:
             leaves[:, t] = out
         else:

@@ -111,13 +111,30 @@ def event_ms(fn: Callable[[], object], calls: int = 50) -> float:
     return start.elapsed_time(end) / calls
 
 
+def _routing(n: int, parent_nodes: int) -> tuple:
+    """What routing a parent split adds to a lane of a sort: the routed
+    positions written (4 bytes a row), the parent's (feature, bin) table read
+    and written into the tree (16 bytes a node); a compare and a
+    multiply-add a row. Its xb byte a row is within the sort's xb."""
+    return (4 * n + 16 * parent_nodes, 2 * n) if parent_nodes else (0, 0)
+
+
+def routing_bound(n: int, parent_nodes: int, lanes: int = 1) -> Dict[str, object]:
+    """What routing a parent split adds to the sort that carries it
+    (``_routing``), for each lane."""
+    route_bytes, route_ops = _routing(n, parent_nodes)
+    return _bound(lanes * route_bytes, lanes * route_ops)
+
+
 def level_histogram_bound(n: int, n_feat: int, n_nodes: int,
-                          lanes: int = 1) -> Dict[str, object]:
+                          lanes: int = 1, parent_nodes: int = 0) -> Dict[str, object]:
     """xb (one byte a value, every lane's) read once; each lane's pos, g and
     h read once and its f32 (g, h) histogram written once; two adds per
-    row, feature and lane."""
-    return _bound(n * n_feat + lanes * (12 * n + n_nodes * n_feat * 64 * 8),
-                  2 * n * n_feat * lanes)
+    row, feature and lane; with a parent split of ``parent_nodes`` nodes,
+    its routing (``_routing``)."""
+    route_bytes, route_ops = _routing(n, parent_nodes)
+    return _bound(n * n_feat + lanes * (12 * n + n_nodes * n_feat * 64 * 8 + route_bytes),
+                  lanes * (2 * n * n_feat + route_ops))
 
 
 def best_splits_bound(n_nodes: int, n_feat: int, lanes: int = 1) -> Dict[str, object]:
@@ -132,7 +149,7 @@ def best_splits_bound(n_nodes: int, n_feat: int, lanes: int = 1) -> Dict[str, ob
 
 
 def level_splits_bound(n: int, n_feat: int, n_nodes: int, lanes: int,
-                       occupied: int) -> Dict[str, object]:
+                       occupied: int, parent_nodes: int = 0) -> Dict[str, object]:
     """The fused split search of one level over lanes: xb (one byte a
     value, every lane's) read once; each lane's pos, g and h (12 bytes a
     row), column mask (a byte a feature) and lambda read once, and its
@@ -140,33 +157,34 @@ def level_splits_bound(n: int, n_feat: int, n_nodes: int, lanes: int,
     adds per (row, feature, lane), and K4's 15 f32 operations (see
     ``best_splits_bound``) per occupied (lane, node, feature, bin), the
     ``occupied`` cells that this level's rows reach: an empty bin's gain
-    repeats the bin before it, so the inputs need no more."""
-    return _bound(n * n_feat + lanes * (12 * n + n_feat + 4 + 9 * n_nodes),
-                  2 * n * n_feat * lanes + 15 * occupied)
+    repeats the bin before it, so the inputs need no more. With a parent
+    split, its routing (``_routing``)."""
+    route_bytes, route_ops = _routing(n, parent_nodes)
+    return _bound(n * n_feat + lanes * (12 * n + n_feat + 4 + 9 * n_nodes + route_bytes),
+                  lanes * (2 * n * n_feat + route_ops) + 15 * occupied)
 
 
 def leaf_values_bound(n: int, n_leaves: int, next_tree: bool = False,
-                      lanes: int = 1) -> Dict[str, object]:
+                      lanes: int = 1, n_feat: int = 0) -> Dict[str, object]:
     """pos, g and h read once, the margins read and written once, the leaves
     written once; two adds and one fused multiply-add (two operations) per
     row, an add and a division per leaf. With ``next_tree`` also y (every
     lane's), u and the row weights read once, the next g and h written once
     with their two maxima, and 14 operations a row (the sigmoid's exp, add
     and division, p − y, 1 − p, the product, the clamp, the mask's compare,
-    four products, two maxima). Lanes: each lane's share, y once."""
+    four products, two maxima). Lanes: each lane's share, y once. With
+    ``n_feat`` (K5 routing the last level's split, n_leaves / 2 nodes, over
+    xb [n, n_feat]): the parent's table read and written into the tree (16
+    bytes a node and lane), xb's byte a row and lane at the column its node
+    picks, at most all of xb, and a compare and a multiply-add a row."""
     extra_bytes, extra_ops = (16 * n + 8, 14 * n) if next_tree else (0, 0)
     lane_params = 12 if lanes > 1 else 0           # lam, scale, subsample
+    route_bytes, route_ops = (
+        (min(lanes, n_feat) * n + lanes * 8 * n_leaves, 2 * n * lanes) if n_feat
+        else (0, 0))
     return _bound(lanes * (12 * n + 8 * n + 4 * n_leaves + extra_bytes + lane_params)
-                  + (4 * n if next_tree else 0),
-                  lanes * (4 * n + 2 * n_leaves + extra_ops))
-
-
-def route_rows_bound(n: int, n_nodes: int, lanes: int = 1) -> Dict[str, object]:
-    """Each lane's positions read and written once, the one byte of xb a
-    row reads (at the column its node's split names), the level's (feature,
-    bin) table read once and written into the tree once; a compare and a
-    multiply-add (two operations) a row."""
-    return _bound(lanes * (9 * n + 16 * n_nodes), 2 * n * lanes)
+                  + (4 * n if next_tree else 0) + route_bytes,
+                  lanes * (4 * n + 2 * n_leaves + extra_ops) + route_ops)
 
 
 def topk_bound(nq: int, nr: int, words: int, k: int) -> Dict[str, object]:

@@ -38,16 +38,25 @@ before its last line):
    and 65,536 with 1, 64 and 1,024 leaves bit-equal to its fixed-point
    plain version and within 1e-6 relative of the float64 sums, and with
    the next tree (reg and cls, subsample 1 and 0.8, weights 0 and 1) its
-   g, h and bounds bit-equal to the torch ops; then each timed at the
+   g, h and bounds bit-equal to the torch ops; the routing, which has no
+   launch of its own: K3 of the next level given each case's split
+   (positions and the tree's pairs equal to ``route_rows_reference``, each
+   node's sorted rows as a set, the histogram bit-equal to the fixed-point
+   plain version on the routed rows) and K5 given a last level's split
+   (bit-equal to ``route_rows_reference`` then its plain version, pos left
+   as it is); then each timed at the
    training path's shapes (n = 7,809 and 65,536, F = 30, every level of
-   depth 6; K5 alone and with the next tree's gradients) and the transfer
+   depth 6, levels 1-5 also with the routing of the level before against
+   the same call alone; K5 alone, with the next tree's gradients, and with
+   them and the routing) and the transfer
    path's (n = 7,809, F = 326, levels 0, 5 and
    9; K4 also in oblivious mode; K5 with 1,024 leaves) beside its plain
    version, its bound and, for K3, ``index_add_`` (the one PyTorch call for
    the same function) and ``torch.bincount`` twice;
 6. training: ``ScreeningModel.train`` on ``cuda`` at full width over the
    7,809-molecule labelled set (``testing.labelled_training_set``), with
-   every trainer kernel's launch count (300 trees × 6 levels); a second fit
+   every trainer kernel's launch count (300 trees × 6 levels; no routing
+   launch); a second fit
    with the same seed must grow the same trees; the host's launch calls of
    one fit of its forest under ``torch.profiler``; ``GBDTClassifier
    (subsample=1)`` on the same z on ``cuda`` and ``cpu`` must grow the same
@@ -217,7 +226,7 @@ before its last line):
    columns): ``tune_zoo`` of the five forest families at phase 10's trials
    x 5 folds as lanes, family by family, every launch counter set to 0
    before and read after (the fused split search, K5 with lanes and the
-   routing must move, K3 and K4 with lanes in cat's oblivious search only,
+   lanes must move, K3 and K4 with lanes in cat's oblivious search only,
    the single-fit kernels and the forest kernel never), each trial's CV
    accuracy within 0.006 of phase 10's
    sequential search, and fold 0 of every trial (its lane in a group fit
@@ -228,8 +237,13 @@ before its last line):
    fixed-point plain version and to the single-fit kernel lane by lane and
    within one f32 rounding of the float64 sums, K4 (per node, oblivious,
    column masks) equal to the single-fit kernel lane by lane and to its
-   plain version but at counted near ties, the routing integer-equal to the
-   torch ops, K5 with the next tree (64 and 1,024 leaves) bit-equal to its
+   plain version but at counted near ties, the sorts of the next level
+   given each level's split (the fused search's, K3 with lanes', lane 0's
+   single fit) routing as ``route_rows_reference`` does (positions, the
+   trees' pairs, each node's rows as a set, results bit-equal to the calls
+   on the routed positions), K5 with the next tree and the last level's
+   routing (64 and 1,024 leaves) in both launch shapes (a cluster a lane,
+   a block a lane) bit-equal to ``route_rows_reference`` then its
    fixed-point plain version and to the single-fit kernel, the fused split
    search (``level_splits_lanes``) bit-equal to K3 then K4 with lanes and to
    its fixed-point plain version but at counted near ties (min_child 0 and
@@ -239,7 +253,9 @@ before its last line):
    xb and pos) and, for K3, one ``index_add_`` over the lanes' keys; the
    fused search and K3 then K4 again at L = 250 (50 trials x 5 folds' row
    weights), held bit for bit and timed, the fused search also with each
-   warp taking one unit; then xgb's search at 50 + 1 trials
+   warp taking one unit; the fused search of the next level with the
+   routing against the same call alone and ``route_rows_reference``, and K5
+   with lanes in both shapes, at L = 15 and 250; then xgb's search at 50 + 1 trials
    x 5 folds = 255 lanes and rf's at 50 + 1 (a 250-lane group of 300 trees
    of depth 10): wall s, peak memory, launches, lane blocks, and under
    ``torch.profiler`` the device busy time and the host's launch calls (the
@@ -649,6 +665,214 @@ def hold_fused(tr, xb, pos, g, h, nodes, bounds, n_bins, hist, masks, lam, probl
             held["fused_calls"] += 1
 
 
+def hold_lane_routing(tr, xb, pos, g, h, bounds, n_bins, f_l, b_l, level, col, lam,
+                      problems, held, sort_lanes=None, with_k3=True):
+    """The sorts of level + 1 given level ``level``'s split over lanes (the
+    fused search's, with ``with_k3`` K3 with lanes' and, for lane 0, the
+    single fit's): the
+    positions and the trees' pairs equal ``route_rows_reference``'s, each
+    node's sorted rows as a set (on ``sort_lanes``, default all), and the
+    results bit-equal to the same calls on the routed positions. Returns
+    what ``time_lane_routing`` needs."""
+    import torch
+
+    lanes, n = pos.shape
+    n_feat = xb.shape[1]
+    children = 2 << level
+    feats = torch.zeros((lanes, 1, children - 1), dtype=torch.int32, device=xb.device)
+    bins = torch.zeros_like(feats)
+    routed, f_r, b_r = pos.clone(), feats.clone(), bins.clone()
+    tr.route_rows_reference(xb, routed, f_l, b_l, f_r, b_r, 0, level)
+    parent = tr.ParentSplit(f_l, b_l, feats, bins, 0, level)
+    scratch = torch.empty(lanes * tr.lane_words(n, n_feat, children), dtype=torch.int64,
+                          device=xb.device)
+    picked = range(lanes) if sort_lanes is None else sort_lanes
+    label = f"L={lanes} level {level} -> {level + 1}"
+    calls = [("fused", lambda p, **kw: tr.level_splits_lanes(
+        xb, p, g, h, children, bounds, col, lam, 1.0, n_bins, bins_checked=True, **kw))]
+    if with_k3:
+        calls.append(("K3 with lanes", lambda p, **kw: tr.level_histogram_lanes(
+            xb, p, g, h, children, bounds, n_bins, bins_checked=True, **kw)))
+    for name, call in calls:
+        feats.zero_()
+        bins.zero_()
+        p_k = pos.clone()
+        got = call(p_k, parent=parent, scratch=scratch)
+        want = call(routed.clone())
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        if not (torch.equal(p_k, routed) and torch.equal(feats, f_r)
+                and torch.equal(bins, b_r)):
+            problems.append(f"{name} with routing {label}: "
+                            f"{int((p_k != routed).sum())} positions off "
+                            f"route_rows_reference")
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            problems.append(f"{name} with routing {label}: not the call on the routed "
+                            f"positions")
+        if not all(sort_rows_held(tr, scratch, n, n_feat, children, routed[i], g[i], h[i],
+                                  i) for i in picked):
+            problems.append(f"{name} with routing {label}: a node's sorted rows differ")
+        held["routed_sorts"] += 1
+    if not with_k3:
+        return {"parent": parent, "routed": routed, "children": children}
+    p1 = pos[0].clone()
+    one = tr.level_histogram(xb, p1, g[0], h[0], children, bounds[0], n_bins,
+                             bins_checked=True,
+                             parent=tr.ParentSplit(f_l[0].contiguous(), b_l[0].contiguous(),
+                                                   feats[0].clone(), bins[0].clone(), 0,
+                                                   level))
+    if not (torch.equal(p1, routed[0]) and torch.equal(
+            one, tr.level_histogram(xb, routed[0].clone(), g[0], h[0], children, bounds[0],
+                                    n_bins, bins_checked=True))):
+        problems.append(f"K3 with routing {label}: lane 0's single fit differs")
+    return {"parent": parent, "routed": routed, "children": children}
+
+
+def time_lane_routing(tr, device_ms, xb, pos, g, h, bounds, n_bins, col, lam, routing):
+    """Device ms of the fused search of level + 1 with the routing of level's
+    split (pos restored from the parents' before each call, the copy timed
+    alone and taken off), of the same search alone on the routed positions
+    (the same copy), and of ``route_rows_reference``, the routing's plain
+    version; the routing's added bound."""
+    import torch
+
+    from bbbp_tpu_torch.timing import routing_bound
+
+    lanes, n = pos.shape
+    children, parent, routed = routing["children"], routing["parent"], routing["routed"]
+    p_t = pos.clone()
+    f_t, b_t = parent.feats.clone(), parent.bins.clone()
+
+    def fused(p, src, **kw):
+        p.copy_(src)
+        return tr.level_splits_lanes(xb, p, g, h, children, bounds, col, lam, 1.0, n_bins,
+                                     bins_checked=True, **kw)
+
+    copy = device_ms(lambda: p_t.copy_(pos))
+    with_routing = device_ms(lambda: fused(p_t, pos, parent=parent)) - copy
+    alone = device_ms(lambda: fused(p_t, routed)) - copy
+    plain = device_ms(lambda: (p_t.copy_(pos), tr.route_rows_reference(
+        xb, p_t, parent.f_l, parent.b_l, f_t, b_t, 0, parent.level))) - copy
+    torch.cuda.synchronize()
+    return {"route_fused": with_routing, "route_alone": alone,
+            "route": with_routing - alone, "route_plain": plain, "route_copy": copy,
+            "route_bound": routing_bound(n, children // 2, lanes)}
+
+
+def k5_line(k5) -> str:
+    """K5 with lanes' times at 64 / 1,024 leaves: the chosen shape, each form,
+    the plain version where timed, the bound."""
+    def two(field):
+        return " / ".join(f"{k5[leaves][field]:.4f}" for leaves in (64, 1024))
+
+    plain = f", plain {two('plain_ms')}" if "plain_ms" in k5[64] else ""
+    return (f"{two('ms')} (a cluster a lane {two('ms_cluster')}, a block a lane "
+            f"{two('ms_block')}){plain}, bound " + " / ".join(
+                f"{k5[leaves]['bound']['bound_ms']:.6f}" for leaves in (64, 1024)))
+
+
+def lane_leaf_case(tr, xb, g, h, bounds, n_leaves, lam, scale, sub, w, y, margins, gen):
+    """One tree's last step over lanes as a fit reaches it: the parents'
+    positions, the last level's split (random), the routed positions
+    (``route_rows_reference``), the next tree's draw."""
+    import torch
+
+    lanes, n = g.shape
+    dev = xb.device
+    half = n_leaves // 2
+    pos = torch.randint(0, half, (lanes, n), generator=gen, dtype=torch.int32, device=dev)
+    f_l = torch.randint(0, xb.shape[1], (lanes, half), generator=gen, dtype=torch.int32,
+                        device=dev)
+    b_l = torch.randint(0, 64, (lanes, half), generator=gen, dtype=torch.int32, device=dev)
+    feats = torch.zeros((lanes, 1, n_leaves - 1), dtype=torch.int32, device=dev)
+    bins = torch.zeros_like(feats)
+    parent = tr.ParentSplit(f_l, b_l, feats, bins, 0, half.bit_length() - 1)
+    routed, f_r, b_r = pos.clone(), feats.clone(), bins.clone()
+    tr.route_rows_reference(xb, routed, f_l, b_l, f_r, b_r, 0, parent.level)
+    u = torch.rand(lanes, n, generator=gen, device=dev)
+    return {"pos": pos, "parent": parent, "routed": routed, "trees": (f_r, b_r), "u": u,
+            "n_leaves": n_leaves, "next": tr.NextTree(y, u, sub, w, "cls"),
+            "next_host": tr.NextTree(y, u, sub.tolist(), w, "cls"), "lam": lam,
+            "scale": scale, "g": g, "h": h, "bounds": bounds, "xb": xb,
+            "margins": margins}
+
+
+def hold_lane_leaves(tr, case, problems, label, plain_lanes=None) -> dict:
+    """K5 with lanes, the next tree and routing, in each launch shape: the
+    same bits in all, pos left as it is, the trees' pairs and (on
+    ``plain_lanes``, default all) every output bit-equal to
+    ``route_rows_reference`` then the fixed-point plain version. Returns the
+    cluster form's margins and outputs."""
+    import torch
+
+    pos, parent, n_leaves = case["pos"], case["parent"], case["n_leaves"]
+    g, h, bounds, xb, margins = case["g"], case["h"], case["bounds"], case["xb"], \
+        case["margins"]
+    lam, scale = case["lam"], case["scale"]
+    picked = list(range(pos.shape[0]) if plain_lanes is None else plain_lanes)
+    p_f = margins[picked].clone()
+    nxt = case["next_host"]
+    want = tr.leaf_values_lanes_fixed_reference(
+        case["routed"][picked], g[picked], h[picked], n_leaves,
+        [lam.tolist()[i] for i in picked], [scale.tolist()[i] for i in picked], p_f,
+        bounds[picked], tr.NextTree(nxt.y, nxt.u[picked], [nxt.subsample[i] for i in picked],
+                                    nxt.w_rows[picked], "cls"))
+    first = None
+    for shape in ("cluster", "block", "auto"):
+        parent.feats.zero_()
+        parent.bins.zero_()
+        p_k, kept = margins.clone(), pos.clone()
+        got = tr.leaf_values_lanes(kept, g, h, n_leaves, lam, scale, p_k, bounds,
+                                   case["next"], parent=parent, xb=xb, shape=shape)
+        torch.cuda.synchronize()
+        if first is None:
+            first = {"margins": p_k, "out": got}
+        elif not (torch.equal(p_k, first["margins"])
+                  and all(torch.equal(a, b) for a, b in zip(got, first["out"]))):
+            problems.append(f"leaf_values_lanes {label} {n_leaves} leaves: the {shape} "
+                            f"form's bits differ from the cluster form's")
+        if not (torch.equal(kept, pos) and torch.equal(parent.feats, case["trees"][0])
+                and torch.equal(parent.bins, case["trees"][1])):
+            problems.append(f"leaf_values_lanes {label} {n_leaves} leaves {shape}: pos "
+                            f"changed or the trees' pairs differ")
+        if not (torch.equal(p_k[picked], p_f) and all(
+                torch.equal(a[picked], b) for a, b in zip(got, want))):
+            problems.append(f"leaf_values_lanes {label} {n_leaves} leaves {shape}: not "
+                            f"route_rows_reference then the fixed-point plain version")
+    return first
+
+
+def time_lane_leaves(tr, device_ms, leaf_values_bound, case, xb, g, h, bounds, lam, scale,
+                     margins, n_feat, slow=None) -> dict:
+    """K5 with lanes, the next tree and routing: device ms in the chosen
+    shape and in each form, the plain version's (route_rows_reference into
+    a copy, then the plain leaves and gradients; with ``slow``), the
+    bound."""
+    lanes = g.shape[0]
+    n_leaves, parent, pos = case["n_leaves"], case["parent"], case["pos"]
+    p_t = margins.clone()
+
+    def k5(shape):
+        return device_ms(lambda: tr.leaf_values_lanes(
+            pos, g, h, n_leaves, lam, scale, p_t, bounds, case["next"], parent=parent,
+            xb=xb, shape=shape))
+
+    out = {"ms": k5("auto"), "ms_cluster": k5("cluster"), "ms_block": k5("block"),
+           "bound": leaf_values_bound(g.shape[1], n_leaves, True, lanes, n_feat)}
+    if slow is not None:
+        lam_host, scale_host = lam.tolist(), scale.tolist()
+
+        def plain():
+            routed = pos.clone()
+            tr.route_rows_reference(xb, routed, parent.f_l, parent.b_l, parent.feats,
+                                    parent.bins, 0, parent.level)
+            return tr.leaf_values_lanes_reference(routed, g, h, n_leaves, lam_host,
+                                                  scale_host, p_t, case["next_host"])
+
+        out["plain_ms"] = device_ms(plain, **slow)
+    return out
+
+
 def hold_level(tr, label, xb, pos, g, h, n_bins, nodes, rng, held):
     """K3 and K4 on one level's inputs against their plain versions.
     K3: bit-equal to the fixed-point plain version with and without
@@ -696,6 +920,10 @@ def hold_level(tr, label, xb, pos, g, h, n_bins, nodes, rng, held):
         return want
 
     every = torch.ones(n_feat, dtype=torch.bool, device=xb.device)
+    level = nodes.bit_length() - 1
+    if level < tr.MAX_DEPTH - 1:            # the next level's sort routes this split
+        f_l, b_l, _ = tr.best_splits(hist, every, 1.0, 1.0, False)
+        hold_routed_sort(tr, label, xb, pos, g, h, n_bins, f_l, b_l, level, held)
     for share, obl, min_child in ((1.0, False, 1.0), (0.5, False, 1.0),
                                   (1.0, False, 4.0), (1.0, True, 1.0),
                                   (0.5, True, 4.0)):
@@ -712,11 +940,130 @@ def hold_level(tr, label, xb, pos, g, h, n_bins, nodes, rng, held):
             raise AssertionError(f"best_splits {label}: a split at min_child 1e9")
 
 
-def time_leaf_values(tr, pos, g, h, n_leaves, bounds):
+def sort_rows_held(tr, scratch, n, n_feat, nodes, pos, g, h, lane=0) -> bool:
+    """The sort's row order in ``scratch`` (lane ``lane``): each node's
+    rows, as a set, are the rows of weight not 0 that ``pos`` puts there."""
+    import torch
+
+    node, row = tr.sorted_rows(scratch, n, n_feat, nodes, lane)
+    kept = torch.nonzero(((g != 0) | (h != 0)).cpu()).flatten()
+    return sorted(zip(node.tolist(), row.tolist())) == \
+        sorted(zip(pos.cpu()[kept].tolist(), kept.tolist()))
+
+
+def hold_routed_sort(tr, label, xb, pos, g, h, n_bins, f_l, b_l, level, held):
+    """K3 of level + 1 given level ``level``'s split (one fit): its sort
+    routes every row as it reads it. Positions and the tree's pairs equal
+    ``route_rows_reference``'s, each node's sorted rows as a set, and the
+    histogram bit-equal to the fixed-point plain version on the routed
+    rows."""
+    import torch
+
+    n, n_feat = xb.shape
+    children = 2 << level
+    feats = torch.zeros((2, children - 1), dtype=torch.int32, device=xb.device)
+    bins = torch.zeros_like(feats)
+    routed, f_r, b_r = pos.clone(), feats.clone(), bins.clone()
+    tr.route_rows_reference(xb, routed, f_l, b_l, f_r, b_r, 1, level)
+    bounds = tr.gradient_bounds(g, h)
+    scratch = torch.empty(tr.histogram_plan(n, n_feat, children)["words"],
+                          dtype=torch.int64, device=xb.device)
+    p_k = pos.clone()
+    hist = tr.level_histogram(xb, p_k, g, h, children, bounds, n_bins,
+                              parent=tr.ParentSplit(f_l, b_l, feats, bins, 1, level),
+                              scratch=scratch)
+    fixed = tr.level_histogram_fixed_reference(xb, routed, g, h, children, bounds)
+    torch.cuda.synchronize()
+    if not (torch.equal(p_k, routed) and torch.equal(feats, f_r)
+            and torch.equal(bins, b_r)):
+        raise AssertionError(f"K3 with routing {label}: {int((p_k != routed).sum())} "
+                             f"positions off route_rows_reference")
+    if not torch.equal(hist, fixed):
+        raise AssertionError(f"K3 with routing {label}: {int((hist != fixed).sum())} "
+                             f"bins off its fixed-point plain version")
+    if not sort_rows_held(tr, scratch, n, n_feat, children, routed, g, h):
+        raise AssertionError(f"K3 with routing {label}: the sort's rows of a node "
+                             f"differ from the routed positions'")
+    held["routed_sorts"] += 1
+
+
+def hold_routed_leaves(tr, label, xb, pos, g, h, n_leaves, start, bounds, rng, held,
+                       next_tree=None):
+    """K5 given the last level's split (``pos`` its parents): each row routed
+    as it is read, pos left as it is; leaves, margins and (with
+    ``next_tree``) the next gradients and bounds bit-equal to
+    ``route_rows_reference`` then ``leaf_values_fixed_reference`` and the
+    torch ops."""
+    import torch
+
+    n, n_feat = xb.shape
+    last, half = n_leaves.bit_length() - 2, n_leaves // 2
+    dev = xb.device
+    f_l = torch.from_numpy(rng.integers(0, n_feat, half).astype(np.int32)).to(dev)
+    b_l = torch.from_numpy(rng.integers(0, 64, half).astype(np.int32)).to(dev)
+    feats = torch.zeros((1, n_leaves - 1), dtype=torch.int32, device=dev)
+    bins = torch.zeros_like(feats)
+    routed, f_r, b_r = pos.clone(), feats.clone(), bins.clone()
+    tr.route_rows_reference(xb, routed, f_l, b_l, f_r, b_r, 0, last)
+    p_r, p_k, kept = start.clone(), start.clone(), pos.clone()
+    want = tr.leaf_values_fixed_reference(routed, g, h, n_leaves, 1.0, 0.1, p_r, bounds)
+    if next_tree is not None:
+        want = (want, *tr.next_gradients_reference(p_r, *next_tree))
+    got = tr.leaf_values(kept, g, h, n_leaves, 1.0, 0.1, p_k, bounds, next_tree,
+                         parent=tr.ParentSplit(f_l, b_l, feats, bins, 0, last), xb=xb)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(a, b) for a, b in zip(got, want)) if next_tree is not None
+            else torch.equal(got, want))
+    if not (same and torch.equal(p_k, p_r) and torch.equal(kept, pos)
+            and torch.equal(feats, f_r) and torch.equal(bins, b_r)):
+        raise AssertionError(f"K5 with routing {label}: not route_rows_reference then "
+                             f"its fixed-point plain version")
+    held["routed_leaves"] += 1
+
+
+def time_routed_sort(tr, xb, g, h, bounds, n_bins, level, seed) -> dict:
+    """Single-fit K3 at ``level`` with the routing of the level before (a
+    random split over random parents; pos restored before each call, the
+    copy timed alone and taken off) and alone on the routed positions (the
+    same copy), and the routing's added bound."""
+    import torch
+
+    from bbbp_tpu_torch.timing import device_ms, routing_bound
+
+    n, n_feat = xb.shape
+    nodes, half = 1 << level, 1 << (level - 1)
+    r = np.random.default_rng(seed)
+    dev = xb.device
+    parents = torch.from_numpy(r.integers(0, half, n).astype(np.int32)).to(dev)
+    f_l = torch.from_numpy(r.integers(0, n_feat, half).astype(np.int32)).to(dev)
+    b_l = torch.from_numpy(r.integers(0, 64, half).astype(np.int32)).to(dev)
+    feats = torch.zeros((1, nodes - 1), dtype=torch.int32, device=dev)
+    bins = torch.zeros_like(feats)
+    routed = parents.clone()
+    tr.route_rows_reference(xb, routed, f_l, b_l, feats.clone(), bins.clone(), 0,
+                            level - 1)
+    parent = tr.ParentSplit(f_l, b_l, feats, bins, 0, level - 1)
+    p_t = parents.clone()
+
+    def k3(src, **kw):
+        p_t.copy_(src)
+        return tr.level_histogram(xb, p_t, g, h, nodes, bounds, n_bins, bins_checked=True,
+                                  **kw)
+
+    copy = device_ms(lambda: p_t.copy_(parents))
+    with_routing = device_ms(lambda: k3(parents, parent=parent)) - copy
+    alone = device_ms(lambda: k3(routed)) - copy
+    return {"k3_routed": with_routing, "k3_alone": alone,
+            "k3_routing": with_routing - alone,
+            "k3_routing_bound": routing_bound(n, half)}
+
+
+def time_leaf_values(tr, pos, g, h, n_leaves, bounds, xb):
     """K5's times on one tree's rows: the leaves alone (as the random forest
     and a fit's last tree call it) and with the next boosted tree's
     gradients (every other tree of a boosted fit), each beside its plain
-    version and its bound."""
+    version and its bound; and with the next tree, routing the last level's
+    split over ``xb`` (``pos // 2`` its parents), as a fit calls it."""
     import torch
 
     from bbbp_tpu_torch.timing import device_ms, leaf_values_bound
@@ -726,7 +1073,19 @@ def time_leaf_values(tr, pos, g, h, n_leaves, bounds):
     y = (torch.rand(n, device=pos.device) < 0.4).float()
     nxt = tr.NextTree(y, torch.rand(n, device=pos.device), 0.8,
                       torch.ones(n, device=pos.device), "cls")
-    return {"k5": device_ms(lambda: tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1,
+    half = n_leaves // 2
+    parent = tr.ParentSplit(
+        torch.randint(0, xb.shape[1], (half,), dtype=torch.int32, device=pos.device),
+        torch.randint(0, 64, (half,), dtype=torch.int32, device=pos.device),
+        torch.zeros((1, n_leaves - 1), dtype=torch.int32, device=pos.device),
+        torch.zeros((1, n_leaves - 1), dtype=torch.int32, device=pos.device), 0,
+        half.bit_length() - 1)
+    parents = pos // 2
+    return {"k5_next_routed": device_ms(lambda: tr.leaf_values(
+                parents, g, h, n_leaves, 1.0, 0.1, margins, bounds, nxt, parent=parent,
+                xb=xb)),
+            "k5_next_routed_bound": leaf_values_bound(n, n_leaves, True, 1, xb.shape[1]),
+            "k5": device_ms(lambda: tr.leaf_values(pos, g, h, n_leaves, 1.0, 0.1,
                                                    margins, bounds)),
             "k5_plain": device_ms(lambda: tr.leaf_values_reference(
                 pos, g, h, n_leaves, 1.0, 0.1, margins)),
@@ -998,7 +1357,8 @@ def wide_fit_audit(card, aux, aux_raw):
     ``GBDTClassifier`` fit on ``cuda`` is replayed on the CPU along its own
     splits (every node against the plain best split, every leaf against the
     plain leaf values), its margins come through the forest kernel and
-    the plain version, and K3 and K4 are timed on its binned rows."""
+    the plain version, and K3 and K4 are timed on its binned rows, where the
+    routing is also held inside the next level's sort and inside K5."""
     import torch
 
     from bbbp_tpu_torch.ops.forest import dense_predict_reference, raw_predict
@@ -1077,7 +1437,7 @@ def wide_fit_audit(card, aux, aux_raw):
                                 seed=cfg.seed, device="cuda").fit(aux_x, labels)
     every = torch.ones(WIDE_F, dtype=torch.bool, device="cuda")
     rows = torch.arange(len(labels), device="cuda")
-    fitted = {}
+    fitted, routed = {}, {"routed_sorts": 0, "routed_leaves": 0}
     for level in WIDE_LEVELS:
         trees = ens if level < cfg.depth else rf.ensemble_
         pos = torch.zeros(len(labels), dtype=torch.int64, device="cuda")
@@ -1094,6 +1454,14 @@ def wide_fit_audit(card, aux, aux_raw):
             raise AssertionError(f"level_histogram on the fit's rows, level {level}: "
                                  f"not its fixed-point plain version")
         del fixed
+        # the routing on the path's rows: K3 of level + 1 given this level's
+        # split, and K5 given a random split of level 5's rows into 64 leaves
+        f_l, b_l, _ = tr.best_splits(hist, every, 1.0, 1.0, False)
+        hold_routed_sort(tr, f"F={WIDE_F} level {level}", xb, pos, g, h, n_bins, f_l,
+                         b_l, level, routed)
+        if level == 5:
+            hold_routed_leaves(tr, f"F={WIDE_F}", xb, pos, g, h, 64, p0.clone(), bounds,
+                               np.random.default_rng(8), routed)
         index_add = index_add_call(xb, pos, g, h, nodes)
         fitted[level] = {
             "k3": device_ms(lambda: tr.level_histogram(
@@ -1127,7 +1495,10 @@ def wide_fit_audit(card, aux, aux_raw):
           f"best_splits {over_levels('k4')}, plain {over_levels('k4_plain')}, "
           f"oblivious {over_levels('k4_oblivious')}, plain "
           f"{over_levels('k4_oblivious_plain')}, bound "
-          f"{over_levels('k4_bound_ms')}", flush=True)
+          f"{over_levels('k4_bound_ms')} | the routing: {routed['routed_sorts']} sorts "
+          f"of the next level given each level's split and {routed['routed_leaves']} K5 "
+          f"call given a last split, as route_rows_reference then the plain "
+          f"versions", flush=True)
     print(f"[8 wide fit] GBDTClassifier(subsample=1, {AUDIT_TREES} trees of "
           f"depth {cfg.depth}) on cuda over {aux_x.shape[0]} x {WIDE_F} aux "
           f"features: {fit_s:.3f} s; along its own splits {audit.equal} of "
@@ -1182,7 +1553,7 @@ def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
             "forest_level_histogram": per_level, "forest_best_splits": per_level,
             "forest_leaf_values": 2 * (2 * cfg.trees + cfg.rf_trees),
             "tanimoto_topk": 2, "tanimoto_gram": 0, "minmax_gram": 0,
-            "forest_route_rows": per_level, "forest_level_histogram_lanes": 0,
+            "forest_level_histogram_lanes": 0,
             "forest_best_splits_lanes": 0, "forest_level_splits_lanes": 0,
             "forest_leaf_values_lanes": 0}
     if launched != want:
@@ -1633,8 +2004,7 @@ def classification_phase(card, counters) -> dict:
     launches = {name: c.launches.count for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name in ("dense_forest_predict", "forest_level_histogram",
-                 "forest_best_splits", "forest_leaf_values",
-                 "forest_route_rows"):
+                 "forest_best_splits", "forest_leaf_values"):
         if not launches[name]:
             problems.append(f"run_classification launched no {name}")
     for m, r in res.report.items():
@@ -1858,7 +2228,7 @@ def wide_level_holds(card, data, seed) -> dict:
     bounds = tr.gradient_bounds(g, h)
     every = torch.ones(n_feat, dtype=torch.bool, device="cuda")
     held = {"k3_cases": 0, "k3_err": 0.0, "k3_err_plain": 0.0, "k4_near": 0,
-            "k4_err": 0.0, "k4_calls": 0}
+            "k4_err": 0.0, "k4_calls": 0, "routed_sorts": 0}
     rng = np.random.default_rng(seed)
     idx = torch.arange(n, device="cuda")
     out = {}
@@ -1901,7 +2271,9 @@ def wide_level_holds(card, data, seed) -> dict:
           f"(with and without n_bins), within one f32 rounding of the float64 "
           f"sums (max |err| {held['k3_err']:.3g}); K4 in {held['k4_calls']} "
           f"calls equal to the plain version but at {held['k4_near']} near-tie "
-          f"nodes (largest score gap {held['k4_err']:.3g}) | ms: level_histogram "
+          f"nodes (largest score gap {held['k4_err']:.3g}); the next level's sort "
+          f"routing each level's split in {held['routed_sorts']} cases as "
+          f"route_rows_reference then the plain version | ms: level_histogram "
           f"{over('k3')}, plain {over('k3_plain')}, index_add_ "
           f"{over('k3_library')}, bound {over('k3_bound')}; best_splits "
           f"{over('k4')}, plain {over('k4_plain')}, oblivious "
@@ -2014,8 +2386,7 @@ def regression_phase(card, counters, tmp) -> dict:
         data = ProcessedData.load(cache_path(pcfg, env["BBBP_PREPROCESS_CACHE"]))
         ck_desc, ck_maccs, ck_counts = raw_transfer_features(data.smiles)
     for name in ("dense_forest_predict", "forest_level_histogram",
-                 "forest_best_splits", "forest_leaf_values",
-                 "forest_route_rows", "tanimoto_topk",
+                 "forest_best_splits", "forest_leaf_values", "tanimoto_topk",
                  "tanimoto_gram", "minmax_gram"):
         if not launches[name]:
             problems.append(f"run_regression launched no {name}")
@@ -2293,8 +2664,7 @@ def families_phase(card, counters, tmp, labelled, phase11_r2) -> dict:
         launches = {name: c.launches.count for name, c in counters.items()}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name in ("dense_forest_predict", "forest_level_histogram",
-                 "forest_best_splits", "forest_leaf_values",
-                 "forest_route_rows"):
+                 "forest_best_splits", "forest_leaf_values"):
         if not launches[name]:
             problems.append(f"phase 12 launched no {name}")
     r2 = {leg: res.report[leg]["r2"] for leg in ("smiles", "nn", "graph", "stacked")}
@@ -2773,7 +3143,7 @@ def lanes_phase(card, counters, p10) -> dict:
     from bbbp_tpu_torch.timing import (best_splits_bound, device_ms,
                                        host_launch_calls, leaf_values_bound,
                                        level_histogram_bound, level_splits_bound,
-                                       profile_summary, route_rows_bound)
+                                       profile_summary)
     from bbbp_tpu_torch.train import batched_search as bs
     from bbbp_tpu_torch.train import classification as cl
 
@@ -2783,8 +3153,7 @@ def lanes_phase(card, counters, p10) -> dict:
     fx, fy, tcfg = p10["search_x"], p10["search_y"], p10["forest_cfg"]
     seq_trials = p10["forest_trials"]
     lane_names = ("forest_level_splits_lanes", "forest_level_histogram_lanes",
-                  "forest_best_splits_lanes", "forest_leaf_values_lanes",
-                  "forest_route_rows")
+                  "forest_best_splits_lanes", "forest_leaf_values_lanes")
     two_kernels = ("forest_level_histogram_lanes", "forest_best_splits_lanes")
     single_names = ("forest_level_histogram", "forest_best_splits",
                     "forest_leaf_values", "dense_forest_predict")
@@ -2957,7 +3326,7 @@ def lanes_phase(card, counters, p10) -> dict:
         lam = torch.logspace(-1, 1, L, device=cuda)
         lam_host = lam.tolist()
         held = {"k3_err": 0.0, "k4_near": 0, "k4_err": 0.0, "k4_calls": 0,
-                "fused_near": 0, "fused_err": 0.0, "fused_calls": 0}
+                "fused_near": 0, "fused_err": 0.0, "fused_calls": 0, "routed_sorts": 0}
         timed = {}
         every = torch.ones(L, n_feat, dtype=torch.bool, device=cuda)
         for level in LANES_LEVELS:
@@ -3007,26 +3376,15 @@ def lanes_phase(card, counters, p10) -> dict:
             f_l, b_l = got[0], got[1]
             hold_fused(tr, xb, pos, g, h, nodes, bounds, n_bins, hist, (mask, every),
                        lam, problems, held)
-            feats = torch.zeros((L, 1, (2 << LANES_LEVELS[-1]) - 1), dtype=torch.int32,
-                                device=cuda)
-            bins = torch.zeros_like(feats)
-            p_k, p_r, f_r, b_r = pos.clone(), pos.clone(), feats.clone(), bins.clone()
-            tr.route_rows(xb, p_k, f_l, b_l, feats, bins, 0, level)
-            tr.route_rows_reference(xb, p_r, f_l, b_l, f_r, b_r, 0, level)
-            torch.cuda.synchronize()
-            if not (torch.equal(p_k, p_r) and torch.equal(feats, f_r)
-                    and torch.equal(bins, b_r)):
-                problems.append(f"route_rows level {level}: "
-                                f"{int((p_k != p_r).sum())} rows off the torch ops")
-            # times (CUDA graphs); the routing updates pos in place, so each
-            # timed call restores it first, and the copy is timed alone
+            routing = hold_lane_routing(tr, xb, pos, g, h, bounds, n_bins, f_l, b_l,
+                                        level, every, lam, problems, held)
+            # times (CUDA graphs)
             keys = (torch.arange(L, device=cuda)[:, None, None] * (nodes * n_feat * 64)
                     + pos.long()[:, :, None] * (n_feat * 64)
                     + torch.arange(n_feat, device=cuda)[None, None, :] * 64
                     + xb.long()[None]).reshape(-1)
             vals = torch.stack([g, h], dim=-1)[:, :, None, :].expand(
                 L, n, n_feat, 2).reshape(-1, 2)
-            p_t = pos.clone()
             slow = dict(calls=2, replays=3)         # the plain versions loop over lanes
             timed[level] = {
                 "k3": device_ms(lambda: tr.level_histogram_lanes(
@@ -3054,61 +3412,45 @@ def lanes_phase(card, counters, p10) -> dict:
                     xb, pos, g, h, nodes, every, lam_host, 1.0), **slow),
                 "fused_bound": level_splits_bound(n, n_feat, nodes, L,
                                                   occupied_cells(xb, pos, g, h, nodes)),
-                "route_copy": device_ms(lambda: p_t.copy_(pos)),
-                "route_with_copy": device_ms(lambda: (p_t.copy_(pos), tr.route_rows(
-                    xb, p_t, f_l, b_l, feats, bins, 0, level))),
-                "route_plain_with_copy": device_ms(lambda: (
-                    p_t.copy_(pos), tr.route_rows_reference(
-                        xb, p_t, f_l, b_l, f_r, b_r, 0, level))),
-                "route_bound": route_rows_bound(n, nodes, L),
+                **time_lane_routing(tr, device_ms, xb, pos, g, h, bounds, n_bins, every,
+                                    lam, routing),
             }
             t = timed[level]
-            t["route"] = t["route_with_copy"] - t["route_copy"]
-            t["route_plain"] = t["route_plain_with_copy"] - t["route_copy"]
             t["two"] = t["k3"] + t["k4"]
             del hist, keys, vals
 
-        # K5 over lanes with the next tree, 64 and 1,024 leaves
+        # K5 over lanes with the next tree, 64 and 1,024 leaves, routing the
+        # last level's split as a fit calls it, in both launch shapes
         scale = torch.linspace(0.02, 0.3, L, device=cuda)
         sub = torch.linspace(0.6, 1.0, L, device=cuda)
-        scale_host, sub_host = scale.tolist(), sub.tolist()
         k5_err, k5 = 0.0, {}
+        scale_host, sub_host = scale.tolist(), sub.tolist()
         for n_leaves in (64, 1024):
-            pos = torch.randint(0, n_leaves, (L, n), generator=gen, dtype=torch.int32,
-                                device=cuda)
-            u = torch.rand(L, n, generator=gen, device=cuda)
-            nxt = tr.NextTree(y, u, sub, w, "cls")
-            nxt_host = tr.NextTree(y, u, sub_host, w, "cls")
-            p_k, p_f, p_64 = margins.clone(), margins.clone(), margins.double()
-            got = tr.leaf_values_lanes(pos, g, h, n_leaves, lam, scale, p_k, bounds, nxt)
-            want = tr.leaf_values_lanes_fixed_reference(pos, g, h, n_leaves, lam_host,
-                                                        scale_host, p_f, bounds,
-                                                        nxt_host)
-            leaf_64 = tr.leaf_values_lanes_reference(pos, g.double(), h.double(),
-                                                     n_leaves, lam_host, scale_host,
-                                                     p_64)
-            torch.cuda.synchronize()
-            if not (torch.equal(p_k, p_f) and all(torch.equal(a, b)
-                                                  for a, b in zip(got, want))):
-                problems.append(f"leaf_values_lanes {n_leaves} leaves: not its "
-                                f"fixed-point plain version with the next tree")
+            case = lane_leaf_case(tr, xb, g, h, bounds, n_leaves, lam, scale, sub, w, y,
+                                  margins, gen)
+            got = hold_lane_leaves(tr, case, problems, "L=15")
             for i in range(L):
                 p_one = margins[i].clone()
-                one = tr.leaf_values(pos[i], g[i], h[i], n_leaves, lam_host[i],
-                                     scale_host[i], p_one, bounds[i],
-                                     tr.NextTree(y, u[i], sub_host[i], w[i], "cls"))
-                if not (torch.equal(p_one, p_k[i])
-                        and all(torch.equal(a[i], b) for a, b in zip(got, one))):
+                parent = case["parent"]
+                one = tr.leaf_values(
+                    case["pos"][i].clone(), g[i], h[i], n_leaves, lam_host[i],
+                    scale_host[i], p_one, bounds[i],
+                    tr.NextTree(y, case["u"][i], sub_host[i], w[i], "cls"),
+                    parent=tr.ParentSplit(parent.f_l[i].contiguous(),
+                                          parent.b_l[i].contiguous(),
+                                          parent.feats[i].clone(), parent.bins[i].clone(),
+                                          0, parent.level), xb=xb)
+                if not (torch.equal(p_one, got["margins"][i])
+                        and all(torch.equal(a[i], b) for a, b in zip(got["out"], one))):
                     problems.append(f"leaf_values_lanes {n_leaves} leaves lane {i}: "
                                     f"not the single-fit kernel's")
-            k5_err = max(k5_err, float((got[0].double() - leaf_64).abs().max()))
-            p_t = margins.clone()
-            k5[n_leaves] = {
-                "ms": device_ms(lambda: tr.leaf_values_lanes(
-                    pos, g, h, n_leaves, lam, scale, p_t, bounds, nxt)),
-                "plain_ms": device_ms(lambda: tr.leaf_values_lanes_reference(
-                    pos, g, h, n_leaves, lam_host, scale_host, p_t, nxt_host), **slow),
-                "bound": leaf_values_bound(n, n_leaves, True, L)}
+            leaf_64 = tr.leaf_values_lanes_reference(
+                case["routed"], g.double(), h.double(), n_leaves, lam_host,
+                scale.tolist(), margins.double())
+            k5_err = max(k5_err, float((got["out"][0].double() - leaf_64).abs().max()))
+            k5[n_leaves] = time_lane_leaves(tr, device_ms, leaf_values_bound, case, xb, g,
+                                            h, bounds, lam, scale, margins, n_feat,
+                                            slow=slow)
 
         # -- the fused search against K3 then K4 with lanes at L = 250 --------
         WL = LANES_WIDE_L
@@ -3132,6 +3474,13 @@ def lanes_phase(card, counters, p10) -> dict:
             hold_fused(tr, xb, pos_w, g_wide, h_wide, nodes, bounds_wide, n_bins, hist_w,
                        (mask_wide, every_wide), lam_wide, problems, held,
                        plain_lanes=range(0, WL, 10))
+            f_w, b_w, _ = tr.level_splits_lanes(xb, pos_w, g_wide, h_wide, nodes,
+                                                bounds_wide, every_wide, lam_wide, 1.0,
+                                                n_bins, bins_checked=True)
+            routing_w = hold_lane_routing(tr, xb, pos_w, g_wide, h_wide, bounds_wide,
+                                          n_bins, f_w, b_w, level, every_wide, lam_wide,
+                                          problems, held, sort_lanes=range(0, WL, 10),
+                                          with_k3=False)
             # the histogram is 7.9 GB at level 11: two calls a graph there
             few = dict(calls=2, replays=5) if level >= 9 else {}
             wide[level] = {
@@ -3152,11 +3501,26 @@ def lanes_phase(card, counters, p10) -> dict:
                     n, n_feat, nodes, WL,
                     occupied_cells(xb, pos_w, g_wide, h_wide, nodes)),
                 "k3_bound": level_histogram_bound(n, n_feat, nodes, WL),
-                "k4_bound": best_splits_bound(nodes, n_feat, WL)}
+                "k4_bound": best_splits_bound(nodes, n_feat, WL),
+                **time_lane_routing(tr, device_ms, xb, pos_w, g_wide, h_wide, bounds_wide,
+                                    n_bins, every_wide, lam_wide, routing_w)}
             wide[level]["two"] = wide[level]["k3"] + wide[level]["k4"]
-            del hist_w
+            del hist_w, routing_w
             torch.cuda.empty_cache()
-        del g_wide, h_wide, p_wide, w_wide
+        # K5 with lanes at L = 250 in both launch shapes, routing as in a fit
+        k5_wide = {}
+        margins_wide = torch.randn(WL, n, generator=gen, device=cuda)
+        scale_wide = torch.linspace(0.02, 0.3, WL, device=cuda)
+        sub_wide = torch.linspace(0.6, 1.0, WL, device=cuda)
+        for n_leaves in (64, 1024):
+            case = lane_leaf_case(tr, xb, g_wide, h_wide, bounds_wide, n_leaves, lam_wide,
+                                  scale_wide, sub_wide, w_wide, y, margins_wide, gen)
+            hold_lane_leaves(tr, case, problems, f"L={WL}", plain_lanes=range(0, WL, 10))
+            k5_wide[n_leaves] = time_lane_leaves(tr, device_ms, leaf_values_bound, case, xb,
+                                                 g_wide, h_wide, bounds_wide, lam_wide,
+                                                 scale_wide, margins_wide, n_feat)
+            del case
+        del g_wide, h_wide, p_wide, w_wide, margins_wide
 
         stage_s["kernels held and timed"] = time.time() - t_stage
         t_stage = time.time()
@@ -3203,21 +3567,34 @@ def lanes_phase(card, counters, p10) -> dict:
           f"{fmt(lv('k3_bound', 'bound_ms'))}; best_splits_lanes {fmt(lv('k4'))}, "
           f"plain {fmt(lv('k4_plain'))}, oblivious {fmt(lv('k4_oblivious'))}, plain "
           f"{fmt(lv('k4_oblivious_plain'))}, bound {fmt(lv('k4_bound', 'bound_ms'))}; "
-          f"route_rows {fmt(lv('route'))} (with pos restored "
-          f"{fmt(lv('route_with_copy'))}, the copy {fmt(lv('route_copy'))}), plain "
-          f"{fmt(lv('route_plain'))}, bound {fmt(lv('route_bound', 'bound_ms'))}; "
-          f"leaf_values_lanes with the next tree, 64 / 1,024 leaves "
-          f"{k5[64]['ms']:.4f} / {k5[1024]['ms']:.4f}, plain {k5[64]['plain_ms']:.4f} "
-          f"/ {k5[1024]['plain_ms']:.4f}, bound {k5[64]['bound']['bound_ms']:.6f} / "
-          f"{k5[1024]['bound']['bound_ms']:.6f} | K3 bit-equal to its fixed-point "
+          f"leaf_values_lanes with the next tree and routing, 64 / 1,024 leaves "
+          f"{k5_line(k5)} | K3 bit-equal to its fixed-point "
           f"plain version and to the single-fit kernel lane by lane, max |err| "
           f"{held['k3_err']:.3g} against the float64 sums; K4 ({held['k4_calls']} "
           f"calls, per node and oblivious, lambda 0.1-10 a lane, column masks) equal "
           f"to the single-fit kernel lane by lane and to the plain version but "
           f"{held['k4_near']} counted near ties (max |dscore| {held['k4_err']:.3g}); "
-          f"K5 with the next tree bit-equal to its fixed-point plain version and the "
-          f"single-fit kernel, max |dleaf| {k5_err:.3g} against the float64 sums; "
-          f"routing integer-equal | phase 14 {time.time() - t14:.1f} s on {card}",
+          f"K5 with the next tree and routing, in both launch shapes, bit-equal to "
+          f"route_rows_reference then its fixed-point plain version and to the "
+          f"single-fit kernel, max |dleaf| {k5_err:.3g} against the float64 sums | "
+          f"phase 14 {time.time() - t14:.1f} s on {card}", flush=True)
+    print(f"[14 K5 with lanes] leaf_values_lanes with the next tree and routing, "
+          f"n={n}, 64 / 1,024 leaves (ms): L={LANES_WIDE_L} {k5_line(k5_wide)} | the "
+          f"shapes' bits equal, every 10th lane bit-equal to route_rows_reference then "
+          f"the fixed-point plain version", flush=True)
+    print(f"[14 routing] the split of levels {list(LANES_LEVELS)} routed in the "
+          f"next level's fused search, n={n}, F={n_feat} (ms): L={L} with routing "
+          f"{fmt(lv('route_fused'))} against the search alone on the routed rows "
+          f"{fmt(lv('route_alone'))}: added {fmt(lv('route'))}, bound "
+          f"{fmt(lv('route_bound', 'bound_ms'))}, route_rows_reference "
+          f"{fmt(lv('route_plain'))} (each with pos restored, the copy "
+          f"{fmt(lv('route_copy'))} taken off); L={LANES_WIDE_L} with routing "
+          f"{fmt(wv('route_fused'))} against {fmt(wv('route_alone'))}: added "
+          f"{fmt(wv('route'))}, bound {fmt(wv('route_bound', 'bound_ms'))}, "
+          f"route_rows_reference {fmt(wv('route_plain'))} | {held['routed_sorts']} sorts "
+          f"with routing (the fused search's and K3 with lanes', lane 0's single fit): "
+          f"positions and the trees' pairs equal to route_rows_reference, each node's "
+          f"rows as a set, results bit-equal to the calls on the routed positions",
           flush=True)
     print(f"[14 fused split search] level_splits_lanes, n={n}, F={n_feat}, levels "
           f"{list(LANES_LEVELS)} (ms): L={L} {fmt(lv('fused'))} (a unit a warp "
@@ -3240,10 +3617,9 @@ def lanes_phase(card, counters, p10) -> dict:
     replaces = {"forest_level_splits_lanes": "bbbp_tpu/ops/forest_tpu.py:154",
                 "forest_level_histogram_lanes": "bbbp_tpu/ops/forest_tpu.py:188",
                 "forest_best_splits_lanes": "bbbp_tpu/ops/forest_tpu.py:125",
-                "forest_leaf_values_lanes": "bbbp_tpu/ops/forest_tpu.py:340",
-                "forest_route_rows": "bbbp_tpu/ops/forest_tpu.py:335"}
+                "forest_leaf_values_lanes": "bbbp_tpu/ops/forest_tpu.py:340"}
     keys = {"forest_level_splits_lanes": "fused", "forest_level_histogram_lanes": "k3",
-            "forest_best_splits_lanes": "k4", "forest_route_rows": "route"}
+            "forest_best_splits_lanes": "k4"}
     entries = []
     for name in lane_names:
         entry = {"name": name, "route": "cuda",
@@ -3257,16 +3633,25 @@ def lanes_phase(card, counters, p10) -> dict:
             entry.update(max_abs_err=k5_err, ms=t["ms"], plain_ms=t["plain_ms"],
                          bound_ms=t["bound"]["bound_ms"],
                          bound_by=t["bound"]["bound_by"], library_ms=None,
-                         shape=f"L={L}, n={n}, 64 leaves, with the next tree",
-                         ms_1024_leaves=k5[1024]["ms"],
-                         plain_ms_1024_leaves=k5[1024]["plain_ms"],
-                         bound_ms_1024_leaves=k5[1024]["bound"]["bound_ms"])
+                         shape=f"L={L}, n={n}, 64 leaves, with the next tree and "
+                               f"routing")
+            for at, suffix in ((k5, ""), (k5_wide, f"_L{LANES_WIDE_L}")):
+                for leaves in (64, 1024):
+                    tail = suffix + ("_1024_leaves" if leaves == 1024 else "")
+                    t_ = at[leaves]
+                    entry["ms_cluster" + tail] = t_["ms_cluster"]
+                    entry["ms_block" + tail] = t_["ms_block"]
+                    if tail:
+                        entry["ms" + tail] = t_["ms"]
+                        entry["bound_ms" + tail] = t_["bound"]["bound_ms"]
+                        if "plain_ms" in t_:
+                            entry["plain_ms" + tail] = t_["plain_ms"]
         else:
             key = keys[name]
             t = timed[LANES_LEVELS[main]]
             entry.update(
                 max_abs_err={"k3": held["k3_err"], "k4": held["k4_err"],
-                             "fused": held["fused_err"], "route": 0.0}[key],
+                             "fused": held["fused_err"]}[key],
                 ms=t[key], plain_ms=t[key + "_plain"],
                 bound_ms=t[key + "_bound"]["bound_ms"],
                 bound_by=t[key + "_bound"]["bound_by"],
@@ -3289,15 +3674,19 @@ def lanes_phase(card, counters, p10) -> dict:
             if key == "k4":
                 entry[f"ms_oblivious_levels_L{LANES_WIDE_L}"] = wv("k4_oblivious")
             if key == "fused":
+                entry["routed_levels"] = [f"{lv_} -> {lv_ + 1}" for lv_ in LANES_LEVELS]
+                for at, suffix in ((lv, ""), (wv, f"_L{LANES_WIDE_L}")):
+                    entry["ms_with_routing_levels" + suffix] = at("route_fused")
+                    entry["ms_alone_levels" + suffix] = at("route_alone")
+                    entry["routing_added_ms_levels" + suffix] = at("route")
+                    entry["routing_bound_ms_levels" + suffix] = at("route_bound", "bound_ms")
+                    entry["routing_plain_ms_levels" + suffix] = at("route_plain")
                 entry["two_kernel_ms_levels"] = lv("two")
                 entry["one_unit_a_warp_ms_levels"] = lv("fused_one_unit")
                 entry[f"one_unit_a_warp_ms_levels_L{LANES_WIDE_L}"] = wv("fused_one_unit")
                 entry[f"two_kernel_ms_levels_L{LANES_WIDE_L}"] = wv("two")
                 entry["near_tie_nodes"] = held["fused_near"]
                 entry["bit_equal_to_two_kernels_calls"] = held["fused_calls"]
-            if key == "route":
-                entry["ms_with_pos_restored_levels"] = lv("route_with_copy")
-                entry["copy_ms_levels"] = lv("route_copy")
         entries.append(entry)
     for m, info in groups.items():
         group_info = {k: v for k, v in info.items() if k != "group"}
@@ -3592,7 +3981,7 @@ def run() -> int:
     t5 = time.time()
     k5_err, k5_cases, k5_grad_cases = 0.0, 0, 0
     held = {"k3_err": 0.0, "k3_err_plain": 0.0, "k4_err": 0.0, "k4_calls": 0,
-            "k4_near": 0, "k3_cases": 0}
+            "k4_near": 0, "k3_cases": 0, "routed_sorts": 0, "routed_leaves": 0}
     feats = (1, 30, 167, 300, WIDE_F)
     for n in (1, 7809, 65536):
         for n_feat in feats:
@@ -3630,6 +4019,10 @@ def run() -> int:
                                      f"leaf {float(leaf_err.max()):.3g}, margins "
                                      f"{float(pred_err.max()):.3g}")
             k5_err = max(k5_err, float(leaf_err.max()), float(pred_err.max()))
+            if n_leaves > 1:                    # K5 routes the last level's split
+                xb9 = level_case(n, 9, 0, n + n_leaves, cuda)[0]
+                hold_routed_leaves(tr, f"n={n} L={n_leaves}", xb9, pos // 2, g, h,
+                                   n_leaves, start, bounds, rng, held)
             # the next tree's gradients from the same launch, against the
             # torch ops on the same margins, draws and weights (some 0)
             for task, sub in (("reg", 1.0), ("reg", 0.8), ("cls", 1.0), ("cls", 0.8)):
@@ -3651,6 +4044,10 @@ def run() -> int:
                         f"leaf_values with the next tree n={n} L={n_leaves} {task} "
                         f"subsample {sub}: g, h, bounds differ from the torch ops by "
                         f"{[ulp_gap(a, b) for a, b in zip(got[1:], want)]} ulp")
+                if n_leaves > 1:
+                    hold_routed_leaves(tr, f"n={n} L={n_leaves} {task} {sub}", xb9,
+                                       pos // 2, g, h, n_leaves, start, bounds, rng,
+                                       held, tr.NextTree(y, u, sub, w, task))
 
     # features of 1, 2, 3 and 64 occupied bins in one matrix, skewed nodes;
     # every row in one node of level 9; rows that all weigh 0 (or nearly all)
@@ -3676,6 +4073,7 @@ def run() -> int:
         raise AssertionError("level_histogram took an n_bins below an occupied bin")
     k3_err, k3_err_plain, k4_err = held["k3_err"], held["k3_err_plain"], held["k4_err"]
     k4_calls, k4_near, k3_cases = held["k4_calls"], held["k4_near"], held["k3_cases"]
+    routed_sorts, routed_leaves = held["routed_sorts"], held["routed_leaves"]
 
     timed = {}
     shapes = [(n, TRAIN_F, tuple(range(TRAIN_DEPTH))) for n in TRAIN_ROWS]
@@ -3716,17 +4114,20 @@ def run() -> int:
                     hist, every, 1.0, 1.0, True)),
                 "k4_bound": best_splits_bound(nodes, n_feat),
             }
+            if level and n_feat == TRAIN_F:     # the sort routing the level before
+                timed[n, n_feat, level].update(time_routed_sort(
+                    tr, xb, g, h, bounds, n_bins, level, n + level))
         if n_feat != TRAIN_F:
             continue
         leaf_pos = torch.randint(0, 1 << TRAIN_DEPTH, (n,), dtype=torch.int32,
                                  device=cuda)
         timed[n, "k5"] = time_leaf_values(tr, leaf_pos, g, h, 1 << TRAIN_DEPTH,
-                                          bounds)
+                                          bounds, xb)
     n = TRAIN_ROWS[0]                          # rf: 1,024 leaves
-    _, _, g, h = level_case(n, 1, 0, 10, cuda)
+    xb, _, g, h = level_case(n, TRAIN_F, 0, 10, cuda)
     leaf_pos = torch.randint(0, 1024, (n,), dtype=torch.int32, device=cuda)
     timed[n, "k5_1024"] = time_leaf_values(tr, leaf_pos, g, h, 1024,
-                                           tr.gradient_bounds(g, h))
+                                           tr.gradient_bounds(g, h), xb)
 
     def levels(n, key, field=None, n_feat=TRAIN_F):
         return [timed[n, n_feat, lv][key][field] if field
@@ -3737,7 +4138,13 @@ def run() -> int:
         return (f"{t['k5']:.4f}, plain {t['k5_plain']:.4f}, bound "
                 f"{t['k5_bound']['bound_ms']:.6f}; with the next tree's gradients "
                 f"{t['k5_next']:.4f}, plain {t['k5_next_plain']:.4f}, bound "
-                f"{t['k5_next_bound']['bound_ms']:.6f}")
+                f"{t['k5_next_bound']['bound_ms']:.6f}; with the next tree and "
+                f"routing {t['k5_next_routed']:.4f}, bound "
+                f"{t['k5_next_routed_bound']['bound_ms']:.6f}")
+
+    def routed_levels(n, key, field=None):
+        return [timed[n, TRAIN_F, lv][key][field] if field else timed[n, TRAIN_F, lv][key]
+                for lv in range(1, TRAIN_DEPTH)]
 
     for n in TRAIN_ROWS:
         print(f"[5 trainer kernels] n={n}, F={TRAIN_F}, levels 0-5 (ms): "
@@ -3749,7 +4156,12 @@ def run() -> int:
               f"{fmt(levels(n, 'k4'))}, plain {fmt(levels(n, 'k4_plain'))}, "
               f"oblivious {fmt(levels(n, 'k4_oblivious'))}, plain "
               f"{fmt(levels(n, 'k4_oblivious_plain'))}, "
-              f"bound {fmt(levels(n, 'k4_bound', 'bound_ms'))}; leaf_values "
+              f"bound {fmt(levels(n, 'k4_bound', 'bound_ms'))}; levels 1-5 with "
+              f"the routing of the level before in the sort "
+              f"{fmt(routed_levels(n, 'k3_routed'))} against the same K3 alone "
+              f"{fmt(routed_levels(n, 'k3_alone'))} (pos restored, the copy taken off): "
+              f"added {fmt(routed_levels(n, 'k3_routing'))}, bound "
+              f"{fmt(routed_levels(n, 'k3_routing_bound', 'bound_ms'))}; leaf_values "
               f"(64 leaves) {leaf_line(timed[n, 'k5'])}", flush=True)
     head = TRAIN_ROWS[0]
 
@@ -3783,27 +4195,37 @@ def run() -> int:
           f"the float64 sums (limit 5e-7 |leaf|, 1e-6 of the margin terms), "
           f"two runs bit-identical; with the next tree ({k5_grad_cases} cases: "
           f"reg and cls, subsample 1 and 0.8, weights 0 and 1) g, h and "
-          f"bounds bit-equal to the torch ops; {time.time() - t5:.1f} s on {card}",
-          flush=True)
+          f"bounds bit-equal to the torch ops; the routing: {routed_sorts} sorts of "
+          f"the next level given each case's split (positions and the tree's pairs "
+          f"equal to route_rows_reference, each node's rows as a set, the histogram "
+          f"bit-equal to the fixed-point plain version on the routed rows) and "
+          f"{routed_leaves} K5 calls given the last level's split (bit-equal to "
+          f"route_rows_reference then the fixed-point plain version, pos unchanged); "
+          f"{time.time() - t5:.1f} s on {card}", flush=True)
 
     # -- phase 6: training the screening model --------------------------------
     smiles, labels = labelled_training_set()
-    for counter in (tr.level_histogram, tr.best_splits, tr.leaf_values,
-                    tr.route_rows):
+    trainer_counters = {"forest_level_histogram": tr.level_histogram,
+                        "forest_best_splits": tr.best_splits,
+                        "forest_leaf_values": tr.leaf_values,
+                        "forest_level_splits_lanes": tr.level_splits_lanes,
+                        "forest_level_histogram_lanes": tr.level_histogram_lanes,
+                        "forest_leaf_values_lanes": tr.leaf_values_lanes}
+    for counter in trainer_counters.values():
         counter.launches.reset()
     torch.cuda.synchronize()
     t0 = time.time()
     trained = ScreeningModel.train(smiles, labels, device="cuda")
     torch.cuda.synchronize()
     train_s = time.time() - t0
-    train_launches = {"forest_level_histogram": tr.level_histogram.launches.count,
-                      "forest_best_splits": tr.best_splits.launches.count,
-                      "forest_leaf_values": tr.leaf_values.launches.count,
-                      "forest_route_rows": tr.route_rows.launches.count}
+    train_launches = {name: c.launches.count for name, c in trainer_counters.items()}
+    # a level is K3 then K4 (the routing rides in the next level's sort and
+    # in K5), a tree one K5: no routing launch since PR 16
     want_launches = {"forest_level_histogram": N_TREES * TRAIN_DEPTH,
                      "forest_best_splits": N_TREES * TRAIN_DEPTH,
                      "forest_leaf_values": N_TREES,
-                     "forest_route_rows": N_TREES * TRAIN_DEPTH}
+                     "forest_level_splits_lanes": 0, "forest_level_histogram_lanes": 0,
+                     "forest_leaf_values_lanes": 0}
     if train_launches != want_launches:
         raise AssertionError(f"ScreeningModel.train launches {train_launches}, "
                              f"expected {want_launches}")
@@ -3888,7 +4310,8 @@ def run() -> int:
           f"subsample 0.8): {train_s:.3f} s wall | launches {train_launches} | "
           f"a second fit grew the same trees (scaler and PCA identical: "
           f"{same_projection}) | host launch calls of its forest fit "
-          f"{fit_calls} | training "
+          f"{fit_calls} ({fit_calls / N_TREES:.1f} a tree; PR 15: 12,045, 40.2 a "
+          f"tree) | training "
           f"accuracy {train_acc:.4f}, majority "
           f"share {majority:.4f} | GBDTClassifier(subsample=1) on z: cuda "
           f"{cuda_fit_s:.3f} s, cpu {cpu_fit_s:.3f} s wall; against the cpu "
@@ -3918,7 +4341,6 @@ def run() -> int:
                 "forest_leaf_values": tr.leaf_values,
                 "tanimoto_topk": sm.tanimoto_topk_packed,
                 "tanimoto_gram": sm.tanimoto_gram, "minmax_gram": sm.minmax_gram,
-                "forest_route_rows": tr.route_rows,
                 "forest_level_histogram_lanes": tr.level_histogram_lanes,
                 "forest_best_splits_lanes": tr.best_splits_lanes,
                 "forest_level_splits_lanes": tr.level_splits_lanes,
@@ -4022,13 +4444,25 @@ def run() -> int:
             entry["plain_ms_1024_leaves"] = deep["k5_plain"]
             entry["bound_ms_1024_leaves"] = deep["k5_bound"]["bound_ms"]
             for suffix, tt in (("", t), ("_1024_leaves", deep)):
+                entry["ms_with_next_tree_and_routing" + suffix] = tt["k5_next_routed"]
+                entry["bound_ms_with_next_tree_and_routing" + suffix] = \
+                    tt["k5_next_routed_bound"]["bound_ms"]
                 entry["ms_with_next_tree" + suffix] = tt["k5_next"]
                 entry["plain_ms_with_next_tree" + suffix] = tt["k5_next_plain"]
                 entry["bound_ms_with_next_tree" + suffix] = tt["k5_next_bound"]["bound_ms"]
             entry["fit_host_launch_calls"] = fit_calls
+            entry["fit_host_launch_calls_a_tree"] = fit_calls / N_TREES
             entry["gradient_cases_bit_equal"] = k5_grad_cases
         else:
             entry["shape"] = f"n={head}, F={TRAIN_F}, level {last}"
+            if key == "k3":
+                for n in TRAIN_ROWS:
+                    suffix = "_levels_1_5" + ("" if n == head else f"_n{n}")
+                    entry["ms_with_routing" + suffix] = routed_levels(n, "k3_routed")
+                    entry["ms_alone" + suffix] = routed_levels(n, "k3_alone")
+                    entry["routing_added_ms" + suffix] = routed_levels(n, "k3_routing")
+                    entry["routing_bound_ms" + suffix] = routed_levels(
+                        n, "k3_routing_bound", "bound_ms")
             for n in TRAIN_ROWS:
                 suffix = "_levels" if n == head else f"_levels_n{n}"
                 entry["ms" + suffix] = levels(n, key)
@@ -4125,13 +4559,6 @@ def run() -> int:
             if "bound_weighted" in other:
                 entry["bound_ms_weighted" + suffix] = other["bound_weighted"]["bound_ms"]
         kernels.append(entry)
-    # the routing kernel in the sequential fits of phases 6, 8, 10 and 11;
-    # its own entry holds phase 14's lanes
-    route_entry = next(e for e in lanes["kernels"] if e["name"] == "forest_route_rows")
-    route_entry.update(launches_train=train_launches["forest_route_rows"],
-                       launches_transfer=transfer_launches["forest_route_rows"],
-                       launches_classification=cls_launches["forest_route_rows"],
-                       launches_regression=reg_launches["forest_route_rows"])
     kernels += lanes["kernels"]
     for entry in kernels:
         entry["launches_families"] = fam["launches"][entry["name"]]

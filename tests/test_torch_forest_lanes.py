@@ -18,7 +18,9 @@ Tolerances:
   validation rows whose margin lies within 1e-5 of the decision threshold
   (the lanes read the fit's margins, the sequential search ``raw_predict``,
   which sums the same leaves in another order), and the same winner;
-- the routing: integers, equal.
+- the routing (in the sort of the next level's split search and in K5):
+  integers, equal; the wrappers given a parent split against
+  ``route_rows_reference`` then the plain version: bit-equal.
 """
 
 import os
@@ -291,12 +293,15 @@ def test_route_rows_reference_equals_the_torch_ops(level):
     tr.route_rows_reference(xb, pos, f_l, b_l, feats, bins, 2, level)
     assert torch.equal(pos, want) and torch.equal(feats, want_f) \
         and torch.equal(bins, want_b)
-    # with a lane axis: each lane as the ops on its own rows
+    # with a lane axis, as the sort of the next level's K3 with lanes routes
+    # it on the CPU: each lane as the ops on its own rows
     xb, pos, f_l, b_l, feats, bins = _route_inputs(9 + level, lanes=3, level=level)
     before = pos.clone()
-    route_rows_before = tr.route_rows.launches.count
-    tr.route_rows(xb, pos, f_l, b_l, feats, bins, 1, level)
-    assert tr.route_rows.launches.count == route_rows_before     # the CPU: no kernel
+    launched = tr.level_histogram_lanes.launches.count
+    g = torch.ones(pos.shape)
+    tr.level_histogram_lanes(xb, pos, g, g, 2 << level,
+                             parent=tr.ParentSplit(f_l, b_l, feats, bins, 1, level))
+    assert tr.level_histogram_lanes.launches.count == launched   # the CPU: no kernel
     for i in range(3):
         want_f, want_b = torch.zeros_like(feats[i]), torch.zeros_like(bins[i])
         want = _torch_ops(xb, before[i], f_l[i], b_l[i], want_f, want_b, 1, level)
@@ -306,12 +311,114 @@ def test_route_rows_reference_equals_the_torch_ops(level):
 
 def test_route_rows_rejects_wrong_shapes():
     xb, pos, f_l, b_l, feats, bins = _route_inputs(0, lanes=2)
+    g = torch.ones(pos.shape)
+
+    def sort(f_l, b_l, feats, bins, tree, level):
+        tr.level_histogram_lanes(xb, pos, g, g, 2 << level,
+                                 parent=tr.ParentSplit(f_l, b_l, feats, bins, tree, level))
+
     with pytest.raises(TypeError, match="f_l"):
-        tr.route_rows(xb, pos, f_l[:, :3].contiguous(), b_l, feats, bins, 0, 3)
+        sort(f_l[:, :3].contiguous(), b_l, feats, bins, 0, 3)
     with pytest.raises(TypeError, match="bins"):
-        tr.route_rows(xb, pos, f_l, b_l, feats, bins.long(), 0, 3)
+        sort(f_l, b_l, feats, bins.long(), 0, 3)
     with pytest.raises(ValueError, match="outside"):
-        tr.route_rows(xb, pos, f_l, b_l, feats, bins, 4, 3)
+        sort(f_l, b_l, feats, bins, 4, 3)
+
+
+def _parent_case(kind, lanes, seed=5, n=280, n_feat=7, depth=4):
+    """A tree's last two levels as a fit reaches them: the positions of
+    level depth - 2, its split, the positions' children, g and h of the
+    kind's draws (boosting: the next tree too; rf: Poisson weights)."""
+    rng = np.random.default_rng(seed)
+    lead = (lanes,) if lanes else ()
+    level = depth - 2
+    xb = torch.from_numpy(rng.integers(0, 64, (n, n_feat)).astype(np.uint8))
+    pos = torch.from_numpy(rng.integers(0, 1 << level, lead + (n,)).astype(np.int32))
+    f_l = torch.from_numpy(rng.integers(0, n_feat, lead + (1 << level,)).astype(np.int32))
+    b_l = torch.from_numpy(rng.integers(0, 64, lead + (1 << level,)).astype(np.int32))
+    if kind == "rf":
+        w = torch.from_numpy(rng.poisson(1.0, lead + (n,)).astype(np.float32))
+        g, h = -torch.from_numpy((rng.random(n) < 0.4).astype(np.float32)) * w, w
+    else:
+        g = torch.from_numpy(rng.normal(size=lead + (n,)).astype(np.float32))
+        h = torch.from_numpy(rng.uniform(0.05, 0.3, lead + (n,)).astype(np.float32))
+        zero = torch.from_numpy(rng.random(lead + (n,)) < 0.2)
+        g[zero], h[zero] = 0.0, 0.0
+    shape = lead + (3, (1 << depth) - 1)
+    return xb, pos, f_l, b_l, g, h, torch.zeros(shape, dtype=torch.int32), \
+        torch.zeros(shape, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("lanes", [None, 3])
+@pytest.mark.parametrize("kind", ["gbdt", "oblivious", "rf"])
+def test_wrappers_with_a_parent_split_route_then_run_the_plain_version(kind, lanes):
+    """The split search of level depth - 1 and K5 after it, each given the
+    level before's split (the fit's calls), equal route_rows_reference then
+    the plain version without one, bit for bit: the level's histogram or
+    splits, the routed positions and the trees' arrays; K5's leaves,
+    margins and, in boosting, the next tree's gradients, with pos left as it
+    was."""
+    xb, pos, f_l, b_l, g, h, feats, bins = _parent_case(kind, lanes)
+    depth, n = 4, xb.shape[0]
+    level, nodes = depth - 2, 1 << (depth - 1)
+    lam = torch.tensor([1.0, 0.3, 5.0]) if lanes else 1.0
+    routed, f_r, b_r = pos.clone(), feats.clone(), bins.clone()
+    tr.route_rows_reference(xb, routed, f_l, b_l, f_r, b_r, 1, level)
+    parent = tr.ParentSplit(f_l, b_l, feats, bins, 1, level)
+    got_pos = pos.clone()
+    if kind == "gbdt" and lanes:
+        mask = torch.from_numpy(np.random.default_rng(2).random((lanes, 7)) < 0.7)
+        got = tr.level_splits_lanes(xb, got_pos, g, h, nodes, None, mask, lam, 1.0,
+                                    parent=parent)
+        want = tr.level_splits_lanes_reference(xb, routed, g, h, nodes, mask, lam, 1.0)
+    elif lanes:
+        got = (tr.level_histogram_lanes(xb, got_pos, g, h, nodes, parent=parent),)
+        want = (tr.level_histogram_lanes_reference(xb, routed, g, h, nodes),)
+    else:
+        got = (tr.level_histogram(xb, got_pos, g, h, nodes, parent=parent),)
+        want = (tr.level_histogram_reference(xb, routed, g, h, nodes),)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), kind
+    assert torch.equal(got_pos, routed)
+    assert torch.equal(feats, f_r) and torch.equal(bins, b_r)
+
+    # K5 after the last level: its split routes pos without changing it
+    lead = (lanes,) if lanes else ()
+    rng = np.random.default_rng(9)
+    f_last = torch.from_numpy(rng.integers(0, 7, lead + (nodes,)).astype(np.int32))
+    b_last = torch.from_numpy(rng.integers(0, 64, lead + (nodes,)).astype(np.int32))
+    leaf_pos, f_r2, b_r2 = routed.clone(), f_r.clone(), b_r.clone()
+    tr.route_rows_reference(xb, leaf_pos, f_last, b_last, f_r2, b_r2, 1, depth - 1)
+    start = torch.from_numpy(rng.normal(size=lead + (n,)).astype(np.float32))
+    nxt = None
+    if kind != "rf":
+        y = torch.from_numpy((rng.random(n) < 0.4).astype(np.float32))
+        u = torch.from_numpy(rng.random(lead + (n,)).astype(np.float32))
+        w = torch.from_numpy((rng.random(lead + (n,)) > 0.2).astype(np.float32))
+        sub = torch.tensor([0.8, 1.0, 0.6]) if lanes else 0.8
+        nxt = tr.NextTree(y, u, sub, w, "cls")
+    scale = (torch.tensor([0.1, 0.2, 1.0]) if lanes else 0.1) if kind != "rf" else (
+        torch.ones(3) if lanes else 1.0)
+    p_got, p_want = start.clone(), start.clone()
+    last = tr.ParentSplit(f_last, b_last, feats, bins, 1, depth - 1)
+    kept = got_pos.clone()
+    if lanes:
+        got = tr.leaf_values_lanes(got_pos, g, h, 2 * nodes, lam, scale, p_got,
+                                   next_tree=nxt, parent=last, xb=xb)
+        want = tr.leaf_values_lanes_reference(leaf_pos, g, h, 2 * nodes, lam, scale,
+                                              p_want, nxt)
+    else:
+        got = tr.leaf_values(got_pos, g, h, 2 * nodes, lam, scale, p_got,
+                             next_tree=nxt, parent=last, xb=xb)
+        want = tr.leaf_values_reference(leaf_pos, g, h, 2 * nodes, lam, scale, p_want)
+        if nxt is not None:
+            want = (want, *tr.next_gradients_reference(p_want, *nxt))
+    for a, b in zip(got if nxt is not None else (got,),
+                    want if nxt is not None else (want,)):
+        assert torch.equal(a, b), kind
+    assert torch.equal(p_got, p_want)
+    assert torch.equal(got_pos, kept)                   # K5 leaves pos as it is
+    assert torch.equal(feats, f_r2) and torch.equal(bins, b_r2)
 
 
 # -- the lane wrappers on the CPU --------------------------------------------------
@@ -597,13 +704,27 @@ def test_level_splits_bound_counts_the_occupied_cells():
 
 # -- the kernels on the card -----------------------------------------------------
 
+def _hold_sort(scratch, n, n_feat, nodes, pos, g, h):
+    """The sort's row order in ``scratch``, lane by lane: each node's rows,
+    as a set, are the rows of weight not 0 that ``pos`` puts there."""
+    for i in range(pos.shape[0]):
+        node, row = tr.sorted_rows(scratch, n, n_feat, nodes, i)
+        kept = torch.nonzero(((g[i] != 0) | (h[i] != 0)).cpu()).flatten()
+        want = sorted(zip(pos[i].cpu()[kept].tolist(), kept.tolist()))
+        assert sorted(zip(node.tolist(), row.tolist())) == want, i
+
+
 @pytest.mark.cuda
 def test_lane_kernels_match_plain_versions_on_cuda(cuda_device):
     """K3 with lanes bit-equal to its fixed-point plain version lane by lane
     (each lane at its own bounds); K4 with lanes equal to the plain version
     on the kernel's histogram at per-lane lambdas, per node and oblivious;
-    K5 with lanes and the next tree bit-equal to its fixed-point plain
-    version; the routing integer-equal, one fit and lanes."""
+    the sort with routing (K3's, one fit and lanes, and the fused search's)
+    given that split: positions equal to route_rows_reference's, each
+    node's rows as a set, the histogram and the splits bit-equal to the
+    calls on the routed positions; K5 with lanes, the next tree and routing,
+    in both launch shapes, bit-equal to route_rows_reference then its
+    fixed-point plain version, at 5 and at 250 lanes."""
     for level, n_feat in ((0, 30), (5, 30), (9, 30), (11, 30), (5, 167)):
         xb, pos, g, h = (t.to(cuda_device) for t in _lane_level(
             level, lanes=5, n=8162, n_feat=n_feat, level=level))
@@ -622,36 +743,76 @@ def test_lane_kernels_match_plain_versions_on_cuda(cuda_device):
             want = tr.best_splits_lanes_reference(hist, mask, lam, 1.0, obl)
             for a, b in zip(got, want):
                 assert torch.equal(a, b), (level, n_feat, obl)
+        # the next level's sort routes this level's split
         f_l, b_l = got[0], got[1]
         feats = torch.zeros((5, 3, 4095), dtype=torch.int32, device=cuda_device)
         bins = torch.zeros_like(feats)
-        p_k, p_r = pos.clone(), pos.clone()
-        f_r, b_r = feats.clone(), bins.clone()
-        tr.route_rows(xb, p_k, f_l, b_l, feats, bins, 2, level)
-        tr.route_rows_reference(xb, p_r, f_l, b_l, f_r, b_r, 2, level)
-        assert torch.equal(p_k, p_r) and torch.equal(feats, f_r) and torch.equal(bins, b_r)
+        routed, f_r, b_r = pos.clone(), feats.clone(), bins.clone()
+        tr.route_rows_reference(xb, routed, f_l, b_l, f_r, b_r, 2, level)
+        parent = tr.ParentSplit(f_l, b_l, feats, bins, 2, level)
+        n, children = xb.shape[0], 2 * nodes
+        scratch = torch.empty(5 * tr.lane_words(n, n_feat, children), dtype=torch.int64,
+                              device=cuda_device)
+        p_k = pos.clone()
+        hist = tr.level_histogram_lanes(xb, p_k, g, h, children, bounds, parent=parent,
+                                        scratch=scratch)
+        want = tr.level_histogram_lanes_fixed_reference(xb, routed, g, h, children, bounds)
+        torch.cuda.synchronize()
+        assert torch.equal(p_k, routed) and torch.equal(feats, f_r) \
+            and torch.equal(bins, b_r), (level, n_feat)
+        assert torch.equal(hist, want), (level, n_feat)
+        _hold_sort(scratch, n, n_feat, children, routed, g, h)
+        p_k = pos.clone()
+        got = tr.level_splits_lanes(xb, p_k, g, h, children, bounds, mask, lam, 1.0,
+                                    parent=parent, scratch=scratch)
+        want = tr.level_splits_lanes(xb, routed.clone(), g, h, children, bounds, mask,
+                                     lam, 1.0)
+        torch.cuda.synchronize()
+        assert torch.equal(p_k, routed)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (level, n_feat)
+        _hold_sort(scratch, n, n_feat, children, routed, g, h)
         p1 = pos[0].clone()
-        tr.route_rows(xb, p1, f_l[0].contiguous(), b_l[0].contiguous(), feats[0].clone(),
-                      bins[0].clone(), 2, level)
-        assert torch.equal(p1, p_r[0])
+        one = tr.level_histogram(xb, p1, g[0], h[0], children, bounds[0],
+                                 parent=tr.ParentSplit(f_l[0].contiguous(),
+                                                       b_l[0].contiguous(),
+                                                       feats[0].clone(), bins[0].clone(),
+                                                       2, level))
+        torch.cuda.synchronize()
+        assert torch.equal(p1, routed[0]) and torch.equal(one, hist[0]), (level, n_feat)
     n, leaves = 8162, 64
-    xb, pos, g, h = (t.to(cuda_device) for t in _lane_level(7, lanes=5, n=n, level=6))
-    bounds = tr.gradient_bounds(g, h)
-    lam = torch.tensor([1.0, 0.1, 3.0, 9.0, 0.5], device=cuda_device)
-    scale = torch.tensor([0.1, 0.3, 1.0, 0.02, 0.2], device=cuda_device)
-    y = (torch.rand(n, device=cuda_device) < 0.4).float()
-    nxt = tr.NextTree(y, torch.rand(5, n, device=cuda_device),
-                      torch.tensor([0.8, 1.0, 0.6, 0.9, 1.0], device=cuda_device),
-                      (torch.rand(5, n, device=cuda_device) > 0.2).float(), "cls")
-    start = torch.randn(5, n, device=cuda_device)
-    p_k, p_f = start.clone(), start.clone()
-    got = tr.leaf_values_lanes(pos, g, h, leaves, lam, scale, p_k, bounds, nxt)
-    want = tr.leaf_values_lanes_fixed_reference(pos, g, h, leaves, lam, scale, p_f,
-                                                bounds, nxt)
-    torch.cuda.synchronize()
-    assert torch.equal(p_k, p_f)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for lanes in (5, 250):
+        xb, pos, g, h = (t.to(cuda_device) for t in _lane_level(
+            7, lanes=lanes, n=n, level=5))
+        bounds = tr.gradient_bounds(g, h)
+        lam = torch.logspace(-1, 1, lanes, device=cuda_device)
+        scale = torch.linspace(0.02, 1.0, lanes, device=cuda_device)
+        y = (torch.rand(n, device=cuda_device) < 0.4).float()
+        nxt = tr.NextTree(y, torch.rand(lanes, n, device=cuda_device),
+                          torch.linspace(0.6, 1.0, lanes, device=cuda_device),
+                          (torch.rand(lanes, n, device=cuda_device) > 0.2).float(), "cls")
+        f_l = torch.randint(0, xb.shape[1], (lanes, 32), dtype=torch.int32,
+                            device=cuda_device)
+        b_l = torch.randint(0, 64, (lanes, 32), dtype=torch.int32, device=cuda_device)
+        feats = torch.zeros((lanes, 2, 63), dtype=torch.int32, device=cuda_device)
+        bins = torch.zeros_like(feats)
+        routed, f_r, b_r = pos.clone(), feats.clone(), bins.clone()
+        tr.route_rows_reference(xb, routed, f_l, b_l, f_r, b_r, 1, 5)
+        start = torch.randn(lanes, n, device=cuda_device)
+        p_f = start.clone()
+        want = tr.leaf_values_lanes_fixed_reference(routed, g, h, leaves, lam, scale, p_f,
+                                                    bounds, nxt)
+        for shape in ("cluster", "block", "auto"):
+            p_k, kept = start.clone(), pos.clone()
+            got = tr.leaf_values_lanes(kept, g, h, leaves, lam, scale, p_k, bounds, nxt,
+                                       parent=tr.ParentSplit(f_l, b_l, feats, bins, 1, 5),
+                                       xb=xb, shape=shape)
+            torch.cuda.synchronize()
+            assert torch.equal(p_k, p_f), (lanes, shape)
+            assert torch.equal(kept, pos), (lanes, shape)
+            assert torch.equal(feats, f_r) and torch.equal(bins, b_r), (lanes, shape)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (lanes, shape)
 
 
 @pytest.mark.cuda

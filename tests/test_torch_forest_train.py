@@ -831,7 +831,10 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
     oblivious (levels 0, 2, 5, 9 and 12), with a column mask; K5 leaves and
     margins within 1e-5 of the plain version, bit-equal to its fixed-point
     plain version at 1 to 65,536 rows and 1 to 1,024 leaves, and the next
-    tree's gradients bit-equal to the torch ops."""
+    tree's gradients bit-equal to the torch ops. The routing, inside the
+    next level's sort (after each case's split) and inside K5 (the last
+    level's split): positions, trees and sums as route_rows_reference then
+    the plain version, each node's sorted rows as a set."""
     rng = np.random.default_rng(0)
     cases = [("uniform", 1, 30, 0), ("uniform", 7809, 30, 5),
              ("uniform", 65536, 167, 5), ("uniform", 7809, 300, 9),
@@ -864,9 +867,36 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
         assert ((hist.double() - exact).abs() <= limit).all()
         mask = torch.from_numpy(rng.random(n_feat) < 0.6).to(cuda_device)
         for obl in (False, True):
-            for got, want in zip(tr.best_splits(hist, mask, 1.0, 1.0, obl),
-                                 tr.best_splits_reference(hist, mask, 1.0, 1.0, obl)):
+            split = tr.best_splits(hist, mask, 1.0, 1.0, obl)
+            for got, want in zip(split, tr.best_splits_reference(hist, mask, 1.0, 1.0,
+                                                                 obl)):
                 assert torch.equal(got, want), (kind, n, n_feat, level, obl)
+        # the next level's sort routes this split: positions as
+        # route_rows_reference's, each node's rows as a set, the histogram
+        # bit-equal to the fixed-point plain version on the routed rows
+        if level < tr.MAX_DEPTH - 1:
+            children = 2 * nodes
+            feats = torch.zeros((2, (2 << level) - 1), dtype=torch.int32,
+                                device=cuda_device)
+            bins = torch.zeros_like(feats)
+            routed, f_r, b_r = pos.clone(), feats.clone(), bins.clone()
+            tr.route_rows_reference(xb, routed, split[0], split[1], f_r, b_r, 1, level)
+            scratch = torch.empty(tr.histogram_plan(n, n_feat, children)["words"],
+                                  dtype=torch.int64, device=cuda_device)
+            p_k = pos.clone()
+            hist = tr.level_histogram(
+                xb, p_k, g, h, children, bounds, n_bins,
+                parent=tr.ParentSplit(split[0], split[1], feats, bins, 1, level),
+                scratch=scratch)
+            fixed = tr.level_histogram_fixed_reference(xb, routed, g, h, children, bounds)
+            torch.cuda.synchronize()
+            assert torch.equal(p_k, routed), (kind, n, n_feat, level)
+            assert torch.equal(feats, f_r) and torch.equal(bins, b_r)
+            assert torch.equal(hist, fixed), (kind, n, n_feat, level)
+            node, row = tr.sorted_rows(scratch, n, n_feat, children)
+            kept = torch.nonzero(((g != 0) | (h != 0)).cpu()).flatten()
+            assert sorted(zip(node.tolist(), row.tolist())) == \
+                sorted(zip(routed.cpu()[kept].tolist(), kept.tolist()))
         leaf_pos = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(cuda_device)
         p_k, p_p = torch.zeros(n, device=cuda_device), torch.zeros(n, device=cuda_device)
         leaf_k = tr.leaf_values(leaf_pos, g, h, 64, 1.0, 0.1, p_k)
@@ -897,6 +927,31 @@ def test_kernels_match_plain_versions_on_cuda(cuda_device):
             leaf_f = tr.leaf_values_fixed_reference(pos, g, h, n_leaves, 1.0, 0.1,
                                                     p_f, bounds)
             assert torch.equal(leaf_k, leaf_f) and torch.equal(p_k, p_f), (n, n_leaves)
+            if n_leaves > 1:                    # routing the last level's split
+                last = n_leaves.bit_length() - 2
+                xb = torch.from_numpy(rng.integers(0, 64, (n, 9)).astype(np.uint8)
+                                      ).to(cuda_device)
+                half = n_leaves // 2
+                f_l = torch.from_numpy(rng.integers(0, 9, half).astype(np.int32)
+                                       ).to(cuda_device)
+                b_l = torch.from_numpy(rng.integers(0, 64, half).astype(np.int32)
+                                       ).to(cuda_device)
+                feats = torch.zeros((1, n_leaves - 1), dtype=torch.int32,
+                                    device=cuda_device)
+                bins = torch.zeros_like(feats)
+                parents = pos // 2
+                routed, f_r, b_r = parents.clone(), feats.clone(), bins.clone()
+                tr.route_rows_reference(xb, routed, f_l, b_l, f_r, b_r, 0, last)
+                p_r, p_k = start.clone(), start.clone()
+                want = tr.leaf_values_fixed_reference(routed, g, h, n_leaves, 1.0, 0.1,
+                                                      p_r, bounds)
+                got = tr.leaf_values(parents, g, h, n_leaves, 1.0, 0.1, p_k, bounds,
+                                     parent=tr.ParentSplit(f_l, b_l, feats, bins, 0, last),
+                                     xb=xb)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want) and torch.equal(p_k, p_r), (n, n_leaves)
+                assert torch.equal(parents, pos // 2)
+                assert torch.equal(feats, f_r) and torch.equal(bins, b_r)
             for task, sub in (("reg", 1.0), ("cls", 0.8)):
                 y = torch.from_numpy((rng.random(n) < 0.4).astype(np.float32)
                                      ).to(cuda_device)

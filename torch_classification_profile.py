@@ -168,7 +168,6 @@ def run(forest_lanes: bool) -> dict:
                 "forest_level_histogram": tr.level_histogram,
                 "forest_best_splits": tr.best_splits,
                 "forest_leaf_values": tr.leaf_values,
-                "forest_route_rows": tr.route_rows,
                 "forest_level_histogram_lanes": tr.level_histogram_lanes,
                 "forest_best_splits_lanes": tr.best_splits_lanes,
                 "forest_level_splits_lanes": tr.level_splits_lanes,

@@ -119,7 +119,7 @@ def profile():
                 pos.data_ptr(), n, g.data_ptr(), h.data_ptr(), n_leaves, 1.0, 0.1,
                 bounds.data_ptr(), leaf.data_ptr(), preds.data_ptr(), *nxt,
                 *((t.data_ptr() for t in outs) if with_next else (None, None, None)),
-                cluster, stream())
+                cluster, None, 0, *tr.NO_PARENT, stream())
             if rc:
                 raise RuntimeError(f"forest_leaf_values: cudaError {rc}")
 
