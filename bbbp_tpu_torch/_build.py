@@ -56,9 +56,9 @@ class LaunchCounter:
         self._lock = threading.Lock()
         self.count = 0
 
-    def add(self) -> None:
+    def add(self, launches: int = 1) -> None:
         with self._lock:
-            self.count += 1
+            self.count += launches
 
     def reset(self) -> None:
         with self._lock:
@@ -239,6 +239,13 @@ def kernels_lib() -> ctypes.CDLL:
         _P, _I,                # xb [n, F] uint8 (for the parent split)
         *_PARENT, _L,          # the parent split, words from one lane's trees to the next
         _I, _P,                # L, stream
+    ]
+    lib.bbbp_forest_draws.restype = _I
+    lib.bbbp_forest_draws.argtypes = [
+        _P, _I,                # seeds [L] int64
+        _P, _I, _I, _I,        # tree [1] int64, tree offset, stream, size
+        ctypes.POINTER(ctypes.c_uint32), _I,   # Poisson thresholds (host) or null, count
+        _P, _P,                # out [L, size] f32, stream
     ]
     lib.bbbp_tanimoto_topk.restype = _I
     lib.bbbp_tanimoto_topk.argtypes = [

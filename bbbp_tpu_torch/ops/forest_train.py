@@ -53,6 +53,7 @@ serves both.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import List, NamedTuple, Optional, Tuple, Union
 
@@ -1119,6 +1120,202 @@ leaf_values_lanes.launches = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
+# K9: the keyed draws of a tree, every lane's in one launch
+# ---------------------------------------------------------------------------
+
+DRAW_STREAMS = {"subsample": 0, "columns": 1, "poisson": 2}
+DRAW_STREAM_WORDS = 4               # counter words a tree (kStreams in csrc/draws.cu)
+_MASK32 = 0xFFFFFFFF
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32_reference(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                           x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 with 20 rounds, JAX's generator, in torch int64 ops
+    masked to 32 bits: the key (k0, k1) and the counter (x0, x1), int64
+    tensors (or ints) of 32-bit values that broadcast together → both
+    output words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + k0) & _MASK32
+    x1 = (x1 + k1) & _MASK32
+    for group in range(5):
+        for r in _THREEFRY_ROTATIONS[group % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _MASK32) ^ x0
+        x0 = (x0 + ks[(group + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(group + 2) % 3] + group + 1) & _MASK32
+    return x0, x1
+
+
+@functools.lru_cache(maxsize=1)
+def poisson_thresholds() -> Tuple[int, ...]:
+    """T_k = ⌊CDF(k) · 2^32⌋ of Poisson(1), computed once in float64, for
+    every k whose T_k lies below 2^32 and above T_{k-1}: a 32-bit word w
+    draws the count #{k : w ≥ T_k}, the inverse CDF of w / 2^32."""
+    out: List[int] = []
+    term, cdf, k = float(np.exp(-1.0)), 0.0, 0
+    while True:
+        cdf += term
+        t = int(np.floor(cdf * 2.0 ** 32))
+        if t >= 1 << 32 or (out and t == out[-1]):
+            return tuple(out)
+        out.append(t)
+        k += 1
+        term /= k
+
+
+def draw_words_reference(seeds: torch.Tensor, tree: int, stream: str,
+                         size: int) -> torch.Tensor:
+    """The 32-bit words K9 draws, int64 [L, size]: Threefry-2x32 of the key
+    (seed >> 32, seed & 0xffffffff) at the counter (tree · 4 + stream,
+    index), its first word."""
+    seeds = seeds.long()[:, None]
+    k0, k1 = (seeds >> 32) & _MASK32, seeds & _MASK32
+    x0 = (tree * DRAW_STREAM_WORDS + DRAW_STREAMS[stream]) & _MASK32
+    x1 = torch.arange(size, dtype=torch.int64, device=seeds.device)[None, :]
+    return threefry2x32_reference(k0, k1, x0, x1)[0]
+
+
+def draws_from_words(words: torch.Tensor, stream: str) -> torch.Tensor:
+    """f32 draws from 32-bit words: Poisson(1) counts (``poisson``,
+    ``poisson_thresholds``), else uniforms (w >> 8) · 2^-24 in [0, 1)."""
+    if stream == "poisson":
+        t = torch.tensor(poisson_thresholds(), dtype=torch.int64, device=words.device)
+        return (words[..., None] >= t).sum(-1).float()
+    return (words >> 8).float() * 2.0 ** -24
+
+
+def forest_draws_reference(seeds: torch.Tensor, tree: int, stream: str,
+                           size: int) -> torch.Tensor:
+    """K9's plain version: ``draws_from_words`` of ``draw_words_reference``,
+    f32 [L, size]."""
+    return draws_from_words(draw_words_reference(seeds, tree, stream, size), stream)
+
+
+def forest_draws(seeds: torch.Tensor, tree: torch.Tensor, stream: str, size: int,
+                 tree_offset: int = 0) -> torch.Tensor:
+    """K9. seeds int64 [L], tree int64 [1] (the tree index, read on the
+    device, so that a captured tree draws the tree the graph has reached),
+    ``stream`` one of ``DRAW_STREAMS`` → f32 [L, size], the draws of tree
+    tree[0] + ``tree_offset`` (``forest_tpu.py:303-320``, ``:356``): the
+    subsample's and the columns' uniforms in [0, 1), rf's Poisson(1) row
+    weights. Lane l's draws depend on seeds[l] alone. On a CPU tensor
+    ``forest_draws_reference`` runs, with the same bits."""
+    if stream not in DRAW_STREAMS:
+        raise ValueError(f"stream must be one of {sorted(DRAW_STREAMS)}, got {stream!r}")
+    if seeds.dim() != 1:
+        raise TypeError(f"seeds must be [L], got {tuple(seeds.shape)}")
+    lanes = seeds.shape[0]
+    _check_rows("seeds", seeds, torch.int64, (lanes,), seeds.device)
+    _check_rows("tree", tree, torch.int64, (1,), seeds.device)
+    if size < 0:
+        raise ValueError(f"size must be >= 0, got {size}")
+    if not _kernel_device(seeds, "forest_draws"):
+        return forest_draws_reference(seeds, int(tree[0]) + tree_offset, stream, size)
+    out = torch.empty((lanes, size), dtype=torch.float32, device=seeds.device)
+    thresholds = poisson_thresholds() if stream == "poisson" else ()
+    table = (ctypes.c_uint32 * len(thresholds))(*thresholds) if thresholds else None
+    with torch.cuda.device(seeds.device):
+        rc = kernels_lib().bbbp_forest_draws(
+            seeds.data_ptr(), lanes, tree.data_ptr(), int(tree_offset),
+            DRAW_STREAMS[stream], size, table, len(thresholds), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "forest_draws")
+    forest_draws.launches.add()
+    return out
+
+
+forest_draws.launches = LaunchCounter()
+
+
+def seed_tensor(seeds, device: torch.device) -> torch.Tensor:
+    """Seeds (ints) as int64 [L] on ``device``; a seed outside int64 raises."""
+    seeds = [int(s) for s in seeds]
+    if any(not -(1 << 63) <= s < 1 << 63 for s in seeds):
+        raise ValueError(f"a seed must lie in int64, got {seeds}")
+    return torch.tensor(seeds, dtype=torch.int64).to(device)
+
+
+def column_mask(u: torch.Tensor, colsample) -> torch.Tensor:
+    """A tree's column mask from its column draws u [..., F]: u < colsample
+    (a float, or f32 [L, 1] over lanes), and at least one feature, the first
+    drawn, else feature 0 (``forest_tpu.py:320-324``)."""
+    mask = u < colsample
+    first = mask.to(torch.uint8).argmax(dim=-1, keepdim=True)
+    return mask | (torch.arange(u.shape[-1], device=u.device) == first)
+
+
+# every counter of a kernel that a tree launches
+TREE_KERNELS = (level_histogram, best_splits, leaf_values, level_histogram_lanes,
+                best_splits_lanes, level_splits_lanes, leaf_values_lanes, forest_draws)
+
+
+# each card's last captured tree: its memory pool is the next capture's
+_TREE_GRAPHS: dict = {}
+# False: every fit grows its trees eagerly, as with graph=False, however it
+# was reached (``testing.eager_tree_loop`` sets it around an entry point)
+REPLAY_TREES = True
+
+
+def grow_trees(n_trees: int, tree: torch.Tensor, step, graph: bool) -> None:
+    """Runs ``step`` ``n_trees`` times: one tree, which reads its index
+    from ``tree`` [1] and advances it, keeping every tensor that the next
+    tree reads at its address (the counterpart of ``jax.lax.scan`` over the
+    trees, ``forest_tpu.py:359``).
+
+    On a CUDA tensor with ``graph``: tree 0 eagerly (it also makes each
+    kernel's one-time settings: the library, shared-memory limits, the
+    card's wave sizes), then one tree captured into a CUDA graph and
+    replayed for the rest, one host call a tree. Every fit's capture shares
+    one memory pool a card, the last fit's graph's (kept in
+    ``_TREE_GRAPHS``): a fit replays its graph to its end before the next
+    fit captures, so a capture takes the blocks the last one freed, where a
+    pool a fit would leave one more pool of freed blocks behind each fit.
+    Fits on one card therefore do not run in two threads at once. Capturing
+    launches nothing, so the launch counters take back what the capture
+    added, and each replay adds its tree's launches. A capture or replay that fails
+    raises; the fit synchronises once at the end, so that a fault of a
+    replayed kernel raises here. Otherwise (the CPU, ``graph=False`` or
+    ``REPLAY_TREES`` false) every tree runs eagerly."""
+    if n_trees <= 0:
+        return
+    step()
+    if n_trees == 1:
+        return
+    if tree.device.type != "cuda" or not (graph and REPLAY_TREES):
+        for _ in range(n_trees - 1):
+            step()
+        return
+    dev = tree.device
+    before = [c.launches.count for c in TREE_KERNELS]
+    cuda_graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    card = dev.index if dev.index is not None else torch.cuda.current_device()
+    last = _TREE_GRAPHS.get(card)
+    with torch.cuda.stream(side):
+        cuda_graph.capture_begin(pool=None if last is None else last.pool(),
+                                 capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            cuda_graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    _TREE_GRAPHS[card] = cuda_graph
+    per_tree = []
+    for c, count in zip(TREE_KERNELS, before):
+        added = c.launches.count - count
+        c.launches.add(-added)
+        if added:
+            per_tree.append((c.launches, added))
+    for _ in range(n_trees - 1):
+        cuda_graph.replay()
+        for counter, added in per_tree:
+            counter.add(added)
+    torch.cuda.synchronize(dev)
+
+
+# ---------------------------------------------------------------------------
 # The fit
 # ---------------------------------------------------------------------------
 
@@ -1139,7 +1336,7 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
                n_trees: int, depth: int, oblivious: bool, rf: bool,
                row_w: Optional[torch.Tensor] = None,
                preds0: Optional[torch.Tensor] = None,
-               n_bins: Optional[torch.Tensor] = None
+               n_bins: Optional[torch.Tensor] = None, graph: bool = True
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Boosting (``task`` ``reg`` or ``cls``) or bagging (``rf``) on the
     device of ``xb`` [n, F] uint8, the counterpart of ``_fit_forest_device``
@@ -1149,7 +1346,16 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
     [F] occupied bins of each feature for K3 (``BinMapper.bin_counts``; it
     is checked against ``xb`` here, once; the trees do not depend on it).
     Returns (preds [n], feats [T, 2^D − 1] int32, thrs [T, 2^D − 1] f32,
-    leaves [T, 2^D] f32), all on the device; random forests accumulate unscaled leaves in preds."""
+    leaves [T, 2^D] f32), all on the device; random forests accumulate
+    unscaled leaves in preds.
+
+    A tree is K9's draws (rf's weights, the columns, the next tree's
+    subsample), K3 then K4 a level, each routing the level before, and K5,
+    which routes the last level and gives the next boosted tree's gradients.
+    Its draws are keyed by (``seed``, tree, stream), so the same fit draws
+    the same numbers on the card and on the CPU. On the card the trees after
+    the first replay one CUDA graph of a tree (``grow_trees``); ``graph=False``
+    runs them eagerly, for comparison. Nothing is copied to the host."""
     if task not in ("reg", "cls"):
         raise ValueError(f"task must be 'reg' or 'cls', got {task!r}")
     if not 0 <= depth <= MAX_DEPTH:
@@ -1159,54 +1365,61 @@ def fit_forest(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor, *,
     if n_bins is not None:
         check_bin_counts(n_bins, xb)
     n_internal, n_leaves = (1 << depth) - 1, 1 << depth
-    y = y.to(dev, torch.float32)
+    y = y.to(dev, torch.float32).contiguous()
     w_rows = (torch.ones(n, device=dev) if row_w is None
               else row_w.to(dev, torch.float32))
     preds = (torch.full((n,), float(base_score), dtype=torch.float32, device=dev)
              if preds0 is None else preds0.to(dev, torch.float32).clone())
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    seeds = seed_tensor([seed], dev)
+    tree = torch.zeros(1, dtype=torch.int64, device=dev)
     feats = torch.zeros((n_trees, n_internal), dtype=torch.int32, device=dev)
     bins = torch.zeros((n_trees, n_internal), dtype=torch.int32, device=dev)
     leaves = torch.empty((n_trees, n_leaves), dtype=torch.float32, device=dev)
-    feat_ids = torch.arange(n_feat, device=dev)
+    # the tree's own flat arrays, which the routing writes, copied into
+    # feats[tree] and bins[tree] at its end
+    tree_feats = torch.zeros((1, n_internal), dtype=torch.int32, device=dev)
+    tree_bins = torch.zeros((1, n_internal), dtype=torch.int32, device=dev)
     scale = 1.0 if rf else float(lr)
-
-    def draw() -> torch.Tensor:                # a boosted tree's subsample draw
-        return torch.rand(n, generator=gen, device=dev)
-
     if not rf and n_trees:                      # later trees' come from K5
-        g, h, bounds = next_gradients_reference(preds, y, draw(), subsample,
-                                                w_rows, task)
+        g, h, bounds = next_gradients_reference(
+            preds, y, forest_draws(seeds, tree, "subsample", n)[0], subsample,
+            w_rows, task)
     # every level routes its parent's positions as it reads them, and
     # levels 0 and 1 read none: pos is never reset
     pos = torch.empty(n, dtype=torch.int32, device=dev)
-    for t in range(n_trees):
-        if rf:
-            w = torch.poisson(torch.ones(n, device=dev), generator=gen) * w_rows
-            g, h = -y * w, w
-            bounds = gradient_bounds(g, h)
-        col_mask = torch.rand(n_feat, generator=gen, device=dev) < colsample
-        # at least one feature: the first drawn, else feature 0
-        col_mask = col_mask | (feat_ids == col_mask.to(torch.uint8).argmax())
 
+    def step() -> None:
+        if rf:
+            w = forest_draws(seeds, tree, "poisson", n)[0] * w_rows
+            g_t, h_t = -y * w, w
+            b_t = gradient_bounds(g_t, h_t)
+        else:
+            g_t, h_t, b_t = g, h, bounds
+        col_mask = column_mask(forest_draws(seeds, tree, "columns", n_feat)[0], colsample)
         parent = None
         for level in range(depth):
-            hist = level_histogram(xb, pos, g, h, 1 << level, bounds, n_bins,
+            hist = level_histogram(xb, pos, g_t, h_t, 1 << level, b_t, n_bins,
                                    bins_checked=True, parent=parent)
             f_l, b_l, _ = best_splits(hist, col_mask, lam, min_child, oblivious)
-            parent = ParentSplit(f_l, b_l, feats, bins, t, level)
-        # drawn after this tree's column draw: the generator gives the
-        # draws in the order subsample, columns, tree by tree
-        nxt = (None if rf or t == n_trees - 1 else
-               NextTree(y, draw(), subsample, w_rows, task))
-        out = leaf_values(pos, g, h, n_leaves, lam, scale, preds, bounds, nxt,
+            parent = ParentSplit(f_l, b_l, tree_feats, tree_bins, 0, level)
+        nxt = None if rf else NextTree(
+            y, forest_draws(seeds, tree, "subsample", n, tree_offset=1)[0], subsample,
+            w_rows, task)
+        out = leaf_values(pos, g_t, h_t, n_leaves, lam, scale, preds, b_t, nxt,
                           parent=parent, xb=xb)
         if nxt is None:
-            leaves[t] = out
-        else:
-            leaves[t], g, h, bounds = out
+            leaf = out
+        else:                                   # the next tree's, at the same address
+            leaf, g_n, h_n, b_n = out
+            g.copy_(g_n)
+            h.copy_(h_n)
+            bounds.copy_(b_n)
+        feats.index_copy_(0, tree, tree_feats)
+        bins.index_copy_(0, tree, tree_bins)
+        leaves.index_copy_(0, tree, leaf[None])
+        tree.add_(1)
 
+    grow_trees(n_trees, tree, step, graph)
     thrs = edge_vals[feats.long(), bins.long()]
     return preds, feats, thrs, leaves
 
@@ -1242,25 +1455,24 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
                      *, lr, lam, subsample, colsample, seeds, row_w: torch.Tensor,
                      base_score: float, task: str, n_trees: int, depth: int,
                      oblivious: bool, rf: bool, min_child: float = 1.0,
-                     n_bins: Optional[torch.Tensor] = None
+                     n_bins: Optional[torch.Tensor] = None, graph: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """L fits of one shape at once, the counterpart of ``_fit_forest_device``
     under ``jax.vmap`` (``batched_search.py:340-344``): xb uint8 [n, F],
     ``edge_vals`` and ``y`` [n] every lane's; ``lr``, ``lam``,
     ``subsample``, ``colsample`` a scalar or [L] each; ``seeds`` [L] ints;
     ``row_w`` [L, n] (rows of weight 0 contribute nothing; their margins
-    still move along the trees); the statics as ``fit_forest``'s. Returns
-    (preds [L, n], feats [L, T, 2^D − 1] int32, thrs [L, T, 2^D − 1] f32,
-    leaves [L, T, 2^D] f32).
+    still move along the trees); the statics and ``graph`` as
+    ``fit_forest``'s. Returns (preds [L, n], feats [L, T, 2^D − 1] int32,
+    thrs [L, T, 2^D − 1] f32, leaves [L, T, 2^D] f32).
 
-    Each lane draws from its own ``torch.Generator`` seeded with its seed,
-    in ``fit_forest``'s order (the first subsample draw, then a tree's
-    Poisson weights in rf, its columns, the next subsample draw), so lane l
-    grows the trees, leaves and margins of ``fit_forest`` with ``seeds[l]``
-    and lane l's parameters bit for bit: each tree level is one call of
-    the fused split search (oblivious: K3 and K4) over all lanes, which
-    routes the level before, and each tree one of K5, which routes the
-    last."""
+    A tree's draws are one K9 launch a stream for every lane, keyed by the
+    lane's seed, so lane l grows the trees, leaves and margins of
+    ``fit_forest`` with ``seeds[l]`` and lane l's parameters bit for bit,
+    whatever the lanes and their order: each tree level is one call of the
+    fused split search (oblivious: K3 and K4) over all lanes, which routes
+    the level before, and each tree one of K5, which routes the last. On the
+    card the trees after the first replay one CUDA graph of a tree."""
     if task not in ("reg", "cls"):
         raise ValueError(f"task must be 'reg' or 'cls', got {task!r}")
     if not 0 <= depth <= MAX_DEPTH:
@@ -1273,61 +1485,63 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
     lr, lam, subsample, colsample = (_per_lane(v, lanes, dev)
                                      for v in (lr, lam, subsample, colsample))
     n_internal, n_leaves = (1 << depth) - 1, 1 << depth
-    y = y.to(dev, torch.float32)
+    y = y.to(dev, torch.float32).contiguous()
     w_rows = row_w.to(dev, torch.float32).contiguous()
     if w_rows.shape != (lanes, n):
         raise ValueError(f"row_w must be [{lanes}, {n}], got {tuple(w_rows.shape)}")
     preds = torch.full((lanes, n), float(base_score), dtype=torch.float32, device=dev)
-    gens = [torch.Generator(device=dev) for _ in seeds]
-    for gen, seed in zip(gens, seeds):
-        gen.manual_seed(int(seed))
+    seed_t = seed_tensor(seeds, dev)
+    tree = torch.zeros(1, dtype=torch.int64, device=dev)
     feats = torch.zeros((lanes, n_trees, n_internal), dtype=torch.int32, device=dev)
     bins = torch.zeros((lanes, n_trees, n_internal), dtype=torch.int32, device=dev)
     leaves = torch.empty((lanes, n_trees, n_leaves), dtype=torch.float32, device=dev)
-    feat_ids = torch.arange(n_feat, device=dev)
+    tree_feats = torch.zeros((lanes, 1, n_internal), dtype=torch.int32, device=dev)
+    tree_bins = torch.zeros((lanes, 1, n_internal), dtype=torch.int32, device=dev)
     scale = torch.ones(lanes, device=dev) if rf else lr
-    ones = torch.ones(n, device=dev)
     pos = torch.empty((lanes, n), dtype=torch.int32, device=dev)   # as fit_forest's
-
-    def draws(size: int) -> torch.Tensor:     # [L, size], a lane's from its own
-        return torch.stack([torch.rand(size, generator=gen, device=dev)
-                            for gen in gens])
-
     if not rf and n_trees:                      # later trees' come from K5
-        u = draws(n)
-        first = [next_gradients_reference(p, y, ul, s, w, task) for p, ul, s, w
-                 in zip(preds, u, subsample.tolist(), w_rows)]
-        g, h, bounds = (torch.stack(parts) for parts in zip(*first))
-    for t in range(n_trees):
+        g, h, bounds = next_gradients_reference(
+            preds, y, forest_draws(seed_t, tree, "subsample", n), subsample[:, None],
+            w_rows, task)
+
+    def step() -> None:
         if rf:
-            w = torch.stack([torch.poisson(ones, generator=gen)
-                             for gen in gens]) * w_rows
-            g, h = -y * w, w
-            bounds = gradient_bounds(g, h)
-        col_mask = draws(n_feat) < colsample[:, None]
-        # at least one feature: the first drawn, else feature 0
-        col_mask = col_mask | (feat_ids == col_mask.to(torch.uint8).argmax(
-            dim=1, keepdim=True))
+            w = forest_draws(seed_t, tree, "poisson", n) * w_rows
+            g_t, h_t = -y * w, w
+            b_t = gradient_bounds(g_t, h_t)
+        else:
+            g_t, h_t, b_t = g, h, bounds
+        col_mask = column_mask(forest_draws(seed_t, tree, "columns", n_feat),
+                               colsample[:, None])
         parent = None
         for level in range(depth):
             if oblivious:               # a level's gain sums over its nodes
-                hist = level_histogram_lanes(xb, pos, g, h, 1 << level, bounds,
+                hist = level_histogram_lanes(xb, pos, g_t, h_t, 1 << level, b_t,
                                              n_bins, bins_checked=True, parent=parent)
                 f_l, b_l, _ = best_splits_lanes(hist, col_mask, lam, min_child, True)
             else:
-                f_l, b_l, _ = level_splits_lanes(xb, pos, g, h, 1 << level, bounds,
+                f_l, b_l, _ = level_splits_lanes(xb, pos, g_t, h_t, 1 << level, b_t,
                                                  col_mask, lam, min_child, n_bins,
                                                  bins_checked=True, parent=parent)
-            parent = ParentSplit(f_l, b_l, feats, bins, t, level)
-        nxt = (None if rf or t == n_trees - 1 else
-               NextTree(y, draws(n), subsample, w_rows, task))
-        out = leaf_values_lanes(pos, g, h, n_leaves, lam, scale, preds, bounds, nxt,
+            parent = ParentSplit(f_l, b_l, tree_feats, tree_bins, 0, level)
+        nxt = None if rf else NextTree(
+            y, forest_draws(seed_t, tree, "subsample", n, tree_offset=1), subsample,
+            w_rows, task)
+        out = leaf_values_lanes(pos, g_t, h_t, n_leaves, lam, scale, preds, b_t, nxt,
                                 parent=parent, xb=xb)
         if nxt is None:
-            leaves[:, t] = out
-        else:
-            leaves[:, t], g, h, bounds = out
+            leaf = out
+        else:                                   # the next tree's, at the same address
+            leaf, g_n, h_n, b_n = out
+            g.copy_(g_n)
+            h.copy_(h_n)
+            bounds.copy_(b_n)
+        feats.index_copy_(1, tree, tree_feats)
+        bins.index_copy_(1, tree, tree_bins)
+        leaves.index_copy_(1, tree, leaf[:, None])
+        tree.add_(1)
 
+    grow_trees(n_trees, tree, step, graph)
     thrs = edge_vals[feats.long(), bins.long()]
     return preds, feats, thrs, leaves
 

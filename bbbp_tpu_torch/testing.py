@@ -175,17 +175,41 @@ class ForestComparison:
         return self.mismatch is None
 
 
+@contextlib.contextmanager
+def eager_tree_loop():
+    """Within it, every forest fit of the port grows its trees eagerly, as
+    with ``graph=False`` (``forest_train.REPLAY_TREES`` off, the one switch
+    that ``grow_trees`` reads), so that a measurement can set the replayed
+    CUDA graph of a tree against the eager loop through the entry points
+    (``ScreeningModel.train``, ``transfer_features``, the lane search). The
+    default stays the graph."""
+    from bbbp_tpu_torch.ops import forest_train
+
+    before = forest_train.REPLAY_TREES
+    forest_train.REPLAY_TREES = False
+    try:
+        yield
+    finally:
+        forest_train.REPLAY_TREES = before
+
+
 def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
                       got: dict, *, task: str, lam: float, min_child: float,
                       learning_rate: float, base_score: float,
-                      tol: float, oblivious: bool = False) -> ForestComparison:
-    """Compare a boosting fit ``got`` (the pickle's ensemble dict, numpy) on
-    its training matrix ``z`` [n, F] with a reference, for deterministic
-    fits only (``subsample=1``, ``colsample=1``, no sample weights). Each
-    level's histogram and gains are replayed with the plain versions on the
-    CPU. A node's gain scale is the larger of its best gain and its parent
-    term G²/(H + λ), so ``tol`` bounds the gap relative to the terms whose
-    difference the gain is.
+                      tol: float, oblivious: bool = False,
+                      seed: Optional[int] = None, subsample: float = 1.0,
+                      colsample: float = 1.0, rf: bool = False) -> ForestComparison:
+    """Compare a fit ``got`` (the pickle's ensemble dict, numpy) on its
+    training matrix ``z`` [n, F] with a reference, for fits without sample
+    weights: deterministic boosting (``seed=None``: ``subsample=1``,
+    ``colsample=1``), or, with ``seed``, boosting at ``subsample`` and
+    ``colsample`` or a random forest (``rf``: Poisson row weights, g = -y·w,
+    h = w; pass ``learning_rate=1`` and ``base_score=0``) whose draws are
+    the keyed draws of that seed (``forest_draws_reference``), which the
+    card and the CPU share. Each level's histogram and gains are replayed
+    with the plain versions on the CPU. A node's gain scale is the larger
+    of its best gain and its parent term G²/(H + λ), so ``tol`` bounds the
+    gap relative to the terms whose difference the gain is.
 
     With ``ref`` (another fit's dict) the replay follows ``ref``'s margins
     and ends at its first near tie, after which the two fits grow on other
@@ -200,7 +224,8 @@ def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
     the larger of the best score and the nodes' summed parent terms. Every
     node of a level is counted."""
     from bbbp_tpu_torch.ops.forest_train import (BinMapper, _cumsum_bins,
-                                                 best_splits_reference,
+                                                 best_splits_reference, column_mask,
+                                                 forest_draws_reference,
                                                  level_histogram_reference,
                                                  split_gains)
 
@@ -216,17 +241,28 @@ def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
     preds = torch.full((n,), float(base_score), dtype=torch.float32)
     every = torch.ones(n_feat, dtype=torch.bool)
     lr32 = float(np.float32(learning_rate))
+    seeds = None if seed is None else torch.tensor([int(seed)])
+    if seeds is None and (rf or subsample < 1 or colsample < 1):
+        raise ValueError("a random forest or a subsampled fit needs its seed")
     for t in range(got["feat"].shape[0]):
-        if task == "reg":
+        if rf:
+            w = forest_draws_reference(seeds, t, "poisson", n)[0]
+            g, h = -yt * w, w
+        elif task == "reg":
             g, h = preds - yt, torch.ones_like(yt)
         else:
             p = torch.sigmoid(preds)
             g, h = p - yt, torch.clamp(p * (1 - p), min=1e-6)
+        if seeds is not None and not rf:
+            m = (forest_draws_reference(seeds, t, "subsample", n)[0] < subsample).float()
+            g, h = g * m, h * m
+        mask = every if seeds is None else column_mask(
+            forest_draws_reference(seeds, t, "columns", n_feat)[0], colsample)
         pos = torch.zeros(n, dtype=torch.int32)
         for level in range(depth):
             nodes, off = 1 << level, (1 << level) - 1
             hist = level_histogram_reference(xb, pos, g, h, nodes)
-            gain, valid = split_gains(hist, every, lam, min_child)
+            gain, valid = split_gains(hist, mask, lam, min_child)
             hl = _cumsum_bins(hist[..., 1])
             th = hl[..., -1]
             parent = _cumsum_bins(hist[..., 0])[..., -1] ** 2 / (th + lam)
@@ -236,21 +272,21 @@ def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
                 score = torch.where(valid.any(0), score, -torch.inf)
                 level_scale = float(parent.abs().amax(dim=1).sum())
             if ref is None:
-                bf, bb, bs = best_splits_reference(hist, every, lam, min_child,
+                bf, bb, bs = best_splits_reference(hist, mask, lam, min_child,
                                                    oblivious)
                 best_thr = torch.from_numpy(edges)[bf.long(), bb.long()]
             for k in range(nodes):
                 i = off + k
                 if ref is None:
-                    rf, rt = int(bf[k]), float(best_thr[k])
+                    wf, wt = int(bf[k]), float(best_thr[k])
                 else:
-                    rf, rt = int(ref["feat"][t, i]), float(ref["thr"][t, i])
+                    wf, wt = int(ref["feat"][t, i]), float(ref["thr"][t, i])
                 gf, gt = int(got["feat"][t, i]), float(got["thr"][t, i])
-                if (rf, rt) == (gf, gt):
+                if (wf, wt) == (gf, gt):
                     out.equal += 1
                     continue
                 rows = pos == k
-                if torch.equal(zt[rows, rf] > rt, zt[rows, gf] > gt):
+                if torch.equal(zt[rows, wf] > wt, zt[rows, gf] > gt):
                     out.equivalent += 1
                     continue
 
@@ -269,7 +305,7 @@ def compare_gbdt_fits(z: np.ndarray, y: np.ndarray, ref: Optional[dict],
                         return float(score[f, b]), bool(valid[:, f, b].any()) or near_edge
                     return float(gain[k, f, b]), bool(valid[k, f, b]) or near_edge
 
-                (rg, _), (cg, c_ok) = cand(rf, rt), cand(gf, gt)
+                (rg, _), (cg, c_ok) = cand(wf, wt), cand(gf, gt)
                 scale = max(abs(rg), level_scale if oblivious
                             else float(parent[k].abs().max()))
                 if not (c_ok and abs(rg - cg) <= tol * scale):

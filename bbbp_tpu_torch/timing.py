@@ -187,6 +187,25 @@ def leaf_values_bound(n: int, n_leaves: int, next_tree: bool = False,
                   lanes * (4 * n + 2 * n_leaves + extra_ops) + route_ops)
 
 
+# what a Threefry-2x32 block needs a draw, with what is fixed for a lane
+# and a tree counted once (the first word's key add, the injections'
+# constants): the second word's key add, 20 rounds of an add, a funnel
+# shift and a xor, and 5 key injections of one add to each word
+THREEFRY_OPS = 1 + 20 * 3 + 5 * 2
+# a uniform's shift and scale; a Poisson count's binary search over the 13
+# thresholds, ceil(log2(14)) = 4 compares and 4 selects
+UNIFORM_OPS, POISSON_OPS = 2, 8
+
+
+def forest_draws_bound(lanes: int, size: int, poisson: bool) -> Dict[str, object]:
+    """K9: the seeds and the tree index read once, the f32 draws written
+    once; a Threefry block a draw and its output, as 32-bit integer
+    operations at the rate ``torch_rate_profile.py`` measured (LOP3)."""
+    draws = lanes * size
+    ops = draws * (THREEFRY_OPS + (POISSON_OPS if poisson else UNIFORM_OPS))
+    return _bound(4 * draws + 8 * lanes + 8, ops, ops / INT32_OPS_PER_S * 1e3)
+
+
 def topk_bound(nq: int, nr: int, words: int, k: int) -> Dict[str, object]:
     """The packed queries and references read once, (sim f32, idx int64)
     [nq, k] written once. The intersections and the row popcounts, (nq·nr +
@@ -286,9 +305,11 @@ def profile_summary(prof, classify: Callable[[str], str]) -> Dict[str, object]:
 def host_launch_calls(prof) -> int:
     """The host's calls that enqueue work on the card in a ``torch.profiler``
     run: kernel launches (``cudaLaunchKernel`` and its ``Ex`` form, which
-    cluster launches take), memsets and copies."""
+    cluster launches take), memsets, copies and CUDA graph launches (a
+    replay)."""
     return sum(e.count for e in prof.key_averages()
-               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                                    "cudaGraphLaunch"))
                or e.key in ("cudaMemsetAsync", "cudaMemcpyAsync"))
 
 

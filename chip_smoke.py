@@ -56,14 +56,24 @@ before its last line):
 6. training: ``ScreeningModel.train`` on ``cuda`` at full width over the
    7,809-molecule labelled set (``testing.labelled_training_set``), with
    every trainer kernel's launch count (300 trees × 6 levels; no routing
-   launch); a second fit
+   launch; K9 twice a tree and once before, each replay of the tree's CUDA
+   graph counting its tree's launches); a second fit
    with the same seed must grow the same trees; the host's launch calls of
-   one fit of its forest under ``torch.profiler``; ``GBDTClassifier
+   one fit of its forest under ``torch.profiler`` (at most 4 a tree);
+   ``GBDTClassifier
    (subsample=1)`` on the same z on ``cuda`` and ``cpu`` must grow the same
    trees up to equivalent splits and a counted near tie; training accuracy
    above the majority share; and ``screen()`` with the trained model on
    ``cuda`` against ``cpu`` on a prefix of molecules not in the training
-   set, under phase 4's near-tie rule (at most 1% near-tie rows);
+   set, under phase 4's near-tie rule (at most 1% near-tie rows); then the
+   tree as one device program: gbdt (subsample 0.8, colsample 0.6),
+   oblivious and rf (depth 10) fits of 30 trees, one fit and three lanes,
+   bit-equal to the eager loop (``graph=False``) with the same launches;
+   a 50-tree ``GBDTClassifier(subsample=0.8, colsample=0.6)`` and a 10-tree
+   ``RandomForestClassifier`` held card against CPU by the rule above (the
+   keyed draws are the same on both); K9 ``forest_draws`` bit-equal to its
+   plain version at L = 1, 15 and 255, every stream, and timed beside its
+   plain version and its bound;
 7. the similarity kernels (``ops/similarity.py``: K6 ``tanimoto_topk``,
    K7 ``tanimoto_gram``, K8 ``minmax_gram``) against their plain versions
    on the card, on the MACCS bits, Morgan bits and Morgan counts of the
@@ -258,8 +268,10 @@ before its last line):
    with lanes in both shapes, at L = 15 and 250; then xgb's search at 50 + 1 trials
    x 5 folds = 255 lanes and rf's at 50 + 1 (a 250-lane group of 300 trees
    of depth 10): wall s, peak memory, launches, lane blocks, and under
-   ``torch.profiler`` the device busy time and the host's launch calls (the
-   per-lane draws among them) over their first trees.
+   ``torch.profiler`` the device busy time and the host's launch calls over
+   the whole search (at most 4 a tree step; no ``torch.Generator`` draw);
+   every lane group of the five searches bit-equal to the eager loop
+   (``graph=False``).
 
 Then one JSON line for the kernels (each with its launches in phase 12's
 run under ``launches_families`` and in phase 13 under
@@ -478,7 +490,16 @@ LANES_L = 15                      # the kernels' lanes: 3 trials x 5 folds
 LANES_WIDE_L = 250                # a tuned group's: 50 trials x 5 folds
 LANES_LEVELS = (0, 5, 9, 11)      # depth 6 (gb, xgb, cat), 10 (rf), 12 (dt)
 LANES_GROUP_TRIALS = 50           # + the default: xgb's 255-lane group
-LANES_PROFILED_TREES = 10         # of its 300 trees, under torch.profiler
+# phase 6: the tree as one CUDA graph and K9's keyed draws
+DRAW_WIDE_L = 255                 # K9's lanes at xgb's tuned group's width
+GRAPH_TREES = 30                  # trees of each graph-against-eager fit
+# the stochastic fits held card against CPU, cut for the CPU's fit and
+# replay (300 and 50 trees took 79 and 46 s on the card's host; 100 and 20
+# trees 16 s each on a slow one)
+N_TREES_STOCHASTIC = 50           # GBDTClassifier(subsample=0.8, colsample=0.6)
+RF_AUDIT_TREES = 10               # RandomForestClassifier, depth 10
+MAX_CALLS_A_TREE = 4              # host launch calls a tree of a fit, or a tree
+                                  # step of a lane group, under the graph
 
 
 def read_csv(path: str):
@@ -1552,6 +1573,9 @@ def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
     want = {"packed_project": 0, "dense_forest_predict": 6,
             "forest_level_histogram": per_level, "forest_best_splits": per_level,
             "forest_leaf_values": 2 * (2 * cfg.trees + cfg.rf_trees),
+            # K9: a boosted tree's columns and the next tree's subsample (the
+            # first tree's before the loop), an rf tree's weights and columns
+            "forest_draws": 2 * (2 * (2 * cfg.trees + 1) + 2 * cfg.rf_trees),
             "tanimoto_topk": 2, "tanimoto_gram": 0, "minmax_gram": 0,
             "forest_level_histogram_lanes": 0,
             "forest_best_splits_lanes": 0, "forest_level_splits_lanes": 0,
@@ -2004,7 +2028,7 @@ def classification_phase(card, counters) -> dict:
     launches = {name: c.launches.count for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name in ("dense_forest_predict", "forest_level_histogram",
-                 "forest_best_splits", "forest_leaf_values"):
+                 "forest_best_splits", "forest_leaf_values", "forest_draws"):
         if not launches[name]:
             problems.append(f"run_classification launched no {name}")
     for m, r in res.report.items():
@@ -2386,8 +2410,8 @@ def regression_phase(card, counters, tmp) -> dict:
         data = ProcessedData.load(cache_path(pcfg, env["BBBP_PREPROCESS_CACHE"]))
         ck_desc, ck_maccs, ck_counts = raw_transfer_features(data.smiles)
     for name in ("dense_forest_predict", "forest_level_histogram",
-                 "forest_best_splits", "forest_leaf_values", "tanimoto_topk",
-                 "tanimoto_gram", "minmax_gram"):
+                 "forest_best_splits", "forest_leaf_values", "forest_draws",
+                 "tanimoto_topk", "tanimoto_gram", "minmax_gram"):
         if not launches[name]:
             problems.append(f"run_regression launched no {name}")
     for m, r in res.report.items():
@@ -2664,7 +2688,7 @@ def families_phase(card, counters, tmp, labelled, phase11_r2) -> dict:
         launches = {name: c.launches.count for name, c in counters.items()}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name in ("dense_forest_predict", "forest_level_histogram",
-                 "forest_best_splits", "forest_leaf_values"):
+                 "forest_best_splits", "forest_leaf_values", "forest_draws"):
         if not launches[name]:
             problems.append(f"phase 12 launched no {name}")
     r2 = {leg: res.report[leg]["r2"] for leg in ("smiles", "nn", "graph", "stacked")}
@@ -3144,6 +3168,7 @@ def lanes_phase(card, counters, p10) -> dict:
                                        host_launch_calls, leaf_values_bound,
                                        level_histogram_bound, level_splits_bound,
                                        profile_summary)
+    from bbbp_tpu_torch.testing import eager_tree_loop
     from bbbp_tpu_torch.train import batched_search as bs
     from bbbp_tpu_torch.train import classification as cl
 
@@ -3172,11 +3197,11 @@ def lanes_phase(card, counters, p10) -> dict:
     def searched_group(m):
         """m's tuned search with the lanes (``LANES_GROUP_TRIALS`` + the
         default trial, 5 folds): wall s, peak memory, launches and the
-        blocks of lanes it cut each static shape into; then the same lanes
-        under ``torch.profiler`` for their first ``LANES_PROFILED_TREES``
-        trees (every tree repeats the same launches, and the profiler's
-        post-processing of a whole group's ~600,000 events takes minutes):
-        device busy ms, host launch calls, the per-lane draws among them."""
+        blocks of lanes it cut each static shape into; then the whole search
+        once more under ``torch.profiler`` (each tree after a group's first
+        is one replay of its graph): device busy ms, host launch calls a
+        tree step (a tree of one group of lanes), and the ``torch.Generator``
+        draws among them, which K9 has replaced (0)."""
         kw = dict(n_iter=LANES_GROUP_TRIALS, cv=tcfg.search_folds, seed=tcfg.seed,
                   extra_trials=[cl.DEFAULT_TRIALS[m]], device=cuda)
         reset()
@@ -3197,21 +3222,26 @@ def lanes_phase(card, counters, p10) -> dict:
                 -len(t_ids) * tcfg.search_folds
                 // bs.lane_block(n_rows, n_cols, depth, n_est, obl))]
             for (_, n_est, depth, obl), t_ids in bs._forest_groups(params).items()}
-        window = [{**p, "n_estimators": LANES_PROFILED_TREES} for p in params]
+        out["tree_steps"] = sum(n_est for _, n_est, _, _ in bs._forest_groups(params))
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
-            bs._score_param_sets(m, fx, fy, window, tcfg.search_folds, tcfg.seed,
+            bs._score_param_sets(m, fx, fy, params, tcfg.search_folds, tcfg.seed,
                                  False, cuda)
             torch.cuda.synchronize()
             out["profiled_s"] = time.time() - t0
         t0 = time.time()
         out["busy_ms"] = profile_summary(prof, lambda name: name)["device_busy_ms"]
         out["host_launch_calls"] = host_launch_calls(prof)
-        out["draws"] = sum(e.count for e in prof.key_averages()
-                           if e.key in ("aten::rand", "aten::poisson"))
+        out["generator_draws"] = sum(e.count for e in prof.key_averages()
+                                     if e.key in ("aten::rand", "aten::poisson"))
         out["profiler_post_s"] = time.time() - t0
+        calls_a_step = out["host_launch_calls"] / out["tree_steps"]
+        if calls_a_step > MAX_CALLS_A_TREE or out["generator_draws"]:
+            problems.append(f"{m}'s group: {calls_a_step:.2f} host launch calls a tree "
+                            f"step (limit {MAX_CALLS_A_TREE}), {out['generator_draws']} "
+                            f"torch.Generator draws")
         return out
 
     stage_s = {}
@@ -3241,7 +3271,7 @@ def lanes_phase(card, counters, p10) -> dict:
                                 f"{two} launches")
         launches = {name: sum(f[name] for f in family_launches.values())
                     for name in counters}
-        for name in lane_names:
+        for name in lane_names + ("forest_draws",):
             if not launches[name]:
                 problems.append(f"the lane search launched no {name}")
         for name in single_names:
@@ -3267,12 +3297,21 @@ def lanes_phase(card, counters, p10) -> dict:
         prep = bs._forest_prep(fx, fy, folds, cuda)
         base = bs._forest_base(np.asarray(fy, np.float32), True)
         n_folds = len(folds)
-        checked = 0
+        checked = groups_eager = 0
         for m in bs.FOREST_FAMILIES:
             params = [trial_params(t) for t in lane_trials[m]]
             for t_ids in bs._forest_groups(params).values():
                 blk = [(t, k) for t in t_ids for k in range(n_folds)]
                 lanes = bs._fit_lane_block(prep, params, blk, base)
+                with eager_tree_loop():
+                    eager = bs._fit_lane_block(prep, params, blk, base)
+                for name, a, b in zip(("margins", "feats", "thrs", "leaves"), lanes,
+                                      eager):
+                    if not torch.equal(a, b):
+                        problems.append(f"{m} group of trials {t_ids[:3]}...: the "
+                                        f"graph's {name} differ from graph=False's")
+                groups_eager += 1
+                del eager
                 for j, (t, k) in enumerate(blk):
                     if k:
                         continue
@@ -3308,7 +3347,8 @@ def lanes_phase(card, counters, p10) -> dict:
               f"{ {m: f['forest_level_splits_lanes'] for m, f in family_launches.items()} } "
               f"a family | "
               f"fold 0 of {checked} trials: margins, trees, thresholds and leaves "
-              f"bit-equal to fit_forest with the trial's seed", flush=True)
+              f"bit-equal to fit_forest with the trial's seed; {groups_eager} lane groups "
+              f"(every lane) bit-equal to the eager loop (graph=False)", flush=True)
 
         # -- the lane kernels at L = 15 against their plain versions ----------
         xb, y, n_bins = prep["xb"], prep["y"], prep["n_bins"]
@@ -3540,14 +3580,15 @@ def lanes_phase(card, counters, p10) -> dict:
               f"({trees} trees x depth {depth}; lanes and blocks by shape "
               f"{info['lane_blocks']}): {info['wall_s']:.3f} s wall, peak allocated "
               f"{info['peak_gib_above_live']:.3f} GiB above the {info['live_gib']:.3f} GiB "
-              f"live before it, launches {info['launches']} | its first "
-              f"{LANES_PROFILED_TREES} trees under torch.profiler: "
+              f"live before it, launches {info['launches']} | the whole search again "
+              f"under torch.profiler ({info['tree_steps']} tree steps, the trees after "
+              f"each group's first a replayed CUDA graph): "
               f"{info['profiled_s']:.3f} s, device busy {info['busy_ms']:.1f} ms "
               f"({info['busy_ms'] / 1e3 / info['profiled_s']:.1%}), "
               f"{info['host_launch_calls']} host launch calls "
-              f"({info['host_launch_calls'] / LANES_PROFILED_TREES:.1f} a tree), "
-              f"{info['draws']} of them the per-lane draws (aten::rand, aten::poisson; "
-              f"{info['draws'] / LANES_PROFILED_TREES:.1f} a tree), profiler "
+              f"({info['host_launch_calls'] / info['tree_steps']:.2f} a tree step), "
+              f"{info['generator_draws']} "
+              f"torch.Generator draws (aten::rand, aten::poisson), profiler "
               f"post-processing {info['profiler_post_s']:.1f} s | best CV accuracy "
               f"{group.best_score:.4f} {group.best_params}", flush=True)
     print(f"[14 stages] phase 14 stage s "
@@ -3690,11 +3731,134 @@ def lanes_phase(card, counters, p10) -> dict:
         entries.append(entry)
     for m, info in groups.items():
         group_info = {k: v for k, v in info.items() if k != "group"}
-        group_info.update(trials=len(info["group"].trials),
-                          profiled_trees=LANES_PROFILED_TREES)
+        group_info.update(trials=len(info["group"].trials))
         for entry in entries:
             entry[f"{m}_group"] = group_info
     return {"kernels": entries}
+
+
+def draw_seeds(lanes: int) -> list:
+    """A lane group's seeds, as ``_forest_cv_vmapped`` gives them: t * 131 + k
+    for trial t and fold k of 5; one lane takes the estimators' seed 42."""
+    return [42] if lanes == 1 else [t * 131 + k for t in range(-(-lanes // 5))
+                                    for k in range(5)][:lanes]
+
+
+def draws_holds(tr, problems) -> dict:
+    """K9 against its plain version on the CPU, bit for bit, for one fit
+    (n = 7,809) and L = 15 and 255 lanes (n = 8,162, phase 14's search rows),
+    every stream, a tree index read from the device with and without the
+    next tree's offset; each timed beside its plain version (on the card)
+    and its bound."""
+    import torch
+
+    from bbbp_tpu_torch.timing import device_ms, event_ms, forest_draws_bound
+
+    cuda = torch.device("cuda")
+    out = {}
+    for lanes, n in ((1, TRAIN_ROWS[0]), (LANES_L, 8162), (DRAW_WIDE_L, 8162)):
+        seeds = torch.tensor(draw_seeds(lanes))
+        seeds_d = seeds.to(cuda)
+        for stream, size in (("subsample", n), ("columns", TRAIN_F), ("poisson", n)):
+            err = 0.0
+            for tree, offset in ((0, 0), (298, 1)):
+                got = tr.forest_draws(seeds_d, torch.tensor([tree], device=cuda), stream,
+                                      size, tree_offset=offset).cpu()
+                want = tr.forest_draws_reference(seeds, tree + offset, stream, size)
+                err = max(err, float((got.double() - want.double()).abs().max()))
+                if not torch.equal(got, want):
+                    problems.append(f"forest_draws L={lanes} {stream} tree {tree}+{offset}: "
+                                    f"not its plain version's bits")
+            tree_d = torch.tensor([7], device=cuda)
+            out[lanes, stream] = {
+                "size": size, "max_abs_err": err,
+                "ms": device_ms(lambda: tr.forest_draws(seeds_d, tree_d, stream, size)),
+                "plain_ms": event_ms(lambda: tr.forest_draws_reference(
+                    seeds_d, 7, stream, size), calls=10),
+                "bound": forest_draws_bound(lanes, size, stream == "poisson")}
+    return out
+
+
+def graph_holds(tr, z_np, labels, problems) -> dict:
+    """Every fit form bit-equal to the eager loop (``graph=False``) on the
+    card, one fit and three lanes (their seeds as a search's), with each
+    kernel's launches the same: boosting at subsample 0.8 and colsample 0.6,
+    oblivious, and a random forest of depth 10, over the default model's
+    binned z."""
+    import torch
+
+    cuda = torch.device("cuda")
+    mapper = tr.BinMapper().fit(z_np)
+    xb = torch.from_numpy(mapper.transform(z_np)).to(cuda)
+    edges = torch.from_numpy(mapper.edge_values()).to(cuda)
+    n_bins = torch.from_numpy(mapper.bin_counts()).to(cuda)
+    y = torch.from_numpy(labels.astype(np.float32)).to(cuda)
+    base = float(y.mean())
+    kinds = {"gbdt": dict(task="cls", rf=False, oblivious=False, depth=TRAIN_DEPTH,
+                          base_score=base),
+             "oblivious": dict(task="cls", rf=False, oblivious=True, depth=TRAIN_DEPTH,
+                               base_score=base),
+             "rf": dict(task="reg", rf=True, oblivious=False, depth=10, base_score=0.0)}
+    held = {}
+    for name, kw in kinds.items():
+        lam = 1e-6 if kw["rf"] else 1.0
+        one = dict(lr=0.1, lam=lam, min_child=1.0, subsample=0.8, colsample=0.6,
+                   seed=42, n_trees=GRAPH_TREES, n_bins=n_bins, **kw)
+        lanes = dict(lr=0.1, lam=lam, subsample=0.8, colsample=0.6, seeds=draw_seeds(3),
+                     row_w=torch.ones(3, len(y), device=cuda), n_trees=GRAPH_TREES,
+                     n_bins=n_bins, **kw)
+        for fit, args in ((tr.fit_forest, one), (tr.fit_forest_lanes, lanes)):
+            outs, counts = [], []
+            for graph in (False, True):
+                for c in tr.TREE_KERNELS:
+                    c.launches.reset()
+                outs.append(fit(xb, edges, y, graph=graph, **args))
+                torch.cuda.synchronize()
+                counts.append({c.__name__: c.launches.count for c in tr.TREE_KERNELS})
+            same = [torch.equal(a, b) for a, b in zip(*outs)]
+            if not all(same) or counts[0] != counts[1]:
+                problems.append(f"{name} {fit.__name__}: graph against eager, outputs "
+                                f"equal {same}, launches {counts}")
+            held[name, fit.__name__] = counts[1]
+    return held
+
+
+def stochastic_holds(z_np, labels, problems) -> dict:
+    """Keyed draws are the same on the card and the CPU, so a stochastic
+    fit is held card against CPU by phase 6's rule: ``GBDTClassifier
+    (subsample=0.8, colsample=0.6)`` at the default model's width and a
+    ``RandomForestClassifier`` of ``RF_AUDIT_TREES`` trees of depth 10 (its
+    300 cut for the CPU's replay), each against the CPU fit up to equivalent
+    splits and its first near tie, and along its own splits against the
+    plain best split (near ties at most 1%, leaves within 1e-4)."""
+    from bbbp_tpu_torch.ops.forest_train import GBDTClassifier, RandomForestClassifier
+    from bbbp_tpu_torch.testing import compare_gbdt_fits
+
+    out = {}
+    fits = {
+        "gbdt": (lambda dev: GBDTClassifier(
+            n_estimators=N_TREES_STOCHASTIC, learning_rate=0.1, max_depth=TRAIN_DEPTH,
+            subsample=0.8, colsample=0.6, seed=42, device=dev),
+            dict(task="cls", lam=1.0, learning_rate=0.1, subsample=0.8, colsample=0.6)),
+        "rf": (lambda dev: RandomForestClassifier(
+            n_estimators=RF_AUDIT_TREES, max_depth=10, seed=42, device=dev),
+            dict(task="reg", lam=1e-6, learning_rate=1.0, colsample=0.5, rf=True))}
+    for name, (make, kw) in fits.items():
+        t0 = time.time()
+        on_cuda = make("cuda").fit(z_np, labels)
+        on_cpu = make("cpu").fit(z_np, labels)
+        args = dict(kw, min_child=1.0, seed=42, tol=1e-5,
+                    base_score=on_cpu.ensemble_.base_score)
+        state = on_cuda.ensemble_.to_state()
+        cmp = compare_gbdt_fits(z_np, labels, on_cpu.ensemble_.to_state(), state, **args)
+        audit = compare_gbdt_fits(z_np, labels, None, state, **args)
+        nodes = audit.trees_compared * ((1 << state["depth"]) - 1)
+        if not (cmp.ok and audit.ok) or audit.near_ties > 0.01 * nodes or \
+                audit.max_leaf_diff > 1e-4 or audit.trees_compared != len(state["feat"]):
+            problems.append(f"{name} cuda vs cpu (keyed draws): {cmp}; along the cuda "
+                            f"fit's own splits: {audit}")
+        out[name] = {"cmp": cmp, "audit": audit, "s": time.time() - t0}
+    return out
 
 
 def own_children() -> list:
@@ -4208,6 +4372,7 @@ def run() -> int:
     trainer_counters = {"forest_level_histogram": tr.level_histogram,
                         "forest_best_splits": tr.best_splits,
                         "forest_leaf_values": tr.leaf_values,
+                        "forest_draws": tr.forest_draws,
                         "forest_level_splits_lanes": tr.level_splits_lanes,
                         "forest_level_histogram_lanes": tr.level_histogram_lanes,
                         "forest_leaf_values_lanes": tr.leaf_values_lanes}
@@ -4220,10 +4385,13 @@ def run() -> int:
     train_s = time.time() - t0
     train_launches = {name: c.launches.count for name, c in trainer_counters.items()}
     # a level is K3 then K4 (the routing rides in the next level's sort and
-    # in K5), a tree one K5: no routing launch since PR 16
+    # in K5), a tree one K5 and two K9 launches (its columns, the next tree's
+    # subsample; the first tree's subsample before the loop): the graph's
+    # replays count their tree's launches
     want_launches = {"forest_level_histogram": N_TREES * TRAIN_DEPTH,
                      "forest_best_splits": N_TREES * TRAIN_DEPTH,
                      "forest_leaf_values": N_TREES,
+                     "forest_draws": 2 * N_TREES + 1,
                      "forest_level_splits_lanes": 0, "forest_level_histogram_lanes": 0,
                      "forest_leaf_values_lanes": 0}
     if train_launches != want_launches:
@@ -4305,13 +4473,24 @@ def run() -> int:
         raise AssertionError(f"{len(smiles6)} molecules not in the training set")
     if len(rows6) != len(mols6) or rows6[7][2] != "invalid":
         raise AssertionError("screen() with the trained model lost rows")
+    problems6 = []
+    if fit_calls / N_TREES > MAX_CALLS_A_TREE:
+        problems6.append(f"the forest fit's host launch calls {fit_calls / N_TREES:.2f} "
+                         f"a tree, above {MAX_CALLS_A_TREE}")
+    t_graph = time.time()
+    graph_held = graph_holds(tr, z_np, labels, problems6)
+    t_graph = time.time() - t_graph
+    stochastic = stochastic_holds(z_np, labels, problems6)
+    t_draws = time.time()
+    k9 = draws_holds(tr, problems6)
+    t_draws = time.time() - t_draws
     print(f"[6 train] ScreeningModel.train(cuda) on {len(smiles)} molecules "
           f"(Morgan 2048, PCA 30, {N_TREES} trees of depth {TRAIN_DEPTH}, "
           f"subsample 0.8): {train_s:.3f} s wall | launches {train_launches} | "
           f"a second fit grew the same trees (scaler and PCA identical: "
           f"{same_projection}) | host launch calls of its forest fit "
-          f"{fit_calls} ({fit_calls / N_TREES:.1f} a tree; PR 15: 12,045, 40.2 a "
-          f"tree) | training "
+          f"{fit_calls} ({fit_calls / N_TREES:.2f} a tree, the trees after the first a "
+          f"replayed CUDA graph) | training "
           f"accuracy {train_acc:.4f}, majority "
           f"share {majority:.4f} | GBDTClassifier(subsample=1) on z: cuda "
           f"{cuda_fit_s:.3f} s, cpu {cpu_fit_s:.3f} s wall; against the cpu "
@@ -4327,6 +4506,34 @@ def run() -> int:
           f"dropped) {stats6.mol_per_s:.1f} mol/s, first {PREFIX} vs cpu: "
           f"{len(mism6)} rows differ, all near ties ({near6} near-tie rows, "
           f"limit 1%), max |dProbability| {worst6:.3g}", flush=True)
+    print(f"[6 graph] every tree after the first a replayed CUDA graph: gbdt (subsample "
+          f"0.8, colsample 0.6), oblivious and rf (depth 10), {GRAPH_TREES} trees, one "
+          f"fit and 3 lanes, margins, trees, thresholds and leaves bit-equal to "
+          f"graph=False, launches the same (the graph's: "
+          f"{ {f'{k[0]} {k[1]}': {n: c for n, c in v.items() if c} for k, v in graph_held.items()} }); "
+          f"{t_graph:.1f} s | stochastic fits card against cpu on the same keyed draws: "
+          + " | ".join(
+              f"{name} ({'GBDTClassifier(subsample=0.8, colsample=0.6), ' + str(N_TREES_STOCHASTIC) if name == 'gbdt' else 'RandomForestClassifier, ' + str(RF_AUDIT_TREES)} "
+              f"trees): {h['cmp'].trees_compared} trees equal to the cpu fit "
+              f"({h['cmp'].equal} nodes equal, {h['cmp'].equivalent} equivalent, first "
+              f"near tie at {h['cmp'].first_near_tie}, max |dleaf| "
+              f"{h['cmp'].max_leaf_diff:.3g}); along its own splits, all "
+              f"{h['audit'].trees_compared} trees: {h['audit'].equal} nodes equal to the "
+              f"plain best split, {h['audit'].equivalent} equivalent, "
+              f"{h['audit'].near_ties} near ties (limit 1%), max |dleaf| "
+              f"{h['audit'].max_leaf_diff:.3g} (limit 1e-4); {h['s']:.1f} s"
+              for name, h in stochastic.items()), flush=True)
+    print(f"[6 draws] forest_draws (K9) bit-equal to its plain version at L = 1 "
+          f"(n={TRAIN_ROWS[0]}), {LANES_L} and {DRAW_WIDE_L} (n=8,162), streams "
+          f"subsample, columns (F={TRAIN_F}) and poisson, trees 0 and 298 + 1, max "
+          f"|d| {max(t['max_abs_err'] for t in k9.values())}; ms (plain "
+          f"on the card, bound): "
+          + "; ".join(f"L={n_lanes} {stream} {t['ms']:.4f} ({t['plain_ms']:.4f}, "
+                      f"{t['bound']['bound_ms']:.5f} {t['bound']['bound_by']})"
+                      for (n_lanes, stream), t in k9.items())
+          + f" | {t_draws:.1f} s", flush=True)
+    if problems6:
+        raise AssertionError("phase 6: " + " | ".join(problems6))
 
     # -- phases 7 and 8: the similarity kernels and the transfer path ---------
     from bbbp_tpu_torch.ops import similarity as sm
@@ -4339,6 +4546,7 @@ def run() -> int:
                 "forest_level_histogram": tr.level_histogram,
                 "forest_best_splits": tr.best_splits,
                 "forest_leaf_values": tr.leaf_values,
+                "forest_draws": tr.forest_draws,
                 "tanimoto_topk": sm.tanimoto_topk_packed,
                 "tanimoto_gram": sm.tanimoto_gram, "minmax_gram": sm.minmax_gram,
                 "forest_level_histogram_lanes": tr.level_histogram_lanes,
@@ -4513,6 +4721,31 @@ def run() -> int:
                 entry["ms_oblivious" + suffix] = levels(n, "k4_oblivious")
                 entry["plain_ms_oblivious" + suffix] = levels(n, "k4_oblivious_plain")
         kernels.append(entry)
+    # K9 at the single fit's shape (L = 1, n = 7,809, the subsample's
+    # uniforms); every lane count and stream beside it
+    main_draw = k9[1, "subsample"]
+    entry = {"name": "forest_draws", "route": "cuda",
+             "source": "bbbp_tpu_torch/csrc/draws.cu",
+             "replaces": "bbbp_tpu/ops/forest_tpu.py:303",
+             "launches": train_launches["forest_draws"],
+             "launches_transfer": transfer_launches["forest_draws"],
+             "launches_classification": cls_launches["forest_draws"],
+             "launches_regression": reg_launches["forest_draws"],
+             "max_abs_err": max(t["max_abs_err"] for t in k9.values()),
+             "ms": main_draw["ms"], "plain_ms": main_draw["plain_ms"],
+             "bound_ms": main_draw["bound"]["bound_ms"],
+             "bound_by": main_draw["bound"]["bound_by"],
+             "bound_share": main_draw["bound"]["bound_ms"] / main_draw["ms"],
+             "library_ms": None,
+             "shape": f"L=1, n={TRAIN_ROWS[0]}, the subsample's uniforms",
+             "fit_host_launch_calls_a_tree": fit_calls / N_TREES,
+             "graph_against_eager_launches": {
+                 f"{k[0]} {k[1]}": v for k, v in graph_held.items()}}
+    for (n_lanes, stream), t in k9.items():
+        for field, value in (("ms", t["ms"]), ("plain_ms", t["plain_ms"]),
+                             ("bound_ms", t["bound"]["bound_ms"])):
+            entry[f"{field}_L{n_lanes}_{stream}"] = value
+    kernels.append(entry)
     # the similarity kernels: K6 at the transfer path's shape, K7 and K8 at
     # the full gram of the regression set, d = 2048; other shapes beside
     similarity_kernels = (

@@ -700,20 +700,21 @@ def _fit_forest_before(xb, edge_vals, y, *, lr, lam, min_child, subsample,
                        colsample, base_score, seed, task, n_trees, depth,
                        oblivious, rf):
     """The tree loop as it was before K5 took the gradients: every draw and
-    every gradient op a tree, in that order, on the plain versions."""
+    every gradient op a tree, in that order, on the plain versions. Its
+    draws are the keyed draws of tree t (``forest_draws_reference``), where
+    it once drew from a ``torch.Generator`` in the order subsample, columns."""
     n, n_feat = xb.shape
     n_internal, n_leaves = (1 << depth) - 1, 1 << depth
     w_rows = torch.ones(n)
     preds = torch.full((n,), float(base_score), dtype=torch.float32)
-    gen = torch.Generator()
-    gen.manual_seed(int(seed))
+    seeds = torch.tensor([seed])
     feats = torch.zeros((n_trees, n_internal), dtype=torch.int32)
     bins = torch.zeros((n_trees, n_internal), dtype=torch.int64)
     leaves = torch.empty((n_trees, n_leaves), dtype=torch.float32)
     feat_ids = torch.arange(n_feat)
     for t in range(n_trees):
         if rf:
-            w = torch.poisson(torch.ones(n), generator=gen) * w_rows
+            w = tr.forest_draws_reference(seeds, t, "poisson", n)[0] * w_rows
             g, h = -y * w, w
         else:
             if task == "reg":
@@ -721,9 +722,10 @@ def _fit_forest_before(xb, edge_vals, y, *, lr, lam, min_child, subsample,
             else:
                 p = torch.sigmoid(preds)
                 g, h = p - y, torch.clamp(p * (1 - p), min=1e-6)
-            m = (torch.rand(n, generator=gen) < subsample).float()
+            m = (tr.forest_draws_reference(seeds, t, "subsample", n)[0]
+                 < subsample).float()
             g, h = g * m * w_rows, h * m * w_rows
-        col_mask = torch.rand(n_feat, generator=gen) < colsample
+        col_mask = tr.forest_draws_reference(seeds, t, "columns", n_feat)[0] < colsample
         col_mask = col_mask | (feat_ids == col_mask.to(torch.uint8).argmax())
         pos = torch.zeros(n, dtype=torch.int32)
         for level in range(depth):
@@ -744,10 +746,10 @@ def _fit_forest_before(xb, edge_vals, y, *, lr, lam, min_child, subsample,
                                                ("cls", 0.6, False),
                                                ("reg", 0.5, True)])
 def test_fit_forest_draws_as_the_loop_before(task, colsample, rf):
-    """With the next tree's gradients taken in K5's call, ``fit_forest``
-    on the CPU still draws the generator's numbers in the old order
-    (subsample, columns, tree by tree) and grows the same trees, bit for
-    bit, at a subsample of 0.8."""
+    """With the next tree's gradients taken in K5's call and every tree's
+    draws keyed by (seed, tree, stream), ``fit_forest`` on the CPU takes
+    the same draws as the loop before (tree t's subsample, columns and rf
+    weights) and grows the same trees, bit for bit, at a subsample of 0.8."""
     x, y = _regression(17, n=400, n_feat=7)
     if task == "cls":
         y = (y > np.median(y)).astype(np.float32)

@@ -9,10 +9,15 @@ function, imported).
   deterministic legs (knn, ridge, tknn, tkrr, ckrr) within 1e-4; gbdt and
   cat with ``subsample=colsample=1`` within 1e-5 (their fits grow the same
   trees; a near tie that turned a split would show as a larger gap, and
-  none does here); the NN leg and the random forest, whose random streams
-  differ, by their OOF R² (within 0.1 and 0.06; the port's NN spreads
-  0.27-0.37 over seeds on this set). The graph leg's statistical hold is
-  in ``tests/test_torch_gnn.py``.
+  none does here).
+- The legs whose random streams differ (the NN's init and batches, the
+  random forest's draws) and the stack over them, over 8 seeds
+  (``SPREAD_SEEDS``) of both packages under ``honest`` and ``strict``
+  (``compat``'s legs are ``honest``'s): the median over the seeds of the
+  port's NN OOF R², random forest R² and stacked R² less the JAX
+  package's at the same seed (see ``test_random_legs_learn_as_jax_over_seeds``
+  for the spreads the bounds come from). The graph leg's statistical hold
+  is in ``tests/test_torch_gnn.py``.
 - The helpers on the same numpy: ``_tree_features_strict`` within 3e-4 of
   the blocks' scale, ``_fold_affine_from`` bit-equal, ``_crossfit_stack``
   within 1e-4, ``_reference_stack_meta`` by R² within 0.05.
@@ -21,10 +26,11 @@ function, imported).
   ``kernel_n_folds``, ``fp_tree_legs`` adds its column, the CLI, and the
   legs not ported yet raise ``NotImplementedError``.
 
-The JAX package's three runs compile their own closures (~10-30 s of XLA
-each on this CPU), so ``jax_runs`` starts them together in threads.
+The JAX package's runs compile their own closures (~6 s of XLA and ~3 s of
+tracing each on a CPU, every call: ``train_cv`` jits closures that hold
+the seed's folds), so ``jax_runs`` starts them together in threads, and the
+test over seeds runs them in threads beside the port's.
 """
-
 import functools
 import os
 import pickle
@@ -76,8 +82,13 @@ TINY = dict(n_folds=3, epochs=10, batch_size=8, lr=1e-3, nn_seeds=1, graph_leg=F
             gbdt_subsample=1.0, cat_subsample=1.0)
 DETERMINISTIC = {"knn": 1e-4, "ridge": 1e-4, "tknn": 1e-4, "tkrr": 1e-4,
                  "ckrr": 1e-4, "gbdt": 1e-5, "cat": 1e-5}
-STATISTICAL = {"nn": 0.1, "rf": 0.06}
 PROTOCOLS = ("honest", "strict", "compat")
+# the statistics of the legs whose random streams differ, held over
+# SPREAD_SEEDS (TINY's seed 42 and the first seven)
+SPREAD_SEEDS = (42, 0, 1, 2, 3, 4, 5, 6)
+SPREAD_PROTOCOLS = ("honest", "strict")
+SPREAD_TOL = {"nn": 0.1, "rf": 0.06, "stacked": 0.05}
+SPREAD_FLOOR = {"nn": 0.15, "rf": 0.5}
 # compat's meta_refstack diagnostic fits 3 x 6 forests of 300 trees of depth
 # 10 (minutes on this CPU); both packages' are cut to 8 trees of depth 4 here
 REFSTACK_CUT = dict(n_estimators=8, depth=4)
@@ -111,27 +122,87 @@ def jax_runs():
         JR._reference_stack_meta = orig
 
 
+@pytest.fixture(scope="module")
+def port_runs():
+    """The port's run_regression under each protocol, on the CPU."""
+    orig = R._reference_stack_meta
+    R._reference_stack_meta = functools.partial(orig, **REFSTACK_CUT)
+    try:
+        return {p: R.run_regression(R.RegressionTrainConfig(protocol=p, **TINY),
+                                    data=_tiny_processed(), verbose=False,
+                                    device="cpu")
+                for p in PROTOCOLS}
+    finally:
+        R._reference_stack_meta = orig
+
+
 @pytest.mark.parametrize("protocol", PROTOCOLS)
-def test_run_regression_equals_jax(protocol, jax_runs, monkeypatch):
-    monkeypatch.setattr(R, "_reference_stack_meta", functools.partial(
-        R._reference_stack_meta, **REFSTACK_CUT))
-    want = jax_runs[protocol]
-    got = R.run_regression(R.RegressionTrainConfig(protocol=protocol, **TINY),
-                           data=_tiny_processed(), verbose=False, device="cpu")
+def test_run_regression_equals_jax(protocol, jax_runs, port_runs):
+    want, got = jax_runs[protocol], port_runs[protocol]
     assert set(got.report) == set(want.report)
     assert list(got.oof) == list(want.oof)
     assert ("meta_refstack" in got.report) == (protocol == "compat")
     for leg, tol in DETERMINISTIC.items():
         err = float(np.abs(got.oof[leg] - want.oof[leg]).max())
         assert err <= tol, (leg, err)
-    y = want.y
-    for leg, tol in STATISTICAL.items():
-        assert abs(_r2(y, got.oof[leg]) - _r2(y, want.oof[leg])) <= tol, leg
-    assert _r2(y, want.oof["nn"]) > 0.15 and _r2(y, want.oof["rf"]) > 0.5
     for k, r in got.report.items():
         assert np.isfinite(r["r2"]), k
-    assert abs(got.report["stacked"]["r2"] - want.report["stacked"]["r2"]) <= 0.05
     assert {"nn", "trees", "kernels", "stacking"} <= set(got.stage_s)
+
+
+def _statistics(run) -> dict:
+    return {"nn": _r2(run.y, run.oof["nn"]), "rf": _r2(run.y, run.oof["rf"]),
+            "stacked": run.report["stacked"]["r2"]}
+
+
+@pytest.mark.parametrize("protocol", SPREAD_PROTOCOLS)
+def test_random_legs_learn_as_jax_over_seeds(protocol, jax_runs, port_runs):
+    """The NN leg's OOF R², the random forest's and the stacked R² over the
+    8 seeds ``SPREAD_SEEDS`` (``cfg.seed``: it moves the folds, the same in
+    both packages, the NN's init and batches, the forests' seeds): the
+    median over the seeds of the port's statistic less the JAX package's
+    at the same seed within ``SPREAD_TOL``, and each package's median above
+    ``SPREAD_FLOOR`` (the JAX side's learning floors, once held at one
+    seed). One draw of each of two independent streams decided the hold
+    before: at seed 42 under ``strict`` the NN's R² is 0.436 in the JAX
+    package and 0.269 in the port (0.272 with four torch threads). A seed
+    pairs the two packages' runs on one set of folds, and the median of the
+    differences is not moved by one seed where both fail: at seed 8 the
+    strict stack has R² −2.20 in the JAX package and −2.87 in the port,
+    which would move a mean gap over 8 seeds by 0.084, past 0.05.
+
+    The bounds and the spread they come from, over the seeds 0–11 and 42 of
+    both packages at ``TINY`` on a CPU (the port with its keyed forest
+    draws). Each bound is the one-draw bound it replaces, no wider. NN: one
+    seed's R² has a standard deviation of 0.131–0.143 in either package
+    (−0.06 to 0.48); the paired median gap is −0.031 (honest) and +0.018
+    (strict) on ``SPREAD_SEEDS``, against 0.1; over every choice of 8 of
+    the 13 seeds it is at most 0.164 and 0.110, and within 0.1 for 93% and
+    91% of them, so the NN hold at 8 seeds depends on the seeds, as any
+    statistic of so few draws of that spread does. rf: 0.032–0.041 a seed,
+    gaps +0.003 and −0.0005, at most 0.014 and 0.011 over every choice of
+    8 seeds, against 0.06. Stacked: gaps −0.0014 and +0.0011, at most
+    0.0075 and 0.036 over every choice of 8 seeds (seed 8 among them),
+    against 0.05."""
+    seeds = SPREAD_SEEDS[1:]                # 42 is TINY's, already run
+    with ThreadPoolExecutor(4) as pool:
+        futures = [pool.submit(JR.run_regression, JR.RegressionTrainConfig(
+            protocol=protocol, seed=s, **TINY), data=jax_tiny_processed(),
+            verbose=False) for s in seeds]
+        port = [port_runs[protocol]] + [
+            R.run_regression(R.RegressionTrainConfig(protocol=protocol, seed=s, **TINY),
+                             data=_tiny_processed(), verbose=False, device="cpu")
+            for s in seeds]
+        jax = [jax_runs[protocol]] + [f.result() for f in futures]
+    stats = {name: {leg: np.array([_statistics(r)[leg] for r in runs])
+                    for leg in SPREAD_TOL}
+             for name, runs in (("port", port), ("jax", jax))}
+    for leg, tol in SPREAD_TOL.items():
+        gap = float(np.median(stats["port"][leg] - stats["jax"][leg]))
+        assert abs(gap) <= tol, (leg, gap, stats)
+    for leg, floor in SPREAD_FLOOR.items():
+        assert np.median(stats["port"][leg]) > floor, (leg, stats)
+        assert np.median(stats["jax"][leg]) > floor, (leg, stats)
 
 
 def _strict_data():

@@ -2,7 +2,7 @@
 """The PyTorch port's classification ensemble at its defaults on one CUDA
 card, timed by stage.
 
-    python3 torch_classification_profile.py [--forest-lanes] [--out FILE]
+    python3 torch_classification_profile.py [--forest-lanes | --groups] [--out FILE]
 
 ``run_classification`` at ``ClassificationTrainConfig()``'s defaults (MACCS
 → PCA 30 → SMOTE-Tomek → the 10-model zoo, each tuned by a 50-trial + default
@@ -21,7 +21,18 @@ one after the other, since wall seconds differ between hosts, and rf's and
 dt's tuned searches with each form of the lanes' split search (the fused
 ``level_splits_lanes``, and K3 then K4 with lanes) in turns: wall s, peak
 memory, scores equal, and rf's lanes' first 10 trees under
-``torch.profiler`` (device busy ms, host launch calls, largest kernels).
+``torch.profiler`` (device busy ms, host launch calls, largest kernels);
+and xgb's and rf's tuned groups as ``--groups`` times them.
+
+``--groups`` runs only xgb's and rf's tuned lane groups over the search rows
+(50 trials and the default x 5 folds: 255 lanes of 300 trees of depth 6 and
+250 of 300 of depth 10 with the default trial's 5 lanes of 200, as
+``chip_smoke.py`` phase 14 runs them), each with
+its trees as a replayed CUDA graph (the default) and eagerly
+(``graph=False``), after a warm-up of each, in turns (eager, graph, graph,
+eager): wall s, peak and reserved memory and scores equal, then each loop
+over the whole group under ``torch.profiler``: device busy share, host
+launch calls a tree step.
 """
 
 from __future__ import annotations
@@ -155,6 +166,71 @@ def search_both_forms(xs, ys, cfg) -> dict:
     return out
 
 
+def groups_both_loops(xs, ys, cfg) -> dict:
+    """xgb's and rf's tuned lane groups with the replayed graph of a tree
+    and with the eager loop, in turns, then each loop under the profiler
+    over the whole group."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from bbbp_tpu_torch.testing import eager_tree_loop
+    from bbbp_tpu_torch.timing import host_launch_calls, profile_summary
+    from bbbp_tpu_torch.train import batched_search as bs
+    from bbbp_tpu_torch.train import classification as cl
+
+    cuda = torch.device("cuda")
+    bs.FOREST_VMAP = True
+    out = {}
+    for m in ("xgb", "rf"):
+        kw = dict(n_iter=50, cv=cfg.search_folds, seed=cfg.seed,
+                  extra_trials=[cl.DEFAULT_TRIALS[m]], device=cuda)
+        runs, scores = {"eager": [], "graph": []}, {}
+        for graph in (False, True):               # a warm-up of each loop
+            with contextlib.nullcontext() if graph else eager_tree_loop():
+                bs.batched_random_search(m, xs, ys, cl.SEARCH_SPACES[m], **kw)
+        for graph in (False, True, True, False):
+            loop = "graph" if graph else "eager"
+            with contextlib.nullcontext() if graph else eager_tree_loop():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                live = torch.cuda.memory_allocated()
+                t0 = time.time()
+                res = bs.batched_random_search(m, xs, ys, cl.SEARCH_SPACES[m], **kw)
+                torch.cuda.synchronize()
+                runs[loop].append({
+                    "wall_s": time.time() - t0,
+                    "peak_gib_above_live": (torch.cuda.max_memory_allocated() - live)
+                    / 2 ** 30,
+                    "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+            scores.setdefault(loop, [t["mean_accuracy"] for t in res.trials])
+        params = [{k: v for k, v in t.items()
+                   if not k.startswith("mean_") and k != "repeat_std"} for t in res.trials]
+        # a tree step is one tree of one group of lanes (one replay)
+        trees = sum(n_est for _, n_est, _, _ in bs._forest_groups(params))
+        for graph in (False, True):
+            loop = "graph" if graph else "eager"
+            with contextlib.nullcontext() if graph else eager_tree_loop():
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.time()
+                    bs.batched_random_search(m, xs, ys, cl.SEARCH_SPACES[m], **kw)
+                    torch.cuda.synchronize()
+                    wall = time.time() - t0
+            busy = profile_summary(prof, lambda name: name)["device_busy_ms"]
+            calls = host_launch_calls(prof)
+            runs[loop + "_profiled"] = {
+                "wall_s": wall, "busy_ms": busy, "busy_share": busy / 1e3 / wall,
+                "host_launch_calls": calls, "host_launch_calls_a_tree_step": calls / trees,
+                "generator_draws": sum(e.count for e in prof.key_averages()
+                                       if e.key in ("aten::rand", "aten::poisson"))}
+        out[m] = {"trials": len(scores["graph"]), "tree_steps": trees, **runs,
+                  "scores_equal": bool(np.array_equal(scores["graph"], scores["eager"]))}
+    return out
+
+
 def run(forest_lanes: bool) -> dict:
     import torch
 
@@ -191,7 +267,18 @@ def run(forest_lanes: bool) -> dict:
         xs, ys = search_rows(x, y, cfg)
         result["xgb_search"] = xgb_search_both_ways(xs, ys, cfg)
         result["split_search_forms"] = search_both_forms(xs, ys, cfg)
+        result["groups"] = groups_both_loops(xs, ys, cfg)
     return result
+
+
+def groups_only() -> dict:
+    from bbbp_tpu_torch.testing import classification_inputs
+    from bbbp_tpu_torch.train import classification as cl
+
+    cfg = cl.ClassificationTrainConfig()
+    x, y = classification_inputs()
+    xs, ys = search_rows(x, y, cfg)
+    return {"search_rows": len(ys), "groups": groups_both_loops(xs, ys, cfg)}
 
 
 def main() -> int:
@@ -200,6 +287,9 @@ def main() -> int:
                     help="run the forest searches as lanes (BBBP_FOREST_VMAP=1), "
                          "time xgb's search both ways and rf's and dt's with both "
                          "split search forms")
+    ap.add_argument("--groups", action="store_true",
+                    help="time only xgb's and rf's tuned lane groups, with the "
+                         "graph of a tree and eagerly")
     ap.add_argument("--out", default="chiprun_out/classification_profile.json")
     args = ap.parse_args()
     import torch
@@ -212,7 +302,7 @@ def main() -> int:
     result = {"card": nvidia_smi(), "torch": torch.__version__,
               "cuda": torch.version.cuda}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    result["run"] = run(args.forest_lanes)
+    result["run"] = groups_only() if args.groups else run(args.forest_lanes)
     result["card_after"] = nvidia_smi()
     text = json.dumps(result, indent=1)
     print(text)

@@ -10,13 +10,18 @@ trees of depth 6, subsample 0.8) over the 7,809-molecule labelled set of
 stages (fingerprints on the host, scaler + PCA on the card, the forest fit),
 then the forest fit under the profiler: device ms by kernel, the trainer
 kernels' launches, the device's busy share of the fit's wall time, and the
-host's launch count. Prints one JSON object and writes it to ``--out``; the
-profiler's table goes beside it as ``<out>_table.txt``.
+host's launch count. The fit and ``ScreeningModel.train`` run with the trees
+as a replayed CUDA graph (the default) and eagerly (``graph=False``), in
+turns (eager, graph, graph, eager), each with its wall seconds, busy share,
+host launch calls a tree and peak memory. Prints one JSON object and writes
+it to ``--out``; the profiler's table of the first graph run goes beside it
+as ``<out>_table.txt``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -34,7 +39,7 @@ def profile(table_path: str):
     from bbbp_tpu_torch.ops.pca import PCA
     from bbbp_tpu_torch.ops.scaler import StandardScaler
     from bbbp_tpu_torch.pipelines.screen import ScreeningModel
-    from bbbp_tpu_torch.testing import labelled_training_set
+    from bbbp_tpu_torch.testing import eager_tree_loop, labelled_training_set
     from bbbp_tpu_torch.timing import (host_launch_calls, profile_summary,
                                        profiler_table)
 
@@ -60,42 +65,56 @@ def profile(table_path: str):
                                  max_depth=6, subsample=0.8, seed=42,
                                  device="cuda").fit(z_np, labels)
 
-    t0 = time.perf_counter()
-    fit()
-    torch.cuda.synchronize()
-    stages["forest_fit_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ScreeningModel.train(smiles, labels, device="cuda")
-    torch.cuda.synchronize()
-    stages["train_total_s"] = time.perf_counter() - t0
-
-    counters = (tr.level_histogram, tr.best_splits, tr.leaf_values)
-    for counter in counters:
-        counter.launches.reset()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fit()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = {c.__name__: c.launches.count for c in counters}
+    counters = (tr.level_histogram, tr.best_splits, tr.leaf_values,
+                tr.forest_draws)
 
     def classify(name):
         for kernel in ("hist_group_kernel", "level_hist_kernel",
                        "hist_finish_kernel", "oblivious_pick_kernel",
-                       "best_splits", "leaf_values_kernel"):
+                       "best_splits", "leaf_values_kernel", "draws_kernel"):
             if kernel in name:
                 return kernel
         return "Memset" if "Memset" in name else "torch ops"
 
-    summary = profile_summary(prof, classify)
-    profiler_table(prof, table_path)
-    host_launches = host_launch_calls(prof)
+    def measure(graph: bool, table: bool) -> dict:
+        with contextlib.nullcontext() if graph else eager_tree_loop():
+            out = {"graph": graph}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            fit()
+            torch.cuda.synchronize()
+            out["forest_fit_s"] = time.perf_counter() - t0
+            out["fit_peak_mib_above_live"] = (torch.cuda.max_memory_allocated()
+                                              - live) / 2 ** 20
+            t0 = time.perf_counter()
+            ScreeningModel.train(smiles, labels, device="cuda")
+            torch.cuda.synchronize()
+            out["train_total_s"] = time.perf_counter() - t0
+            for counter in counters:
+                counter.launches.reset()
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fit()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        out["trainer_launches"] = {c.__name__: c.launches.count for c in counters}
+        summary = profile_summary(prof, classify)
+        if table:
+            profiler_table(prof, table_path)
+        calls = host_launch_calls(prof)
+        out.update(fit_wall_s_profiled=wall, **summary,
+                   busy_share=summary["device_busy_ms"] / 1e3 / wall,
+                   host_launch_calls=calls, host_launch_calls_a_tree=calls / 300)
+        return out
+
+    runs = {"eager": [], "graph": []}
+    for i, graph in enumerate((False, True, True, False)):
+        runs["graph" if graph else "eager"].append(measure(graph, table=i == 1))
     return {"molecules": len(smiles), "positive_share": float(np.mean(labels)),
-            "stages": stages, "fit_wall_s_profiled": wall,
-            "trainer_launches": launches, **summary,
-            "busy_share": summary["device_busy_ms"] / 1e3 / wall,
-            "host_launch_calls": host_launches}
+            "stages": stages, "runs": runs}
 
 
 def main() -> int:

@@ -12,13 +12,17 @@ wall seconds by stage, then under the profiler one full fit of each aux
 forest at the transfer path's 326 features (``gbdt``, ``oblivious``,
 ``rf``), a whole ``transfer_features`` call (raw features cached) and the
 10-fold legs: device ms by kernel, the device's busy share of the wall time
-and the host's launch calls. Prints one JSON object and
+and the host's launch calls. Each aux forest's fit runs with its trees as a
+replayed CUDA graph (the default) and eagerly (``graph=False``), in turns
+(eager, graph, graph, eager), each with its wall seconds, busy share, host
+launch calls a tree and peak memory. Prints one JSON object and
 writes it to ``--out``; the profiler's tables go beside it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -27,7 +31,7 @@ import tempfile
 import time
 
 KERNELS = ("hist_group_kernel", "level_hist_kernel", "hist_finish_kernel",
-           "oblivious_pick_kernel", "best_splits",
+           "oblivious_pick_kernel", "best_splits", "draws_kernel",
            "leaf_values_kernel", "dense_forest_kernel",
            "tanimoto_topk_kernel", "tanimoto_gram_kernel", "weighted_gram_kernel",
            "minmax_gram_kernel", "row_sums_kernel")
@@ -45,7 +49,7 @@ def profile(out_stem: str):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from bbbp_tpu_torch.testing import (labelled_training_set,
+    from bbbp_tpu_torch.testing import (eager_tree_loop, labelled_training_set,
                                         regression_legs, regression_molecules)
     from bbbp_tpu_torch.timing import (host_launch_calls, profile_summary,
                                        profiler_table)
@@ -92,12 +96,25 @@ def profile(out_stem: str):
             reg_smiles, cfg, aux_data=aux, verbose=False, device="cuda"))
     aux_y = aux[1].astype("float32")
     for name in ("gbdt", "oblivious", "rf"):
-        t0 = time.perf_counter()
-        tf._make_model(name, cfg, cfg.seed, "cuda").fit(aux_x, aux_y)
-        torch.cuda.synchronize()
-        unprofiled = time.perf_counter() - t0
-        result[f"{name}_fit"] = {"wall_s": unprofiled, **profiled(
-            name, lambda: tf._make_model(name, cfg, cfg.seed, "cuda").fit(aux_x, aux_y))}
+        trees = tf._make_model(name, cfg, cfg.seed, "cuda").n_estimators
+        runs = {"eager": [], "graph": []}
+        for turn, graph in enumerate((False, True, True, False)):
+            with contextlib.nullcontext() if graph else eager_tree_loop():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                live = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                tf._make_model(name, cfg, cfg.seed, "cuda").fit(aux_x, aux_y)
+                torch.cuda.synchronize()
+                run = {"wall_s": time.perf_counter() - t0,
+                       "peak_mib_above_live": (torch.cuda.max_memory_allocated()
+                                               - live) / 2 ** 20}
+                run.update(profiled(f"{name}_{'graph' if graph else 'eager'}{turn}",
+                                    lambda: tf._make_model(name, cfg, cfg.seed,
+                                                           "cuda").fit(aux_x, aux_y)))
+            run["host_launch_calls_a_tree"] = run["host_launch_calls"] / trees
+            runs["graph" if graph else "eager"].append(run)
+        result[f"{name}_fit"] = {"trees": trees, **runs}
     t0 = time.perf_counter()
     regression_legs(*reg_raw, reg_y, device="cuda")
     torch.cuda.synchronize()
