@@ -228,6 +228,18 @@ def kernels_lib() -> ctypes.CDLL:
         _I, _L,                # L, scratch words a lane
         _P,                    # stream
     ]
+    lib.bbbp_forest_level_splits_oblivious_lanes.restype = _I
+    lib.bbbp_forest_level_splits_oblivious_lanes.argtypes = [
+        _P, _I, _I,            # xb [n, F] uint8
+        _P, _P, _P, _I,        # pos [L, n] int32, g, h [L, n] f32, n_nodes
+        _P,                    # bounds [L, 2] f32
+        _P, _P, _F,            # col_mask [L, F] bool, lambda [L] f32, min_child
+        _P, _P, _P,            # scratch: rows, plan, candidates
+        _P, _P, _P,            # feat, bin [L, nodes] int32, has_split bool
+        *_PARENT, _L,          # the parent split, words from one lane's trees to the next
+        _I, _L,                # L, scratch words a lane
+        _P,                    # stream
+    ]
     lib.bbbp_forest_leaf_values_lanes.restype = _I
     lib.bbbp_forest_leaf_values_lanes.argtypes = [
         _P, _I, _P, _P,        # pos [L, n] int32, g, h [L, n] f32

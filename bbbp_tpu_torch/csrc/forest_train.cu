@@ -20,6 +20,9 @@
 //    jax.vmap, as bbbp_tpu/train/batched_search.py:340-344 runs it: one
 //    level's split search over lanes, K3's sums and K4's per-node pick in
 //    one pass, with no histogram in device memory (see its design below).
+// bbbp_forest_level_splits_oblivious_lanes — the same for oblivious mode
+//    (_grow_level(..., oblivious=True), :135-146): K3's sums and K4's
+//    level-wide pick in one pass over the level's nodes in order.
 // The routing of _fit_forest_device (:335-338), pos <- 2 * pos + (xb[row,
 //    f[pos]] > b[pos]) for every row and the level's (feature, bin) pairs
 //    into the tree's flat arrays, has no entry point of its own: the kernel
@@ -188,7 +191,8 @@
 // Every value the pick sees is the one K4 computes from K3's histogram, so
 // (feat, bin, has_split) equal K3 then K4 with lanes bit for bit.
 // Oblivious mode sums a (feature, bin)'s gain over the level's nodes before
-// its argmax, so it cannot finish node by node: it keeps K3 then K4.
+// its argmax, so its units cannot finish node by node: it has a fused form
+// of its own (below).
 // Tried on the card and dropped: a warp a whole node (slower at 15 lanes'
 // shallow levels, where a level has too few nodes to fill the card, and
 // wherever nodes were skewed, a large node being one warp's serial work),
@@ -197,6 +201,76 @@
 // rows touched and walked only those (faster only at a level of even
 // 8-row nodes that no tree of the search reaches, slower at level 8).
 //
+// Fused oblivious search design (lanes, oblivious mode: cat's search). K3
+// then K4 with lanes hand over the dense [L, nodes, F, 64, 2] histogram (125
+// MB at cat's level 5, 255 lanes), and K3's summation (a global int64
+// accumulator for nodes of over 512 rows, atomics into it from every item,
+// its zeroing and finish) costs as much as that traffic: 0.37 ms at level 0,
+// where the histogram is 3.8 MB. The reference returns one (feat, bin,
+// has_split) a lane. K4's oblivious body adds each node's masked gain to an
+// f32 total per (feature, bin) in node order; the per-node bin sums are K3's
+// integers, whose order never matters. So a block owns a (lane, group of
+// features) for the whole level and walks the nodes in order:
+// 1. hist_group_kernel, as K3, but with rows_per_item = own_rows = n: an
+//    item a node (no node is cut, no accumulator, nothing to zero), each
+//    node's rows contiguous in the lane's order.
+// 2. oblivious_splits_kernel, runs of 2 or 4 nodes: a warp takes 32 rows,
+//    each lane quantises one (once a row), then the warp adds them a step
+//    at a time, lane l a (row, feature) pair, into column l of the run's
+//    int64 sums, [node][word][bin][32 columns]: a warp's atomics meet 32
+//    banks whatever their bins. Then K4's chunk sums and gains from each
+//    bin's columns (one f32 rounding, K3's value) and K4's masked gain,
+//    added by a thread a (bin, feature) to its running total in node order;
+//    the block's first-index maximum is the group's candidate. No histogram
+//    leaves shared memory.
+// 3. oblivious_pick_kernel (K4's): a lane's first-index maximum over its
+//    groups, the dead-level rule, the split written to every node.
+// Each total is K4's sum, in K4's order, of K4's values on K3's histogram,
+// so the splits equal K3 then K4 with lanes bit for bit in every form. The
+// forms: 32 features a block (a row a warp step), 512 threads, runs of 2,
+// where lanes x groups fill the card's SMs; else 8 features a block (4 rows
+// a step, a feature's sums in 4 columns), in blocks of 1,024 threads and
+// runs of 4 where those blocks do not fill it either.
+// What bounds it. The bytes (xb once, each lane's rows) are 7.4 us a level
+// at L = 250; K4's operations at every (node, feature, bin) pass them from
+// level 6. The summation is four 32-bit shared atomics a (row, feature):
+// torch_rate_profile.py measured them on an H100 80GB HBM3 (700 W) at 32 a
+// clock an SM to conflict-free banks (8.4e12 a second) and 9.1 at random
+// ones (a 64-bit shared atomic add is a compare-and-swap loop, 1.2), so
+// their floor is about 23 us a level at L = 250 (6,530 rows of weight not 0
+// a lane, 30 features). Timed by chip_smoke.py phase 14 on that card, n =
+// 8,162, F = 30, against K3 + K4 with lanes in the same call: L = 250,
+// levels 0-5, 0.197 / 0.201 / 0.217 / 0.247 / 0.288 / 0.373 ms against
+// 0.422 / 0.440 / 0.449 / 0.485 / 0.537 / 0.546; levels 9 / 11 4.33 / 11.5
+// against 3.35 / 9.49. L = 15 (8 features a block): levels 0-2 0.045-0.048
+// against 0.049-0.050, slower from level 3 (0.062 against 0.051, level 5
+// 0.130 against 0.058, level 9 1.73 against 0.45). Past a few nodes a run
+// the walk is a chain of dependent round trips (the run's rows, their bins,
+// the atomics' low words) a run, and each node's bins are all rounded and
+// gained. So fit_forest_lanes cuts over to K3 then K4 with lanes from the
+// first level where they are faster (ops/forest_train.py's
+// OBLIVIOUS_FUSED_LEVELS, by form and blocks an SM).
+// torch_oblivious_profile.py on that card over real oblivious trees of the search's rows (n = 8,162,
+// F = 30; ms, fused / two kernels): L = 10 (form 2) slower from level 0,
+// 0.045 / 0.041; L = 15 levels 0-2 0.046 / 0.050, level 3 0.056 / 0.050;
+// L = 33 level 3 0.057 / 0.079, level 4 0.087 / 0.082; L = 34 (form 1)
+// level 1 0.070 / 0.074, level 2 0.081 / 0.076; L = 80 levels 2 / 3
+// 0.124 / 0.146, 0.168 / 0.156; L = 131 levels 3 / 4 0.207 / 0.248, 0.306 /
+// 0.278; L = 132 (form 0) levels 4 / 5 0.236 / 0.279, 0.341 / 0.322;
+// L = 250 levels 5 / 6 0.415 / 0.585, 0.661 / 0.656; L = 255 levels 6 / 7
+// 0.664 / 0.670, 1.145 / 1.000; level 11 at L = 250 10.0 / 9.2. Cat's
+// tuned group (255 lanes, depth 6) keeps the fused search at every level;
+// phase 14's 10-lane cat search takes the two kernels at every level.
+// Tried on the card and dropped, each slower at L = 250, levels 0-5: a
+// compact tile (a cell a bin, the atomics meeting banks at random) with 1
+// to 32 features a block and runs of up to 48 (node, feature) pairs; the
+// same with the columns of a dense tile summed into a stage of K4's layout
+// (much slower at deep levels); staging a chunk's rows in shared memory
+// before its pairs; 4 or 8 pairs' loads a thread in flight; the run's rows
+// by shuffles rather than shared memory. No faster, so dropped too: the next
+// batch's rows and their g, h loaded while a batch adds; 32-feature blocks
+// of 1,024 threads and runs of 4 nodes from level 3.
+
 // Routing design. The reference routes a level's rows in a step of its own
 // (_fit_forest_device, :335-338). As a kernel of its own (PR 14) it moved 9
 // bytes a row and took 1.5 us for one fit, 2.0 us at 15 lanes: a launch, a
@@ -341,6 +415,12 @@ constexpr int kSplitUnroll = 4;             // (row, feature) pairs a lane has i
 constexpr int kTileChunk = kChunk + 1;      // cells a chunk's row of a tile, padded
 constexpr int kWarpTile = 32 * kTileChunk;  // cells of a warp's tile: 8 features
 constexpr int kMaxSplitFeats = 8192;
+constexpr int kObsFeats = 32;               // fused oblivious search: features
+                                            // a block, a warp lane each
+constexpr int kObsMaxRun = 4;               // nodes a run (32 KB of sums each)
+constexpr int kObsUnroll = 4;               // rows a warp adds together
+constexpr int kObsHalf = 16;                // rows whose bins a warp loads together
+constexpr int kObsNodeWords = 4 * kBins * kObsFeats;   // a node's sums
 
 typedef unsigned long long u64;
 
@@ -1520,6 +1600,243 @@ splits_finish_kernel(const ulonglong2* __restrict__ acc, int F,
   }
 }
 
+// ---- the fused oblivious split search over lanes ---------------------------
+
+// The low word of value into *lo_word: the word's old value, for
+// add_high (0 where value's low word is 0 and nothing is added).
+__device__ __forceinline__ unsigned add_low(unsigned* lo_word, long long value) {
+  const unsigned lo = static_cast<unsigned>(static_cast<u64>(value));
+  return lo ? atomicAdd(lo_word, lo) : 0u;
+}
+
+// The high word of value, with the carry of its low word's add (old: what
+// add_low returned), into *hi_word. add_low then add_high is shared_add64,
+// split so that a thread's low-word atomics go out together and their round
+// trips overlap (a shared atomic's result is waited for where it is used).
+__device__ __forceinline__ void add_high(unsigned* hi_word, long long value, unsigned old) {
+  const unsigned lo = static_cast<unsigned>(static_cast<u64>(value));
+  const unsigned hi = static_cast<unsigned>(static_cast<u64>(value) >> 32) + ((old + lo) < lo);
+  if (hi) atomicAdd(hi_word, hi);
+}
+
+// Word `part` (0, 1: the low and high words of g; 2, 3: of h) of the run's
+// sums of node j, bin b, feature f: [node][part][bin][32 features], so that
+// the 32 lanes of a warp, a feature each, meet 32 banks whatever their bins.
+__device__ __forceinline__ int obs_word(int j, int part, int b, int f) {
+  return ((j * 4 + part) * kBins + b) * kObsFeats + f;
+}
+
+// The masked gain of node j, bin b, feature f in the run's [node][bin][32]
+// gains, the feature's column turned by the bin's chunk, so that a warp in
+// K4's layout (8 features x 4 chunks) writes 32 banks and a warp of 32
+// features reads them.
+__device__ __forceinline__ int obs_gain(int j, int b, int f) {
+  return (j * kBins + b) * kObsFeats + (f ^ ((b >> 4) << 3));
+}
+
+// grid (groups of 32 / kRows features, lanes), kThreads threads. The block
+// owns features [x * kFeats, x * kFeats + fw) of lane y for the whole level
+// and walks its nodes in node order, `run` (at most kObsMaxRun) at a time;
+// the sort ran with own_rows = n, so items[k] = (k, first, end, -1). For
+// each run:
+// A. its sorted rows, contiguous, 32 a warp at a time: lane l stages row l's
+//    K3-quantised (g, h) (once a row), then the warp adds kRows rows a step,
+//    lane l the bin of feature l % kFeats of row l / kFeats of the step, to
+//    column l of the run's int64 sums (obs_word) with two-word atomics, the
+//    low words of kObsUnroll steps together, the bins of a batch's steps
+//    loaded together: a warp's atomics never meet in a bank;
+// B. a warp takes 8 (node, feature) pairs in K4's layout, lane 4 s + k chunk
+//    k of pair s: each bin's sums (its kRows columns added) rounded once to
+//    f32, K3's value, K4's chunk sums and gains, op for op, and the masked
+//    gain (valid and > 0: the gain; valid: 0; else -0.0, which adds nothing
+//    and marks itself) into gains (obs_gain);
+// C. a thread a (bin, column) clears the sums and, for a feature's column,
+//    adds the run's masked gains to its running total in node order (K4's
+//    order), with any_valid beside it.
+// Then the block's first-index maximum (gain, f * 64 + b) is its candidate
+// at cand_gain, cand_idx [lane][group] for oblivious_pick_kernel. Lane
+// offsets as level_hist_kernel's; col_mask [L][F], lams [L].
+template <int kThreads, int kRows>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+oblivious_splits_kernel(const uint8_t* __restrict__ xb, int n, int F,
+                        const float* __restrict__ g, const float* __restrict__ h,
+                        const bool* __restrict__ col_mask, const float* __restrict__ lams,
+                        float min_child, int n_nodes, int run,
+                        const int* __restrict__ rows, const double* __restrict__ scales,
+                        const int4* __restrict__ items, float* __restrict__ cand_gain,
+                        int* __restrict__ cand_idx, size_t cand_lane, size_t lane_bytes) {
+  constexpr int kFeats = kObsFeats / kRows;  // features a block
+  constexpr int kSteps = 32 / kRows;         // steps a batch of 32 rows
+  constexpr int kLoads = kSteps < 16 ? kSteps : 16;   // steps whose bins load together
+  const size_t fit = blockIdx.y, at = fit * lane_bytes;
+  g += fit * n;
+  h += fit * n;
+  rows = shift(rows, at);
+  scales = shift(scales, at);
+  items = shift(items, at);
+  col_mask += fit * F;
+  cand_gain += fit * cand_lane;
+  cand_idx += fit * cand_lane;
+  extern __shared__ __align__(16) unsigned obs_smem[];
+  const int f0 = blockIdx.x * kFeats;
+  const int fw = min(kFeats, F - f0);
+  const int cells = kBins * kObsFeats;       // (bin, column) b * 32 + column
+  unsigned* sums = obs_smem;                                        // [run][kObsNodeWords]
+  float* gains = reinterpret_cast<float*>(sums + run * kObsNodeWords);   // [run][cells]
+  float* s_total = gains + run * cells;                                  // [cells]
+  unsigned char* s_any = reinterpret_cast<unsigned char*>(s_total + cells);  // [cells]
+  __shared__ int s_first[kObsMaxRun + 1];   // the run's rows; end past its nodes
+  __shared__ bool s_live[kObsFeats];
+  __shared__ longlong2 s_q[kThreads];       // a warp's 32 rows' quantised (g, h)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < run * kObsNodeWords; i += blockDim.x) sums[i] = 0;
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    s_total[c] = 0.f;
+    s_any[c] = 0;
+  }
+  if (static_cast<int>(threadIdx.x) < fw) s_live[threadIdx.x] = col_mask[f0 + threadIdx.x];
+  const double sg = scales[0], sh = scales[1], inv_g = scales[2], inv_h = scales[3];
+  const float lam = lams[fit];
+  const int lf = lane % kFeats, slot = lane / kFeats;   // this lane's feature and row
+  const bool feature = lf < fw;              // feature f0 + lf exists
+  // thread t <= kObsMaxRun: entry t of the run's s_first, loaded a run ahead
+  const auto first_of = [&](int k0) {
+    const int nodes = min(run, n_nodes - k0), t = threadIdx.x;
+    return t < nodes ? items[k0 + t].y : items[k0 + nodes - 1].z;
+  };
+  int next_first = static_cast<int>(threadIdx.x) <= kObsMaxRun ? first_of(0) : 0;
+  for (int k0 = 0; k0 < n_nodes; k0 += run) {
+    const int nodes = min(run, n_nodes - k0);
+    if (static_cast<int>(threadIdx.x) <= kObsMaxRun) s_first[threadIdx.x] = next_first;
+    __syncthreads();                        // s_first; the last run's sums clear
+    // A. 32 rows a warp at a time; sorted row i's node in the run is the
+    // count of the run's later nodes' first rows at or before it
+    const int end = s_first[nodes];
+    int later[kObsMaxRun - 1];
+#pragma unroll
+    for (int k = 0; k < kObsMaxRun - 1; ++k) later[k] = s_first[k + 1];
+    longlong2* my_q = s_q + warp * 32;
+    for (int i0 = s_first[0] + warp * 32; i0 < end; i0 += warps * 32) {
+      const int i = i0 + lane, batch = min(32, end - i0);
+      int r = 0;
+      if (i < end) {
+        r = rows[i];
+        my_q[lane] = make_longlong2(quantise(g[r], sg), quantise(h[r], sh));
+      }
+      __syncwarp();
+      for (int t0 = 0; t0 < kSteps; t0 += kLoads) {
+        int bin[kLoads];
+#pragma unroll
+        for (int t = 0; t < kLoads; ++t) {
+          const int src = (t0 + t) * kRows + slot;
+          const int rk = __shfl_sync(0xffffffffu, r, src);
+          bin[t] = src < batch && feature ? xb[static_cast<size_t>(rk) * F + f0 + lf] : 0;
+        }
+#pragma unroll
+        for (int t = 0; t < kLoads; t += kObsUnroll) {
+          int word[kObsUnroll];
+          longlong2 v[kObsUnroll];
+#pragma unroll
+          for (int u = 0; u < kObsUnroll; ++u) {
+            const int src = (t0 + t + u) * kRows + slot;
+            const bool in = src < batch && feature;
+            v[u] = in ? my_q[src] : make_longlong2(0, 0);   // 0: nothing added
+            int node = 0;
+#pragma unroll
+            for (int n1 = 0; n1 < kObsMaxRun - 1; ++n1) node += i0 + src >= later[n1];
+            word[u] = obs_word(node, 0, bin[t + u], lane);
+          }
+          unsigned old_g[kObsUnroll], old_h[kObsUnroll];
+#pragma unroll
+          for (int u = 0; u < kObsUnroll; ++u) {
+            old_g[u] = add_low(sums + word[u], v[u].x);
+            old_h[u] = add_low(sums + word[u] + 2 * kBins * kObsFeats, v[u].y);
+          }
+#pragma unroll
+          for (int u = 0; u < kObsUnroll; ++u) {
+            add_high(sums + word[u] + kBins * kObsFeats, v[u].x, old_g[u]);
+            add_high(sums + word[u] + 3 * kBins * kObsFeats, v[u].y, old_h[u]);
+          }
+        }
+      }
+      __syncwarp();                         // before the warp's rows are staged again
+    }
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) <= kObsMaxRun && k0 + run < n_nodes)
+      next_first = first_of(k0 + run);      // in flight through B and C
+    // B. K4's gains of each (node, feature) pair, masked
+    const int run_pairs = nodes * fw;
+    for (int p0 = warp * kGroupFeats; p0 < run_pairs; p0 += warps * kGroupFeats) {
+      const int p = p0 + lane / kChunks, k = lane & (kChunks - 1);
+      const bool in = p < run_pairs;
+      const int jp = in ? p / fw : 0, f = in ? p % fw : 0;
+      const bool live = in && s_live[f];
+      ChunkSums c;
+      chunk_sums([&](int i) {
+        if (!in) return make_float2(0.f, 0.f);
+        const int b = k * kChunk + i;
+        u64 sum_g = 0, sum_h = 0;
+#pragma unroll
+        for (int s = 0; s < kRows; ++s) {
+          const int col = s * kFeats + f;
+          sum_g += (static_cast<u64>(sums[obs_word(jp, 1, b, col)]) << 32) |
+                   sums[obs_word(jp, 0, b, col)];
+          sum_h += (static_cast<u64>(sums[obs_word(jp, 3, b, col)]) << 32) |
+                   sums[obs_word(jp, 2, b, col)];
+        }
+        return make_float2(
+            sum_g ? bin_value(static_cast<long long>(sum_g), inv_g) : 0.f,
+            sum_h ? bin_value(static_cast<long long>(sum_h), inv_h) : 0.f);
+      }, lam, c);
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const float gl = __fadd_rn(c.rg[i], c.og);
+        const float hl = __fadd_rn(c.rh[i], c.oh);
+        const float gr = __fsub_rn(c.tg, gl);
+        const float hr = __fsub_rn(c.th, hl);
+        const bool valid = hl >= min_child && hr >= min_child;
+        float gain = 0.f;                   // read only where valid
+        if (__any_sync(0xffffffffu, valid)) gain = split_gain(gl, hl, gr, hr, c.parent, lam);
+        if (in) gains[obs_gain(jp, k * kChunk + i, f)] =
+                    valid && live ? (gain > 0.f ? gain : 0.f) : -0.f;
+      }
+    }
+    __syncthreads();
+    // C. the sums cleared and the run's masked gains into the totals in node
+    // order; cell = b * 32 + column, so that a warp's accesses meet 32 banks
+    for (int cell = threadIdx.x; cell < cells; cell += blockDim.x) {
+      const int col = cell % kObsFeats, b = cell / kObsFeats;
+      for (int jn = 0; jn < nodes; ++jn)
+        for (int part = 0; part < 4; ++part) sums[obs_word(jn, part, b, col)] = 0;
+      if (col >= fw) continue;              // columns past the features: sums only
+      float total = s_total[cell];
+      bool any = s_any[cell];
+      for (int jn = 0; jn < nodes; ++jn) {
+        const float v = gains[obs_gain(jn, b, col)];
+        any |= __float_as_uint(v) != 0x80000000u;
+        total = __fadd_rn(total, v);
+      }
+      s_total[cell] = total;
+      s_any[cell] = any;
+    }
+  }
+  // each thread reads back the totals it wrote
+  Best mine{-INFINITY, 0x7fffffff};
+  for (int cell = threadIdx.x; cell < cells; cell += blockDim.x) {
+    const int f = cell % kObsFeats, b = cell / kObsFeats;
+    if (f >= fw) continue;
+    const float total = s_any[cell] ? s_total[cell] : -INFINITY;
+    const int idx = (f0 + f) * kBins + b;
+    if (better(total, idx, mine.gain, mine.idx)) mine = {total, idx};
+  }
+  mine = block_best(mine);
+  if (threadIdx.x == 0) {
+    cand_gain[blockIdx.x] = mine.gain;
+    cand_idx[blockIdx.x] = mine.idx;
+  }
+}
+
 // ---- K5 ---------------------------------------------------------------------
 
 // The next boosted tree's inputs and outputs (y null: there is none).
@@ -2116,6 +2433,83 @@ int level_splits(const void* xb, int n, int F, const void* pos, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+typedef void (*ObsKernel)(const uint8_t*, int, int, const float*, const float*, const bool*,
+                          const float*, float, int, int, const int*, const double*,
+                          const int4*, float*, int*, size_t, size_t);
+// the forms of the fused oblivious search: 32 features a block, 8 features,
+// 8 features in blocks of 1,024 threads
+const ObsKernel obs_kernels[3] = {oblivious_splits_kernel<512, 1>,
+                                  oblivious_splits_kernel<512, 4>,
+                                  oblivious_splits_kernel<1024, 4>};
+int oblivious_search_smem_raised[3] = {};
+
+// The fused oblivious split search over `lanes` fits: the sort
+// (hist_group_kernel with rows_per_item = own_rows = max(n, 1): an item a
+// node, no accumulator to zero), oblivious_splits_kernel over (groups of
+// features, lanes) and K4's oblivious_pick_kernel. pos, g, h [lanes][n],
+// bounds [lanes][2], col_mask [lanes][F], lams [lanes]; the scratch (rows,
+// plan) lane_words apart, the plan laid out by sort_plan at those sizes;
+// cand int32 [2][lanes][ceil(F / 8)] at least (a candidate a group of 32
+// features, or of 8); feat, bin, has_split [lanes][n_nodes].
+int level_splits_oblivious(const void* xb, int n, int F, const void* pos, const void* g,
+                           const void* h, int n_nodes, const void* bounds,
+                           const void* col_mask, const void* lams, float min_child,
+                           void* rows, void* plan, void* cand, void* feat, void* bin,
+                           void* has_split, int lanes, long long lane_words,
+                           const Route& route, void* stream) {
+  if (n < 0 || F <= 0 || n_nodes <= 0 || n_nodes > kMaxSortNodes || lanes < 1 ||
+      lanes > kMaxLanes || lane_words <= 0 || lane_words % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t lane_bytes = static_cast<size_t>(lane_words) * sizeof(long long);
+  const int own = n > 0 ? n : 1;
+  const SortPlan p = sort_plan(n, F, n_nodes, own, own, plan);   // no accumulator
+  const float* gp = static_cast<const float*>(g);
+  const float* hp = static_cast<const float*>(h);
+  // a block 32 features, a row a warp step, 512 threads and runs of 2 nodes,
+  // two blocks an SM, where the lanes' blocks fill the card's SMs; else 8
+  // features and 4 rows a step, and 1,024 threads and runs of 4 nodes where
+  // those blocks do not fill it either
+  int device = 0, sms = 0;                  // the current device's, at every call
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool narrow = static_cast<long long>(lanes) * ((F + kObsFeats - 1) / kObsFeats) < sms;
+  const int feats = narrow ? kObsFeats / 4 : kObsFeats;
+  const int groups = (F + feats - 1) / feats;
+  const bool wide = narrow && static_cast<long long>(lanes) * groups <= sms;
+  const int run_most = wide ? kObsMaxRun : kObsMaxRun / 2;
+  const int run = n_nodes < run_most ? n_nodes : run_most;
+  // the run's sums, its masked gains, the totals and any_valid
+  const int smem = run * kObsNodeWords * 4 + (run + 1) * kObsFeats * kBins * 4 +
+                   kObsFeats * kBins;
+  const int sort_smem = p.sort_smem + route.nodes * static_cast<int>(sizeof(int));
+  const int form = wide ? 2 : narrow;
+  const ObsKernel kernel = obs_kernels[form];
+  SortKernel sort;
+  err = sort_kernel(true, route, sort_smem, &sort);
+  if (err == cudaSuccess)
+    err = shared_limit(reinterpret_cast<const void*>(kernel),
+                       &oblivious_search_smem_raised[form], smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* cand_gain = static_cast<float*>(cand);
+  int* cand_idx = static_cast<int*>(cand) + static_cast<size_t>(lanes) * groups;
+  sort<<<dim3(p.sort_blocks, lanes), kSortThreads, sort_smem, s>>>(
+      static_cast<int*>(const_cast<void*>(pos)), n, gp, hp, n_nodes, own, own,
+      static_cast<const float*>(bounds), static_cast<int*>(rows), p.scales, p.items,
+      p.slot_node, p.info, nullptr, 0, lane_bytes, route);
+  kernel<<<dim3(groups, lanes), wide ? 1024 : 512, smem, s>>>(
+      static_cast<const uint8_t*>(xb), n, F, gp, hp, static_cast<const bool*>(col_mask),
+      static_cast<const float*>(lams), min_child, n_nodes, run,
+      static_cast<const int*>(rows), p.scales, p.items, cand_gain, cand_idx, groups,
+      lane_bytes);
+  oblivious_pick_kernel<<<lanes, 256, 0, s>>>(cand_gain, cand_idx, groups, groups, n_nodes,
+                                              static_cast<int*>(feat), static_cast<int*>(bin),
+                                              static_cast<bool*>(has_split));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K4 over `lanes` fits: hist [lanes][n_nodes][F][64][2], col_mask
 // [lanes][F], lams [lanes] or null for lam; scratch int32 [lanes][2 *
 // n_cand]: n_cand = ceil(F / 4) in oblivious mode, n_nodes * ceil(F / 64)
@@ -2373,6 +2767,24 @@ extern "C" int bbbp_forest_level_splits_lanes(
   return level_splits(xb, n, F, pos, g, h, n_nodes, bounds, n_bins, col_mask, lams,
                       min_child, rows_per_item, own_rows, run, rows, plan,
                       acc, cand, feat, bin, has_split, lanes, lane_words, route, stream);
+}
+
+// The oblivious split search of one level over `lanes` fits in one pass (see
+// level_splits_oblivious): feat, bin, has_split [lanes][n_nodes] equal
+// bbbp_forest_best_splits_lanes on bbbp_forest_level_histogram_lanes's
+// histogram, oblivious mode, with no histogram in device memory.
+extern "C" int bbbp_forest_level_splits_oblivious_lanes(
+    const void* xb, int n, int F, const void* pos, const void* g, const void* h,
+    int n_nodes, const void* bounds, const void* col_mask, const void* lams,
+    float min_child, void* rows, void* plan, void* cand, void* feat, void* bin,
+    void* has_split, const void* f_l, const void* b_l, int route_nodes, void* feats,
+    void* bins, long long tree_lane, int lanes, long long lane_words, void* stream) {
+  Route route;
+  if (!parent_route(xb, F, f_l, b_l, route_nodes, feats, bins, tree_lane, n_nodes, &route))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return level_splits_oblivious(xb, n, F, pos, g, h, n_nodes, bounds, col_mask, lams,
+                                min_child, rows, plan, cand, feat, bin, has_split, lanes,
+                                lane_words, route, stream);
 }
 
 // scratch: int32 [2 * n_cand] candidates: n_cand = ceil(F / 4) in oblivious

@@ -32,10 +32,13 @@ is its plain version.
 ``fit_forest_lanes`` runs L fits of one shape over one binned matrix (the
 JAX package's vmapped ``_fit_forest_device``): each level's split search is
 one fused pass over the lanes (``level_splits_lanes``: K3's sums and K4's
-pick, with no histogram in device memory), or in oblivious mode K3 and K4
-with a lane axis (``level_histogram_lanes``, ``best_splits_lanes``); K5
-takes a lane axis (``leaf_values_lanes``: a thread block cluster a lane
-where one wave of the card holds the lanes' clusters, else a block a lane),
+pick, with no histogram in device memory; in oblivious mode
+``level_splits_oblivious_lanes``, which sums each gain over the level's
+nodes as it walks them); K3 and K4 with a lane axis
+(``level_histogram_lanes``, ``best_splits_lanes``) compute the same and
+stay as the yardstick of both; K5 takes a lane axis (``leaf_values_lanes``:
+a thread block cluster a lane where one wave of the card holds the lanes'
+clusters, else a block a lane),
 and each lane grows the trees of ``fit_forest`` with its seed bit for bit.
 
 The first tree's gradients, the random forest's weights and the
@@ -463,17 +466,33 @@ def histogram_plan(n: int, n_feat: int, n_nodes: int) -> dict:
     scales, items as 4 × int32, the slots' nodes, two counts) and the row
     order out in one buffer of ``words``."""
     rows_per_item = max(256, 32 * -(-n // 2048))
-    own_rows = 2 * rows_per_item
+    return {"tile_feats": 8 if n_feat <= 64 else 16,
+            "threads": 256 if n >= 128 * n_nodes else 128,
+            **_sort_layout(n, n_feat, n_nodes, rows_per_item, 2 * rows_per_item)}
+
+
+def _sort_layout(n: int, n_feat: int, n_nodes: int, rows_per_item: int,
+                 own_rows: int) -> dict:
+    """The sort's scratch at these item sizes (``sort_plan`` in
+    ``csrc/forest_train.cu``): offsets in int64 words of the accumulator
+    (at 0), the plan and the row order, and the words in all."""
     max_items = n_nodes + n // rows_per_item
     acc_slots = min(n_nodes, n // (own_rows + 1))
     plan = acc_slots * n_feat * MAX_BINS * 2
     rows = plan + 4 + (4 * max_items + acc_slots + 2 + 1) // 2
-    return {"tile_feats": 8 if n_feat <= 64 else 16,
-            "threads": 256 if n >= 128 * n_nodes else 128,
-            "rows_per_item": rows_per_item, "own_rows": own_rows,
+    return {"rows_per_item": rows_per_item, "own_rows": own_rows,
             "max_items": max_items, "acc_slots": acc_slots,
-            "plan": plan, "rows": rows,
-            "words": rows + (n + 1) // 2}
+            "plan": plan, "rows": rows, "words": rows + (n + 1) // 2}
+
+
+@functools.lru_cache(maxsize=256)
+def oblivious_plan(n: int, n_nodes: int) -> dict:
+    """The scratch of the fused oblivious search's sort, which owns every
+    node whole (rows_per_item = own_rows = n: an item a node, no
+    accumulator); ``lane_words`` its words a lane, rounded up to even."""
+    own = max(n, 1)
+    plan = _sort_layout(n, 0, n_nodes, own, own)
+    return {**plan, "lane_words": plan["words"] + (plan["words"] & 1)}
 
 
 def _sort_scratch(scratch: Optional[torch.Tensor], words: int,
@@ -486,14 +505,20 @@ def _sort_scratch(scratch: Optional[torch.Tensor], words: int,
 
 
 def sorted_rows(scratch: torch.Tensor, n: int, n_feat: int, n_nodes: int,
-                lane: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What the sort of K3 (or of the fused search) left in ``scratch``
-    for lane ``lane``: (node, row), each int32 [kept], the kept rows (weight
-    not 0) in the order the sort placed them, and each one's node, read
-    from the plan's items (node, first, end). For tests."""
-    plan = histogram_plan(n, n_feat, n_nodes)
-    part = scratch.view(-1, lane_words(n, n_feat, n_nodes))[lane] \
-        if scratch.numel() != plan["words"] else scratch
+                lane: int = 0, oblivious: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the sort of K3 (or of a fused search: ``oblivious`` for
+    ``level_splits_oblivious_lanes``'s) left in ``scratch`` for lane
+    ``lane``: (node, row), each int32 [kept], the kept rows (weight not 0) in
+    the order the sort placed them, and each one's node, read from the
+    plan's items (node, first, end). For tests."""
+    if oblivious:
+        plan = oblivious_plan(n, n_nodes)
+        stride = plan["lane_words"]
+    else:
+        plan = histogram_plan(n, n_feat, n_nodes)
+        stride = lane_words(n, n_feat, n_nodes)
+    part = scratch.view(-1, stride)[lane] if scratch.numel() != plan["words"] else scratch
     words = part[plan["plan"] + 4:plan["rows"]].cpu()
     ints = words.view(torch.int32)
     items = ints[:4 * plan["max_items"]].view(-1, 4)
@@ -874,28 +899,30 @@ def best_splits_lanes(hist: torch.Tensor, col_mask: torch.Tensor,
 
 def level_splits_lanes_reference(xb: torch.Tensor, pos: torch.Tensor,
                                  g: torch.Tensor, h: torch.Tensor, n_nodes: int,
-                                 col_mask: torch.Tensor, lam, min_child: float
+                                 col_mask: torch.Tensor, lam, min_child: float,
+                                 oblivious: bool = False
                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``best_splits_lanes_reference`` (per node) of
+    """``best_splits_lanes_reference`` (per node, or ``oblivious``) of
     ``level_histogram_lanes_reference``: each lane's splits from its f32
     histogram, summed in row order."""
     return best_splits_lanes_reference(
         level_histogram_lanes_reference(xb, pos, g, h, n_nodes), col_mask, lam,
-        min_child, False)
+        min_child, oblivious)
 
 
 def level_splits_lanes_fixed_reference(xb: torch.Tensor, pos: torch.Tensor,
                                        g: torch.Tensor, h: torch.Tensor,
                                        n_nodes: int, col_mask: torch.Tensor, lam,
-                                       min_child: float, bounds: torch.Tensor
+                                       min_child: float, bounds: torch.Tensor,
+                                       oblivious: bool = False
                                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``best_splits_lanes_reference`` (per node) of
+    """``best_splits_lanes_reference`` (per node, or ``oblivious``) of
     ``level_histogram_lanes_fixed_reference``: K3's fixed-point sums at each
-    lane's bounds, then K4's arithmetic, which is what the fused kernel
-    computes."""
+    lane's bounds, then K4's arithmetic, which is what the fused kernels
+    compute."""
     return best_splits_lanes_reference(
         level_histogram_lanes_fixed_reference(xb, pos, g, h, n_nodes, bounds),
-        col_mask, lam, min_child, False)
+        col_mask, lam, min_child, oblivious)
 
 
 SPLIT_GROUP = 8                     # features a unit of the fused split search
@@ -915,6 +942,43 @@ def split_run(lanes: int, units: int, sms: int) -> int:
     ``csrc/forest_train.cu``)."""
     return max(1, min(SPLIT_MAX_RUN,
                       lanes * units // (SPLIT_ROUNDS * sms * SPLIT_SM_WARPS)))
+
+
+def _check_lane_level(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
+                      h: torch.Tensor, n_nodes: int, col_mask: torch.Tensor,
+                      lam: torch.Tensor) -> Tuple[int, int, int]:
+    """Checks a fused split search's inputs; returns (n, F, L)."""
+    if xb.dtype != torch.uint8 or xb.dim() != 2 or not xb.is_contiguous():
+        raise TypeError(f"xb must be a contiguous 2-D uint8 tensor, got "
+                        f"{xb.dtype} {tuple(xb.shape)}")
+    if pos.dim() != 2:
+        raise TypeError(f"pos must be [L, n], got {tuple(pos.shape)}")
+    n, n_feat = xb.shape
+    lanes = pos.shape[0]
+    if n_feat < 1:
+        raise ValueError("xb needs a feature")
+    for name, t, dtype in (("pos", pos, torch.int32), ("g", g, torch.float32),
+                           ("h", h, torch.float32)):
+        _check_rows(name, t, dtype, (lanes, n), xb.device)
+    _check_rows("col_mask", col_mask, torch.bool, (lanes, n_feat), xb.device)
+    _check_rows("lam", lam, torch.float32, (lanes,), xb.device)
+    if not 1 <= n_nodes <= 1 << MAX_DEPTH:
+        raise ValueError(f"n_nodes must be in [1, {1 << MAX_DEPTH}], got {n_nodes}")
+    return n, n_feat, lanes
+
+
+def _lane_splits_out(lanes: int, n_nodes: int, g: torch.Tensor, h: torch.Tensor,
+                     bounds: Optional[torch.Tensor]):
+    """A fused search's outputs (feat, bin, has_split [L, n_nodes]) and its
+    bounds, checked, or taken from g and h when None."""
+    dev = g.device
+    feat = torch.empty((lanes, n_nodes), dtype=torch.int32, device=dev)
+    b = torch.empty((lanes, n_nodes), dtype=torch.int32, device=dev)
+    has_split = torch.empty((lanes, n_nodes), dtype=torch.bool, device=dev)
+    if bounds is None:
+        bounds = gradient_bounds(g, h)
+    _check_rows("bounds", bounds, torch.float32, (lanes, 2), dev)
+    return feat, b, has_split, bounds
 
 
 def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
@@ -941,22 +1005,7 @@ def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
     ``level_histogram_lanes``: the sort routes the parent level's positions
     in place. On a CPU tensor ``level_splits_lanes_reference`` runs, after
     ``route_rows_reference`` with a parent split."""
-    if xb.dtype != torch.uint8 or xb.dim() != 2 or not xb.is_contiguous():
-        raise TypeError(f"xb must be a contiguous 2-D uint8 tensor, got "
-                        f"{xb.dtype} {tuple(xb.shape)}")
-    if pos.dim() != 2:
-        raise TypeError(f"pos must be [L, n], got {tuple(pos.shape)}")
-    n, n_feat = xb.shape
-    lanes = pos.shape[0]
-    if n_feat < 1:
-        raise ValueError("xb needs a feature")
-    for name, t, dtype in (("pos", pos, torch.int32), ("g", g, torch.float32),
-                           ("h", h, torch.float32)):
-        _check_rows(name, t, dtype, (lanes, n), xb.device)
-    _check_rows("col_mask", col_mask, torch.bool, (lanes, n_feat), xb.device)
-    _check_rows("lam", lam, torch.float32, (lanes,), xb.device)
-    if not 1 <= n_nodes <= 1 << MAX_DEPTH:
-        raise ValueError(f"n_nodes must be in [1, {1 << MAX_DEPTH}], got {n_nodes}")
+    n, n_feat, lanes = _check_lane_level(xb, pos, g, h, n_nodes, col_mask, lam)
     if n_bins is not None:
         check_bin_counts(n_bins, xb, occupancy=not bins_checked)
     route, tree_lane = _parent_args(parent, xb, pos, n_nodes)
@@ -965,14 +1014,9 @@ def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
             xb, _plain_positions(xb, pos, n_nodes, parent, True), g, h, n_nodes,
             col_mask, lam, min_child)
     dev = xb.device
-    feat = torch.empty((lanes, n_nodes), dtype=torch.int32, device=dev)
-    b = torch.empty((lanes, n_nodes), dtype=torch.int32, device=dev)
-    has_split = torch.empty((lanes, n_nodes), dtype=torch.bool, device=dev)
+    feat, b, has_split, bounds = _lane_splits_out(lanes, n_nodes, g, h, bounds)
     if lanes == 0:
         return feat, b, has_split
-    if bounds is None:
-        bounds = gradient_bounds(g, h)
-    _check_rows("bounds", bounds, torch.float32, (lanes, 2), dev)
     plan = histogram_plan(n, n_feat, n_nodes)
     stride = lane_words(n, n_feat, n_nodes)
     scratch = _sort_scratch(scratch, lanes * stride, dev)
@@ -993,6 +1037,96 @@ def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
             lanes, stride, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_splits_lanes")
     level_splits_lanes.launches.add()
+    return feat, b, has_split
+
+
+OBLIVIOUS_GROUP = 32                # features a block of the fused oblivious search
+# Levels from the root that ``fit_forest_lanes`` gives the fused oblivious
+# search; deeper levels take K3 then K4 with lanes, faster there. By form
+# (``oblivious_form``): (blocks a SM from which it holds, levels), the
+# blocks being lanes x groups of features. torch_oblivious_profile.py on an
+# H100 80GB HBM3 (700 W, 132 SMs) over real trees at n = 8,162, F = 30
+# found the first level where the two kernels are faster at L = 10, 15, 33
+# (form 2): 0, 3, 4; L = 34, 80, 131 (form 1): 2, 3, 4; L = 132, 250, 255
+# (form 0): 5, 6, 7 (the times stand in forest_train.cu's design note).
+OBLIVIOUS_FUSED_LEVELS = (((0.0, 5), (1.89, 6), (1.93, 7)),
+                          ((0.0, 2), (2.42, 3), (3.96, 4)),
+                          ((0.0, 0), (0.45, 3), (1.0, 4)))
+
+
+def oblivious_form(lanes: int, n_feat: int, sms: int) -> int:
+    """The form the fused oblivious search's launch takes on a card of
+    ``sms`` SMs: 0, blocks of 32 features, where the lanes' blocks fill the
+    SMs; else 1, blocks of 8 features; 2, the same in blocks of 1,024
+    threads, where those do not fill the SMs either."""
+    if lanes * -(-n_feat // OBLIVIOUS_GROUP) >= sms:
+        return 0
+    return 2 if lanes * -(-n_feat // (OBLIVIOUS_GROUP // 4)) <= sms else 1
+
+
+def oblivious_fused_levels(lanes: int, n_feat: int, sms: int) -> int:
+    """Levels from the root whose oblivious split search ``fit_forest_lanes``
+    runs as the fused oblivious search on a card of ``sms`` SMs
+    (``OBLIVIOUS_FUSED_LEVELS`` at the form's blocks a SM)."""
+    form = oblivious_form(lanes, n_feat, sms)
+    group = OBLIVIOUS_GROUP if form == 0 else OBLIVIOUS_GROUP // 4
+    per_sm = lanes * -(-n_feat // group) / max(sms, 1)
+    return [levels for start, levels in OBLIVIOUS_FUSED_LEVELS[form] if per_sm >= start][-1]
+
+
+def level_splits_oblivious_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
+                                 h: torch.Tensor, n_nodes: int,
+                                 bounds: Optional[torch.Tensor], col_mask: torch.Tensor,
+                                 lam: torch.Tensor, min_child: float, *,
+                                 parent: Optional[ParentSplit] = None,
+                                 scratch: Optional[torch.Tensor] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One oblivious level's split search over lanes in one pass: the
+    counterpart of ``_grow_level(..., oblivious=True)`` under ``jax.vmap``
+    (``forest_tpu.py:135-146``, ``:154-231``). Inputs and outputs as
+    ``level_splits_lanes``'s; each lane's split is one (feat, bin) for the
+    whole level, written to every node, or (0, 63) where no gain summed
+    over the nodes is finite and positive.
+
+    On a CUDA tensor the kernel (``forest_level_splits_oblivious_lanes``)
+    sorts each lane's rows by node (K3's sort, with ``parent`` routing the
+    level before in place), and a block a (lane, group of 32 features, or of
+    8 where the lanes are too few to fill the card) walks the nodes in
+    order: each node's rows summed in K3's fixed point in shared memory, a
+    warp lane a (row, feature), K4's gains of every bin added to a running
+    total, K4's pick. Its result is
+    ``best_splits_lanes(level_histogram_lanes(...), ..., oblivious=True)``
+    on the same inputs, bit for bit, with no histogram in device memory.
+    ``scratch``, optional: int64 [L · oblivious_plan(n, n_nodes)
+    ["lane_words"]], the sort's plan and row order (``sorted_rows(...,
+    oblivious=True)``). On a CPU tensor ``level_splits_lanes_reference``
+    (oblivious) runs, after ``route_rows_reference`` with a parent split."""
+    n, n_feat, lanes = _check_lane_level(xb, pos, g, h, n_nodes, col_mask, lam)
+    route, tree_lane = _parent_args(parent, xb, pos, n_nodes)
+    if not _kernel_device(xb, "forest_level_splits_oblivious_lanes"):
+        return level_splits_lanes_reference(
+            xb, _plain_positions(xb, pos, n_nodes, parent, True), g, h, n_nodes,
+            col_mask, lam, min_child, oblivious=True)
+    dev = xb.device
+    feat, b, has_split, bounds = _lane_splits_out(lanes, n_nodes, g, h, bounds)
+    if lanes == 0:
+        return feat, b, has_split
+    plan = oblivious_plan(n, n_nodes)
+    stride = plan["lane_words"]
+    scratch = _sort_scratch(scratch, lanes * stride, dev)
+    base = scratch.data_ptr()
+    # a (gain, index) candidate of each lane and group of features: 32 a
+    # group, or 8 where the lanes' blocks would not fill the card
+    cand = torch.empty(2 * lanes * -(-n_feat // 8), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kernels_lib().bbbp_forest_level_splits_oblivious_lanes(
+            xb.data_ptr(), n, n_feat, pos.data_ptr(), g.data_ptr(), h.data_ptr(),
+            n_nodes, bounds.data_ptr(), col_mask.data_ptr(), lam.data_ptr(),
+            float(min_child), base + 8 * plan["rows"], base + 8 * plan["plan"],
+            cand.data_ptr(), feat.data_ptr(), b.data_ptr(), has_split.data_ptr(), *route,
+            tree_lane, lanes, stride, torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "forest_level_splits_oblivious_lanes")
+    level_splits_oblivious_lanes.launches.add()
     return feat, b, has_split
 
 
@@ -1116,6 +1250,7 @@ def leaf_values_lanes(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
 level_histogram_lanes.launches = LaunchCounter()
 best_splits_lanes.launches = LaunchCounter()
 level_splits_lanes.launches = LaunchCounter()
+level_splits_oblivious_lanes.launches = LaunchCounter()
 leaf_values_lanes.launches = LaunchCounter()
 
 
@@ -1247,7 +1382,8 @@ def column_mask(u: torch.Tensor, colsample) -> torch.Tensor:
 
 # every counter of a kernel that a tree launches
 TREE_KERNELS = (level_histogram, best_splits, leaf_values, level_histogram_lanes,
-                best_splits_lanes, level_splits_lanes, leaf_values_lanes, forest_draws)
+                best_splits_lanes, level_splits_lanes, level_splits_oblivious_lanes,
+                leaf_values_lanes, forest_draws)
 
 
 # each card's last captured tree: its memory pool is the next capture's
@@ -1438,17 +1574,22 @@ def _per_lane(value, lanes: int, device: torch.device) -> torch.Tensor:
 def lane_bytes(n: int, n_feat: int, depth: int, n_trees: int,
                oblivious: bool = False) -> int:
     """Device bytes one lane of ``fit_forest_lanes`` holds at its deepest
-    level: K3's scratch (the fused split search's too), the rows' [n] arrays
-    (positions, margins, gradients, draws, weights, the next tree's), the
-    trees and, in oblivious mode, the [nodes, F, 64, 2] histogram between
-    K3 and K4, else the fused search's candidates (8 bytes a node and group
-    of 8 features)."""
+    level: its split search's scratch and candidates (per node: K3's scratch
+    and 8 bytes a node and group of 8 features; oblivious: the fused
+    search's sort scratch and at most 8 bytes a feature, and, where a form
+    gives that level to K3 then K4 with lanes (``OBLIVIOUS_FUSED_LEVELS``),
+    K3's scratch and the [nodes, F, 64, 2] histogram between them), the
+    rows' [n] arrays (positions, margins, gradients, draws, weights, the
+    next tree's) and the trees."""
     nodes = 1 << max(depth - 1, 0)
     internal, leaves = (1 << depth) - 1, 1 << depth
-    hist = (nodes * n_feat * MAX_BINS * 8 if oblivious
-            else nodes * -(-n_feat // SPLIT_GROUP) * 8)
-    return (hist + 8 * lane_words(n, n_feat, nodes)
-            + 4 * 12 * n + n_trees * (12 * internal + 4 * leaves))
+    if oblivious:
+        search = 8 * oblivious_plan(n, nodes)["lane_words"] + 8 * n_feat
+        if depth > min(lv for form in OBLIVIOUS_FUSED_LEVELS for _, lv in form):
+            search += 8 * lane_words(n, n_feat, nodes) + nodes * n_feat * MAX_BINS * 8
+    else:
+        search = 8 * lane_words(n, n_feat, nodes) + nodes * -(-n_feat // SPLIT_GROUP) * 8
+    return search + 4 * 12 * n + n_trees * (12 * internal + 4 * leaves)
 
 
 def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
@@ -1469,10 +1610,13 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
     A tree's draws are one K9 launch a stream for every lane, keyed by the
     lane's seed, so lane l grows the trees, leaves and margins of
     ``fit_forest`` with ``seeds[l]`` and lane l's parameters bit for bit,
-    whatever the lanes and their order: each tree level is one call of the
-    fused split search (oblivious: K3 and K4) over all lanes, which routes
-    the level before, and each tree one of K5, which routes the last. On the
-    card the trees after the first replay one CUDA graph of a tree."""
+    whatever the lanes and their order: each tree level is one call of a
+    fused split search over all lanes (``level_splits_lanes``, or
+    ``level_splits_oblivious_lanes`` at an oblivious tree's first
+    ``oblivious_fused_levels`` levels, K3 then K4 with lanes past them),
+    which routes the level before, and each tree one of K5, which routes the
+    last. On the card the trees after
+    the first replay one CUDA graph of a tree."""
     if task not in ("reg", "cls"):
         raise ValueError(f"task must be 'reg' or 'cls', got {task!r}")
     if not 0 <= depth <= MAX_DEPTH:
@@ -1499,6 +1643,12 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
     tree_bins = torch.zeros((lanes, 1, n_internal), dtype=torch.int32, device=dev)
     scale = torch.ones(lanes, device=dev) if rf else lr
     pos = torch.empty((lanes, n), dtype=torch.int32, device=dev)   # as fit_forest's
+    # a CPU counts no SMs (the first form's levels): both ways run the plain
+    # versions there
+    fused_levels = oblivious_fused_levels(
+        lanes, n_feat,
+        torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda"
+        else 0)
     if not rf and n_trees:                      # later trees' come from K5
         g, h, bounds = next_gradients_reference(
             preds, y, forest_draws(seed_t, tree, "subsample", n), subsample[:, None],
@@ -1515,7 +1665,11 @@ def fit_forest_lanes(xb: torch.Tensor, edge_vals: torch.Tensor, y: torch.Tensor,
                                colsample[:, None])
         parent = None
         for level in range(depth):
-            if oblivious:               # a level's gain sums over its nodes
+            if oblivious and level < fused_levels:   # a level's gain sums over its nodes
+                f_l, b_l, _ = level_splits_oblivious_lanes(
+                    xb, pos, g_t, h_t, 1 << level, b_t, col_mask, lam, min_child,
+                    parent=parent)
+            elif oblivious:
                 hist = level_histogram_lanes(xb, pos, g_t, h_t, 1 << level, b_t,
                                              n_bins, bins_checked=True, parent=parent)
                 f_l, b_l, _ = best_splits_lanes(hist, col_mask, lam, min_child, True)

@@ -21,6 +21,10 @@ F32_OPS_PER_S = 67e12
 # a clock an SM, i.e. 21,837 bit pairs ANDed and counted.
 POPC_PER_S = 4.173e12
 INT32_OPS_PER_S = 1.628e13
+# The same way, the two 32-bit integer pipes: IMAD (the FMA pipe) alone
+# 63.91 a clock an SM, and four chains of LOP3 (the ALU pipe) beside four
+# of IMAD 103.03: the two issue together, 1.67x LOP3 alone.
+INT32_TWO_PIPES_OPS_PER_S = 2.752e13
 BMMA_BIT_PAIRS_PER_S = 5.229e15
 
 
@@ -164,6 +168,19 @@ def level_splits_bound(n: int, n_feat: int, n_nodes: int, lanes: int,
                   lanes * (2 * n * n_feat + route_ops) + 15 * occupied)
 
 
+def level_splits_oblivious_bound(n: int, n_feat: int, n_nodes: int, lanes: int,
+                                 parent_nodes: int = 0) -> Dict[str, object]:
+    """The fused oblivious split search of one level over lanes: bytes as
+    ``level_splits_bound`` counts them; operations two adds per (row,
+    feature, lane) and K4's 15 f32 operations (``best_splits_bound``) per
+    (lane, node, feature, bin) over every bin, since each bin's gain is
+    summed over the level's nodes whether a row reaches it or not. With a
+    parent split, its routing (``_routing``)."""
+    route_bytes, route_ops = _routing(n, parent_nodes)
+    return _bound(n * n_feat + lanes * (12 * n + n_feat + 4 + 9 * n_nodes + route_bytes),
+                  lanes * (2 * n * n_feat + route_ops + 15 * n_nodes * n_feat * 64))
+
+
 def leaf_values_bound(n: int, n_leaves: int, next_tree: bool = False,
                       lanes: int = 1, n_feat: int = 0) -> Dict[str, object]:
     """pos, g and h read once, the margins read and written once, the leaves
@@ -190,20 +207,30 @@ def leaf_values_bound(n: int, n_leaves: int, next_tree: bool = False,
 # what a Threefry-2x32 block needs a draw, with what is fixed for a lane
 # and a tree counted once (the first word's key add, the injections'
 # constants): the second word's key add, 20 rounds of an add, a funnel
-# shift and a xor, and 5 key injections of one add to each word
-THREEFRY_OPS = 1 + 20 * 3 + 5 * 2
-# a uniform's shift and scale; a Poisson count's binary search over the 13
-# thresholds, ceil(log2(14)) = 4 compares and 4 selects
+# shift and a xor, and 5 key injections of one add to each word. The adds
+# issue on the ALU pipe (IADD3) or the FMA pipe (IMAD), the shifts and xors
+# on the ALU pipe only.
+THREEFRY_ADDS, THREEFRY_ALU = 1 + 20 + 5 * 2, 20 * 2
+THREEFRY_OPS = THREEFRY_ADDS + THREEFRY_ALU
+# a uniform's shift (the ALU pipe) and scale (either); a Poisson count's
+# binary search over the 13 thresholds, ceil(log2(14)) = 4 compares and 4
+# selects (the ALU pipe)
 UNIFORM_OPS, POISSON_OPS = 2, 8
+UNIFORM_ALU, POISSON_ALU = 1, 8
 
 
 def forest_draws_bound(lanes: int, size: int, poisson: bool) -> Dict[str, object]:
     """K9: the seeds and the tree index read once, the f32 draws written
     once; a Threefry block a draw and its output, as 32-bit integer
-    operations at the rate ``torch_rate_profile.py`` measured (LOP3)."""
+    operations on the card's two integer pipes at once: those only the ALU
+    pipe issues at its LOP3 rate, and all of them at the rate LOP3 and IMAD
+    reach together (both measured by ``torch_rate_profile.py``); the
+    operations' time is the larger."""
     draws = lanes * size
+    alu = draws * (THREEFRY_ALU + (POISSON_ALU if poisson else UNIFORM_ALU))
     ops = draws * (THREEFRY_OPS + (POISSON_OPS if poisson else UNIFORM_OPS))
-    return _bound(4 * draws + 8 * lanes + 8, ops, ops / INT32_OPS_PER_S * 1e3)
+    return _bound(4 * draws + 8 * lanes + 8, ops,
+                  max(alu / INT32_OPS_PER_S, ops / INT32_TWO_PIPES_OPS_PER_S) * 1e3)
 
 
 def topk_bound(nq: int, nr: int, words: int, k: int) -> Dict[str, object]:

@@ -235,9 +235,11 @@ before its last line):
    10's search matrix (its training rows after SMOTE-Tomek, 30 PCA
    columns): ``tune_zoo`` of the five forest families at phase 10's trials
    x 5 folds as lanes, family by family, every launch counter set to 0
-   before and read after (the fused split search, K5 with lanes and the
-   lanes must move, K3 and K4 with lanes in cat's oblivious search only,
-   the single-fit kernels and the forest kernel never), each trial's CV
+   before and read after (the fused split search, K5 with lanes and K9
+   must move; in cat's search only the fused oblivious search, at the
+   levels ``oblivious_fused_levels`` gives its lanes, and K3 then K4 with
+   lanes at the others; the single-fit kernels and the forest kernel
+   never), each trial's CV
    accuracy within 0.006 of phase 10's
    sequential search, and fold 0 of every trial (its lane in a group fit
    as the search fits it) bit-equal to ``fit_forest`` with the trial's seed:
@@ -265,9 +267,19 @@ before its last line):
    weights), held bit for bit and timed, the fused search also with each
    warp taking one unit; the fused search of the next level with the
    routing against the same call alone and ``route_rows_reference``, and K5
-   with lanes in both shapes, at L = 15 and 250; then xgb's search at 50 + 1 trials
-   x 5 folds = 255 lanes and rf's at 50 + 1 (a 250-lane group of 300 trees
-   of depth 10): wall s, peak memory, launches, lane blocks, and under
+   with lanes in both shapes, at L = 15 and 250; the fused oblivious search
+   (``level_splits_oblivious_lanes``) at L = 15 and 250, levels 0-5, 9 and
+   11, given a random split of the level before (half its nodes sending
+   every row left), routed in place, bit-equal to K3 then K4 with lanes
+   (oblivious) at min_child 0 and 1 with column masks and none, and to its
+   fixed-point plain version (every lane at L = 15, every 10th at L = 250)
+   but at counted near ties, timed
+   beside the two kernels and its bound, at levels 0 and 5 beside K3 with
+   lanes' ``index_add_`` and (L = 15) its plain version; then xgb's search
+   at 50 + 1 trials
+   x 5 folds = 255 lanes, rf's at 50 + 1 (a 250-lane group of 300 trees
+   of depth 10) and cat's at 50 + 1 (255 oblivious lanes of 300 trees of
+   depth 6): wall s, peak memory, launches, lane blocks, and under
    ``torch.profiler`` the device busy time and the host's launch calls over
    the whole search (at most 4 a tree step; no ``torch.Generator`` draw);
    every lane group of the five searches bit-equal to the eager loop
@@ -489,6 +501,8 @@ LANES_SCORE_TOL = 0.006
 LANES_L = 15                      # the kernels' lanes: 3 trials x 5 folds
 LANES_WIDE_L = 250                # a tuned group's: 50 trials x 5 folds
 LANES_LEVELS = (0, 5, 9, 11)      # depth 6 (gb, xgb, cat), 10 (rf), 12 (dt)
+OBLIVIOUS_LEVELS = (0, 1, 2, 3, 4, 5, 9, 11)   # cat's depth-6 levels, and deep ones
+OBLIVIOUS_LIBRARY_LEVELS = (0, 5)   # where K3 with lanes' index_add_ is timed too
 LANES_GROUP_TRIALS = 50           # + the default: xgb's 255-lane group
 # phase 6: the tree as one CUDA graph and K9's keyed draws
 DRAW_WIDE_L = 255                 # K9's lanes at xgb's tuned group's width
@@ -684,6 +698,111 @@ def hold_fused(tr, xb, pos, g, h, nodes, bounds, n_bins, hist, masks, lam, probl
                 held["fused_near"] += near
                 held["fused_err"] = max(held["fused_err"], worst)
             held["fused_calls"] += 1
+
+
+def oblivious_levels(tr, device_ms, xb, y, w, n_bins, lanes, gen, problems, held,
+                     plain=False, plain_lanes=None) -> dict:
+    """The fused oblivious search (``level_splits_oblivious_lanes``) over
+    ``lanes`` lanes at each of ``OBLIVIOUS_LEVELS``: given a random split of
+    the level before (half its nodes sending every row left, so that nodes
+    are empty), routed in place, bit-equal to K3 with lanes then K4 with
+    lanes (oblivious) on the routed positions, at min_child 0 and 1, with a
+    column mask and without, lambda 0.1-10 a lane and a lane of 40x
+    gradients, and, on ``plain_lanes`` (default all), equal to its
+    fixed-point plain version but at counted near ties (a lane's level
+    whose split differs; the largest score gap in ``held``); then timed on
+    the routed positions beside the two kernels,
+    its bound and, at ``OBLIVIOUS_LIBRARY_LEVELS``, one ``index_add_`` over
+    the lanes' keys (K3 with lanes' library call) and, with ``plain``, its
+    plain version."""
+    import torch
+
+    from bbbp_tpu_torch.timing import level_splits_oblivious_bound
+
+    cuda = xb.device
+    n, n_feat = xb.shape
+    p = torch.sigmoid(torch.randn(lanes, n, generator=gen, device=cuda))
+    g = (p - y) * w
+    h = torch.clamp(p * (1 - p), min=1e-6) * w
+    g[1] *= 40.0
+    bounds = tr.gradient_bounds(g, h)
+    lam = torch.logspace(-1, 1, lanes, device=cuda)
+    lam_host = lam.tolist()
+    mask = torch.rand(lanes, n_feat, generator=gen, device=cuda) < 0.7
+    mask[:, -1] = True
+    every = torch.ones(lanes, n_feat, dtype=torch.bool, device=cuda)
+    sub = list(range(lanes) if plain_lanes is None else plain_lanes)
+    timed = {}
+    for level in OBLIVIOUS_LEVELS:
+        nodes = 1 << level
+        parent_nodes = max(nodes // 2, 1)
+        start = torch.randint(0, parent_nodes, (lanes, n), generator=gen,
+                              dtype=torch.int32, device=cuda)
+        f_p = torch.randint(0, n_feat, (lanes, parent_nodes), generator=gen,
+                            dtype=torch.int32, device=cuda)
+        b_p = torch.randint(0, 64, (lanes, parent_nodes), generator=gen,
+                            dtype=torch.int32, device=cuda)
+        b_p[:, ::2] = 63
+        feats = torch.zeros((lanes, 1, 2 * nodes), dtype=torch.int32, device=cuda)
+        bins = torch.zeros_like(feats)
+        pos = start.clone()
+        if level:
+            tr.route_rows_reference(xb, pos, f_p, b_p, feats.clone(), bins.clone(), 0,
+                                    level - 1)
+        hist = tr.level_histogram_lanes(xb, pos, g, h, nodes, bounds, n_bins,
+                                        bins_checked=True)
+        for min_child in (0.0, 1.0):
+            for col in (mask, every):
+                routed = start.clone()
+                got = tr.level_splits_oblivious_lanes(
+                    xb, routed, g, h, nodes, bounds, col, lam, min_child,
+                    parent=tr.ParentSplit(f_p, b_p, feats, bins, 0, level - 1)
+                    if level else None)
+                two = tr.best_splits_lanes(hist, col, lam, min_child, True)
+                want = tr.level_splits_lanes_fixed_reference(
+                    xb, pos[sub], g[sub], h[sub], nodes, col[sub],
+                    [lam_host[i] for i in sub], min_child, bounds[sub], oblivious=True)
+                torch.cuda.synchronize()
+                off = sum(int((a != b).sum()) for a, b in zip(got, two))
+                if off or not torch.equal(routed, pos):
+                    problems.append(f"level_splits_oblivious_lanes L={lanes} level {level} "
+                                    f"min_child {min_child}: {off} values off K3 then K4 "
+                                    f"with lanes, positions "
+                                    f"{int((routed != pos).sum())} off")
+                for j, i in enumerate(sub):
+                    near, worst = split_mismatches(tr, hist[i], col[i], min_child, True,
+                                                   [a[i] for a in got], [b[j] for b in want],
+                                                   lam=lam_host[i])
+                    held["oblivious_near"] += bool(near)
+                    held["oblivious_err"] = max(held["oblivious_err"], worst)
+                held["oblivious_calls"] += 1
+        few = dict(calls=2, replays=5) if level >= 9 else {}
+        t = {"fused": device_ms(lambda: tr.level_splits_oblivious_lanes(
+                 xb, pos, g, h, nodes, bounds, every, lam, 1.0)),
+             "k3": device_ms(lambda: tr.level_histogram_lanes(
+                 xb, pos, g, h, nodes, bounds, n_bins, bins_checked=True), **few),
+             "k4": device_ms(lambda: tr.best_splits_lanes(hist, every, lam, 1.0, True),
+                             **few),
+             "bound": level_splits_oblivious_bound(n, n_feat, nodes, lanes)}
+        t["two"] = t["k3"] + t["k4"]
+        if level in OBLIVIOUS_LIBRARY_LEVELS:
+            keys = (torch.arange(lanes, device=cuda)[:, None, None] * (nodes * n_feat * 64)
+                    + pos.long()[:, :, None] * (n_feat * 64)
+                    + torch.arange(n_feat, device=cuda)[None, None, :] * 64
+                    + xb.long()[None]).reshape(-1)
+            vals = torch.stack([g, h], dim=-1)[:, :, None, :].expand(
+                lanes, n, n_feat, 2).reshape(-1, 2)
+            t["k3_library"] = device_ms(lambda: torch.zeros(
+                (lanes * nodes * n_feat * 64, 2), device=cuda).index_add_(0, keys, vals))
+            del keys, vals
+        if plain and level in OBLIVIOUS_LIBRARY_LEVELS:
+            t["plain"] = device_ms(lambda: tr.level_splits_lanes_reference(
+                xb, pos, g, h, nodes, every, lam_host, 1.0, oblivious=True),
+                calls=2, replays=3)
+        timed[level] = t
+        del hist
+        torch.cuda.empty_cache()
+    return timed
 
 
 def hold_lane_routing(tr, xb, pos, g, h, bounds, n_bins, f_l, b_l, level, col, lam,
@@ -1579,7 +1698,7 @@ def transfer_phase(card, counters, aux, reg, reg_raw, cache_dir):
             "tanimoto_topk": 2, "tanimoto_gram": 0, "minmax_gram": 0,
             "forest_level_histogram_lanes": 0,
             "forest_best_splits_lanes": 0, "forest_level_splits_lanes": 0,
-            "forest_leaf_values_lanes": 0}
+            "forest_level_splits_oblivious_lanes": 0, "forest_leaf_values_lanes": 0}
     if launched != want:
         raise AssertionError(f"transfer_features launches {launched}, expected {want}")
     f = res.features
@@ -3177,8 +3296,10 @@ def lanes_phase(card, counters, p10) -> dict:
     problems = []
     fx, fy, tcfg = p10["search_x"], p10["search_y"], p10["forest_cfg"]
     seq_trials = p10["forest_trials"]
-    lane_names = ("forest_level_splits_lanes", "forest_level_histogram_lanes",
-                  "forest_best_splits_lanes", "forest_leaf_values_lanes")
+    lane_names = ("forest_level_splits_lanes", "forest_level_splits_oblivious_lanes",
+                  "forest_leaf_values_lanes")
+    # K3 and K4 with lanes: the fused searches' yardstick, and an oblivious
+    # tree's levels past oblivious_fused_levels (cat's search's, at its lanes)
     two_kernels = ("forest_level_histogram_lanes", "forest_best_splits_lanes")
     single_names = ("forest_level_histogram", "forest_best_splits",
                     "forest_leaf_values", "dense_forest_predict")
@@ -3193,6 +3314,30 @@ def lanes_phase(card, counters, p10) -> dict:
     def trial_params(t):
         return {k: v for k, v in t.items()
                 if not k.startswith("mean_") and k != "repeat_std"}
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+
+    def oblivious_split(counts, lanes, depth) -> str:
+        """'' where an oblivious lane group's launches are the cut-over's:
+        the fused oblivious search at each tree's first
+        ``oblivious_fused_levels`` levels, K3 then K4 with lanes at the
+        others, the per-node search never; else what differs."""
+        fused = min(depth, tr.oblivious_fused_levels(lanes, fx.shape[1], sms))
+        obl = counts.get("forest_level_splits_oblivious_lanes", 0)
+        k3, k4 = (counts.get(k, 0) for k in two_kernels)
+        if (k3 == k4 and bool(obl) == (fused > 0) and bool(k3) == (fused < depth)
+                and obl * (depth - fused) == k3 * fused
+                and not counts.get("forest_level_splits_lanes", 0)):
+            return ""
+        return (f"{lanes} oblivious lanes of depth {depth}: the fused oblivious search "
+                f"{obl}, K3 / K4 with lanes {k3} / {k4}, the per-node search "
+                f"{counts.get('forest_level_splits_lanes', 0)} launches, the fused search "
+                f"due at {fused} levels")
+
+    cat_depths = {int(trial_params(t).get("max_depth", 6)) for t in seq_trials["cat"]}
+    cat_lanes = len(seq_trials["cat"]) * tcfg.search_folds
+    cat_depth = max(cat_depths)
+    cat_fused = min(cat_depth, tr.oblivious_fused_levels(cat_lanes, fx.shape[1], sms))
 
     def searched_group(m):
         """m's tuned search with the lanes (``LANES_GROUP_TRIALS`` + the
@@ -3223,6 +3368,12 @@ def lanes_phase(card, counters, p10) -> dict:
                 // bs.lane_block(n_rows, n_cols, depth, n_est, obl))]
             for (_, n_est, depth, obl), t_ids in bs._forest_groups(params).items()}
         out["tree_steps"] = sum(n_est for _, n_est, _, _ in bs._forest_groups(params))
+        shapes = bs._forest_groups(params)
+        if m == "cat" and len(shapes) == 1:         # the cut-over at the group's lanes
+            (_, n_est, depth, _), t_ids = next(iter(shapes.items()))
+            off = oblivious_split(out["launches"], len(t_ids) * tcfg.search_folds, depth)
+            if off:
+                problems.append(f"cat's group: {off}")
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -3250,7 +3401,8 @@ def lanes_phase(card, counters, p10) -> dict:
     bs.FOREST_VMAP = True
     try:
         # -- the five families' searches through tune_zoo, on the lanes, family
-        # by family: K3 and K4 with lanes in cat's oblivious search only ------
+        # by family: the fused oblivious search in cat's only, K3 and K4 with
+        # lanes in none ------------------------------------------------------
         lane_trials, lane_walls, family_launches = {}, {}, {}
         search_s = 0.0
         for m in bs.FOREST_FAMILIES:
@@ -3265,13 +3417,20 @@ def lanes_phase(card, counters, p10) -> dict:
             lane_trials.update(trials_m)
             lane_walls.update(walls_m)
             fused = family_launches[m]["forest_level_splits_lanes"]
+            obl = family_launches[m]["forest_level_splits_oblivious_lanes"]
             two = [family_launches[m][name] for name in two_kernels]
-            if not ((all(two) and not fused) if m == "cat" else (fused and not any(two))):
-                problems.append(f"{m} lane search: fused {fused}, K3 / K4 with lanes "
-                                f"{two} launches")
+            if m == "cat":
+                off = ("" if len(cat_depths) == 1 else f"depths {sorted(cat_depths)}") or \
+                    oblivious_split(family_launches[m], cat_lanes, cat_depth)
+                if off:
+                    problems.append(f"cat lane search: {off}")
+            elif not fused or obl or any(two):
+                problems.append(f"{m} lane search: fused {fused}, oblivious {obl}, K3 / K4 "
+                                f"with lanes {two} launches")
         launches = {name: sum(f[name] for f in family_launches.values())
                     for name in counters}
-        for name in lane_names + ("forest_draws",):
+        for name in ("forest_level_splits_lanes", "forest_leaf_values_lanes",
+                     "forest_draws") + (lane_names[1:2] if cat_fused else two_kernels):
             if not launches[name]:
                 problems.append(f"the lane search launched no {name}")
         for name in single_names:
@@ -3342,10 +3501,10 @@ def lanes_phase(card, counters, p10) -> dict:
               f"{ {m: s['lane_s'] for m, s in scores.items()} } | against phase 10's "
               f"sequential search: {scores} (limit {LANES_SCORE_TOL}) | launches "
               f"{ {k: v for k, v in launches.items() if v or k in single_names} }, "
-              f"K3 / K4 with lanes { {m: [f[k] for k in two_kernels] for m, f in family_launches.items()} } "
-              f"and the fused search "
-              f"{ {m: f['forest_level_splits_lanes'] for m, f in family_launches.items()} } "
-              f"a family | "
+              f"the fused search, its oblivious form and K3 / K4 with lanes "
+              f"{ {m: [f[k] for k in lane_names[:2] + two_kernels] for m, f in family_launches.items()} } "
+              f"a family (cat's {cat_lanes} lanes: the fused oblivious search at "
+              f"{cat_fused} of {cat_depth} levels) | "
               f"fold 0 of {checked} trials: margins, trees, thresholds and leaves "
               f"bit-equal to fit_forest with the trial's seed; {groups_eager} lane groups "
               f"(every lane) bit-equal to the eager loop (graph=False)", flush=True)
@@ -3366,7 +3525,8 @@ def lanes_phase(card, counters, p10) -> dict:
         lam = torch.logspace(-1, 1, L, device=cuda)
         lam_host = lam.tolist()
         held = {"k3_err": 0.0, "k4_near": 0, "k4_err": 0.0, "k4_calls": 0,
-                "fused_near": 0, "fused_err": 0.0, "fused_calls": 0, "routed_sorts": 0}
+                "fused_near": 0, "fused_err": 0.0, "fused_calls": 0, "routed_sorts": 0,
+                "oblivious_calls": 0, "oblivious_near": 0, "oblivious_err": 0.0}
         timed = {}
         every = torch.ones(L, n_feat, dtype=torch.bool, device=cuda)
         for level in LANES_LEVELS:
@@ -3459,6 +3619,8 @@ def lanes_phase(card, counters, p10) -> dict:
             t["two"] = t["k3"] + t["k4"]
             del hist, keys, vals
 
+        obl = oblivious_levels(tr, device_ms, xb, y, w, n_bins, L, gen, problems, held,
+                               plain=True)
         # K5 over lanes with the next tree, 64 and 1,024 leaves, routing the
         # last level's split as a fit calls it, in both launch shapes
         scale = torch.linspace(0.02, 0.3, L, device=cuda)
@@ -3547,6 +3709,8 @@ def lanes_phase(card, counters, p10) -> dict:
             wide[level]["two"] = wide[level]["k3"] + wide[level]["k4"]
             del hist_w, routing_w
             torch.cuda.empty_cache()
+        obl_wide = oblivious_levels(tr, device_ms, xb, y, w_wide, n_bins, WL, gen,
+                                    problems, held, plain_lanes=range(0, WL, 10))
         # K5 with lanes at L = 250 in both launch shapes, routing as in a fit
         k5_wide = {}
         margins_wide = torch.randn(WL, n, generator=gen, device=cuda)
@@ -3564,15 +3728,15 @@ def lanes_phase(card, counters, p10) -> dict:
 
         stage_s["kernels held and timed"] = time.time() - t_stage
         t_stage = time.time()
-        # -- xgb's and rf's tuned groups: 50 + 1 trials x 5 folds --------------
+        # -- xgb's, rf's and cat's tuned groups: 50 + 1 trials x 5 folds ------
         groups = {}
-        for m in ("xgb", "rf"):
+        for m in ("xgb", "rf", "cat"):
             groups[m] = searched_group(m)
             stage_s[f"{m} group"] = time.time() - t_stage
             t_stage = time.time()
     finally:
         bs.FOREST_VMAP = vmap_before
-    for m, (trees, depth) in (("xgb", (300, 6)), ("rf", (300, 10))):
+    for m, (trees, depth) in (("xgb", (300, 6)), ("rf", (300, 10)), ("cat", (300, 6))):
         info = groups[m]
         group = info["group"]
         print(f"[14 {m} group] batched_random_search({m!r}) with the lanes, "
@@ -3600,6 +3764,9 @@ def lanes_phase(card, counters, p10) -> dict:
 
     def wv(key, field=None):                # at L = 250
         return lv(key, field, wide)
+
+    def ov(key, at, field=None):            # the oblivious search's levels
+        return [at[lv_][key][field] if field else at[lv_][key] for lv_ in OBLIVIOUS_LEVELS]
 
     print(f"[14 lane kernels] L={L} lanes (3 trials x 5 folds' row weights), "
           f"n={n}, F={n_feat}, levels {list(LANES_LEVELS)} (ms): "
@@ -3651,25 +3818,93 @@ def lanes_phase(card, counters, p10) -> dict:
           f"of 40x gradients, zero-weight rows) bit-equal to K3 then K4 with lanes, "
           f"and to the fixed-point plain version (all lanes at L={L}, every 10th at "
           f"L={LANES_WIDE_L}) but {held['fused_near']} counted near ties (max "
-          f"|dscore| {held['fused_err']:.3g})", flush=True)
+          f"|dscore| {held['fused_err']:.3g}) | oblivious "
+          f"(level_splits_oblivious_lanes), levels {list(OBLIVIOUS_LEVELS)}: "
+          + " ; ".join(
+              f"L={lanes_} {fmt(ov('fused', at))} against K3 + K4 with lanes "
+              f"{fmt(ov('two', at))} (K3 {fmt(ov('k3', at))}, K4 {fmt(ov('k4', at))}), "
+              f"bound {fmt(ov('bound', at, 'bound_ms'))}"
+              + f"; at levels {list(OBLIVIOUS_LIBRARY_LEVELS)} "
+              + (f"plain {fmt([at[lv_]['plain'] for lv_ in OBLIVIOUS_LIBRARY_LEVELS])}, "
+                 if "plain" in at[0] else "")
+              + f"K3 with lanes' index_add_ "
+              f"{fmt([at[lv_]['k3_library'] for lv_ in OBLIVIOUS_LIBRARY_LEVELS])}"
+              for lanes_, at in ((L, obl), (LANES_WIDE_L, obl_wide)))
+          + f" | {held['oblivious_calls']} calls (the level before routed in place, half "
+          f"its nodes sending every row left, min_child 0 and 1, column masks and none, "
+          f"lambda 0.1-10 a lane, a lane of 40x gradients) bit-equal to K3 then K4 with "
+          f"lanes (oblivious), and to the fixed-point plain version (all lanes at L={L}, "
+          f"every 10th at L={LANES_WIDE_L}) but {held['oblivious_near']} counted near-tie "
+          f"lane levels (max |dscore| {held['oblivious_err']:.3g})", flush=True)
+    # a lane kernel's launches on the path: the five searches' and the groups'
+    path_launches = {name: launches[name] + sum(g_["launches"].get(name, 0)
+                                                for g_ in groups.values())
+                     for name in lane_names + two_kernels}
+    for name in lane_names:
+        if not path_launches[name]:
+            problems.append(f"phase 14 launched no {name}")
     if problems:
         raise AssertionError("phase 14: " + " | ".join(problems))
     main = LANES_LEVELS.index(5)
     replaces = {"forest_level_splits_lanes": "bbbp_tpu/ops/forest_tpu.py:154",
+                "forest_level_splits_oblivious_lanes": "bbbp_tpu/ops/forest_tpu.py:135",
+                "forest_leaf_values_lanes": "bbbp_tpu/ops/forest_tpu.py:340",
                 "forest_level_histogram_lanes": "bbbp_tpu/ops/forest_tpu.py:188",
-                "forest_best_splits_lanes": "bbbp_tpu/ops/forest_tpu.py:125",
-                "forest_leaf_values_lanes": "bbbp_tpu/ops/forest_tpu.py:340"}
-    keys = {"forest_level_splits_lanes": "fused", "forest_level_histogram_lanes": "k3",
-            "forest_best_splits_lanes": "k4"}
+                "forest_best_splits_lanes": "bbbp_tpu/ops/forest_tpu.py:125"}
     entries = []
-    for name in lane_names:
+    # K3 and K4 with lanes are on the path where cat's searches gave them levels
+    on_path = lane_names + tuple(k for k in two_kernels if path_launches[k])
+    for name in on_path:
         entry = {"name": name, "route": "cuda",
                  "source": "bbbp_tpu_torch/csrc/forest_train.cu",
-                 "replaces": replaces[name], "launches": launches[name],
+                 "replaces": replaces[name], "launches": path_launches[name],
+                 "launches_searches": launches[name],
                  "launches_by_family": {m: f[name] for m, f in family_launches.items()},
-                 "launches_xgb_group": groups["xgb"]["launches"].get(name, 0),
-                 "launches_rf_group": groups["rf"]["launches"].get(name, 0)}
-        if name == "forest_leaf_values_lanes":
+                 **{f"launches_{m}_group": groups[m]["launches"].get(name, 0)
+                    for m in groups}}
+        if name == "forest_level_splits_oblivious_lanes":
+            t = obl[5]
+            entry.update(
+                max_abs_err=held["oblivious_err"], ms=t["fused"], plain_ms=t["plain"],
+                bound_ms=t["bound"]["bound_ms"], bound_by=t["bound"]["bound_by"],
+                library_ms=None,
+                shape=f"L={L}, n={n}, F={n_feat}, level 5",
+                levels=list(OBLIVIOUS_LEVELS), bit_equal_to_two_kernels_calls=
+                held["oblivious_calls"], near_tie_lane_levels=held["oblivious_near"])
+            for at, suffix in ((obl, ""), (obl_wide, f"_L{LANES_WIDE_L}")):
+                entry["ms_levels" + suffix] = ov("fused", at)
+                entry["bound_ms_levels" + suffix] = ov("bound", at, "bound_ms")
+                entry["two_kernel_ms_levels" + suffix] = ov("two", at)
+                entry["k3_lanes_ms_levels" + suffix] = ov("k3", at)
+                entry["k4_lanes_oblivious_ms_levels" + suffix] = ov("k4", at)
+                entry["k3_lanes_library_ms" + suffix] = {
+                    f"level {lv_}": at[lv_]["k3_library"] for lv_ in OBLIVIOUS_LIBRARY_LEVELS}
+            entry["plain_ms_levels"] = {f"level {lv_}": obl[lv_]["plain"]
+                                        for lv_ in OBLIVIOUS_LIBRARY_LEVELS}
+            entry["library_call_of_k3_lanes"] = (
+                "torch.zeros(...).index_add_(0, keys, (g, h) values) over the lanes' keys, "
+                "made beforehand: K3 with lanes' function, not the search's")
+        elif name in two_kernels:
+            t = timed[LANES_LEVELS[main]]
+            k3 = name == "forest_level_histogram_lanes"
+            key = "k3" if k3 else "k4_oblivious"    # cat's search runs K4's oblivious mode
+            entry.update(
+                max_abs_err=held["k3_err"] if k3 else held["k4_err"], ms=t[key],
+                plain_ms=t[key + "_plain"], bound_ms=t["k3_bound" if k3 else "k4_bound"]
+                ["bound_ms"], bound_by=t["k3_bound" if k3 else "k4_bound"]["bound_by"],
+                library_ms=t["k3_library"] if k3 else None,
+                shape=f"L={L}, n={n}, F={n_feat}, level {LANES_LEVELS[main]}"
+                      + ("" if k3 else ", oblivious"),
+                levels=list(LANES_LEVELS), ms_levels=lv(key), plain_ms_levels=lv(key + "_plain"),
+                bound_ms_levels=lv("k3_bound" if k3 else "k4_bound", "bound_ms"),
+                **{f"ms_levels_L{LANES_WIDE_L}": wv(key)})
+            if k3:
+                entry["library_call"] = ("torch.zeros(...).index_add_(0, keys, (g, h) "
+                                         "values) over the lanes' keys, made beforehand")
+                entry["library_ms_levels"] = lv("k3_library")
+            else:
+                entry["near_tie_nodes"] = held["k4_near"]
+        elif name == "forest_leaf_values_lanes":
             t = k5[64]
             entry.update(max_abs_err=k5_err, ms=t["ms"], plain_ms=t["plain_ms"],
                          bound_ms=t["bound"]["bound_ms"],
@@ -3688,46 +3923,44 @@ def lanes_phase(card, counters, p10) -> dict:
                         if "plain_ms" in t_:
                             entry["plain_ms" + tail] = t_["plain_ms"]
         else:
-            key = keys[name]
             t = timed[LANES_LEVELS[main]]
             entry.update(
-                max_abs_err={"k3": held["k3_err"], "k4": held["k4_err"],
-                             "fused": held["fused_err"]}[key],
-                ms=t[key], plain_ms=t[key + "_plain"],
-                bound_ms=t[key + "_bound"]["bound_ms"],
-                bound_by=t[key + "_bound"]["bound_by"],
-                library_ms=t["k3_library"] if key == "k3" else None,
+                max_abs_err=held["fused_err"], ms=t["fused"], plain_ms=t["fused_plain"],
+                bound_ms=t["fused_bound"]["bound_ms"],
+                bound_by=t["fused_bound"]["bound_by"], library_ms=None,
                 shape=f"L={L}, n={n}, F={n_feat}, level {LANES_LEVELS[main]}",
-                levels=list(LANES_LEVELS), ms_levels=lv(key),
-                plain_ms_levels=lv(key + "_plain"),
-                bound_ms_levels=lv(key + "_bound", "bound_ms"))
-            if key == "k3":
-                entry["library_call"] = ("torch.zeros(...).index_add_(0, keys, (g, h) "
-                                         "values) over the lanes' keys, made beforehand")
-                entry["library_ms_levels"] = lv("k3_library")
-            if key == "k4":
-                entry["ms_oblivious_levels"] = lv("k4_oblivious")
-                entry["plain_ms_oblivious_levels"] = lv("k4_oblivious_plain")
-                entry["near_tie_nodes"] = held["k4_near"]
-            if key in ("k3", "k4", "fused"):
-                entry[f"ms_levels_L{LANES_WIDE_L}"] = wv(key)
-                entry[f"bound_ms_levels_L{LANES_WIDE_L}"] = wv(key + "_bound", "bound_ms")
-            if key == "k4":
-                entry[f"ms_oblivious_levels_L{LANES_WIDE_L}"] = wv("k4_oblivious")
-            if key == "fused":
-                entry["routed_levels"] = [f"{lv_} -> {lv_ + 1}" for lv_ in LANES_LEVELS]
-                for at, suffix in ((lv, ""), (wv, f"_L{LANES_WIDE_L}")):
-                    entry["ms_with_routing_levels" + suffix] = at("route_fused")
-                    entry["ms_alone_levels" + suffix] = at("route_alone")
-                    entry["routing_added_ms_levels" + suffix] = at("route")
-                    entry["routing_bound_ms_levels" + suffix] = at("route_bound", "bound_ms")
-                    entry["routing_plain_ms_levels" + suffix] = at("route_plain")
-                entry["two_kernel_ms_levels"] = lv("two")
-                entry["one_unit_a_warp_ms_levels"] = lv("fused_one_unit")
-                entry[f"one_unit_a_warp_ms_levels_L{LANES_WIDE_L}"] = wv("fused_one_unit")
-                entry[f"two_kernel_ms_levels_L{LANES_WIDE_L}"] = wv("two")
-                entry["near_tie_nodes"] = held["fused_near"]
-                entry["bit_equal_to_two_kernels_calls"] = held["fused_calls"]
+                levels=list(LANES_LEVELS), ms_levels=lv("fused"),
+                plain_ms_levels=lv("fused_plain"),
+                bound_ms_levels=lv("fused_bound", "bound_ms"))
+            entry[f"ms_levels_L{LANES_WIDE_L}"] = wv("fused")
+            entry[f"bound_ms_levels_L{LANES_WIDE_L}"] = wv("fused_bound", "bound_ms")
+            # K3 and K4 with lanes, its yardstick, at the same shapes
+            entry["yardstick"] = {
+                "k3_lanes_ms_levels": lv("k3"), "k3_lanes_plain_ms_levels": lv("k3_plain"),
+                "k3_lanes_bound_ms_levels": lv("k3_bound", "bound_ms"),
+                "k3_lanes_library_ms_levels": lv("k3_library"),
+                "k4_lanes_ms_levels": lv("k4"), "k4_lanes_plain_ms_levels": lv("k4_plain"),
+                "k4_lanes_oblivious_ms_levels": lv("k4_oblivious"),
+                "k4_lanes_oblivious_plain_ms_levels": lv("k4_oblivious_plain"),
+                "k4_lanes_bound_ms_levels": lv("k4_bound", "bound_ms"),
+                "k3_lanes_max_abs_err": held["k3_err"], "k4_lanes_near_tie_nodes":
+                held["k4_near"],
+                f"k3_lanes_ms_levels_L{LANES_WIDE_L}": wv("k3"),
+                f"k4_lanes_ms_levels_L{LANES_WIDE_L}": wv("k4"),
+                f"k4_lanes_oblivious_ms_levels_L{LANES_WIDE_L}": wv("k4_oblivious")}
+            entry["routed_levels"] = [f"{lv_} -> {lv_ + 1}" for lv_ in LANES_LEVELS]
+            for at, suffix in ((lv, ""), (wv, f"_L{LANES_WIDE_L}")):
+                entry["ms_with_routing_levels" + suffix] = at("route_fused")
+                entry["ms_alone_levels" + suffix] = at("route_alone")
+                entry["routing_added_ms_levels" + suffix] = at("route")
+                entry["routing_bound_ms_levels" + suffix] = at("route_bound", "bound_ms")
+                entry["routing_plain_ms_levels" + suffix] = at("route_plain")
+            entry["two_kernel_ms_levels"] = lv("two")
+            entry["one_unit_a_warp_ms_levels"] = lv("fused_one_unit")
+            entry[f"one_unit_a_warp_ms_levels_L{LANES_WIDE_L}"] = wv("fused_one_unit")
+            entry[f"two_kernel_ms_levels_L{LANES_WIDE_L}"] = wv("two")
+            entry["near_tie_nodes"] = held["fused_near"]
+            entry["bit_equal_to_two_kernels_calls"] = held["fused_calls"]
         entries.append(entry)
     for m, info in groups.items():
         group_info = {k: v for k, v in info.items() if k != "group"}
@@ -4374,6 +4607,8 @@ def run() -> int:
                         "forest_leaf_values": tr.leaf_values,
                         "forest_draws": tr.forest_draws,
                         "forest_level_splits_lanes": tr.level_splits_lanes,
+                        "forest_level_splits_oblivious_lanes":
+                            tr.level_splits_oblivious_lanes,
                         "forest_level_histogram_lanes": tr.level_histogram_lanes,
                         "forest_leaf_values_lanes": tr.leaf_values_lanes}
     for counter in trainer_counters.values():
@@ -4392,8 +4627,9 @@ def run() -> int:
                      "forest_best_splits": N_TREES * TRAIN_DEPTH,
                      "forest_leaf_values": N_TREES,
                      "forest_draws": 2 * N_TREES + 1,
-                     "forest_level_splits_lanes": 0, "forest_level_histogram_lanes": 0,
-                     "forest_leaf_values_lanes": 0}
+                     "forest_level_splits_lanes": 0,
+                     "forest_level_splits_oblivious_lanes": 0,
+                     "forest_level_histogram_lanes": 0, "forest_leaf_values_lanes": 0}
     if train_launches != want_launches:
         raise AssertionError(f"ScreeningModel.train launches {train_launches}, "
                              f"expected {want_launches}")
@@ -4552,6 +4788,7 @@ def run() -> int:
                 "forest_level_histogram_lanes": tr.level_histogram_lanes,
                 "forest_best_splits_lanes": tr.best_splits_lanes,
                 "forest_level_splits_lanes": tr.level_splits_lanes,
+                "forest_level_splits_oblivious_lanes": tr.level_splits_oblivious_lanes,
                 "forest_leaf_values_lanes": tr.leaf_values_lanes}
     with tempfile.TemporaryDirectory() as cache:
         t0 = time.time()

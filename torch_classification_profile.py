@@ -22,17 +22,22 @@ dt's tuned searches with each form of the lanes' split search (the fused
 ``level_splits_lanes``, and K3 then K4 with lanes) in turns: wall s, peak
 memory, scores equal, and rf's lanes' first 10 trees under
 ``torch.profiler`` (device busy ms, host launch calls, largest kernels);
-and xgb's and rf's tuned groups as ``--groups`` times them.
+and xgb's, rf's and cat's tuned groups as ``--groups`` times them.
 
-``--groups`` runs only xgb's and rf's tuned lane groups over the search rows
-(50 trials and the default x 5 folds: 255 lanes of 300 trees of depth 6 and
-250 of 300 of depth 10 with the default trial's 5 lanes of 200, as
-``chip_smoke.py`` phase 14 runs them), each with
-its trees as a replayed CUDA graph (the default) and eagerly
-(``graph=False``), after a warm-up of each, in turns (eager, graph, graph,
-eager): wall s, peak and reserved memory and scores equal, then each loop
-over the whole group under ``torch.profiler``: device busy share, host
-launch calls a tree step.
+``--groups`` runs only xgb's, rf's and cat's tuned lane groups over the
+search rows (50 trials and the default x 5 folds: 255 lanes of 300 trees of
+depth 6, 250 of 300 of depth 10 with the default trial's 5 lanes of 200, and
+255 oblivious lanes of 300 of depth 6, as ``chip_smoke.py`` phase 14 runs
+them) and cat's search at one trial and the default (10 lanes, phase 14's
+lane search), each with its trees as a replayed CUDA graph (the default)
+and eagerly (``graph=False``), and cat's also with the fused oblivious
+search at every level and with K3 then K4 with lanes at every level (its
+form before the fused search), both in the graph, against the cut-over of
+``oblivious_fused_levels``; after a warm-up of each, in turns (eager,
+graph[, fused, two, two, fused], graph, eager): wall s, peak and reserved
+memory and scores equal, then each loop over the whole group under
+``torch.profiler``: device busy share, host launch calls a tree step and
+device ms by kernel.
 """
 
 from __future__ import annotations
@@ -166,33 +171,62 @@ def search_both_forms(xs, ys, cfg) -> dict:
     return out
 
 
+def kernel_split(summary: dict, top: int = 12) -> dict:
+    """A profile's device ms by kernel (``profile_summary``'s table): the
+    ``top`` largest by name, with their counts, and the rest summed."""
+    ranked = sorted(summary["device"].items(), key=lambda kv: -kv[1]["ms"])
+    split = {name[:90]: {"ms": v["ms"], "count": v["count"]} for name, v in ranked[:top]}
+    split["the rest"] = {"ms": sum(v["ms"] for _, v in ranked[top:]),
+                         "count": sum(v["count"] for _, v in ranked[top:])}
+    return split
+
+
 def groups_both_loops(xs, ys, cfg) -> dict:
-    """xgb's and rf's tuned lane groups with the replayed graph of a tree
-    and with the eager loop, in turns, then each loop under the profiler
-    over the whole group."""
+    """xgb's, rf's and cat's tuned lane groups, and cat's search at one
+    sampled trial and the default (10 lanes: ``chip_smoke.py`` phase 14's),
+    with the replayed graph of a tree and with the eager loop, and cat's
+    also with the fused oblivious search at every level (``fused``) and
+    with K3 then K4 with lanes at every level (``two``: the form before the
+    fused search), both in the graph, against ``oblivious_fused_levels``'s
+    cut-over (``graph``), in turns, then each under the profiler over the
+    whole group: busy share, host launch calls a tree step, device ms by
+    kernel."""
     import contextlib
 
     import numpy as np
     import torch
 
+    from bbbp_tpu_torch.ops import forest_train as tr
     from bbbp_tpu_torch.testing import eager_tree_loop
     from bbbp_tpu_torch.timing import host_launch_calls, profile_summary
     from bbbp_tpu_torch.train import batched_search as bs
     from bbbp_tpu_torch.train import classification as cl
 
+    @contextlib.contextmanager
+    def fused_levels(levels):
+        before = tr.OBLIVIOUS_FUSED_LEVELS
+        tr.OBLIVIOUS_FUSED_LEVELS = tuple(((0.0, levels),) for _ in before)
+        try:
+            yield
+        finally:
+            tr.OBLIVIOUS_FUSED_LEVELS = before
+
+    loops = {"eager": eager_tree_loop, "graph": contextlib.nullcontext,
+             "fused": lambda: fused_levels(tr.MAX_DEPTH), "two": lambda: fused_levels(0)}
     cuda = torch.device("cuda")
     bs.FOREST_VMAP = True
     out = {}
-    for m in ("xgb", "rf"):
-        kw = dict(n_iter=50, cv=cfg.search_folds, seed=cfg.seed,
+    for name, m, n_iter in (("xgb", "xgb", 50), ("rf", "rf", 50), ("cat", "cat", 50),
+                            ("cat_10_lanes", "cat", 1)):
+        kw = dict(n_iter=n_iter, cv=cfg.search_folds, seed=cfg.seed,
                   extra_trials=[cl.DEFAULT_TRIALS[m]], device=cuda)
-        runs, scores = {"eager": [], "graph": []}, {}
-        for graph in (False, True):               # a warm-up of each loop
-            with contextlib.nullcontext() if graph else eager_tree_loop():
+        order = ["eager", "graph"] + (["fused", "two"] if m == "cat" else [])
+        runs, scores = {loop: [] for loop in order}, {}
+        for loop in order:                        # a warm-up of each loop
+            with loops[loop]():
                 bs.batched_random_search(m, xs, ys, cl.SEARCH_SPACES[m], **kw)
-        for graph in (False, True, True, False):
-            loop = "graph" if graph else "eager"
-            with contextlib.nullcontext() if graph else eager_tree_loop():
+        for loop in order + order[::-1]:
+            with loops[loop]():
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 live = torch.cuda.memory_allocated()
@@ -209,9 +243,8 @@ def groups_both_loops(xs, ys, cfg) -> dict:
                    if not k.startswith("mean_") and k != "repeat_std"} for t in res.trials]
         # a tree step is one tree of one group of lanes (one replay)
         trees = sum(n_est for _, n_est, _, _ in bs._forest_groups(params))
-        for graph in (False, True):
-            loop = "graph" if graph else "eager"
-            with contextlib.nullcontext() if graph else eager_tree_loop():
+        for loop in order:
+            with loops[loop]():
                 with torch.profiler.profile(activities=[
                         torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -219,15 +252,18 @@ def groups_both_loops(xs, ys, cfg) -> dict:
                     bs.batched_random_search(m, xs, ys, cl.SEARCH_SPACES[m], **kw)
                     torch.cuda.synchronize()
                     wall = time.time() - t0
-            busy = profile_summary(prof, lambda name: name)["device_busy_ms"]
+            summary = profile_summary(prof, lambda name: name)
+            busy = summary["device_busy_ms"]
             calls = host_launch_calls(prof)
             runs[loop + "_profiled"] = {
                 "wall_s": wall, "busy_ms": busy, "busy_share": busy / 1e3 / wall,
                 "host_launch_calls": calls, "host_launch_calls_a_tree_step": calls / trees,
                 "generator_draws": sum(e.count for e in prof.key_averages()
-                                       if e.key in ("aten::rand", "aten::poisson"))}
-        out[m] = {"trials": len(scores["graph"]), "tree_steps": trees, **runs,
-                  "scores_equal": bool(np.array_equal(scores["graph"], scores["eager"]))}
+                                       if e.key in ("aten::rand", "aten::poisson")),
+                "device_ms_by_kernel": kernel_split(summary)}
+        out[name] = {"trials": len(scores["graph"]), "tree_steps": trees, **runs,
+                  "scores_equal": all(np.array_equal(scores["graph"], scores[loop])
+                                      for loop in order)}
     return out
 
 
@@ -247,7 +283,9 @@ def run(forest_lanes: bool) -> dict:
                 "forest_level_histogram_lanes": tr.level_histogram_lanes,
                 "forest_best_splits_lanes": tr.best_splits_lanes,
                 "forest_level_splits_lanes": tr.level_splits_lanes,
-                "forest_leaf_values_lanes": tr.leaf_values_lanes}
+                "forest_level_splits_oblivious_lanes": tr.level_splits_oblivious_lanes,
+                "forest_leaf_values_lanes": tr.leaf_values_lanes,
+                "forest_draws": tr.forest_draws}
     bs.FOREST_VMAP = forest_lanes or bs.FOREST_VMAP
     cfg = cl.ClassificationTrainConfig()
     x, y = classification_inputs()
@@ -288,8 +326,8 @@ def main() -> int:
                          "time xgb's search both ways and rf's and dt's with both "
                          "split search forms")
     ap.add_argument("--groups", action="store_true",
-                    help="time only xgb's and rf's tuned lane groups, with the "
-                         "graph of a tree and eagerly")
+                    help="time only xgb's, rf's and cat's tuned lane groups, with "
+                         "the graph of a tree and eagerly")
     ap.add_argument("--out", default="chiprun_out/classification_profile.json")
     args = ap.parse_args()
     import torch

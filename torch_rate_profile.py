@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Issue rates of the two units that can take a Tanimoto intersection on one
 CUDA card: the 32-bit population count (POPC) and the binary tensor-core
-product ``mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc``.
+product ``mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc``; and
+of shared-memory atomic adds, which bound the forest kernels' histograms.
 
     python3 torch_rate_profile.py [--out FILE]
 
@@ -11,10 +12,18 @@ shared memory admits no second one):
 
 - ``popc``: eight independent chains a thread of ``x = popc(x ^ s) + x``;
 - ``lop3``: eight independent chains of a three-input logic operation;
+- ``imad``: eight independent chains of a 32-bit integer multiply-add;
+  ``lop3_imad``: four chains of each, interleaved (whether the ALU pipe's
+  LOP3 and the FMA pipe's IMAD issue together: K9's bound);
 - ``mma_b1`` / ``mma_s8``: four independent accumulators a warp of
   ``m16n8k256`` b1 AND-POPC / ``m16n8k32`` s8 products;
 - ``mma_b1_chain``: one warp, one accumulator, each product waiting on the
-  last (latency).
+  last (latency);
+- ``atoms``, ``atoms_random``, ``atoms_pair``: eight 32-bit shared-memory
+  atomic adds a thread an iteration, to conflict-free banks, to random
+  words of 64 KB, and as four low-word adds whose old values carry into
+  four high-word adds (the forest kernels' 64-bit add); ``atoms_64``: four
+  64-bit shared atomic adds a thread an iteration, at random words.
 
 Each block counts its own ``clock64`` cycles, so a rate a clock and an SM
 does not depend on the clock the card runs at; the rate a second comes from
@@ -97,6 +106,32 @@ __global__ void lop3_probe(int iters, uint32_t s, long long* cycles, uint32_t* s
   sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
 }
 
+// 32-bit integer multiply-adds (IMAD, the FMA pipe), eight independent
+// chains a thread; kMixed: four chains of them beside four of LOP3 (the
+// ALU pipe), so that the rate shows whether the two pipes issue together.
+template <bool kMixed>
+__global__ void imad_probe(int iters, uint32_t s, long long* cycles, uint32_t* sink) {
+  uint32_t x[8];
+  for (int u = 0; u < 8; ++u) x[u] = threadIdx.x * 2654435761u + u * 40503u;
+  const uint32_t m = s | 1u;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (kMixed && (u & 1)) {
+        x[u] = lop3(x[u], x[u ^ 1], s);
+      } else {
+        asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(x[u]) : "r"(m), "r"(x[(u + 2) & 7]));
+      }
+    }
+  }
+  stamp(t0, cycles);
+  uint32_t acc = 0;
+  for (int u = 0; u < 8; ++u) acc ^= x[u];
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+
 template <bool kBinary, int kAcc>
 __global__ void mma_probe(int iters, uint32_t s, long long* cycles, uint32_t* sink) {
   uint32_t a[4], b[2];
@@ -117,6 +152,55 @@ __global__ void mma_probe(int iters, uint32_t s, long long* cycles, uint32_t* si
   sink[blockIdx.x * blockDim.x + threadIdx.x] = static_cast<uint32_t>(acc);
 }
 
+// Shared-memory 32-bit atomic adds, eight a thread an iteration, no result
+// waited for: kForm 0 to addresses whose banks are the lanes' (conflict
+// free), 1 to pseudo-random words of 64 KB (the banks a histogram meets), 2
+// as pairs of a low word whose old value carries into a high word (the
+// two-word 64-bit add of the forest kernels), at random words; 3 one 64-bit
+// atomic add a pair instead, at random words.
+template <int kForm>
+__global__ void atoms_probe(int iters, uint32_t s, long long* cycles, uint32_t* sink) {
+  extern __shared__ uint32_t words[];
+  for (int i = threadIdx.x; i < 32768; i += blockDim.x) words[i] = 0;
+  uint32_t x = threadIdx.x * 2654435761u ^ s;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    if (kForm == 3) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        x = x * 1664525u + 1013904223u;
+        atomicAdd(reinterpret_cast<unsigned long long*>(words) + (x >> 19),
+                  static_cast<unsigned long long>(x) << 20);
+      }
+    } else if (kForm == 2) {
+      uint32_t at[4], lo[4], old[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        x = x * 1664525u + 1013904223u;
+        at[u] = x >> 18;
+        lo[u] = x;
+        old[u] = atomicAdd(&words[at[u]], lo[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        atomicAdd(&words[16384 + at[u]], (x >> 24) + ((old[u] + lo[u]) < lo[u]));
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (kForm == 0) {
+          atomicAdd(&words[(threadIdx.x + u * 1024) & 16383], x);
+        } else {
+          x = x * 1664525u + 1013904223u;
+          atomicAdd(&words[x >> 18], 1u);
+        }
+      }
+    }
+  }
+  stamp(t0, cycles);
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = x ^ words[threadIdx.x];
+}
+
 // One m16n8k256 b1 product of A [16, 8 words] and B [8, 8 words] (a
 // reference row a column) against popc(a & b) summed over the words.
 __global__ void mma_check(const uint32_t* A, const uint32_t* B, int* bad) {
@@ -134,7 +218,8 @@ __global__ void mma_check(const uint32_t* A, const uint32_t* B, int* bad) {
   }
 }
 
-// kind: 0 popc, 1 lop3, 2 mma_b1, 3 mma_s8, 4 mma_b1_chain, 5 check.
+// kind: 0 popc, 1 lop3, 2 mma_b1, 3 mma_s8, 4 mma_b1_chain, 5 check, 6-9 the
+// shared atomics (atoms_probe<kind - 6>), 10 imad, 11 lop3 beside imad.
 extern "C" int probe(int kind, int iters, long long* cycles_out, float* ms_out,
                      int* blocks_out) {
   int dev = 0, sms = 0;
@@ -179,6 +264,12 @@ extern "C" int probe(int kind, int iters, long long* cycles_out, float* ms_out,
   if (kind == 2) run(mma_probe<true, 4>);
   if (kind == 3) run(mma_probe<false, 4>);
   if (kind == 4) run(mma_probe<true, 1>);
+  if (kind == 6) run(atoms_probe<0>);
+  if (kind == 7) run(atoms_probe<1>);
+  if (kind == 8) run(atoms_probe<2>);
+  if (kind == 9) run(atoms_probe<3>);
+  if (kind == 10) run(imad_probe<false>);
+  if (kind == 11) run(imad_probe<true>);
   cudaError_t err = cudaDeviceSynchronize();
   if (err == cudaSuccess) err = cudaGetLastError();
   cudaEventElapsedTime(ms_out, e0, e1);
@@ -194,7 +285,9 @@ extern "C" int probe(int kind, int iters, long long* cycles_out, float* ms_out,
 # one such operation is worth in bit-level AND + popcount work
 PROBES = {"popc": (0, 8, 1), "lop3": (1, 8, 1),
           "mma_b1": (2, 4, 16 * 8 * 256), "mma_s8": (3, 4, 16 * 8 * 32),
-          "mma_b1_chain": (4, 1, 16 * 8 * 256)}
+          "mma_b1_chain": (4, 1, 16 * 8 * 256),
+          "atoms": (6, 8, 1), "atoms_random": (7, 8, 1), "atoms_pair": (8, 8, 1),
+          "atoms_64": (9, 4, 1), "imad": (10, 8, 1), "lop3_imad": (11, 8, 1)}
 
 
 def build(workdir: str) -> tuple:
@@ -248,7 +341,8 @@ def main() -> int:
         rc = lib.probe(5, 0, None, None, ctypes.byref(bad))
         result["mma_b1_check"] = {"rc": rc, "wrong_outputs_of_128": bad.value}
         for name, (kind, per_iter, bit_ops) in PROBES.items():
-            iters = 200000 if name.startswith("mma") else 400000
+            iters = (200000 if name.startswith("mma") else
+                     20000 if name.startswith("atoms") else 400000)
             cycles = (ctypes.c_longlong * 256)()
             ms = ctypes.c_float(0.0)
             blocks = ctypes.c_int(0)
@@ -271,7 +365,9 @@ def main() -> int:
                 entry["cycles_per_dependent_mma"] = cyc[0] / iters
             result[name] = entry
         result["sass_opcodes"] = {k: sass_of(sass, k) for k in (
-            "popc_probe", "lop3_probe", "mma_probeILb1ELi4E", "mma_probeILb0ELi4E")}
+            "popc_probe", "lop3_probe", "mma_probeILb1ELi4E", "mma_probeILb0ELi4E",
+            "atoms_probeILi0E", "atoms_probeILi1E", "atoms_probeILi2E",
+            "atoms_probeILi3E", "imad_probeILb0E", "imad_probeILb1E")}
         full_sass = sass
     result["card_after"] = nvidia_smi()
     text = json.dumps(result, indent=1)
