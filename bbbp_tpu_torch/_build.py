@@ -28,7 +28,7 @@ import platform
 import shutil
 import subprocess
 import threading
-from typing import Callable, List
+from typing import Callable, Dict, List
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -49,20 +49,26 @@ class BuildError(RuntimeError):
 
 
 class LaunchCounter:
-    """Number of times a wrapper launched its kernel. Thread-safe, because
+    """Number of times a wrapper launched its kernel: ``count`` over every
+    card, ``by_device`` by the card's index. Thread-safe, because
     ``screen()`` launches from several dispatcher threads."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.count = 0
+        self.by_device: Dict[int, int] = {}
 
-    def add(self, launches: int = 1) -> None:
+    def add(self, device, launches: int = 1) -> None:
+        """``device``: the CUDA ``torch.device`` the launches ran on."""
         with self._lock:
             self.count += launches
+            self.by_device[device.index] = (self.by_device.get(device.index, 0)
+                                            + launches)
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+            self.by_device = {}
 
 
 def _run(cmd: List[str], name: str) -> None:

@@ -112,7 +112,7 @@ def packed_project(packed: torch.Tensor, w: torch.Tensor,
             packed.data_ptr(), n, words, w.data_ptr(), c0.data_ptr(), d, k,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "packed_project")
-    packed_project.launches.add()
+    packed_project.launches.add(packed.device)
     return out
 
 

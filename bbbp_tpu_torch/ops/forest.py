@@ -154,7 +154,7 @@ def raw_predict(ens: DenseTreeEnsemble, x: torch.Tensor,
             int(apply_sigmoid), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "dense_forest_predict")
-    raw_predict.launches.add()
+    raw_predict.launches.add(x.device)
     return out
 
 

@@ -598,7 +598,7 @@ def level_histogram(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
             out.data_ptr(), *route,
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_histogram")
-    level_histogram.launches.add()
+    level_histogram.launches.add(xb.device)
     return out
 
 
@@ -641,7 +641,7 @@ def best_splits(hist: torch.Tensor, col_mask: torch.Tensor, lam: float,
             feat.data_ptr(), b.data_ptr(), has_split.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_best_splits")
-    best_splits.launches.add()
+    best_splits.launches.add(hist.device)
     return feat, b, has_split
 
 
@@ -742,7 +742,7 @@ def leaf_values(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
             *((None, None, None) if nxt is None else (t.data_ptr() for t in nxt)),
             leaf_plan(n), *xb_args, *route, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_leaf_values")
-    leaf_values.launches.add()
+    leaf_values.launches.add(dev)
     return leaf if nxt is None else (leaf, *nxt)
 
 
@@ -835,7 +835,7 @@ def level_histogram_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
             out.data_ptr(), *route, tree_lane, lanes, stride,
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_histogram_lanes")
-    level_histogram_lanes.launches.add()
+    level_histogram_lanes.launches.add(xb.device)
     return out
 
 
@@ -893,7 +893,7 @@ def best_splits_lanes(hist: torch.Tensor, col_mask: torch.Tensor,
             feat.data_ptr(), b.data_ptr(), has_split.data_ptr(), lanes,
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_best_splits_lanes")
-    best_splits_lanes.launches.add()
+    best_splits_lanes.launches.add(dev)
     return feat, b, has_split
 
 
@@ -1036,7 +1036,7 @@ def level_splits_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.Tensor,
             feat.data_ptr(), b.data_ptr(), has_split.data_ptr(), *route, tree_lane,
             lanes, stride, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_splits_lanes")
-    level_splits_lanes.launches.add()
+    level_splits_lanes.launches.add(dev)
     return feat, b, has_split
 
 
@@ -1126,7 +1126,7 @@ def level_splits_oblivious_lanes(xb: torch.Tensor, pos: torch.Tensor, g: torch.T
             cand.data_ptr(), feat.data_ptr(), b.data_ptr(), has_split.data_ptr(), *route,
             tree_lane, lanes, stride, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_level_splits_oblivious_lanes")
-    level_splits_oblivious_lanes.launches.add()
+    level_splits_oblivious_lanes.launches.add(dev)
     return feat, b, has_split
 
 
@@ -1243,7 +1243,7 @@ def leaf_values_lanes(pos: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
             leaf_plan(n), LEAF_SHAPES[shape], *xb_args, *route, tree_lane, lanes,
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_leaf_values_lanes")
-    leaf_values_lanes.launches.add()
+    leaf_values_lanes.launches.add(dev)
     return leaf if nxt is None else (leaf, *nxt)
 
 
@@ -1356,7 +1356,7 @@ def forest_draws(seeds: torch.Tensor, tree: torch.Tensor, stream: str, size: int
             DRAW_STREAMS[stream], size, table, len(thresholds), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "forest_draws")
-    forest_draws.launches.add()
+    forest_draws.launches.add(seeds.device)
     return out
 
 
@@ -1441,13 +1441,13 @@ def grow_trees(n_trees: int, tree: torch.Tensor, step, graph: bool) -> None:
     per_tree = []
     for c, count in zip(TREE_KERNELS, before):
         added = c.launches.count - count
-        c.launches.add(-added)
+        c.launches.add(dev, -added)
         if added:
             per_tree.append((c.launches, added))
     for _ in range(n_trees - 1):
         cuda_graph.replay()
         for counter, added in per_tree:
-            counter.add(added)
+            counter.add(dev, added)
     torch.cuda.synchronize(dev)
 
 

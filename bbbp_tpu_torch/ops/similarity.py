@@ -255,7 +255,7 @@ def tanimoto_topk_packed(qw: torch.Tensor, rw: torch.Tensor, k: int
             qw.data_ptr(), nq, rw.data_ptr(), nr, words, k, *topk_plan(nq, nr, k),
             sim.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "tanimoto_topk")
-    tanimoto_topk_packed.launches.add()
+    tanimoto_topk_packed.launches.add(dev)
     return sim, idx
 
 
@@ -309,7 +309,7 @@ def tanimoto_gram(qw: torch.Tensor, rw: torch.Tensor,
     out = _gram("tanimoto_gram", "bbbp_tanimoto_gram", qw, rw, w,
                 1 if weighted else tanimoto_split(qw.shape[1]), weighted)
     if out.numel():
-        tanimoto_gram.launches.add()
+        tanimoto_gram.launches.add(out.device)
     return out
 
 
@@ -325,7 +325,7 @@ def minmax_gram(qc: torch.Tensor, rc: torch.Tensor,
     out = _gram("minmax_gram", "bbbp_minmax_gram", qc, rc, w,
                 minmax_split(qc.shape[1], w is not None), True)
     if out.numel():
-        minmax_gram.launches.add()
+        minmax_gram.launches.add(out.device)
     return out
 
 

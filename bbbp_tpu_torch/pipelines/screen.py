@@ -1,12 +1,13 @@
-"""Virtual screening on one CUDA card: SMILES stream → packed fingerprints →
-projection kernel → forest kernel → probability → results CSV.
+"""Virtual screening on one CUDA card or several: SMILES stream → packed
+fingerprints → projection kernel → forest kernel → probability → results CSV.
 
 Counterpart of ``bbbp_tpu/pipelines/screen.py``. The same three-stage thread
 pipeline overlaps host and device: the C++ featurizer fills chunks (the GIL
 is released while it runs), dispatcher threads pad each chunk in pinned host
 memory and copy it to the device on their own CUDA stream, where both
-kernels run, and the drain waits on each chunk's event, puts chunks back in
-input order and writes the CSV.
+kernels run, and the drain waits on each chunk's events, puts chunks back in
+input order and writes the CSV. ``screen(devices=[...])`` splits each chunk
+over several cards, as the JAX package's ``screen(mesh=...)`` does.
 
 ``ScreeningModel.train`` fits the model on the device: fingerprints on the
 host, then the scaler, PCA and the boosted forest (``ops/forest_train.py``)
@@ -29,7 +30,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from queue import Queue
-from typing import Callable, Iterable, List, Optional, Tuple, Union
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -202,35 +203,76 @@ class ScreenStats:
         return self.n_molecules / max(self.wall_s, 1e-9)
 
 
+def _shard_devices(device: Union[str, torch.device],
+                   devices: Optional[Sequence[Union[str, torch.device]]]
+                   ) -> List[torch.device]:
+    """The card of each shard of a chunk: ``devices``, or ``[device]``.
+    Raises on a device that is neither cpu nor cuda, on a list that mixes
+    the two, and on a CUDA card that torch does not see; nothing falls
+    back. ``cuda`` without an index is the current card."""
+    listed = [torch.device(d) for d in ([device] if devices is None else devices)]
+    if not listed:
+        raise ValueError("devices must name at least one device")
+    for d in listed:
+        if d.type not in ("cpu", "cuda"):
+            raise ValueError(f"screen runs on cpu or cuda, not {d}")
+    kinds = {d.type for d in listed}
+    if len(kinds) > 1:
+        raise ValueError(f"devices mixes cpu and cuda: {listed}")
+    if kinds == {"cpu"}:
+        return listed
+    if not torch.cuda.is_available():
+        raise RuntimeError("screen(device='cuda') needs a CUDA device, and "
+                           "torch sees none")
+    cards = torch.cuda.device_count()
+    out = [torch.device("cuda", torch.cuda.current_device() if d.index is None
+                        else d.index) for d in listed]
+    for d in out:
+        if d.index >= cards:
+            raise ValueError(f"{d}: torch sees {cards} CUDA device(s)")
+    return out
+
+
 def screen(model: ScreeningModel, smiles_iter: Iterable[Tuple[str, str]],
            out_csv: Optional[str] = "virtual_screening_results.csv",
            chunk_size: int = 8192, workers: Optional[int] = None,
            pipeline_depth: int = 3, dispatch_workers: int = 2,
-           device: Union[str, torch.device] = "cuda") -> ScreenStats:
+           device: Union[str, torch.device] = "cuda",
+           devices: Optional[Sequence[Union[str, torch.device]]] = None
+           ) -> ScreenStats:
     """Screen (smiles, id) pairs through a featurize → dispatch → drain
     thread pipeline; each stage hands off through a queue bounded by
     ``pipeline_depth``.
 
     ``dispatch_workers`` threads pad chunks and launch the device work, each
-    on its own CUDA stream, so one chunk's copy overlaps another's kernels.
-    The drain re-orders chunks by sequence number, so the CSV stays in input
-    order. ``workers`` is the featurizer's thread count (0 or None: all
-    cores). On ``device="cpu"`` the kernels' plain versions run instead.
+    with its own CUDA stream on every card, so one chunk's copy overlaps
+    another's kernels. The drain re-orders chunks by sequence number, so the
+    CSV stays in input order. ``workers`` is the featurizer's thread count
+    (0 or None: all cores). On ``device="cpu"`` the kernels' plain versions
+    run instead.
 
-    Raises ScreenBackendError (with the failing chunk index) when waiting
-    for a chunk's result fails, after unblocking every pipeline thread."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("screen(device='cuda') needs a CUDA device, and "
-                           "torch sees none")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"screen runs on cpu or cuda, not {device}")
+    ``devices``: the JAX package's ``mesh`` (``screen(mesh=...)``, its
+    'data' axis) in one process: each chunk's molecule axis is cut into
+    ``len(devices)`` equal shards, shard i screened on ``devices[i]``, each
+    card holding one replica of the model. A card may be listed more than
+    once. Rows are independent, so the CSV does not depend on the shards.
+    ``None`` is ``[device]``.
+
+    Raises ScreenBackendError (with the failing chunk index) when a shard's
+    device work or the wait for a chunk's result fails, after unblocking
+    every pipeline thread."""
+    devs = _shard_devices(device, devices)
+    n_shards = len(devs)
+    if chunk_size % n_shards != 0:
+        raise ValueError("chunk_size must divide the mesh 'data' axis")
+    rows = chunk_size // n_shards
     packed_mode, featurize = _featurizer(model, workers)
-    if model.device != device:
-        model = model.to(device)
-    run = (_make_packed_device_fn(model) if packed_mode
-           else _make_device_fn(model))
-    on_cuda = device.type == "cuda"
+    cards = list(dict.fromkeys(devs))          # each distinct card, in order
+    make = _make_packed_device_fn if packed_mode else _make_device_fn
+    # one replica a card; a tensor's device names its card's index
+    runs = {d: make(model if model.proj_w.device == d else model.to(d))
+            for d in cards}
+    on_cuda = devs[0].type == "cuda"
     t_start = time.time()
     feat_time = 0.0
     n_total = 0
@@ -261,12 +303,14 @@ def screen(model: ScreeningModel, smiles_iter: Iterable[Tuple[str, str]],
             q_feat.put(_END)
 
     def dispatcher():
-        """Pad into (pinned) host memory → H2D → both kernels → D2H into
-        pinned memory → record an event, all on this thread's stream; the
-        queue item keeps every tensor of the chunk alive until the drain
-        has waited on the event."""
+        """Pad the chunk into (pinned) host memory; then shard by shard, on
+        this thread's stream of the shard's card: H2D from the shard's
+        slice, both kernels, D2H into the shard's slice of the chunk's
+        pinned output, an event. The queue item keeps every tensor of the
+        chunk alive until the drain has waited on its events."""
         dt = 0.0
-        stream = torch.cuda.Stream(device) if on_cuda else None
+        streams = ({d: torch.cuda.Stream(d) for d in cards} if on_cuda
+                   else None)
         try:
             while True:
                 item = q_feat.get()
@@ -282,20 +326,29 @@ def screen(model: ScreeningModel, smiles_iter: Iterable[Tuple[str, str]],
                                    dtype=src.dtype, pin_memory=on_cuda)
                 host[:len(src)].copy_(src)
                 host[len(src):].zero_()
-                if stream is None:
-                    out, done, held = run(host), None, ()
-                else:
-                    with torch.cuda.stream(stream):
-                        x = host.to(device, non_blocking=True)
-                        proba = run(x)
-                        out = torch.empty(proba.shape, dtype=proba.dtype,
+                try:
+                    if streams is None:
+                        outs = [runs[d](host[i * rows:(i + 1) * rows])
+                                for i, d in enumerate(devs)]
+                        done, held = [], ()
+                    else:
+                        out = torch.empty(chunk_size, dtype=torch.float32,
                                           pin_memory=True)
-                        out.copy_(proba, non_blocking=True)
-                        done = torch.cuda.Event()
-                        done.record(stream)
-                    held = (host, x, proba)
+                        outs, done, held = [out], [], [host]
+                        for i, d in enumerate(devs):
+                            part = slice(i * rows, (i + 1) * rows)
+                            with torch.cuda.device(d), torch.cuda.stream(streams[d]):
+                                x = host[part].to(d, non_blocking=True)
+                                proba = runs[d](x)
+                                out[part].copy_(proba, non_blocking=True)
+                                ev = torch.cuda.Event()
+                                ev.record(streams[d])
+                            done.append(ev)
+                            held += [x, proba]
+                except Exception as e:  # noqa: BLE001 — attributed to its chunk
+                    raise ScreenBackendError(seq, e) from e
                 dt += time.time() - t0
-                q_dev.put((seq, smiles, ids, bad, out, done, held))
+                q_dev.put((seq, smiles, ids, bad, outs, done, held))
         except BaseException as e:  # noqa: BLE001 — re-raised in main thread
             errors.append(e)
             # keep draining q_feat so the producer never blocks on a full
@@ -346,12 +399,12 @@ def screen(model: ScreeningModel, smiles_iter: Iterable[Tuple[str, str]],
                 if item is _END:
                     ends += 1
                     continue
-                seq, smiles, ids, bad, out, done, _held = item
+                seq, smiles, ids, bad, outs, done, _held = item
                 t0 = time.time()
                 try:
-                    if done is not None:
-                        done.synchronize()
-                    proba = np.asarray(out)
+                    for ev in done:
+                        ev.synchronize()
+                    proba = np.concatenate([np.asarray(o) for o in outs])
                 except Exception as e:  # noqa: BLE001 — classify + attribute
                     raise ScreenBackendError(seq, e) from e
                 drain_time += time.time() - t0

@@ -305,28 +305,35 @@ def gram_bound_old(nq: int, nr: int, words: int,
                   nq * nr * (3 * words + 4) + 2 * weighted_terms)
 
 
+def _union_ms(spans) -> float:
+    """Milliseconds covered by the union of (start, end) µs intervals."""
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us / 1e3
+
+
 def profile_summary(prof, classify: Callable[[str], str]) -> Dict[str, object]:
     """Device time of a ``torch.profiler`` run: ms and count by
     ``classify(event name)``, and the busy ms (the union of the device
-    intervals)."""
+    intervals), over every card and by card index."""
     import torch
 
     by_name: Dict[str, Dict[str, float]] = {}
-    spans = []
+    spans: Dict[int, list] = {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         entry = by_name.setdefault(classify(ev.name), {"ms": 0.0, "count": 0})
         entry["ms"] += ev.time_range.elapsed_us() / 1e3
         entry["count"] += 1
-        spans.append((ev.time_range.start, ev.time_range.end))
-    spans.sort()
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in spans:
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
-    return {"device": by_name, "device_busy_ms": busy_us / 1e3}
+        spans.setdefault(ev.device_index, []).append(
+            (ev.time_range.start, ev.time_range.end))
+    return {"device": by_name,
+            "device_busy_ms": _union_ms([s for v in spans.values() for s in v]),
+            "device_busy_ms_by_card": {i: _union_ms(v) for i, v in spans.items()}}
 
 
 def host_launch_calls(prof) -> int:

@@ -21,7 +21,10 @@ before its last line):
 4. the slice: ``screen()`` on ``cuda`` with the full-width fixture model over
    65,536 + a ragged tail of ``synthetic_smiles`` and 3 invalid SMILES; both
    kernels' launch counters must move, and the first 2,048 rows must match
-   ``screen(device="cpu")``;
+   ``screen(device="cpu")``; then the same over ``devices=["cuda:0",
+   "cuda:0"]`` and, where torch sees more than one card, over every card:
+   each CSV byte-equal to the one-card CSV, each kernel launched once a
+   shard of every chunk, counted by card (``[4 cards]``);
 5. the trainer's kernels (``ops/forest_train.py``: K3 ``level_histogram``,
    K4 ``best_splits``, K5 ``leaf_values``) against their plain versions on
    the card, for n = 1, 7,809 and 65,536 rows, F = 30, 167, 300 and 326
@@ -291,7 +294,10 @@ run under ``launches_families`` and in phase 13 under
 version's, its bound from ``bbbp_tpu_torch/timing.py`` and a library
 yardstick where one PyTorch call computes the same function; the
 projection's ``torch.addmm`` on bits already unpacked is the product alone,
-and the ``*_fingerprints`` keys hold its times on the fingerprints), the
+and the ``*_fingerprints`` keys hold its times on the fingerprints; the
+two screening kernels carry phase 4's launches by card over two shards,
+``launches_two_shards_by_card``, and over every card,
+``launches_all_cards_by_card``, where there are several), the
 card's ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device the script exits non-zero and prints no result.
@@ -561,6 +567,55 @@ def screen_against_cpu(model, ensemble_state, mols, gpu_csv, cpu_csv,
         raise AssertionError(f"cuda vs cpu prefix: rows {mism} differ; near-tie "
                              f"rows {int(near.sum())}")
     return mism, int(near.sum()), worst
+
+
+def cards_phase(model, mols, one_card_csv: bytes) -> dict:
+    """Phase 4 over several shards: the slice's molecules and model screened
+    over ["cuda:0", "cuda:0"], then over every card where torch sees more
+    than one. Each CSV must be byte-equal to the one-card CSV, and each
+    kernel launched once a shard of every chunk, counted by card. Returns
+    {"two_shards" | "all_cards": {"devices", "launches", "mol_per_s",
+    "wall_s"}}."""
+    import torch
+
+    from bbbp_tpu_torch.ops.bitops import packed_project
+    from bbbp_tpu_torch.ops.forest import raw_predict
+    from bbbp_tpu_torch.pipelines.screen import screen
+
+    n = torch.cuda.device_count()
+    splits = {"two_shards": ["cuda:0", "cuda:0"]}
+    if n > 1:
+        splits["all_cards"] = [f"cuda:{i}" for i in range(n)]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, devices in splits.items():
+            chunk = CHUNK // len(devices) * len(devices)
+            chunks = -(-len(mols) // chunk)
+            path = os.path.join(tmp, f"{key}.csv")
+            for kernel in (packed_project, raw_predict):
+                kernel.launches.reset()
+            stats = screen(model, iter(mols), out_csv=path, chunk_size=chunk,
+                           dispatch_workers=2, devices=devices)
+            launches = {"packed_project": dict(packed_project.launches.by_device),
+                        "dense_forest_predict": dict(raw_predict.launches.by_device)}
+            with open(path, "rb") as f:
+                if f.read() != one_card_csv:
+                    raise AssertionError(f"screen over {devices}: the CSV differs "
+                                         f"from one card's")
+            want = {}
+            for d in devices:
+                i = torch.device(d).index
+                want[i] = want.get(i, 0) + chunks
+            if any(by_card != want for by_card in launches.values()):
+                raise AssertionError(f"screen over {devices}: launches by card "
+                                     f"{launches}, want {want} each")
+            runs[key] = {"devices": devices, "launches": launches,
+                         "mol_per_s": stats.mol_per_s, "wall_s": stats.wall_s}
+    print("[4 cards] " + " | ".join(
+        f"{run['devices']}: {run['mol_per_s']:.1f} mol/s (wall "
+        f"{run['wall_s']:.3f} s), launches by card {run['launches']}, CSV "
+        f"byte-equal to one card's" for run in runs.values()), flush=True)
+    return runs
 
 
 def ulp_gap(a, b) -> int:
@@ -4352,6 +4407,8 @@ def run() -> int:
         launches = {"packed_project": packed_project.launches.count,
                     "dense_forest_predict": raw_predict.launches.count}
         gpu_rows = read_csv(gpu_csv)
+        with open(gpu_csv, "rb") as f:
+            one_card_csv = f.read()
         mism, n_near, worst = screen_against_cpu(model, state["ensemble"], mols,
                                                  gpu_csv, cpu_csv)
     if len(gpu_rows) != len(mols) or stats.n_molecules != len(mols):
@@ -4373,6 +4430,7 @@ def run() -> int:
           f"first {PREFIX} vs screen(cpu): {len(mism)} rows differ, all "
           f"near ties ({n_near} near-tie rows), max |dProbability| "
           f"{worst:.3g} (limit 1e-4)", flush=True)
+    sharded = cards_phase(model, mols, one_card_csv)
 
     # -- phase 5: the trainer's kernels against their plain versions --------
     t5 = time.time()
@@ -4836,7 +4894,9 @@ def run() -> int:
          "ms_fingerprints": k1_fp_ms, "plain_ms_fingerprints": k1_fp_plain_ms,
          "bound_ms_fingerprints": k1_fp_bound["bound_ms"],
          "bound_share_fingerprints": k1_fp_bound["bound_ms"] / k1_fp_ms,
-         "launches_regression": reg_launches["packed_project"]},
+         "launches_regression": reg_launches["packed_project"],
+         **{f"launches_{key}_by_card": run["launches"]["packed_project"]
+            for key, run in sharded.items()}},
         {"name": "dense_forest_predict", "route": "cuda",
          "source": "bbbp_tpu_torch/csrc/dense_forest.cu",
          "replaces": "bbbp_tpu/ops/forest_tpu.py:85",
@@ -4844,6 +4904,8 @@ def run() -> int:
          "launches_transfer": transfer_launches["dense_forest_predict"],
          "launches_classification": cls_launches["dense_forest_predict"],
          "launches_regression": reg_launches["dense_forest_predict"],
+         **{f"launches_{key}_by_card": run["launches"]["dense_forest_predict"]
+            for key, run in sharded.items()},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"],
